@@ -9,7 +9,7 @@ PY ?= python
 ASAN_FLAGS = -O1 -g -std=c++17 -Wall -Wextra -pthread \
              -fsanitize=address,undefined -fno-omit-frame-pointer
 
-.PHONY: ci test test-kube kube-bench test-warmpool test-compile-depot test-serving-sched test-spec-decode test-fleet test-elastic test-obs test-pipeline test-pipeline-elastic test-quant test-disagg test-swarm native native-asan test-native-asan dryrun scale-proof clean
+.PHONY: ci test test-torch test-kube kube-bench test-warmpool test-compile-depot test-serving-sched test-spec-decode test-fleet test-elastic test-obs test-pipeline test-pipeline-elastic test-quant test-disagg test-swarm native native-asan test-native-asan dryrun scale-proof clean
 
 ci: test-native-asan test test-kube test-warmpool test-compile-depot test-serving-sched test-spec-decode test-fleet test-elastic test-obs test-pipeline test-pipeline-elastic test-quant test-disagg test-swarm dryrun
 	@echo "CI OK"
@@ -26,6 +26,14 @@ kube-bench:
 
 test:
 	$(PY) -m pytest tests/ -x -q
+
+# the PyTorch port (kubeflow_tpu_torch) against the JAX package on the CPU;
+# test_torch_xgb_kinds.py is the JAX package's PyTorchJob suite, not the
+# port's. Kernel tests marked `cuda` skip without a GPU; on the card,
+# `python3 chip_smoke.py` builds and checks the kernels.
+TORCH_TESTS := $(filter-out tests/test_torch_xgb_kinds.py,$(wildcard tests/test_torch_*.py))
+test-torch:
+	JAX_PLATFORMS=cpu $(PY) -m pytest $(TORCH_TESTS) -q
 
 # the controller/gang suites again, UNCHANGED, over KubeCluster + the fake
 # apiserver (SURVEY.md §4.2 envtest role): proves the reconciler drives the

@@ -1,0 +1,20 @@
+"""PyTorch/CUDA port of kubeflow_tpu's data plane, for NVIDIA Hopper.
+
+The JAX package (``kubeflow_tpu``) stays the reference; this package
+mirrors its module paths and names so every module has an obvious
+counterpart, and imports nothing from it (pure-Python modules it needs
+are kept here as copies). Plain tensor code is PyTorch; every TPU kernel
+on a ported path is a kernel written by hand for ``sm_90a`` under
+``csrc/``.
+
+Slices ported so far:
+
+- serving: ``python -m kubeflow_tpu_torch.serving.runtime`` (the
+  ``kubeflow_tpu.serving.runtime`` env contract) over the continuous-
+  batching ``serving.llm.LLMEngine``, whose paged decode attention is the
+  CUDA kernel ``csrc/paged_decode_attention.cu``.
+
+Entry points run on ``cuda`` unless the caller asks for the CPU
+(``device="cpu"``, or ``KFT_FORCE_PLATFORM=cpu`` for the runtime); with
+no GPU and no such request they raise (``device.resolve_device``).
+"""

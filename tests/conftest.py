@@ -34,6 +34,10 @@ def pytest_configure(config):
     # make targets (test-elastic) instead
     config.addinivalue_line(
         "markers", "slow: excluded from the tier-1 time-bounded run")
+    # the PyTorch port's kernel tests: they need an NVIDIA GPU and skip
+    # (deciding inside the test) where torch sees none
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips where none is visible")
 
 
 @pytest.fixture(scope="session")
