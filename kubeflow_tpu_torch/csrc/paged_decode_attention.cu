@@ -24,11 +24,13 @@
 // slot, never repeated per query head.
 //
 // Bound. At decode shapes the work is a few FLOPs per KV byte, so the
-// kernel is bound by the bytes of the live KV blocks (plus q and out):
-// the least time is those bytes over the card's 3.35 TB/s. What this first
-// design leaves on the table: its (KV head, slot) grid gives only
-// B * KV_H blocks -- 64 at the serving smoke's shape (B=8, KV_H=8) on 132
-// SMs -- and each block loads a tile, then computes, with no overlap.
+// kernel is bound by the bytes of the KV rows below kv_len (plus q and
+// out): the least time is those bytes over the card's 3.35 TB/s. The
+// kernel reads exactly those rows, not the dead tail of a slot's last
+// block. What this first design leaves on the table: its (KV head, slot)
+// grid gives only B * KV_H blocks -- 64 at the serving smoke's shape
+// (B=8, KV_H=8) on 132 SMs -- and each block loads a tile, then computes,
+// with no overlap.
 // Splitting each slot's blocks over several thread blocks with a second
 // reduction pass (flash-decoding) and a cp.async/TMA pipeline are the next
 // steps; both are later work.
@@ -125,13 +127,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const size_t row_stride = (size_t)KVH * D;  // elements between token rows
   constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
   const int vecs_per_row = D / kVec;
-  const int n_vec = bs * vecs_per_row;
   __syncthreads();
 
   for (int j = 0; j < n_live; ++j) {
     const size_t base = ((size_t)table_row[j] * bs * KVH + h) * D;
-    // stage the head's K and V tiles: consecutive threads load
-    // consecutive 16-byte pieces of one D-row
+    const int valid = min(bs, len - j * bs);  // >= 1 for a live block
+    // stage the head's K and V rows below kv_len (the dead tail of the
+    // last block is never read): consecutive threads load consecutive
+    // 16-byte pieces of one D-row
+    const int n_vec = valid * vecs_per_row;
     for (int i = tid; i < n_vec; i += kThreads) {
       const int t = i / vecs_per_row;
       const int c = (i - t * vecs_per_row) * kVec;
@@ -142,10 +146,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
           *reinterpret_cast<const uint4*>(v_pool + src);
     }
     __syncthreads();
-    const int valid = min(bs, len - j * bs);  // >= 1 for a live block
 
-    // logits: one warp per token, lanes across D
+    // logits: one warp per token, lanes across D; rows past kv_len get
+    // the mask value without touching their (unstaged) tile rows
     for (int t = warp; t < bs; t += kWarps) {
+      if (t >= valid) {
+        if (lane < G) p_s[lane * bs + t] = kNegInf;
+        continue;
+      }
       float part[kMaxGroups];
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) part[g] = 0.f;
@@ -159,7 +167,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       for (int g = 0; g < kMaxGroups; ++g) {
         if (g < G) {
           const float s = warp_sum(part[g]);
-          if (lane == 0) p_s[g * bs + t] = t < valid ? s : kNegInf;
+          if (lane == 0) p_s[g * bs + t] = s;
         }
       }
     }

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models.llama import LlamaConfig
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -43,12 +44,18 @@ def _leaf(x, device, dtype):
     return torch.tensor(arr, device=device, dtype=dtype)
 
 
-def params_from_jax(tree, device="cpu", dtype=None):
+def params_from_jax(tree, device: DeviceLike = None, dtype=None):
     """Nested dict of numpy arrays -> nested dict of torch tensors on
-    ``device`` (cast to ``dtype`` when given, else kept)."""
-    if isinstance(tree, dict):
-        return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
-    return _leaf(tree, device, dtype)
+    ``device`` (``device.resolve_device``: CUDA unless ``"cpu"`` is asked
+    for), cast to ``dtype`` when given, else kept."""
+    device = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        return _leaf(node, device, dtype)
+
+    return convert(tree)
 
 
 def config_from_jax(cfg) -> LlamaConfig:

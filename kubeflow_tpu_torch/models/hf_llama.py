@@ -18,6 +18,7 @@ from typing import Any, Optional
 
 import torch
 
+from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.models.safetensors_io import CheckpointIndex
 
@@ -52,9 +53,11 @@ def load_config(model_dir: str, **overrides) -> llama.LlamaConfig:
 
 
 def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
-                dtype=torch.bfloat16, device="cpu"):
+                dtype=torch.bfloat16, device: DeviceLike = None):
     """Read an HF-layout Llama checkpoint into the stacked parameter dict
-    on ``device`` in ``dtype``. Returns (cfg, params)."""
+    on ``device`` (``device.resolve_device``: CUDA unless ``"cpu"`` is
+    asked for) in ``dtype``. Returns (cfg, params)."""
+    device = resolve_device(device)
     cfg = cfg or load_config(model_dir, dtype=dtype)
     llama.check_dense(cfg)
     idx = CheckpointIndex(model_dir)
@@ -99,11 +102,13 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
     return cfg, params
 
 
-def load_pretrained(model_dir: str, *, dtype=torch.bfloat16, device="cpu",
-                    **config_overrides):
-    """One call: (LlamaConfig, params) from an HF checkpoint directory.
-    The param ``dtype`` doubles as the config's compute dtype unless a
-    ``dtype`` config override says otherwise."""
+def load_pretrained(model_dir: str, *, dtype=torch.bfloat16,
+                    device: DeviceLike = None, **config_overrides):
+    """One call: (LlamaConfig, params) from an HF checkpoint directory, on
+    ``device`` as ``load_params`` places them. The param ``dtype`` doubles
+    as the config's compute dtype unless a ``dtype`` config override says
+    otherwise."""
+    device = resolve_device(device)
     config_overrides.setdefault("dtype", dtype)
     cfg = load_config(model_dir, **config_overrides)
     return load_params(model_dir, cfg, dtype=dtype, device=device)

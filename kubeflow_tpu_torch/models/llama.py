@@ -23,6 +23,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
@@ -89,15 +90,16 @@ def check_dense(cfg: LlamaConfig) -> None:
 # Params
 # ---------------------------------------------------------------------------
 
-def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None,
-                dtype=torch.float32) -> dict:
-    """Random parameters in the JAX layout, drawn from ``generator`` (which
-    must live on ``device``): N(0, 1/fan_in) for the matrices, ones for
-    the norms. The draws differ from ``jax.random``'s; tests that compare
-    the two packages convert one tree with ``interop.params_from_jax``."""
+def init_params(generator: torch.Generator, cfg: LlamaConfig,
+                device: DeviceLike = None, dtype=torch.float32) -> dict:
+    """Random parameters in the JAX layout on ``device``
+    (``device.resolve_device``: CUDA unless ``"cpu"`` is asked for), drawn
+    from ``generator``, which must live there too: N(0, 1/fan_in) for the
+    matrices, ones for the norms. The draws differ from ``jax.random``'s;
+    tests that compare the two packages convert one tree with
+    ``interop.params_from_jax``."""
     check_dense(cfg)
-    device = torch.device(device) if device is not None else \
-        generator.device
+    device = resolve_device(device)
     d, h, kv, hd, m, L = (cfg.dim, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.mlp_dim, cfg.n_layers)
 
@@ -209,8 +211,10 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-               device=None) -> dict:
+               device: DeviceLike = None) -> dict:
+    """Dense KV cache on ``device`` (``device.resolve_device``)."""
     dtype = dtype or cfg.dtype
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),

@@ -55,8 +55,8 @@ def _check_shapes(q, k_pool, v_pool, tables, kv_len):
 def check_kernel_geometry(head_dim: int, block_size: int,
                           groups: int, dtype=None) -> None:
     """Raise ValueError for a geometry (or dtype, when given) the CUDA
-    kernel does not take; the engine calls it at construction so a CUDA
-    engine fails before its first request, not at its first decode."""
+    kernel does not take: the Python side of the limits that the C entry
+    of ``csrc/paged_decode_attention.cu`` enforces again."""
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, got "
                          f"{head_dim}")

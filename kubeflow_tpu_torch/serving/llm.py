@@ -40,7 +40,6 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs import trace as obs_trace
 from kubeflow_tpu_torch.obs.histogram import Histogram, log_buckets
-from kubeflow_tpu_torch.ops.paged_attention import check_kernel_geometry
 from kubeflow_tpu_torch.serving.paged_kv import (
     PagedKV, _lm_head, blocks_for, paged_decode_step, paged_insert_batch,
     paged_prefill_chunk, resolve_decode_kernel,
@@ -238,9 +237,6 @@ class LLMEngine:
                 raise ValueError(
                     f"kv_block_size={kv_block_size} must divide max_seq and "
                     f"every prefill bucket (got {b})")
-        if self.kernel == "paged" and self.device.type == "cuda":
-            check_kernel_geometry(cfg.head_dim, kv_block_size,
-                                  cfg.n_heads // cfg.n_kv_heads, cfg.dtype)
         if kv_num_blocks is None:
             kv_num_blocks = max_batch * (max_seq // kv_block_size) + 1
         self.paged = PagedKV(cfg=cfg, max_batch=max_batch, max_seq=max_seq,

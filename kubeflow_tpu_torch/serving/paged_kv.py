@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.ops.attention import _xla_attention, decode_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
@@ -47,13 +48,16 @@ from kubeflow_tpu_torch.ops.rotary import apply_rope
 
 def init_paged_cache(cfg: llama.LlamaConfig, max_batch: int, max_seq: int,
                      block_size: int, num_blocks: int, dtype=None,
-                     device=None) -> dict:
-    """Pool + per-slot lengths. ``num_blocks`` bounds total resident
-    tokens (num_blocks * block_size), independent of max_batch * max_seq."""
+                     device: DeviceLike = None) -> dict:
+    """Pool + per-slot lengths on ``device`` (``device.resolve_device``:
+    CUDA unless ``"cpu"`` is asked for). ``num_blocks`` bounds total
+    resident tokens (num_blocks * block_size), independent of
+    max_batch * max_seq."""
     if max_seq % block_size:
         raise ValueError(f"max_seq={max_seq} not a multiple of "
                          f"block_size={block_size}")
     dtype = dtype or cfg.dtype
+    device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
     return {
@@ -241,9 +245,10 @@ class PagedKV:
     block_size: int
     num_blocks: int
     prefix_cache: bool = True
-    device: object = None            # where the pool lives (cuda / cpu)
+    device: DeviceLike = None        # where the pool lives (resolve_device)
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         self.cache = init_paged_cache(
             self.cfg, self.max_batch, self.max_seq, self.block_size,
             self.num_blocks, device=self.device)

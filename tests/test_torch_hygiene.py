@@ -78,7 +78,8 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_cuda, tmp_path):
     from kubeflow_tpu_torch.serving.torch_model import LLMModel
 
     cfg = llama.llama_tiny(dtype=torch.float32)
-    params = llama.init_params(torch.Generator().manual_seed(0), cfg)
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
     kw = dict(max_batch=2, max_seq=32, prefill_buckets=(8,))
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
@@ -95,6 +96,57 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_cuda, tmp_path):
     assert eng.device.type == "cpu" and eng.cache["k"].device.type == "cpu"
     [req] = eng.generate([[1, 2, 3]], SamplingParams(max_tokens=3))
     assert len(req.generated) == 3
+
+
+def _tiny_checkpoint(tmp_path):
+    """An HF config with no weights: the device is resolved before any
+    tensor is read, so the loaders raise for the device, not the files."""
+    from kubeflow_tpu_torch.models import llama
+
+    cfg = llama.llama_tiny()
+    (tmp_path / "config.json").write_text(
+        '{"vocab_size": %d, "hidden_size": %d, "num_hidden_layers": %d, '
+        '"num_attention_heads": %d, "num_key_value_heads": %d, '
+        '"intermediate_size": %d}' % (cfg.vocab_size, cfg.dim, cfg.n_layers,
+                                      cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.mlp_dim))
+    return str(tmp_path)
+
+
+def _constructors():
+    """Each public function of the port that allocates tensors, called
+    with no device: (name, call(tmp_path))."""
+    import numpy as np
+
+    from kubeflow_tpu_torch import interop
+    from kubeflow_tpu_torch.models import hf_llama, llama
+    from kubeflow_tpu_torch.serving import paged_kv
+
+    cfg = llama.llama_tiny(dtype=torch.float32)
+    return {
+        "init_params": lambda tmp: llama.init_params(
+            torch.Generator().manual_seed(0), cfg),
+        "init_cache": lambda tmp: llama.init_cache(cfg, 2, 16),
+        "init_paged_cache": lambda tmp: paged_kv.init_paged_cache(
+            cfg, max_batch=2, max_seq=16, block_size=8, num_blocks=5),
+        "PagedKV": lambda tmp: paged_kv.PagedKV(
+            cfg=cfg, max_batch=2, max_seq=16, block_size=8, num_blocks=5),
+        "params_from_jax": lambda tmp: interop.params_from_jax(
+            {"embed": np.zeros((4, 2), np.float32)}),
+        "load_params": lambda tmp: hf_llama.load_params(
+            _tiny_checkpoint(tmp)),
+        "load_pretrained": lambda tmp: hf_llama.load_pretrained(
+            _tiny_checkpoint(tmp)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_constructors()))
+def test_allocating_functions_raise_without_gpu_unless_cpu_asked(
+        no_cuda, tmp_path, name):
+    """No public function places tensors on the CPU unasked: with CUDA
+    hidden and no device named, each raises instead."""
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _constructors()[name](tmp_path)
 
 
 def _run(cwd, *args):

@@ -29,7 +29,7 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 def _pair(jcfg, seed=0):
     jp = jl.init_params(jax.random.key(seed), jcfg)
     return jp, interop.config_from_jax(jcfg), \
-        interop.params_from_jax(jax.device_get(jp))
+        interop.params_from_jax(jax.device_get(jp), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_params_from_jax_round_trip(tiny):
         if f.name != "dtype":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     bf = interop.params_from_jax(jax.device_get(
-        jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp)))
+        jax.tree.map(lambda x: x.astype(jnp.bfloat16), jp)), device="cpu")
     assert bf["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         bf["embed"].float().numpy(),
@@ -88,7 +88,7 @@ def test_prefill_ragged_lengths_matches_jax(tiny):
     jlog, jcache = jl.prefill(jp, jnp.asarray(toks), jcfg,
                               jl.init_cache(jcfg, 3, 16),
                               lengths=jnp.asarray(lengths))
-    tcache = tl.init_cache(tcfg, 3, 16)
+    tcache = tl.init_cache(tcfg, 3, 16, device="cpu")
     tlog, tcache = tl.prefill(tp, torch.tensor(toks), tcfg, tcache,
                               lengths=torch.tensor(lengths))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **LOGIT_TOL)
@@ -104,7 +104,7 @@ def test_moe_and_int8_raise_naming_the_slice(tiny):
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.forward(tp, torch.zeros((1, 4), dtype=torch.long), moe)
     with pytest.raises(NotImplementedError, match="MoE"):
-        tl.init_params(torch.Generator().manual_seed(0), moe)
+        tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
     q8 = dict(tp, layers={**tp["layers"], "wq_q": tp["layers"]["wq"]})
     with pytest.raises(NotImplementedError, match="int8"):
         tl.forward(q8, torch.zeros((1, 4), dtype=torch.long), tcfg)
@@ -112,8 +112,8 @@ def test_moe_and_int8_raise_naming_the_slice(tiny):
 
 def test_init_params_layout_and_generator():
     cfg = tl.llama_tiny()
-    p1 = tl.init_params(torch.Generator().manual_seed(3), cfg)
-    p2 = tl.init_params(torch.Generator().manual_seed(3), cfg)
+    p1 = tl.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    p2 = tl.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
     jshapes = jax.eval_shape(lambda: jl.init_params(
         jax.random.key(0), jl.llama_tiny()))
     assert tuple(p1["layers"]["wq"].shape) == jshapes["layers"]["wq"].shape
@@ -137,7 +137,8 @@ def test_safetensors_checkpoint_logits(tmp_path, tie):
                                tie_embeddings=tie)
     jp = jl.init_params(jax.random.key(4), jcfg)
     model_dir = _save(tmp_path, jcfg, jp)
-    tcfg, tp = t_hf.load_pretrained(model_dir, dtype=torch.float32)
+    tcfg, tp = t_hf.load_pretrained(model_dir, dtype=torch.float32,
+                                    device="cpu")
     assert tcfg.tie_embeddings == tie and tcfg.n_kv_heads == jcfg.n_kv_heads
     assert ("lm_head" in tp) == (not tie)
     toks = _tokens(4, 2, 12, jcfg.vocab_size)
@@ -154,7 +155,8 @@ def test_safetensors_sharded_index_and_bf16(tmp_path):
     jcfg = jl.llama_tiny(dtype=jnp.float32)
     jp = jl.init_params(jax.random.key(5), jcfg)
     model_dir = _save(tmp_path, jcfg, jp)
-    _, single = t_hf.load_pretrained(model_dir, dtype=torch.float32)
+    _, single = t_hf.load_pretrained(model_dir, dtype=torch.float32,
+                                     device="cpu")
     flat = load_file(os.path.join(model_dir, "model.safetensors"))
     names = sorted(flat)
     parts = {"model-00001-of-00002.safetensors": names[:len(names) // 2],
@@ -168,7 +170,8 @@ def test_safetensors_sharded_index_and_bf16(tmp_path):
     with open(os.path.join(model_dir, "model.safetensors.index.json"),
               "w") as f:
         json.dump({"weight_map": weight_map}, f)
-    tcfg, sharded = t_hf.load_pretrained(model_dir, dtype=torch.bfloat16)
+    tcfg, sharded = t_hf.load_pretrained(model_dir, dtype=torch.bfloat16,
+                                         device="cpu")
     assert tcfg.dtype == torch.bfloat16
     assert sharded["embed"].dtype == torch.bfloat16
     for key in ("wq", "wo", "w_down"):

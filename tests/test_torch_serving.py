@@ -39,7 +39,7 @@ def tiny():
     jcfg = jl.llama_tiny(dtype=jnp.float32)
     jp = jl.init_params(jax.random.key(0), jcfg)
     return jcfg, jp, interop.config_from_jax(jcfg), \
-        interop.params_from_jax(jax.device_get(jp))
+        interop.params_from_jax(jax.device_get(jp), device="cpu")
 
 
 def _assert_same_stream(jp, jcfg, prompt, ours, theirs):
@@ -110,7 +110,7 @@ def test_paged_insert_batch_drops_pad_rows(tiny):
     is dropped — never clamped onto a real slot."""
     _, _, tcfg, _ = tiny
     cache = t_kv.init_paged_cache(tcfg, max_batch=4, max_seq=16,
-                                  block_size=4, num_blocks=9)
+                                  block_size=4, num_blocks=9, device="cpu")
     cache["len"][:] = torch.tensor([3, 3, 3, 3], dtype=torch.int32)
     L, kvh, hd = tcfg.n_layers, tcfg.n_kv_heads, tcfg.head_dim
     k_new = torch.randn((L, 2, 8, kvh, hd))
