@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke of the PyTorch port (``kubeflow_tpu_torch``): the quickest
-proof that the port still starts, serves and decodes through its own
-kernels on an NVIDIA GPU.
+proof that the port still starts, serves, decodes and trains through its
+own kernels on an NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -26,7 +26,27 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              token counts, that decode ran through the kernel (launch
              count == n_layers x decode device steps), prefix hits, and
              one stream against the full forward's teacher-forced argmax
-             within the bf16 tie tolerance.
+             within the bf16 tie tolerance. The model is freed after.
+5. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
+             against their plain versions on the card: the training
+             shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
+             unaligned non-causal S=1000 with G=4, and D=64; bf16 and f32.
+6. flash timing — CUDA-event medians (L2 flushed) of each flash kernel
+             and its plain version at the training shape in bf16, beside
+             its bound and SDPA's forward / backward time (a yardstick
+             only; the port never calls SDPA).
+7. training — llama_1b at full width (vocab 32768, dim 2048, 16 layers,
+             16/8 heads, mlp 5632, tied embeddings; random f32 weights
+             from a seeded CUDA generator) as the JAX package's bench
+             trains it: remat="dots", attn_impl="pallas", adafactor,
+             lr 3e-4, warmup 10, global batch 32 x seq 2048, grad_accum
+             16, through Trainer + fit over synthetic_lm_batches: one
+             warm-up step and two timed steps. Checks finite losses, step
+             0's loss near ln(vocab) + 1/2, the flash launch counts
+             (per micro batch 2 x n_layers forward, n_layers dQ and dK/dV),
+             and one micro batch's loss and gradients through the kernels
+             against attn_impl="xla" (plain einsum attention) from the
+             same parameters.
 
 Prints the kernel JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Exits nonzero (printing no result)
@@ -35,6 +55,7 @@ without a CUDA device or outside the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -52,6 +73,38 @@ F32_TOL = 2e-5
 BF16_ULPS = 1.0
 KV_LEN = [0, 1, 65, 1000, 513, 129, 37, 300]   # idle, fresh, crossing, long
 SHAPE = dict(B=8, H=32, KVH=8, D=128, bs=64, max_blocks=16)
+# flash parity limits. f32: both sides sum up to S = 2048 products in
+# float32 in another order (blockwise online softmax against one dense
+# softmax), ~1e-6 relative on values of magnitude up to ~10; 1e-4 leaves
+# that a 10x margin. bf16: both finish in float32 and round once to bf16,
+# so an element may differ by one bf16 ulp of the plain value; where
+# float32 sums cancel to near zero the ulp is tiny and the order of the
+# sums decides the rounding, so the limit is floored at 2^-8 x the plain
+# tensor's rms (half a bf16 ulp at rms magnitude)
+FLASH_F32_TOL = 1e-4
+FLASH_BF16_FLOOR = 2.0 ** -8
+FLASH_SHAPES = [   # name, B, S, H, KV_H, D, causal
+    ("train", 2, 2048, 16, 8, 128, True),
+    ("unaligned", 2, 1000, 16, 4, 128, False),
+    ("d64", 2, 512, 8, 2, 64, True),
+]
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
+# training phase (bench.py:74-94 on the card)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 32, 2048, 16
+TRAIN_STEPS = 3                # one warm-up step, two timed
+# kernel path against attn_impl="xla" on one micro batch at full width:
+# both run the model in bf16 and differ only in where attention rounds
+# (the kernels keep P in float32 and round O once; the einsum path rounds
+# q.k^T and P.V in its own order), over 16 layers. Measured agreement:
+# loss up to 2.2e-5 relative, worst cosine 0.99974 (1 - cos = 2.6e-4),
+# norms up to 1.8e-4 share. Planted faults read: dK/dV summing one of
+# the G heads, cosine 0.505 and norms 0.27 share; dQ skipping KV block 0
+# for the last query block, cosine 0.99932 (1 - cos = 6.8e-4). Loss
+# sees only forward faults; the cosine limit sits between 2.6e-4 and
+# 6.8e-4 (see PERF.md)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_COS_MIN = 0.9995
+TRAIN_NORM_SHARE = 5e-3
 # greedy tokens of the bf16 engine must be within this many logits of the
 # teacher-forced maximum: bf16 rounds activations to 8 mantissa bits, and
 # the decode path (paged kernel, incremental KV) and the full forward
@@ -81,7 +134,10 @@ def probe(torch, cuda_build) -> dict:
                          capture_output=True, text=True, check=True).stdout
     log(f"nvcc: {ver.strip().splitlines()[-1]}")
     t0 = time.perf_counter()
-    built = cuda_build.build(["paged_decode_attention"], verbose=True)
+    from kubeflow_tpu_torch.ops.flash_attention import KERNELS
+
+    built = cuda_build.build(["paged_decode_attention", *KERNELS],
+                             verbose=True)
     for name, info in built.items():
         log(f"build {name}: {info['seconds']:.3f} s (built={info['built']})")
         for line in info["log"].splitlines():
@@ -360,6 +416,277 @@ def serving(torch, pa) -> dict:
     return {"launches": launches, "tok_s": n_tokens / wall,
             "decode_ms_per_step": step_ms}
 
+# ---------------------------------------------------------------------------
+# Flash attention (training slice)
+# ---------------------------------------------------------------------------
+
+def flash_case(torch, b, s, h, kvh, d, causal, dtype, seed=0):
+    """q, k, v, dO on the card, and lse / delta from the plain forward."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g,
+                                     device="cuda").to(dtype)
+    q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
+    do = rnd(b, s, h, d)
+    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def flash_err(torch, out, ref, dtype) -> tuple:
+    """(max abs error, within the limit) of a kernel output."""
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    if not torch.isfinite(out).all():
+        return err, False
+    if dtype == torch.float32 or out.dtype == torch.float32:
+        return err, err <= FLASH_F32_TOL
+    floor = FLASH_BF16_FLOOR * ref.float().pow(2).mean().sqrt()
+    limit = torch.maximum(bf16_ulp(torch, ref), floor)
+    return err, bool((diff <= limit).all())
+
+
+def flash_parity(torch) -> dict:
+    """Each flash kernel against its plain version; returns the max abs
+    errors at the training shape in bf16."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    train_errs = {}
+    for name, b, s, h, kvh, d, causal in FLASH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, lse, delta = flash_case(torch, b, s, h, kvh, d,
+                                                 causal, dtype)
+            o, lse_k = fa.flash_attention_fwd(q, k, v, causal)
+            dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal)
+            dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
+            torch.cuda.synchronize()
+            ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+            ref_dq = fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                                     causal)
+            ref_dk, ref_dv = fa.flash_attention_dkv_reference(
+                q, k, v, do, lse, delta, causal)
+            checks = {"flash_attention_fwd": [(o, ref_o), (lse_k, ref_lse)],
+                      "flash_attention_dq": [(dq, ref_dq)],
+                      "flash_attention_dkv": [(dk, ref_dk), (dv, ref_dv)]}
+            tag = str(dtype).split(".")[-1]
+            for kernel, pairs in checks.items():
+                results = [flash_err(torch, out, ref, dtype)
+                           for out, ref in pairs]
+                err = max(e for e, _ in results)
+                ok = all(good for _, good in results)
+                log(f"parity {kernel} {name} (B={b} S={s} H={h} KV_H={kvh} "
+                    f"D={d} causal={causal}) {tag}: max_abs_err {err!r} "
+                    f"({'f32 limit ' + repr(FLASH_F32_TOL) if dtype == torch.float32 else 'bf16: 1 ulp, floor 2^-8 rms'})")
+                if not ok:
+                    raise SystemExit(f"{kernel} {name} {tag} disagrees with "
+                                     "its plain version")
+                if name == "train" and dtype == torch.bfloat16:
+                    train_errs[kernel] = err
+            del q, k, v, do, lse, delta, ref_o, ref_dq, ref_dk, ref_dv
+    torch.cuda.empty_cache()
+    return train_errs
+
+
+def flash_bounds(b, s, h, kvh, d, causal) -> dict:
+    """Least time of each flash kernel at this shape in bf16: the larger
+    of its FLOPs over the bf16 tensor-core peak and its bytes over
+    3.35 TB/s (``flash_attention.kernel_work`` counts both)."""
+    from kubeflow_tpu_torch.ops.flash_attention import kernel_work
+
+    out = {}
+    for name, (flops, nbytes) in kernel_work(b, s, h, kvh, d,
+                                             causal).items():
+        t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+        out[name] = {"flops": flops, "bytes": nbytes,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes"}
+    return out
+
+
+def flash_timing(torch) -> dict:
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    name, b, s, h, kvh, d, causal = FLASH_SHAPES[0]
+    q, k, v, do, lse, delta = flash_case(torch, b, s, h, kvh, d, causal,
+                                         torch.bfloat16, seed=1)
+    calls = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, causal),
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal)),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
+                                                    causal)),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_attention_dkv_reference(q, k, v, do, lse,
+                                                     delta, causal)),
+    }
+    # yardstick only, never called by the port: SDPA over [B, H, S, D]
+    # copies, forward, and backward (which computes dQ, dK and dV at once)
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dos = do.transpose(1, 2).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+    out_s = sdpa()
+    sdpa_bwd = lambda: torch.autograd.grad(out_s, (qs, ks, vs), dos,
+                                           retain_graph=True)
+    with torch.no_grad():
+        sdpa_fwd_ms = time_ms(torch, sdpa, reps=20)
+    sdpa_bwd_ms = time_ms(torch, sdpa_bwd, reps=20)
+    bounds = flash_bounds(b, s, h, kvh, d, causal)
+    out = {}
+    for kernel, (run, plain) in calls.items():
+        kernel_ms = time_ms(torch, run, reps=20)
+        plain_ms = time_ms(torch, plain, reps=5)
+        bd = bounds[kernel]
+        library_ms = sdpa_fwd_ms if kernel.endswith("fwd") else sdpa_bwd_ms
+        log(f"timing {kernel} bf16 (B={b} S={s} H={h} KV_H={kvh} D={d} "
+            f"causal): kernel {kernel_ms!r} ms, plain {plain_ms!r} ms, "
+            f"bound {bd['bound_ms']!r} ms ({bd['bound_by']}: {bd['flops']} "
+            f"FLOP, {bd['bytes']} B), roofline share "
+            f"{bd['bound_ms'] / kernel_ms!r}; SDPA "
+            f"{'forward' if kernel.endswith('fwd') else 'backward (dQ+dK+dV)'}"
+            f" {library_ms!r} ms (yardstick only)")
+        out[kernel] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                       "bound_ms": bd["bound_ms"],
+                       "bound_by": bd["bound_by"],
+                       "library_ms": library_ms}
+    del q, k, v, do, lse, delta, qs, ks, vs, dos, out_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for key, val in tree.items():
+            yield from _leaves(val, f"{prefix}{key}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def kernel_vs_plain(torch, llama, params, cfg, batch) -> None:
+    """One micro batch's loss and gradients through the flash kernels and
+    through attn_impl="xla" (plain einsum attention), same parameters."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.training import lm_loss_fn
+
+    names, leaves = zip(*_leaves(params))
+    res = {}
+    for impl in ("pallas", "xla"):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        loss, _ = lm_loss_fn(llama.forward, c)(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        res[impl] = (loss.item(), grads)
+        del loss
+    (l_k, g_k), (l_p, g_p) = res["pallas"], res["xla"]
+    worst_cos, worst_name = 1.0, ""
+    for name, a, b in zip(names, g_k, g_p):
+        cos = torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item()
+        if cos < worst_cos:
+            worst_cos, worst_name = cos, name
+    norm_k = torch.sqrt(sum((g.double() ** 2).sum() for g in g_k)).item()
+    norm_p = torch.sqrt(sum((g.double() ** 2).sum() for g in g_p)).item()
+    log(f"kernel vs plain (one micro batch, full width): loss {l_k!r} vs "
+        f"{l_p!r} (rel {abs(l_k - l_p) / abs(l_p)!r}, limit "
+        f"{TRAIN_LOSS_RTOL}); worst gradient cosine {worst_cos!r} "
+        f"({worst_name}, limit > {TRAIN_COS_MIN}); global norms "
+        f"{norm_k!r} vs {norm_p!r} (limit {TRAIN_NORM_SHARE} share)")
+    if abs(l_k - l_p) > TRAIN_LOSS_RTOL * abs(l_p) \
+            or worst_cos <= TRAIN_COS_MIN \
+            or abs(norm_k - norm_p) > TRAIN_NORM_SHARE * norm_p:
+        raise SystemExit("the flash kernels' training step disagrees with "
+                         "plain attention")
+
+
+def training(torch) -> dict:
+    import math
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training import (
+        Trainer, TrainerConfig, lm_loss_fn, synthetic_lm_batches, to_device,
+    )
+    from kubeflow_tpu_torch.training.loop import fit
+
+    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    config = TrainerConfig(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=TRAIN_ACCUM,
+                           optimizer="adafactor")
+    trainer = Trainer(lambda g: llama.init_params(g, cfg, device="cuda"),
+                      lm_loss_fn(llama.forward, cfg), config, device="cuda")
+    t0 = time.perf_counter()
+    trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaves(trainer.params))
+    log(f"llama_1b: {n_params} params f32, bf16 compute, remat=dots, "
+        f"attn_impl=pallas, adafactor; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"grad_accum {TRAIN_ACCUM}; init {time.perf_counter() - t0:.1f} s")
+    marks, losses = [], []
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(metrics["loss"])
+        log(f"step {step}: loss {metrics['loss']!r} grad_norm "
+            f"{metrics['grad_norm']!r} tokens {metrics['tokens']!r} "
+            f"({marks[-1] - marks[-2]!r} s)")
+
+    for kernel in (fa.flash_attention_fwd, fa.flash_attention_dq,
+                   fa.flash_attention_dkv):
+        kernel.launches = 0                     # the main path's count
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    fit(trainer, lambda start: synthetic_lm_batches(
+        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, start_step=start),
+        max_steps=TRAIN_STEPS, on_step=on_step)
+    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+                "flash_attention_dq": fa.flash_attention_dq.launches,
+                "flash_attention_dkv": fa.flash_attention_dkv.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = [b - a for a, b in zip(marks, marks[1:])]
+    step_s = statistics.median(steps[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    mfu = tok_s * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
+    card = nvidia_smi_line()
+    log(f"training: step {step_s!r} s (timed steps {steps[1:]!r}, warm-up "
+        f"{steps[0]!r}), {tok_s!r} tok/s, MFU {mfu!r} against 989 TFLOP/s "
+        f"bf16 ({card}), peak memory {peak} B "
+        f"({peak / 2 ** 30:.2f} GiB), losses {losses!r}")
+    micro = TRAIN_ACCUM * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * micro,
+            "flash_attention_dq": cfg.n_layers * micro,
+            "flash_attention_dkv": cfg.n_layers * micro}
+    log(f"flash launches on the main path: {launches} (expected per micro "
+        f"batch 2 x n_layers / n_layers / n_layers: {want})")
+    if launches != want:
+        raise SystemExit("the training step did not run through the flash "
+                         "kernels as expected")
+    expect0 = math.log(cfg.vocab_size) + 0.5
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - expect0) > 0.5:
+        raise SystemExit(f"losses {losses} not finite or step 0 not within "
+                         f"0.5 of ln(vocab) + 1/2 = {expect0}")
+
+    batch = to_device(next(synthetic_lm_batches(
+        cfg.vocab_size, TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, seed=1)),
+        "cuda")
+    kernel_vs_plain(torch, llama, trainer.params, cfg, batch)
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_s": step_s, "tok_s": tok_s,
+            "mfu": mfu, "peak_bytes": peak, "losses": losses}
+
 
 def main() -> int:
     import torch
@@ -380,6 +707,11 @@ def main() -> int:
     errs = parity(torch, pa)
     t = timing(torch, pa)
     served = serving(torch, pa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_errs = flash_parity(torch)
+    flash_t = flash_timing(torch)
+    trained = training(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -388,6 +720,15 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
     }]
+    for name, line in (("flash_attention_fwd", 54),
+                       ("flash_attention_dq", 135),
+                       ("flash_attention_dkv", 170)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
+            "replaces": f"kubeflow_tpu/ops/pallas_attention.py:{line}",
+            "launches": trained["launches"][name],
+            "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

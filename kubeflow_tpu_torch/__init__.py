@@ -13,6 +13,10 @@ Slices ported so far:
   ``kubeflow_tpu.serving.runtime`` env contract) over the continuous-
   batching ``serving.llm.LLMEngine``, whose paged decode attention is the
   CUDA kernel ``csrc/paged_decode_attention.cu``.
+- training: ``training.Trainer`` / ``training.loop.fit`` on one card
+  (the ``kubeflow_tpu.training`` contract minus checkpoints), whose
+  ``attn_impl="pallas"``/``"flash"`` attention is the CUDA kernels
+  ``csrc/flash_attention_{fwd,dq,dkv}.cu`` under an autograd Function.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU
 (``device="cpu"``, or ``KFT_FORCE_PLATFORM=cpu`` for the runtime); with

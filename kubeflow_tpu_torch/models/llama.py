@@ -11,17 +11,28 @@ stacked layers takes the place of ``lax.scan``.
 Compute runs in ``cfg.dtype`` with norms, RoPE and softmax in float32.
 The serving slice is dense and unquantized: a config with
 ``n_experts > 0`` and int8 weight trees (``wq_q`` ...) raise
-``NotImplementedError`` naming the slice that brings them. ``remat`` is a
-training knob and waits for the training slice.
+``NotImplementedError`` naming the slice that brings them.
+
+``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
+every activation, "full" recomputes each block in backward
+(``torch.utils.checkpoint``), and "dots" saves only the weight products
+(``aten.mm``: the projections have no batch dims once flattened to rows)
+and recomputes everything else, the flash-attention forward included --
+the JAX package's ``checkpoint_dots_with_no_batch_dims``. The weight
+products are written as row-major ``matmul``s so they reach ``aten.mm``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops.attention import attention
@@ -50,7 +61,7 @@ class LlamaConfig:
     dtype: Any = torch.bfloat16
     attn_impl: str = "xla"            # "xla" | "flash" | "pallas"
     attn_block: int = 512
-    remat: str = "full"               # training knob (training slice)
+    remat: str = "full"               # "none" | "full" | "dots"
     z_loss: float = 1e-4
     n_experts: int = 0
     moe_top_k: int = 2
@@ -59,6 +70,22 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def flops_per_token(self, seq: int | None = None) -> float:
+        """Approx model FLOPs per token (fwd+bwd = 3x fwd matmul FLOPs).
+        With ``seq`` the causal attention-score FLOPs (QK^T and PV, avg
+        context seq/2) are included. Remat recompute is not counted (it
+        lowers reported MFU). For MoE only the top-k experts' FFN FLOPs
+        are active per token."""
+        d, m, v = self.dim, self.mlp_dim, self.vocab_size
+        attn_proj = 2 * d * (self.n_heads + 2 * self.n_kv_heads) \
+            * self.head_dim
+        attn_out = 2 * self.n_heads * self.head_dim * d
+        attn_score = (2 * seq * self.n_heads * self.head_dim) if seq else 0
+        active_ffns = self.moe_top_k if self.n_experts else 1
+        mlp = 2 * 3 * d * m * active_ffns
+        per_layer = attn_proj + attn_out + attn_score + mlp
+        return 3 * (self.n_layers * per_layer + 2 * d * v)
 
 
 def llama3_8b(**kw) -> LlamaConfig:
@@ -150,21 +177,31 @@ def embed_tokens(params, tokens, cfg: LlamaConfig):
     return params["embed"].to(cfg.dtype)[tokens.long()]
 
 
+def _rows_mm(x, w, cfg: LlamaConfig):
+    """x [..., K] times a weight whose leading dims flatten to K: one
+    ``aten.mm`` over the flattened rows (the JAX einsums ``bsd,dhk->bshk``,
+    ``bshk,hkd->bsd``, ``bsd,dm->bsm``); returns [..., *w's trailing]."""
+    k = x.shape[-1]
+    w2 = w.to(cfg.dtype).reshape(k, -1)
+    return (x.reshape(-1, k) @ w2).reshape(*x.shape[:-1], *w.shape[1:])
+
+
 def qkv_proj(lp, h, cfg: LlamaConfig):
     """Attention input projections [B, S, D] -> q [B,S,H,hd], k/v
-    [B,S,KV,hd] (the JAX einsums ``bsd,dhk->bshk``)."""
+    [B,S,KV,hd]."""
     if "wq_q" in lp:
         raise NotImplementedError(INT8_SLICE)
-    q = torch.einsum("bsd,dhk->bshk", h, lp["wq"].to(cfg.dtype))
-    k = torch.einsum("bsd,dhk->bshk", h, lp["wk"].to(cfg.dtype))
-    v = torch.einsum("bsd,dhk->bshk", h, lp["wv"].to(cfg.dtype))
-    return q, k, v
+    return (_rows_mm(h, lp["wq"], cfg), _rows_mm(h, lp["wk"], cfg),
+            _rows_mm(h, lp["wv"], cfg))
 
 
 def out_proj(lp, o, cfg: LlamaConfig):
+    """[..., H, hd] -> [..., D]."""
     if "wo_q" in lp:
         raise NotImplementedError(INT8_SLICE)
-    return torch.einsum("bshk,hkd->bsd", o, lp["wo"].to(cfg.dtype))
+    wo = lp["wo"]
+    return _rows_mm(o.reshape(*o.shape[:-2], -1),
+                    wo.reshape(-1, wo.shape[-1]), cfg)
 
 
 def _ffn(h, lp, cfg: LlamaConfig):
@@ -172,15 +209,46 @@ def _ffn(h, lp, cfg: LlamaConfig):
     check_dense(cfg)
     if "w_gate_q" in lp:
         raise NotImplementedError(INT8_SLICE)
-    gate = torch.einsum("bsd,dm->bsm", h, lp["w_gate"].to(cfg.dtype))
-    up = torch.einsum("bsd,dm->bsm", h, lp["w_up"].to(cfg.dtype))
-    return torch.einsum("bsm,md->bsd", F.silu(gate) * up,
-                        lp["w_down"].to(cfg.dtype))
+    gate = _rows_mm(h, lp["w_gate"], cfg)
+    up = _rows_mm(h, lp["w_up"], cfg)
+    return _rows_mm(F.silu(gate) * up, lp["w_down"], cfg)
 
 
 def lm_head_weight(params, cfg: LlamaConfig):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return head.to(cfg.dtype)
+
+
+def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
+    """One transformer block on x [B, S, D] in the compute dtype."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q, k, v = qkv_proj(lp, h, cfg)
+    q = apply_rope(q, positions, inv_freq)
+    k = apply_rope(k, positions, inv_freq)
+    o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    x = x + out_proj(lp, o, cfg)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(h, lp, cfg)
+
+
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat="dots": keep the outputs of
+    the weight products (``aten.mm``), recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg: LlamaConfig):
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={cfg.remat!r} (want none|full|dots)")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products)
+    return lambda *args: checkpoint(fn, *args, **kw)
 
 
 def forward(params, tokens, cfg: LlamaConfig, positions=None):
@@ -192,16 +260,14 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
     inv_freq = inv_freq_for(cfg, device)
     x = embed_tokens(params, tokens, cfg)
+    block = _remat_wrap(
+        lambda x, lp: _block(x, lp, inv_freq, positions, cfg), cfg)
+    # one unbind per stacked weight, not an index per layer: the backward
+    # of unbind stacks the layers' gradients once, where indexing would
+    # add a zero-filled full [L, ...] gradient into the leaf per layer
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = qkv_proj(lp, h, cfg)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
-        o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-        x = x + out_proj(lp, o, cfg)
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(h, lp, cfg)
+        x = block(x, {k: v[i] for k, v in layers.items()})
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return torch.einsum("bsd,dv->bsv", x, lm_head_weight(params, cfg)).float()
 

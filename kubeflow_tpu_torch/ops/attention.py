@@ -1,9 +1,12 @@
 """Causal grouped-query attention in plain PyTorch (counterpart of
 ``kubeflow_tpu.ops.attention``).
 
-In the JAX package these are XLA einsums, not Pallas kernels, so they stay
-plain tensor code here. The training flash kernels (``impl="flash"`` /
-``"pallas"``) are the training slice's and raise until it lands.
+In the JAX package the "xla" path and decode attention are XLA einsums,
+not Pallas kernels, so they stay plain tensor code here. ``impl="pallas"``
+(the JAX package's own flash kernel) and ``impl="flash"`` (JAX's stock TPU
+kernel with KV heads repeated, the same function) both run
+``ops.flash_attention``: the hand-written flash kernels on CUDA tensors,
+their plain versions on the CPU.
 
 All paths take q: [B, S, H, D], k/v: [B, S, KV, D] and return [B, S, H, D].
 GQA groups query heads over KV heads without repeating K/V.
@@ -14,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -46,16 +51,23 @@ def _xla_attention(q, k, v, *, causal: bool, q_offset=0, bias=None):
 
 
 def attention(q, k, v, *, causal: bool = True, impl: str = "xla",
-              q_offset=0):
+              q_offset=0, block_q: int = 512, block_kv: int = 512):
     """Multi-head / grouped-query attention; ``impl`` keeps the JAX
-    package's switch values. Only "xla" (plain einsum attention) belongs
-    to the serving slice."""
+    package's switch values: "xla" (plain einsum attention) or
+    "flash"/"pallas" (the flash kernels, which take no ``q_offset``).
+
+    ``block_q``/``block_kv`` are kept only for the JAX dispatcher's
+    signature: ``flash_attention`` checks them and the CUDA kernels tile
+    64 x 64 rows on their own, so they never change the result."""
+    if impl in ("flash", "pallas"):
+        if not (isinstance(q_offset, int) and q_offset == 0):
+            raise ValueError(
+                f"impl={impl!r} does not support q_offset; use impl='xla' "
+                "(decode paths use decode_attention)")
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_kv=block_kv)
     if impl == "xla":
         return _xla_attention(q, k, v, causal=causal, q_offset=q_offset)
-    if impl in ("flash", "pallas"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r} is the flash-attention kernel of the "
-            "training slice, not ported yet; serving uses attn_impl='xla'")
     raise ValueError(f"attn_impl={impl!r} (want xla|flash|pallas)")
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into ``_build/<name>-<hash>.so`` (the ``_build`` directory sits
 beside this package and is git-ignored), then loaded with ``ctypes``. The
-hash covers the source and the flags, so an edited kernel is rebuilt and
+hash covers the source, the shared ``csrc/*.cuh`` headers and the flags,
+so an edited kernel is rebuilt and
 an unchanged one is reused. Building happens at first use, never at
 import: the CPU tests import every module on machines without ``nvcc``.
 A missing ``nvcc`` is an error, not a skip.
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` builds to; the hash covers the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

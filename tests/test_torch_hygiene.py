@@ -118,7 +118,7 @@ def _constructors():
     with no device: (name, call(tmp_path))."""
     import numpy as np
 
-    from kubeflow_tpu_torch import interop
+    from kubeflow_tpu_torch import interop, training
     from kubeflow_tpu_torch.models import hf_llama, llama
     from kubeflow_tpu_torch.serving import paged_kv
 
@@ -137,6 +137,12 @@ def _constructors():
             _tiny_checkpoint(tmp)),
         "load_pretrained": lambda tmp: hf_llama.load_pretrained(
             _tiny_checkpoint(tmp)),
+        "Trainer": lambda tmp: training.Trainer(
+            lambda g: llama.init_params(g, cfg, device="cpu"),
+            training.lm_loss_fn(llama.forward, cfg),
+            training.TrainerConfig()),
+        "to_device": lambda tmp: training.to_device(
+            {"tokens": np.zeros((2, 3), np.int32)}),
     }
 
 

@@ -89,14 +89,25 @@ def test_xla_attention(h, kvh, causal, offset):
     _close(out, ref)
 
 
-def test_attention_dispatch_keeps_switch_values():
+def test_attention_dispatch_keeps_switch_values(monkeypatch):
+    """"flash" and "pallas" both route to the flash-attention path (the
+    same function as "xla"), and refuse a q_offset as the JAX dispatcher
+    does."""
+    from kubeflow_tpu_torch.ops import flash_attention as t_flash
+
     rng = np.random.default_rng(3)
     q = torch.tensor(_rand(rng, 1, 4, 2, 8))
     out = t_attn.attention(q, q, q, causal=True, impl="xla")
     assert out.shape == q.shape
+    routed = []
+    real = t_flash.FlashAttention.apply
+    monkeypatch.setattr(t_flash.FlashAttention, "apply",
+                        lambda *a: routed.append(1) or real(*a))
     for impl in ("flash", "pallas"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            t_attn.attention(q, q, q, impl=impl)
+        _close(t_attn.attention(q, q, q, impl=impl), out)
+        with pytest.raises(ValueError, match="q_offset"):
+            t_attn.attention(q, q, q, impl=impl, q_offset=3)
+    assert len(routed) == 2
     with pytest.raises(ValueError, match="attn_impl"):
         t_attn.attention(q, q, q, impl="vortex")
 
