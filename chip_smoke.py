@@ -17,6 +17,14 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              of the kernel and its plain version, beside the kernel's
              bound (bytes of q, out, the tables and the K/V rows below
              kv_len over 3.35 TB/s).
+3q. quant parity — the fused-dequant kernel (int8 and fp8-e4m3 pools with
+             per-block per-KV-head scales) against its plain version at
+             the serving shape, q in bf16 and f32; in f32 also bitwise
+             against the unquantized kernel over the f32 dequant view;
+             zeros for the idle slot.
+3t. quant timing — as phase 3 for the fused-dequant kernel, int8 and
+             fp8, beside its bound (one byte per K/V element plus the
+             scale words of the live blocks).
 4. serving — llama3_8b at its published widths, all 32 layers, random
              bf16 weights from a seeded CUDA generator, behind the port's
              LLMModel + ModelServer on 127.0.0.1:0: four concurrent V2
@@ -26,7 +34,23 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              token counts, that decode ran through the kernel (launch
              count == n_layers x decode device steps), prefix hits, and
              one stream against the full forward's teacher-forced argmax
-             within the bf16 tie tolerance. The model is freed after.
+             within the bf16 tie tolerance.
+4q. quantized serving — the same weights behind LLMModel(quant=int8 KV +
+             int8 weights), the same four requests: 32 tokens each, the
+             fused-dequant kernel's launches == n_layers x decode device
+             steps with the unquantized kernel's count at 0, prefix hits,
+             chunked prefill, the active quant tag, no downgrade. Prints
+             pool and weight bytes and the decode step beside phase 4's.
+4g. quant quality — the JAX package's gate (bench.py
+             _quant_teacher_forced) at full width: the bf16 engine
+             free-runs greedy through paged_decode_step (kernel path) on
+             two prompts, each quantized configuration (int8 KV + int8
+             weights, fp8 KV + int8 weights) replays that stream
+             teacher-forced. Holds the JAX budgets (agreement >= 0.85,
+             max logit drift <= 1.0) in the JAX gate's own configuration
+             (llama_tiny f32); at full width the drift budget and an rms
+             logit error limit per KV dtype set against planted faults.
+             The model is freed after.
 5. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain versions on the card: the training
              shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
@@ -48,7 +72,9 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              against attn_impl="xla" (plain einsum attention) from the
              same parameters.
 
-Prints the kernel JSON line, the nvidia-smi line, and last
+Prints the kernel JSON line (the fused-dequant kernel's entry carries
+its numbers per pool dtype under "by_kv_dtype"), the nvidia-smi line,
+and last
 ``{"ok": true, "device": {...}}``. Exits nonzero (printing no result)
 without a CUDA device or outside the repository.
 """
@@ -111,6 +137,32 @@ TRAIN_NORM_SHARE = 5e-3
 # (dense einsum attention) round at different places over 32 layers
 TIE_TOL = 0.25
 STEP_CONTEXT = 300              # tokens per slot in the timed decode step
+# the quantized kernel's pool dtypes and their symmetric clip points. A
+# copy of serving.quant.KV_QMAX on purpose: the parity phase makes its
+# input pools with its own quantizer (quantize_pool), independent of the
+# port's write path that it does not test
+KV_QMAX = {"int8": 127.0, "fp8_e4m3": 448.0}
+# the JAX package's quantized-serving quality gate: its budgets
+# (bench.py:1057-1058), its method (_quant_teacher_forced, KV block 16;
+# tools/quant_quality.teacher_forced) and its own configuration
+# (llama_tiny in f32, weights from seed 3, four prompts of 8 tokens, 24
+# generated, the gather path). At full width the same method runs
+# through the kernel path on two prompts; there the agreement budget is
+# not held (see PERF.md: random weights put the top two of 128,256
+# unit-variance logits ~0.2 apart, so greedy agreement there measures
+# near-ties; the run prints bf16 against f32 compute beside it). What is
+# held there: the drift budget, and the rms logit error per KV dtype.
+# Sound readings 0.0664 (int8) and 0.1064 (fp8); planted faults read
+# (tools/quant_quality.py on copies with one fault each): weights
+# truncated instead of rounded 0.0934 / 0.1224 (drift 0.48 / 0.66, under
+# the budget), the kernel reading the previous block's scales 0.1994 /
+# 0.2125, resident rows not requantized on scale growth 0.3546 / 0.3614.
+# Each limit sits midway between the sound reading and the nearest fault
+QUALITY_AGREEMENT_MIN = 0.85
+QUALITY_DRIFT_MAX = 1.0
+QUALITY_RMS_MAX = {"int8": 0.080, "fp8_e4m3": 0.114}
+GATE_TINY = dict(n_prompts=4, prompt_len=8, gen=24, kernel="gather")
+GATE_FULL = dict(n_prompts=2, prompt_len=16, gen=32, kernel="auto")
 
 
 def log(msg: str) -> None:
@@ -266,6 +318,129 @@ def timing(torch, pa) -> dict:
             "bound_by": bound_by}
 
 
+def quantize_pool(torch, pool, kv: str):
+    """Per-block per-KV-head symmetric quantization of a [NB, bs, KV_H, D]
+    pool -> (stored pool, f32 scales [NB, KV_H])."""
+    from kubeflow_tpu_torch.serving.quant import kv_store_dtype
+
+    qmax = KV_QMAX[kv]
+    p32 = pool.float()
+    scale = (p32.abs().amax(dim=(1, 3)) / qmax).clamp(min=1e-30)
+    q = p32 / scale[:, None, :, None]
+    if kv == "int8":
+        q = q.round().clamp(-qmax, qmax)
+    return q.to(kv_store_dtype(kv)).contiguous(), scale.contiguous()
+
+
+def quant_case(torch, dtype, kv: str, seed=0):
+    """q (in ``dtype``), quantized pools, scales, tables, kv_len at the
+    serving decode shape."""
+    q, kp, vp, tables, kv_len = paged_case(torch, torch.float32, seed)
+    kq, ks = quantize_pool(torch, kp, kv)
+    vq, vs = quantize_pool(torch, vp, kv)
+    return q.to(dtype), kq, vq, tables, kv_len, ks, vs
+
+
+def quant_parity(torch, pa) -> dict:
+    """The fused-dequant kernel against its plain version; returns the max
+    abs errors per pool dtype and q dtype."""
+    errs: dict = {}
+    for kv in KV_QMAX:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kq, vq, tables, kv_len, ks, vs = quant_case(torch, dtype, kv)
+            out = pa.paged_decode_attention(q, kq, vq, tables, kv_len,
+                                            k_scale=ks, v_scale=vs)
+            torch.cuda.synchronize()
+            ref = pa.paged_decode_attention_reference(
+                q, kq, vq, tables, kv_len, k_scale=ks, v_scale=vs)
+            name = str(dtype).split(".")[-1]
+            diff = (out.float() - ref.float()).abs()
+            err = diff.max().item()
+            idle = out[0].float().abs().max().item()
+            errs.setdefault(kv, {})[name] = err
+            if dtype == torch.bfloat16:
+                ulps = (diff / bf16_ulp(torch, ref)).max().item()
+                ok = ulps <= BF16_ULPS
+                limit = (f"{ulps!r} bf16 ulps of the plain value, limit "
+                         f"{BF16_ULPS}")
+            else:
+                # over an f32 q the fused dequant is the unquantized
+                # kernel's arithmetic on the f32 dequant view, bit for bit
+                kd = (kq.float() * ks[:, None, :, None]).contiguous()
+                vd = (vq.float() * vs[:, None, :, None]).contiguous()
+                row1 = pa.paged_decode_attention(q, kd, vd, tables, kv_len)
+                torch.cuda.synchronize()
+                bitwise = torch.equal(out, row1)
+                ok = err <= F32_TOL and bitwise
+                limit = (f"limit {F32_TOL}; bitwise equal to the unquantized "
+                         f"kernel over the f32 dequant view: {bitwise}")
+            log(f"parity paged_decode_attention_quant {kv} pool, q {name}: "
+                f"max_abs_err {err!r} ({limit}), idle-slot max {idle!r}")
+            if not ok or idle != 0.0 or not torch.isfinite(out).all():
+                raise SystemExit(f"paged_decode_attention_quant {kv} {name} "
+                                 "disagrees with its plain version")
+    return errs
+
+
+def quant_timing(torch, pa) -> dict:
+    """CUDA-event medians of the fused-dequant kernel and its plain version
+    per pool dtype (q bf16), beside its bound; SDPA over the pre-
+    dequantized dense bf16 view as a yardstick only."""
+    import torch.nn.functional as F
+
+    s = SHAPE
+    out = {}
+    for kv in KV_QMAX:
+        q, kq, vq, tables, kv_len, ks, vs = quant_case(torch, torch.bfloat16,
+                                                       kv, seed=1)
+        args = (q, kq, vq, tables, kv_len)
+        kernel_ms = time_ms(torch, lambda: pa.paged_decode_attention(
+            *args, k_scale=ks, v_scale=vs))
+        plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_reference(
+            *args, k_scale=ks, v_scale=vs))
+        item = q.element_size()
+        live_blocks = sum(-(-n // s["bs"]) for n in KV_LEN)
+        # K and V rows below kv_len at one byte an element, the two scale
+        # words of each live block and KV head, q, out, tables, kv_len
+        kv_bytes = 2 * sum(KV_LEN) * s["KVH"] * s["D"] * kq.element_size()
+        scale_bytes = 2 * live_blocks * s["KVH"] * 4
+        io_bytes = (2 * q.numel() * item + tables.numel() * 4
+                    + kv_len.numel() * 4 + kv_bytes + scale_bytes)
+        # QK^T and PV FMAs plus one dequant multiply per K/V element, f32
+        flops = (4 * s["H"] * s["D"] * sum(KV_LEN)
+                 + 2 * s["KVH"] * s["D"] * sum(KV_LEN))
+        t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        idx = tables.long()
+        g = s["H"] // s["KVH"]
+
+        def dense(pool, scale):
+            d = (pool.float() * scale[:, None, :, None]).to(torch.bfloat16)
+            return d[idx].reshape(s["B"], -1, s["KVH"], s["D"]) \
+                .transpose(1, 2).repeat_interleave(g, dim=1).contiguous()
+
+        kd, vd = dense(kq, ks), dense(vq, vs)
+        mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+                < kv_len[:, None])[:, None, None, :]
+        qd = q[:, :, None, :]
+        sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask))
+        log(f"timing paged_decode_attention_quant {kv} pool, q bf16 (B=8 "
+            f"H=32 KV_H=8 D=128 bs=64, kv_len {KV_LEN}): kernel "
+            f"{kernel_ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
+            f"({bound_by}: {io_bytes} B, {flops} FLOP), roofline share "
+            f"{bound_ms / kernel_ms!r}")
+        log(f"reference only, not a port path: SDPA over the pre-"
+            f"dequantized dense bf16 view {sdpa_ms!r} ms")
+        out[kv] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "bytes": io_bytes, "sdpa_dense_view_ms": sdpa_ms}
+        del kd, vd, args
+    torch.cuda.empty_cache()
+    return out
+
+
 def post_json(url: str, payload: dict, timeout: float = 600.0) -> dict:
     from urllib import request as urlrequest
 
@@ -304,31 +479,52 @@ def decode_step_ms(torch, eng, steps: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def serving(torch, pa) -> dict:
+def llama3_8b(torch):
+    """llama3_8b at its published widths, random bf16 weights from seed
+    0 on the card."""
     from kubeflow_tpu_torch.models import llama
-    from kubeflow_tpu_torch.serving import (
-        LLMModel, ModelRepository, ModelServer,
-    )
 
     cfg = llama.llama3_8b()                 # published widths, bf16
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in params["layers"].values()) \
-        + params["embed"].numel() + params["final_norm"].numel() \
-        + params["lm_head"].numel()
-    log(f"llama3_8b: {n_params} params bf16 ({n_params * 2 / 1e9:.2f} GB), "
-        f"init {time.perf_counter() - t0:.1f} s")
-    model = LLMModel("llama3-8b", params, cfg, max_batch=8, max_seq=1024,
-                     device="cuda")
+    log(f"llama3_8b: {tree_numel(params)} params bf16 "
+        f"({tree_bytes(params) / 1e9:.2f} GB), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _tensors(val)
+    else:
+        yield tree
+
+
+def tree_numel(tree) -> int:
+    return sum(t.numel() for t in _tensors(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def pool_bytes(cache) -> int:
+    """Payload plus scale tables of a paged pool."""
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+
+
+def serve_four(torch, pa, model, cfg) -> dict:
+    """The four concurrent greedy V2 requests over HTTP against ``model``
+    behind a fresh ModelServer. Every launch count is set to 0 just
+    before and read just after."""
+    from kubeflow_tpu_torch.serving import ModelRepository, ModelServer
+
     repo = ModelRepository()
     repo.register(model)
-    eng = model.engine
-    log(f"engine: kernel={eng.kernel} block_size={eng.paged.block_size} "
-        f"num_blocks={eng.paged.num_blocks} pool "
-        f"{2 * eng.cache['k'].numel() * 2 / 1e9:.3f} GB "
-        f"buckets={eng.buckets}")
     srv = ModelServer(repo).start()
     rng = torch.Generator().manual_seed(1)
     rand = lambda n: torch.randint(1, cfg.vocab_size, (n,),
@@ -348,7 +544,7 @@ def serving(torch, pa) -> dict:
             body = {"inputs": [{"name": "ids", "shape": [1, len(prompt)],
                                 "datatype": "INT32", "data": prompt}],
                     "parameters": {"max_tokens": 32, "temperature": 0.0}}
-            out = post_json(f"{srv.url}/v2/models/llama3-8b/infer", body)
+            out = post_json(f"{srv.url}/v2/models/{model.name}/infer", body)
             tensors = {t["name"]: t for t in out["outputs"]}
             results[tag] = tensors["tokens"]["data"][
                 :tensors["lengths"]["data"][0]]
@@ -356,7 +552,8 @@ def serving(torch, pa) -> dict:
             errors.append((tag, repr(e)))
 
     try:
-        pa.paged_decode_attention.launches = 0      # the main path's count
+        pa.paged_decode_attention.launches = 0      # the main path's counts
+        pa.paged_decode_attention_quant.launches = 0
         t_start = time.perf_counter()
         threads = [threading.Thread(target=run, args=kv)
                    for kv in prompts.items()]
@@ -365,37 +562,60 @@ def serving(torch, pa) -> dict:
         for t in threads:
             t.join()
         wall = time.perf_counter() - t_start
-        launches = pa.paged_decode_attention.launches
+        launches = {
+            "paged_decode_attention": pa.paged_decode_attention.launches,
+            "paged_decode_attention_quant":
+                pa.paged_decode_attention_quant.launches}
         stats = model.stats()
     finally:
         srv.stop()
     if errors:
         model.unload()
-        raise SystemExit(f"serving requests failed: {errors}")
+        raise SystemExit(f"{model.name}: serving requests failed: {errors}")
     sched = stats["sched"]
     device_steps = sched["decode_device_steps_total"]
     n_tokens = sum(len(v) for v in results.values())
-    log(f"serving: {len(results)} requests, {n_tokens} tokens in "
+    log(f"{model.name}: {len(results)} requests, {n_tokens} tokens in "
         f"{wall!r} s -> {n_tokens / wall!r} generated tok/s; "
         f"decode dispatches {sched['decode_dispatches_total']}, device "
         f"steps {device_steps}, prefill chunks "
         f"{sched['prefill_chunks_total']}, prefix hit blocks "
         f"{sched['prefix_hit_blocks_total']}, ttft p50 (bucket-resolved) "
         f"{stats['request_histograms']['ttft']['p50']!r} s")
-    log(f"kernel launches on the main path: {launches} "
+    log(f"{model.name}: kernel launches on the main path: {launches} "
         f"(n_layers x device steps = {cfg.n_layers * device_steps})")
     for tag, toks in results.items():
         if len(toks) != 32:
             raise SystemExit(f"{tag}: {len(toks)} tokens, want 32")
-    if launches < cfg.n_layers * device_steps or launches == 0:
-        raise SystemExit("decode did not run through the paged kernel")
     if sched["prefix_hit_blocks_total"] < 4:
         raise SystemExit("the shared-prefix request did not share blocks")
     if sched["prefill_chunks_total"] < 2:
         raise SystemExit("the long prompt did not stream through chunks")
+    return {"prompts": prompts, "results": results, "wall": wall,
+            "tok_s": n_tokens / wall, "launches": launches, "stats": stats,
+            "device_steps": device_steps}
+
+
+def serving(torch, pa, cfg, params) -> dict:
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import LLMModel
+
+    model = LLMModel("llama3-8b", params, cfg, max_batch=8, max_seq=1024,
+                     device="cuda")
+    model.load()
+    eng = model.engine
+    log(f"engine: kernel={eng.kernel} block_size={eng.paged.block_size} "
+        f"num_blocks={eng.paged.num_blocks} pool "
+        f"{pool_bytes(eng.cache) / 1e9:.3f} GB "
+        f"buckets={eng.buckets}")
+    run = serve_four(torch, pa, model, cfg)
+    launches = run["launches"]["paged_decode_attention"]
+    if launches < cfg.n_layers * run["device_steps"] or launches == 0 \
+            or run["launches"]["paged_decode_attention_quant"] != 0:
+        raise SystemExit("decode did not run through the paged kernel")
 
     # one stream against the full forward's teacher-forced argmax
-    prompt, gen_toks = prompts["mid_300"], results["mid_300"]
+    prompt, gen_toks = run["prompts"]["mid_300"], run["results"]["mid_300"]
     with torch.no_grad():
         seq = torch.tensor([prompt + gen_toks], device="cuda")
         ref = llama.forward(model.engine.params, seq, cfg)[0]
@@ -408,13 +628,134 @@ def serving(torch, pa) -> dict:
         f"the exact argmax, worst margin {worst!r} (tolerance {TIE_TOL})")
     if worst > TIE_TOL:
         raise SystemExit("served stream disagrees with the full forward")
+    del ref, rows
 
     step_ms = decode_step_ms(torch, model.engine)
     log(f"decode step (batch 8, {cfg.n_layers} layers, paged kernel, "
         f"{STEP_CONTEXT}-token contexts): {step_ms!r} ms")
+    out = {"launches": launches, "tok_s": run["tok_s"],
+           "decode_ms_per_step": step_ms,
+           "pool_bytes": pool_bytes(eng.cache),
+           "weight_bytes": tree_bytes(eng.params)}
     model.unload()
-    return {"launches": launches, "tok_s": n_tokens / wall,
-            "decode_ms_per_step": step_ms}
+    return out
+
+
+def quant_serving(torch, pa, cfg, params, base: dict) -> dict:
+    """Phase 4q: the same weights and requests through the quantized
+    engine (int8 KV + int8 weights). Returns its numbers and the int8
+    tree for the quality gate."""
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.quant import is_weight_quantized
+    from kubeflow_tpu_torch.serving.scheduler import QuantConfig
+
+    t0 = time.perf_counter()
+    model = LLMModel("llama3-8b-int8", params, cfg, max_batch=8,
+                     max_seq=1024, device="cuda",
+                     quant=QuantConfig(kv_dtype="int8", weight_dtype="int8"))
+    model.load()
+    torch.cuda.synchronize()
+    eng = model.engine
+    log(f"quantized engine built (weights quantized once) in "
+        f"{time.perf_counter() - t0:.1f} s: kernel={eng.kernel} pool dtype "
+        f"{eng.cache['k'].dtype}, weights int8: "
+        f"{is_weight_quantized(eng.params)}")
+    run = serve_four(torch, pa, model, cfg)
+    launches = run["launches"]
+    stats = run["stats"]
+    want = cfg.n_layers * run["device_steps"]
+    log(f"quantized serving: fused-dequant kernel launches "
+        f"{launches['paged_decode_attention_quant']} (want n_layers x "
+        f"device steps = {want}), unquantized kernel launches "
+        f"{launches['paged_decode_attention']} (want 0); quant "
+        f"{stats['quant']}, quant downgrades "
+        f"{stats['quant_downgrades_total']}")
+    if launches["paged_decode_attention_quant"] != want or want == 0 \
+            or launches["paged_decode_attention"] != 0:
+        raise SystemExit("quantized decode did not run through the "
+                         "fused-dequant kernel alone")
+    if stats["quant"]["active"] != "quant=kv:int8,w:int8" \
+            or stats["quant_downgrades_total"] != 0 \
+            or not is_weight_quantized(eng.params):
+        raise SystemExit("the engine is not serving int8 KV + int8 weights")
+    step_ms = decode_step_ms(torch, eng)
+    qpool, qweights = pool_bytes(eng.cache), tree_bytes(eng.params)
+    log(f"pool bytes (payload + scales): int8 {qpool} vs bf16 "
+        f"{base['pool_bytes']} ({qpool / base['pool_bytes']!r}x); weight "
+        f"bytes: int8 tree {qweights} vs bf16 {base['weight_bytes']} "
+        f"({qweights / base['weight_bytes']!r}x)")
+    log(f"decode step (batch 8, {cfg.n_layers} layers, fused-dequant "
+        f"kernel, int8 weights, {STEP_CONTEXT}-token contexts): "
+        f"{step_ms!r} ms (bf16 engine {base['decode_ms_per_step']!r} ms); "
+        f"{run['tok_s']!r} generated tok/s (bf16 {base['tok_s']!r})")
+    qparams = eng.params
+    model.unload()
+    return {"launches": launches["paged_decode_attention_quant"],
+            "tok_s": run["tok_s"], "decode_ms_per_step": step_ms,
+            "pool_bytes": qpool, "weight_bytes": qweights,
+            "qparams": qparams}
+
+
+def _report(tag: str, res: dict) -> str:
+    return (f"{tag}: positions {res['positions']}, greedy-token agreement "
+            f"{res['greedy_token_agreement']!r}, max logit drift "
+            f"{res['max_logit_drift']!r}, rms logit error "
+            f"{res['rms_logit_error']!r}")
+
+
+def quant_quality(torch, cfg, params, qparams) -> dict:
+    """Phase 4g: the JAX package's quality gate in its own configuration,
+    then the same method at full width (int8 and fp8 KV, int8 weights)
+    beside bf16 against f32 compute on the same weights."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.quant import (
+        is_weight_quantized, quantize_weights,
+    )
+    from kubeflow_tpu_torch.tools.quant_quality import (
+        float32_copy, teacher_forced,
+    )
+
+    if not is_weight_quantized(qparams):
+        raise SystemExit("quality gate needs the int8 tree")
+    t0 = time.perf_counter()
+    tcfg = llama.llama_tiny(dtype=torch.float32)
+    tparams = llama.init_params(torch.Generator(device="cuda").manual_seed(3),
+                                tcfg, device="cuda")
+    tq = quantize_weights(tparams, tcfg)
+    tiny = teacher_forced(tcfg, tparams,
+                          {kv: (tcfg, tq, kv) for kv in KV_QMAX}, **GATE_TINY)
+    for kv, res in tiny.items():
+        log(_report(f"quant quality, the JAX gate's configuration (llama_tiny "
+                    f"f32, {GATE_TINY}), {kv} KV + int8 weights vs f32", res)
+            + f" (budgets >= {QUALITY_AGREEMENT_MIN}, <= {QUALITY_DRIFT_MAX})")
+        if res["greedy_token_agreement"] < QUALITY_AGREEMENT_MIN \
+                or res["max_logit_drift"] > QUALITY_DRIFT_MAX:
+            raise SystemExit(f"quantized serving ({kv} KV) fails the JAX "
+                             "package's quality gate")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    torch.cuda.empty_cache()
+    replays = {kv: (cfg, qparams, kv) for kv in KV_QMAX}
+    replays["bf16 weights, f32 compute"] = (cfg32, float32_copy(params),
+                                            "none")
+    full = teacher_forced(cfg, params, replays, **GATE_FULL)
+    del replays
+    torch.cuda.empty_cache()
+    for name, res in full.items():
+        what = (f"{name} KV + int8 weights" if name in KV_QMAX else name)
+        log(_report(f"quant quality at full width (llama3_8b bf16, "
+                    f"{GATE_FULL}), {what} vs bf16", res)
+            + (f" (limits: drift <= {QUALITY_DRIFT_MAX}, rms <= "
+               f"{QUALITY_RMS_MAX[name]})" if name in KV_QMAX
+               else " (bf16's own distance from f32)"))
+        if name in KV_QMAX and (
+                res["max_logit_drift"] > QUALITY_DRIFT_MAX
+                or res["rms_logit_error"] > QUALITY_RMS_MAX[name]):
+            raise SystemExit(f"quantized serving ({name} KV) errs past its "
+                             "limits at full width")
+    log(f"quant quality: {time.perf_counter() - t0:.1f} s")
+    return {"gate": tiny, "full_width": full}
 
 # ---------------------------------------------------------------------------
 # Flash attention (training slice)
@@ -706,7 +1047,13 @@ def main() -> int:
     probe(torch, cuda_build)
     errs = parity(torch, pa)
     t = timing(torch, pa)
-    served = serving(torch, pa)
+    q_errs = quant_parity(torch, pa)
+    q_t = quant_timing(torch, pa)
+    cfg, params = llama3_8b(torch)
+    served = serving(torch, pa, cfg, params)
+    q_served = quant_serving(torch, pa, cfg, params, served)
+    quant_quality(torch, cfg, params, q_served.pop("qparams"))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     flash_errs = flash_parity(torch)
@@ -719,6 +1066,21 @@ def main() -> int:
         "launches": served["launches"], "max_abs_err": errs["bfloat16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+    }, {
+        "name": "paged_decode_attention_quant", "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:68",
+        "launches": q_served["launches"],
+        # the served pool's dtype (int8) in the top-level numbers; both
+        # pool dtypes under by_kv_dtype. No PyTorch call reads a
+        # quantized paged pool: SDPA over the dequantized dense view is
+        # a yardstick only (sdpa_dense_view_ms)
+        "max_abs_err": max(e["bfloat16"] for e in q_errs.values()),
+        **{k: q_t["int8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None,
+        "by_kv_dtype": {kv: {"max_abs_err": q_errs[kv], **q_t[kv]}
+                        for kv in KV_QMAX},
     }]
     for name, line in (("flash_attention_fwd", 54),
                        ("flash_attention_dq", 135),

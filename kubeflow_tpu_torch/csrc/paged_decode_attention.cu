@@ -34,8 +34,28 @@
 // Splitting each slot's blocks over several thread blocks with a second
 // reduction pass (flash-decoding) and a cp.async/TMA pipeline are the next
 // steps; both are later work.
+//
+// Quantized pools (second C entry, kft_paged_decode_attention_quant).
+// Replaces the same TPU kernel's `quantized=True` form
+// (pallas_paged_attention.py:68-74, 100-106, 127-128): the pools are int8
+// or fp8 e4m3 (__nv_fp8_e4m3, the e4m3fn encoding) with per-block
+// per-KV-head f32 scales k_scale/v_scale [NB, KV_H]. The body is the same
+// template, instantiated on the pool's storage type: tiles are staged in
+// shared memory at one byte per element (a D = 128 row is eight 16-byte
+// loads), the CTA reads its two scale words per live block beside its
+// table entry, and each K/V element is upcast to f32 and multiplied by its
+// block's scale where the tile is read, before the FMA. The dequantized
+// value is never rounded to q's dtype, and the summation order is the
+// unquantized kernel's, so over an f32 q the quantized kernel equals the
+// unquantized kernel over the f32 dequant view bit for bit. Bound: the
+// same walk over half (bf16) or a quarter (f32) of the K/V bytes, plus
+// 8 bytes of scales per live block and KV head; the design leaves the same
+// things on the table as the unquantized form (64 CTAs at the serving
+// shape, no load/compute overlap), so it is bound by the serial walk, not
+// the bytes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +72,12 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
@@ -78,14 +104,20 @@ __host__ __device__ inline size_t scalar_smem_bytes(int G, int D, int bs) {
   return (n + 15) & ~(size_t)15;
 }
 
-template <typename T>
+// T: q/out type (float or bf16). KV: the pool's storage type -- T itself
+// (unquantized) or a one-byte type (int8_t, __nv_fp8_e4m3), which makes
+// the kernel read k_scale/v_scale (else they are null and unread).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                    const KV* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
                     const int* __restrict__ kv_len, T* __restrict__ out,
                     int H, int KVH, int D, int bs, int max_blocks,
                     float scale) {
+  constexpr bool kQuant = sizeof(KV) == 1;
   const int h = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // slot
   const int G = H / KVH;
@@ -100,8 +132,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   float* m_s = p_s + G * bs;                    // [G]
   float* l_s = m_s + G;                         // [G]
   float* a_s = l_s + G;                         // [G]
-  T* k_s = reinterpret_cast<T*>(smem + scalar_smem_bytes(G, D, bs));
-  T* v_s = k_s + bs * D;  // [bs, D] each
+  KV* k_s = reinterpret_cast<KV*>(smem + scalar_smem_bytes(G, D, bs));
+  KV* v_s = k_s + bs * D;  // [bs, D] each
 
   const int len = kv_len[b];
   int n_live = len > 0 ? (len + bs - 1) / bs : 0;
@@ -125,13 +157,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const int* table_row = tables + (size_t)b * max_blocks;
   const size_t row_stride = (size_t)KVH * D;  // elements between token rows
-  constexpr int kVec = 16 / sizeof(T);        // elements per 16-byte load
+  constexpr int kVec = 16 / sizeof(KV);       // elements per 16-byte load
   const int vecs_per_row = D / kVec;
   __syncthreads();
 
   for (int j = 0; j < n_live; ++j) {
-    const size_t base = ((size_t)table_row[j] * bs * KVH + h) * D;
+    const int blk = table_row[j];
+    const size_t base = ((size_t)blk * bs * KVH + h) * D;
     const int valid = min(bs, len - j * bs);  // >= 1 for a live block
+    // this block's dequant scales for head h (1.0 and unread unquantized)
+    float ks = 1.f, vs = 1.f;
+    if constexpr (kQuant) {
+      ks = k_scale[(size_t)blk * KVH + h];
+      vs = v_scale[(size_t)blk * KVH + h];
+    }
     // stage the head's K and V rows below kv_len (the dead tail of the
     // last block is never read): consecutive threads load consecutive
     // 16-byte pieces of one D-row
@@ -158,7 +197,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int g = 0; g < kMaxGroups; ++g) part[g] = 0.f;
       for (int d = lane; d < D; d += 32) {
-        const float kd = to_float(k_s[t * D + d]);
+        float kd = to_float(k_s[t * D + d]);
+        if constexpr (kQuant) kd *= ks;  // dequant before the FMA
 #pragma unroll
         for (int g = 0; g < kMaxGroups; ++g)
           if (g < G) part[g] += q_s[g * D + d] * kd;
@@ -206,7 +246,11 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         const int d = e - g * D;
         const float* p_row = p_s + g * bs;
         float s = 0.f;
-        for (int t = 0; t < valid; ++t) s += p_row[t] * to_float(v_s[t * D + d]);
+        for (int t = 0; t < valid; ++t) {
+          float vd = to_float(v_s[t * D + d]);
+          if constexpr (kQuant) vd *= vs;  // dequant before the FMA
+          s += p_row[t] * vd;
+        }
         acc[i] = acc[i] * a_s[g] + s;
       }
     }
@@ -223,29 +267,53 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* kv_len, void* out, int B, int H,
-           int KVH, int D, int bs, int max_blocks, float scale,
-           cudaStream_t stream) {
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* kv_len, void* out, int B, int H, int KVH, int D,
+           int bs, int max_blocks, float scale, cudaStream_t stream) {
   const int G = H / KVH;
   const size_t smem =
-      scalar_smem_bytes(G, D, bs) + 2 * (size_t)bs * D * sizeof(T);
+      scalar_smem_bytes(G, D, bs) + 2 * (size_t)bs * D * sizeof(KV);
   static size_t smem_opted_in = 48 * 1024;
   if (smem > smem_opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        paged_decode_kernel<T, KV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     smem_opted_in = smem;
   }
   dim3 grid(KVH, B);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+  paged_decode_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool),
+      static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
       static_cast<const int*>(kv_len), static_cast<T*>(out), H, KVH, D, bs,
       max_blocks, scale);
   return (int)cudaGetLastError();
+}
+
+bool geometry_ok(int B, int H, int KVH, int D, int bs, int max_blocks) {
+  return B > 0 && KVH > 0 && H % KVH == 0 && H / KVH <= kMaxGroups &&
+         (D == 64 || D == kMaxHeadDim) && bs > 0 && bs <= kMaxBlockSize &&
+         max_blocks > 0;
+}
+
+template <typename KV>
+int launch_quant(int dtype, const void* q, const void* k_pool,
+                 const void* v_pool, const void* k_scale,
+                 const void* v_scale, const void* tables, const void* kv_len,
+                 void* out, int B, int H, int KVH, int D, int bs,
+                 int max_blocks, float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, KV>(q, k_pool, v_pool, k_scale, v_scale, tables,
+                             kv_len, out, B, H, KVH, D, bs, max_blocks,
+                             scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, KV>(q, k_pool, v_pool, k_scale, v_scale,
+                                     tables, kv_len, out, B, H, KVH, D, bs,
+                                     max_blocks, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -258,16 +326,39 @@ extern "C" int kft_paged_decode_attention(
     const void* tables, const void* kv_len, void* out, int B, int H,
     int KVH, int D, int bs, int max_blocks, float scale, int dtype,
     void* stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > kMaxGroups ||
-      (D != 64 && D != kMaxHeadDim) || bs <= 0 || bs > kMaxBlockSize ||
-      max_blocks <= 0)
+  if (!geometry_ok(B, H, KVH, D, bs, max_blocks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, kv_len, out, B, H, KVH,
-                         D, bs, max_blocks, scale, s);
+    return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, tables,
+                                kv_len, out, B, H, KVH, D, bs, max_blocks,
+                                scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, kv_len, out, B,
-                                 H, KVH, D, bs, max_blocks, scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, nullptr, nullptr, tables, kv_len, out, B, H, KVH,
+        D, bs, max_blocks, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The quantized form: k_pool/v_pool [NB, bs, KV_H, D] int8 (kv_dtype 0) or
+// fp8 e4m3 (kv_dtype 1); k_scale/v_scale [NB, KV_H] float32; q/out as
+// above (dtype 0 = float32, 1 = bfloat16). Same return convention.
+extern "C" int kft_paged_decode_attention_quant(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* kv_len, void* out, int B, int H, int KVH, int D, int bs,
+    int max_blocks, float scale, int dtype, int kv_dtype, void* stream) {
+  if (!geometry_ok(B, H, KVH, D, bs, max_blocks) || k_scale == nullptr ||
+      v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kv_dtype == 0)
+    return launch_quant<int8_t>(dtype, q, k_pool, v_pool, k_scale, v_scale,
+                                tables, kv_len, out, B, H, KVH, D, bs,
+                                max_blocks, scale, s);
+  if (kv_dtype == 1)
+    return launch_quant<__nv_fp8_e4m3>(dtype, q, k_pool, v_pool, k_scale,
+                                       v_scale, tables, kv_len, out, B, H,
+                                       KVH, D, bs, max_blocks, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,9 +9,10 @@ takes the same arguments as its JAX counterpart. A Python loop over the
 stacked layers takes the place of ``lax.scan``.
 
 Compute runs in ``cfg.dtype`` with norms, RoPE and softmax in float32.
-The serving slice is dense and unquantized: a config with
-``n_experts > 0`` and int8 weight trees (``wq_q`` ...) raise
-``NotImplementedError`` naming the slice that brings them.
+The port is dense: a config with ``n_experts > 0`` raises
+``NotImplementedError`` naming the slice that brings it. The serving
+functions also take the int8 weight trees of ``serving.quant.
+quantize_weights`` (``wq_q`` + ``wq_s`` ...): ``qmm`` is their product.
 
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
@@ -41,8 +42,6 @@ from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 
 MOE_SLICE = ("MoE layers (n_experts > 0) are a later slice of the "
              "PyTorch port (queue 1: MoE)")
-INT8_SLICE = ("int8 weight trees are the quantized-serving slice of the "
-              "PyTorch port, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,9 +171,14 @@ def inv_freq_for(cfg: LlamaConfig, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens, cfg: LlamaConfig):
+    """Embedding lookup, quant-aware: int8 tables dequant the gathered
+    rows with their per-vocab-row scale (gathered first, so only those
+    rows are upcast; int8 values are exact in any compute dtype)."""
+    tokens = tokens.long()
     if "embed_q" in params:
-        raise NotImplementedError(INT8_SLICE)
-    return params["embed"].to(cfg.dtype)[tokens.long()]
+        rows = params["embed_q"][tokens].to(cfg.dtype)
+        return rows * params["embed_s"][tokens].to(cfg.dtype)[..., None]
+    return params["embed"].to(cfg.dtype)[tokens]
 
 
 def _rows_mm(x, w, cfg: LlamaConfig):
@@ -186,29 +190,43 @@ def _rows_mm(x, w, cfg: LlamaConfig):
     return (x.reshape(-1, k) @ w2).reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def qmm(x, w_q, w_s, cfg: LlamaConfig):
+    """``_rows_mm`` over an int8-quantized weight (``w_q`` int8, ``w_s``
+    f32 per-output-channel scales): the product over the int8 tensor
+    upcast to the compute dtype, then the OUTPUT multiplied by the scales
+    in the compute dtype, in that order (the JAX package's ``qmm``). The
+    upcast is a dense copy per use: 3 more bytes read per weight than the
+    1 the int8 tensor holds."""
+    return _rows_mm(x, w_q, cfg) * w_s.to(cfg.dtype)
+
+
 def qkv_proj(lp, h, cfg: LlamaConfig):
     """Attention input projections [B, S, D] -> q [B,S,H,hd], k/v
-    [B,S,KV,hd]."""
+    [B,S,KV,hd]; int8 layer trees (``wq_q`` present) go through qmm."""
     if "wq_q" in lp:
-        raise NotImplementedError(INT8_SLICE)
+        return tuple(qmm(h, lp[n + "_q"], lp[n + "_s"], cfg)
+                     for n in ("wq", "wk", "wv"))
     return (_rows_mm(h, lp["wq"], cfg), _rows_mm(h, lp["wk"], cfg),
             _rows_mm(h, lp["wv"], cfg))
 
 
 def out_proj(lp, o, cfg: LlamaConfig):
     """[..., H, hd] -> [..., D]."""
+    o = o.reshape(*o.shape[:-2], -1)
     if "wo_q" in lp:
-        raise NotImplementedError(INT8_SLICE)
+        wo_q = lp["wo_q"]
+        return qmm(o, wo_q.reshape(-1, wo_q.shape[-1]), lp["wo_s"], cfg)
     wo = lp["wo"]
-    return _rows_mm(o.reshape(*o.shape[:-2], -1),
-                    wo.reshape(-1, wo.shape[-1]), cfg)
+    return _rows_mm(o, wo.reshape(-1, wo.shape[-1]), cfg)
 
 
 def _ffn(h, lp, cfg: LlamaConfig):
     """Dense SwiGLU FFN on the normed input h -> delta."""
     check_dense(cfg)
     if "w_gate_q" in lp:
-        raise NotImplementedError(INT8_SLICE)
+        gate = qmm(h, lp["w_gate_q"], lp["w_gate_s"], cfg)
+        up = qmm(h, lp["w_up_q"], lp["w_up_s"], cfg)
+        return qmm(F.silu(gate) * up, lp["w_down_q"], lp["w_down_s"], cfg)
     gate = _rows_mm(h, lp["w_gate"], cfg)
     up = _rows_mm(h, lp["w_up"], cfg)
     return _rows_mm(F.silu(gate) * up, lp["w_down"], cfg)
@@ -217,6 +235,26 @@ def _ffn(h, lp, cfg: LlamaConfig):
 def lm_head_weight(params, cfg: LlamaConfig):
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return head.to(cfg.dtype)
+
+
+def quant_head_logits(params, x, cfg: LlamaConfig):
+    """LM-head product over the int8 tree: tied embeddings reuse the
+    embedding table (its per-vocab-ROW scales become per-output-channel
+    scales of the transposed head); untied heads carry their own
+    per-vocab-channel scales. x: [..., D] -> [..., V] compute dtype."""
+    if cfg.tie_embeddings:
+        out = x @ params["embed_q"].T.to(cfg.dtype)
+        return out * params["embed_s"].to(cfg.dtype)
+    out = x @ params["lm_head_q"].to(cfg.dtype)
+    return out * params["lm_head_s"].to(cfg.dtype)
+
+
+def head_logits(params, x, cfg: LlamaConfig):
+    """The LM head on the final-normed x [..., D] -> [..., V] in the
+    compute dtype, for full-precision and int8 trees alike."""
+    if "embed_q" in params:
+        return quant_head_logits(params, x, cfg)
+    return torch.einsum("...d,dv->...v", x, lm_head_weight(params, cfg))
 
 
 def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
@@ -302,7 +340,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
     """
     check_dense(cfg)
     b, s = tokens.shape
-    device = params["embed"].device
+    device = tokens.device
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=device)
     positions = torch.arange(s, device=device)[None, :]
@@ -325,6 +363,6 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last_idx = (lengths.long() - 1).clamp(min=0)
     last = x[torch.arange(b, device=device), last_idx]
-    logits = torch.einsum("bd,dv->bv", last, lm_head_weight(params, cfg))
+    logits = head_logits(params, last, cfg)
     cache["len"] = lengths.to(torch.int32)
     return logits.float(), cache

@@ -11,7 +11,10 @@
   on the device; requests join and leave between dispatches;
 - sampling (greedy/temperature/top-k/top-p) runs on the device with the
   engine's own ``torch.Generator``, so only sampled token ids cross back
-  to the host.
+  to the host;
+- quantized serving (``quant=``, serving/quant.py): int8 weights are
+  quantized once at build, int8/fp8 KV pools quantize on insert and on
+  write, and decode reads them through the fused-dequant kernel.
 
 Pipelined decode keeps the JAX engine's structure: chunk N+1 is
 dispatched before chunk N's tokens are read back. CUDA launches are
@@ -22,13 +25,14 @@ read-back waits for chunk N only.
 Not in this slice (each raises or is absent, never quietly different):
 the executable depot (``precompile``), speculative decoding
 (``spec_decode=True`` raises), the disaggregated hold/export/inject
-methods, tensor-parallel meshes, quantized pools and weights.
+methods, tensor-parallel meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import logging
 import threading
 import time
 from typing import Any, Optional, Sequence
@@ -44,10 +48,14 @@ from kubeflow_tpu_torch.serving.paged_kv import (
     PagedKV, _lm_head, blocks_for, paged_decode_step, paged_insert_batch,
     paged_prefill_chunk, resolve_decode_kernel,
 )
-from kubeflow_tpu_torch.serving.quant import resolve_quant
+from kubeflow_tpu_torch.serving.quant import (
+    is_weight_quantized, quantize_weights, resolve_quant,
+)
 from kubeflow_tpu_torch.serving.scheduler import (
     QuantConfig, SchedulerConfig, StepScheduler,
 )
+
+logger = logging.getLogger(__name__)
 
 # Request-latency buckets at factor 2**0.25 (~19% relative error), the
 # JAX engine's choice: A/B comparisons discriminate inside one octave.
@@ -55,6 +63,22 @@ _REQ_LAT_BUCKETS = log_buckets(0.001, 64.0, factor=2 ** 0.25)
 
 SPEC_SLICE = ("speculative decoding (paged_verify_step + drafter) is a "
               "later slice of the PyTorch port")
+
+# downgrade reasons already logged this process: counted per engine
+# (kft_model_kernel_downgrades_total) but LOGGED once — a fleet restarting
+# many replicas must not print one identical warning each
+_downgrades_logged: set = set()
+
+
+def _log_quant_downgrade_once(requested: str, reason: str) -> None:
+    """A quant fallback is never a silent dtype change: the message says
+    which mode the engine is NOT serving at."""
+    if reason in _downgrades_logged:
+        return
+    _downgrades_logged.add(reason)
+    logger.warning(
+        "quant mode %s downgraded to unquantized (%s): serving at full "
+        "bytes-per-weight / bytes-per-KV-token", requested, reason)
 
 
 @dataclasses.dataclass
@@ -213,10 +237,27 @@ class LLMEngine:
         llama.check_dense(cfg)
         self.cfg = cfg
         self.kernel = resolve_decode_kernel(kernel)
+        self.kernel_downgrades = 0
+        # quantized serving: resolve the requested config against the
+        # build/model. A mode that can't be honored (no fp8 dtype, MoE
+        # weights) falls back to unquantized, counted on the kernel
+        # downgrade surface as well as its own, logged once per process.
+        # The explicit quant= argument wins over the scheduler's copy.
         if quant is None and scheduler is not None:
             quant = scheduler.quant
-        self.quant = resolve_quant(quant)
-        self.params = _tree_to(params, self.device)
+        self.quant_requested = quant
+        self.quant, quant_downgrades = resolve_quant(quant, cfg=cfg)
+        self.quant_downgrades = len(quant_downgrades)
+        self.kernel_downgrades += self.quant_downgrades
+        for q_requested, q_reason in quant_downgrades:
+            _log_quant_downgrade_once(q_requested, q_reason)
+        params = _tree_to(params, self.device)
+        if (self.quant.weight_dtype == "int8"
+                and not is_weight_quantized(params)):
+            # quantize ONCE at build: decode, chunked prefill and bucket
+            # prefill all read the same int8 tree
+            params = quantize_weights(params, cfg)
+        self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.buckets = sorted(b for b in prefill_buckets if b <= max_seq)
@@ -241,7 +282,8 @@ class LLMEngine:
             kv_num_blocks = max_batch * (max_seq // kv_block_size) + 1
         self.paged = PagedKV(cfg=cfg, max_batch=max_batch, max_seq=max_seq,
                              block_size=kv_block_size,
-                             num_blocks=kv_num_blocks, device=self.device)
+                             num_blocks=kv_num_blocks, device=self.device,
+                             quant_kv=self.quant.kv_dtype)
         self.cache = self.paged.cache
         self._free: list[int] = list(range(max_batch))
         self._active: dict[int, GenRequest] = {}     # slot -> request

@@ -25,6 +25,15 @@ kernel=)`` with the JAX package's switch values:
   on a CUDA pool, its plain PyTorch version on a CPU pool. ``"pallas"``
   stays accepted so configs carry over.
 
+Quantized pools (``quant_kv`` "int8" | "fp8_e4m3") store K/V in that
+dtype with per-block per-kv-head f32 scales ``k_scale``/``v_scale``
+[L, num_blocks, KV] beside them; the presence of those keys is the
+marker every path keys on. Writes quantize (``quant_scatter_rows``,
+``paged_insert_batch``); the paged path hands the scales to the
+fused-dequant kernel, the gather path reads ``dequant_gather_view``.
+fp8 pools are indexed through a ``uint8`` view of the same bytes
+(``_raw``), so no index op ever needs an fp8 kernel.
+
 Block 0 is the pool's scratch block: idle slots (len 0, all-zero table
 row) and pad rows scatter into it, several idle slots into the same row,
 which is harmless only because nothing live ever reads block 0.
@@ -44,15 +53,21 @@ from kubeflow_tpu_torch.ops.attention import _xla_attention, decode_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.rotary import apply_rope
+from kubeflow_tpu_torch.serving.quant import KV_QMAX, kv_store_dtype
 
 
 def init_paged_cache(cfg: llama.LlamaConfig, max_batch: int, max_seq: int,
                      block_size: int, num_blocks: int, dtype=None,
-                     device: DeviceLike = None) -> dict:
+                     device: DeviceLike = None,
+                     quant_kv: str = "none") -> dict:
     """Pool + per-slot lengths on ``device`` (``device.resolve_device``:
     CUDA unless ``"cpu"`` is asked for). ``num_blocks`` bounds total
     resident tokens (num_blocks * block_size), independent of
-    max_batch * max_seq."""
+    max_batch * max_seq.
+
+    ``quant_kv`` != "none" stores the pools in the quantized dtype
+    ("int8" | "fp8_e4m3") and adds per-block per-kv-head f32 scale
+    tables ``k_scale``/``v_scale`` [L, num_blocks, KV] beside them."""
     if max_seq % block_size:
         raise ValueError(f"max_seq={max_seq} not a multiple of "
                          f"block_size={block_size}")
@@ -60,6 +75,19 @@ def init_paged_cache(cfg: llama.LlamaConfig, max_batch: int, max_seq: int,
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
+    if quant_kv and quant_kv != "none":
+        sdtype = kv_store_dtype(quant_kv)
+        sshape = (cfg.n_layers, num_blocks, cfg.n_kv_heads)
+        return {
+            "k": torch.zeros(shape, dtype=sdtype, device=device),
+            "v": torch.zeros(shape, dtype=sdtype, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32,
+                                   device=device),
+            "len": torch.zeros((max_batch,), dtype=torch.int32,
+                               device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -246,12 +274,13 @@ class PagedKV:
     num_blocks: int
     prefix_cache: bool = True
     device: DeviceLike = None        # where the pool lives (resolve_device)
+    quant_kv: str = "none"           # "none" | "int8" | "fp8_e4m3"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.cache = init_paged_cache(
             self.cfg, self.max_batch, self.max_seq, self.block_size,
-            self.num_blocks, device=self.device)
+            self.num_blocks, device=self.device, quant_kv=self.quant_kv)
         self.max_blocks_per_seq = self.max_seq // self.block_size
         self.tables = np.zeros(
             (self.max_batch, self.max_blocks_per_seq), np.int32)
@@ -389,8 +418,83 @@ def _layer_out(lp, x, o, cfg):
 
 def _lm_head(params, x_last, cfg):
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bd,dv->bv", x_last,
-                        llama.lm_head_weight(params, cfg)).float()
+    return llama.head_logits(params, x_last, cfg).float()
+
+
+# ---- quantized-pool value path (int8 / fp8_e4m3 KV) ----
+
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """The tensor itself, or for fp8 a ``uint8`` view of its bytes: index
+    reads and writes go through it, so they need no fp8 kernel."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _upcast(raw: torch.Tensor, store_dtype) -> torch.Tensor:
+    """Bytes read through ``_raw`` -> their f32 values."""
+    if store_dtype == torch.float8_e4m3fn:
+        raw = raw.view(store_dtype)
+    return raw.float()
+
+
+def _kv_store(x, store_dtype):
+    """f32 values -> pool storage, as ``_raw`` bytes: round (half to
+    even) + clip for int8, a cast (round to nearest even) for fp8."""
+    if store_dtype == torch.int8:
+        return torch.round(x).clamp_(-127, 127).to(torch.int8)
+    return _raw(x.to(store_dtype))
+
+
+def _kv_qmax(store_dtype) -> float:
+    return KV_QMAX["int8" if store_dtype == torch.int8 else "fp8_e4m3"]
+
+
+def quant_scatter_rows(pool, scale, blk, off, rows):
+    """Quantize-on-write for the per-step KV scatters (decode, chunked
+    prefill), in place: write ``rows`` into the quantized ``pool`` at
+    (blk, off) under the per-block per-kv-head ``scale``, growing scales
+    monotonically (scatter-max) and requantizing each touched block's
+    resident rows when its scale grows — so earlier rows stay decodable
+    under the one scale the read path (kernel and oracle alike) applies.
+    When the scale does NOT grow the requant ratio is exactly 1.0 and the
+    stored content round-trips unchanged.
+
+    pool [NB, bs, KV, D]; scale [NB, KV] f32; blk/off: integer, any
+    common shape; rows: [..., KV, D]. Duplicate blk entries are benign:
+    the scatter-max folds all their amaxes first, every duplicate then
+    computes the identical grown scale and requantized resident content,
+    and the new rows land at distinct offsets. Rows routed to the
+    scratch block 0 only ever pollute scratch scales, which nothing
+    reads. Returns (pool, scale), the same tensors."""
+    blk = blk.reshape(-1).long()
+    off = off.reshape(-1).long()
+    rows = rows.reshape(blk.shape[0], *rows.shape[-2:]).float()
+    qmax = _kv_qmax(pool.dtype)
+    amax = rows.abs().amax(dim=-1)                       # [N, KV]
+    old = scale[blk]                                     # [N, KV]
+    scale.scatter_reduce_(0, blk[:, None].expand_as(amax), amax / qmax,
+                          "amax", include_self=True)
+    new = scale[blk]
+    safe = new.clamp(min=1e-30)
+    ratio = torch.where(new > 0, old / safe, 0.0)        # <= 1.0 always
+    raw = _raw(pool)
+    resident = _upcast(raw[blk], pool.dtype) * ratio[:, None, :, None]
+    raw[blk] = _kv_store(resident, pool.dtype)
+    q = torch.where(new[:, :, None] > 0, rows / safe[:, :, None], 0.0)
+    raw[blk, off] = _kv_store(q, pool.dtype)
+    return pool, scale
+
+
+def dequant_gather_view(pool, scale, tables, cfg):
+    """Slot-logical [B, T, KV, D] view of a QUANTIZED pool: gather the
+    table's blocks, upcast, multiply each block's per-kv-head scale,
+    cast to the compute dtype (the JAX package's oracle view; the fused
+    kernel does the same in f32 and never rounds K/V to the compute
+    dtype)."""
+    idx = tables.long()
+    b = idx.shape[0]
+    v = (_upcast(_raw(pool)[idx], pool.dtype)
+         * scale[idx][:, :, None, :, None]).to(cfg.dtype)
+    return v.reshape(b, -1, *pool.shape[2:])
 
 
 def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
@@ -403,14 +507,34 @@ def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
     block absorbs those writes); lengths/slots: [B] with slot < 0 marking
     an inert pad row whose length write is DROPPED (redirected past the
     end of the length vector and discarded), never clamped onto a real
-    slot."""
+    slot.
+
+    Quantized pools (``k_scale`` in cache) quantize-on-insert: per-block
+    per-kv-head amax over the incoming rows -> scale, values round/clip
+    into the storage dtype, scales scatter beside the pool. Rows past
+    each request's ``lengths`` are zeroed FIRST so pad garbage can never
+    inflate a final block's scale (pad rows are never attended)."""
     L, _, bs = cache["k"].shape[:3]
     b, nb = blk_ids.shape
     idx = blk_ids.long()
-    cache["k"][:, idx] = k_new.reshape(
-        L, b, nb, bs, *k_new.shape[3:]).to(cache["k"].dtype)
-    cache["v"][:, idx] = v_new.reshape(
-        L, b, nb, bs, *v_new.shape[3:]).to(cache["v"].dtype)
+    if "k_scale" in cache:
+        t = k_new.shape[2]
+        live = (torch.arange(t, device=k_new.device)[None, :]
+                < lengths[:, None])[None, :, :, None, None]
+        for name in ("k", "v"):
+            pool, new = cache[name], (k_new if name == "k" else v_new)
+            blocks = torch.where(live, new, 0).float().reshape(
+                L, b, nb, bs, *new.shape[3:])
+            sc = blocks.abs().amax(dim=(3, 5)) / _kv_qmax(pool.dtype)
+            safe = sc.clamp(min=1e-30)[:, :, :, None, :, None]
+            _raw(pool)[:, idx] = _kv_store(
+                torch.where(safe > 1e-30, blocks / safe, 0.0), pool.dtype)
+            cache[name + "_scale"][:, idx] = sc
+    else:
+        cache["k"][:, idx] = k_new.reshape(
+            L, b, nb, bs, *k_new.shape[3:]).to(cache["k"].dtype)
+        cache["v"][:, idx] = v_new.reshape(
+            L, b, nb, bs, *v_new.shape[3:]).to(cache["v"].dtype)
     n = cache["len"].shape[0]
     dest = torch.where(slots >= 0, slots, n).long()
     ext = torch.cat([cache["len"], cache["len"].new_zeros(1)])
@@ -436,8 +560,12 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
     [B, max_blocks_per_seq] int32 -> (logits [B, V] float32, cache). Each
     slot's new KV row is scattered in place at its current length, then
     attention runs over ``len + 1`` rows; ``cache["len"]`` advances by
-    one. Idle slots (len 0, zero table row) write scratch block 0."""
+    one. Idle slots (len 0, zero table row) write scratch block 0.
+    A quantized pool quantizes the new rows on write and dequantizes on
+    read: inside the fused kernel ("paged") or through the dequant view
+    ("gather")."""
     kernel = resolve_decode_kernel(kernel)
+    quantized = "k_scale" in cache
     b = token.shape[0]
     bs = cache["k"].shape[2]
     n_tab = tables.shape[1]
@@ -456,11 +584,22 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
         lp = llama.layer_params(params, i)
         k_pool, v_pool = cache["k"][i], cache["v"][i]    # [NB, bs, KV, D]
         q, k, v = _layer_qkv(lp, x, positions, cfg, inv_freq)
-        k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
-        v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
+        k_sc = v_sc = None
+        if quantized:
+            k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
+            quant_scatter_rows(k_pool, k_sc, blk, off, k[:, 0])
+            quant_scatter_rows(v_pool, v_sc, blk, off, v[:, 0])
+        else:
+            k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
+            v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
         if kernel == "paged":
             o = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                                       tables, kv_len)[:, None]
+                                       tables, kv_len, k_scale=k_sc,
+                                       v_scale=v_sc)[:, None]
+        elif quantized:
+            k_view = dequant_gather_view(k_pool, k_sc, tables, cfg)
+            v_view = dequant_gather_view(v_pool, v_sc, tables, cfg)
+            o = decode_attention(q, k_view, v_view, kv_len)
         else:
             # block j of slot b holds logical positions [j*bs, (j+1)*bs):
             # table order IS sequence order
@@ -486,7 +625,8 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
     never be rewritten while other slots read them). Returns (x_last
     [1, D]: the PRE-final-norm hidden state at the chunk's last true row,
     and the cache). ``cache["len"]`` for the slot is NOT advanced here;
-    the engine sets it once after the last chunk."""
+    the engine sets it once after the last chunk. A quantized pool
+    quantizes on write and attends over the dequant view."""
     _, c = tokens.shape
     bs = cache["k"].shape[2]
     device = tokens.device
@@ -499,14 +639,22 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
     off = pos % bs
     positions = pos[None, :]
     x = llama.embed_tokens(params, tokens, cfg)
+    quantized = "k_scale" in cache
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         k_pool, v_pool = cache["k"][i], cache["v"][i]
         q, k, v = _layer_qkv(lp, x, positions, cfg, inv_freq)
-        k_pool[blk, off] = k[0].to(k_pool.dtype)
-        v_pool[blk, off] = v[0].to(v_pool.dtype)
-        k_view = k_pool[row].reshape(1, -1, *k_pool.shape[2:])
-        v_view = v_pool[row].reshape(1, -1, *v_pool.shape[2:])
+        if quantized:
+            k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
+            quant_scatter_rows(k_pool, k_sc, blk, off, k[0])
+            quant_scatter_rows(v_pool, v_sc, blk, off, v[0])
+            k_view = dequant_gather_view(k_pool, k_sc, row[None], cfg)
+            v_view = dequant_gather_view(v_pool, v_sc, row[None], cfg)
+        else:
+            k_pool[blk, off] = k[0].to(k_pool.dtype)
+            v_pool[blk, off] = v[0].to(v_pool.dtype)
+            k_view = k_pool[row].reshape(1, -1, *k_pool.shape[2:])
+            v_view = v_pool[row].reshape(1, -1, *v_pool.shape[2:])
         # row i (absolute position offset+i) attends kv rows <= offset+i
         o = _xla_attention(q, k_view, v_view, causal=True, q_offset=offset)
         x = _layer_out(lp, x, o, cfg)

@@ -16,9 +16,11 @@ initializer step and exits. The env contract is the JAX runtime's:
                       fails when no GPU is visible
   KFT_PREFILL_QUOTA / KFT_INTERLEAVE_PREFILL / KFT_ADAPTIVE_DECODE_CHUNK /
   KFT_RADIX_CACHE    step-scheduler knobs (as in the JAX runtime)
-  KFT_SPEC_DECODE, KFT_QUANT_KV, KFT_QUANT_WEIGHTS  parsed as in the JAX
-                     runtime; enabling any of them raises (later slices)
-  KFT_QUANT_EXACT_PARITY  accepted (it asks for the unquantized program)
+  KFT_QUANT_KV       "none" | "int8" | "fp8_e4m3": the paged-KV pool dtype
+  KFT_QUANT_WEIGHTS  "none" | "int8": weights quantized once at load
+  KFT_QUANT_EXACT_PARITY  forces both off (the unquantized program)
+  KFT_SPEC_DECODE    parsed as in the JAX runtime; enabling it raises
+                     (speculative decoding is a later slice)
   KFT_COMPILE_CACHE  accepted and unused: the port compiles no programs
                      (its kernels build once per checkout, under _build/)
 

@@ -42,11 +42,13 @@ class QuantConfig:
     KFT_QUANT_KV / KFT_QUANT_WEIGHTS / KFT_QUANT_EXACT_PARITY).
 
     kv_dtype: paged-KV pool storage — "none" | "int8" | "fp8_e4m3".
-        Only "none" is served by this package so far: quantized pools
-        (and their fused-dequant decode kernel) are a later slice, and
-        serving/quant.resolve_quant raises for them.
-    weight_dtype: model weights — "none" | "int8". int8 weights are a
-        later slice too (resolve_quant raises).
+        int8/fp8 pools carry per-block per-kv-head scales beside the
+        pool; dequant is fused into the paged decode kernel's inner loop
+        (and into the gather oracle's view, identically).
+    weight_dtype: model weights — "none" | "int8". int8 quantizes ONCE
+        on the engine's build path with per-output-channel scales; every
+        product (decode, chunked prefill, bucket prefill) reads the int8
+        tensor and scales the output.
     exact_parity: escape hatch — forces BOTH paths off regardless of
         the dtypes above. The resulting programs are bitwise-identical
         to an engine that never heard of quantization (no downgrade is

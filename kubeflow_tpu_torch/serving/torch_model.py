@@ -200,9 +200,10 @@ class LLMModel(Model):
 
     def stats(self) -> dict:
         """Engine gauges for the /metrics scrape: generated token count,
-        decode steps, KV pool occupancy, prefix hits, the step scheduler's
-        counter set (nested under "sched") and the request-latency
-        histograms."""
+        decode steps, KV pool occupancy, prefix hits, downgrades, the
+        active and requested quant config (nested under "quant"), the step
+        scheduler's counter set (nested under "sched") and the
+        request-latency histograms."""
         eng = self.engine
         if eng is None:
             return {}
@@ -215,6 +216,19 @@ class LLMModel(Model):
             "kv_free_blocks": eng.paged.allocator.free_blocks,
             "kv_reclaimable_blocks": eng.paged.reclaimable_blocks,
             "prefix_cache_hits_total": eng.paged.prefix_hits,
+            "kernel_downgrades_total": eng.kernel_downgrades,
+            # the ACTIVE (post-resolution) quant config and what was
+            # requested: a downgrade is visible, not inferred from logs
+            "quant": {
+                "kv_dtype": eng.quant.kv_dtype,
+                "weight_dtype": eng.quant.weight_dtype,
+                "exact_parity": eng.quant.exact_parity,
+                "active": eng.quant.tag(),
+                "requested": (eng.quant_requested.tag()
+                              if eng.quant_requested is not None
+                              else "none"),
+            },
+            "quant_downgrades_total": eng.quant_downgrades,
             "sched": eng.scheduler_stats(),
             "request_histograms": {
                 k: h.snapshot() for k, h in eng.request_hists.items()},

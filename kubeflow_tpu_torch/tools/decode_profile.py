@@ -3,6 +3,13 @@ widths (random bf16 weights from a seeded CUDA generator), eight live
 slots at ``--context`` tokens, one ``paged_decode_step`` at a time.
 
     python -m kubeflow_tpu_torch.tools.decode_profile [--steps N] [--context T]
+        [--quant kv:int8,w:int8]
+
+``--quant`` profiles the quantized decode step: ``kv:`` the pool dtype
+(none | int8 | fp8_e4m3), ``w:`` the weight dtype (none | int8); either
+part may be left out. The pools then hold random quantized content with
+random per-block scales, and the paged path runs the fused-dequant
+kernel.
 
 Prints, for the paged kernel path and for the gather path: host-clock ms
 per step (ending in a synchronize), device busy ms per step (the sum of
@@ -27,6 +34,8 @@ from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.serving.paged_kv import (
     PagedKV, paged_decode_step,
 )
+from kubeflow_tpu_torch.serving.quant import KV_QMAX, quantize_weights
+from kubeflow_tpu_torch.serving.scheduler import QuantConfig
 
 BATCH = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
@@ -51,14 +60,35 @@ def _steps(params, cfg, cache, tables, kernel, context, n):
         paged_decode_step(params, tok, cfg, cache, tables, kernel=kernel)
 
 
+def parse_quant(spec: str) -> QuantConfig:
+    """``kv:int8,w:int8`` (either part optional, "" for none) ->
+    QuantConfig, validated."""
+    kw = {}
+    for part in filter(None, (p.strip() for p in spec.split(","))):
+        key, _, val = part.partition(":")
+        if key not in ("kv", "w"):
+            raise ValueError(f"--quant part {part!r}: want kv:<dtype> or "
+                             "w:<dtype>")
+        kw["kv_dtype" if key == "kv" else "weight_dtype"] = val
+    quant = QuantConfig(**kw)
+    quant.validate()
+    return quant
+
+
 def paged_kernel_bound_ms(cfg, batch: int, context: int, max_blocks: int,
-                          itemsize: int = 2) -> float:
+                          itemsize: int = 2, block_size: int = 64,
+                          quantized: bool = False) -> float:
     """Byte bound of one paged-kernel launch in the profiled step: each
-    slot attends over context + 1 rows (this step's row included)."""
+    slot attends over context + 1 rows (this step's row included), K/V
+    at ``itemsize`` bytes per element (1 for a quantized pool, which adds
+    two f32 scale words per live block and KV head); q and out in bf16."""
     rows = batch * (context + 1)
     kv = 2 * rows * cfg.n_kv_heads * cfg.head_dim * itemsize
-    q_out = 2 * batch * cfg.n_heads * cfg.head_dim * itemsize
+    q_out = 2 * batch * cfg.n_heads * cfg.head_dim * 2
     meta = batch * max_blocks * 4 + batch * 4
+    if quantized:
+        live = batch * -(-(context + 1) // block_size)
+        meta += live * cfg.n_kv_heads * 2 * 4
     return (kv + q_out + meta) / HBM_BYTES_PER_S * 1e3
 
 
@@ -81,8 +111,8 @@ def measure(params, cfg, cache, tables, kernel: str, context: int,
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
     by_name: dict = {}
     for e in kernels:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + e.time_range.elapsed_us())
+        key = e.name[:80]       # template names run long; sum by prefix
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     paged = [e for e in kernels if PAGED_KERNEL in e.name]
     return {
@@ -95,7 +125,7 @@ def measure(params, cfg, cache, tables, kernel: str, context: int,
             sum(e.time_range.elapsed_us() for e in paged) / 1e3 / len(paged)
             if paged else None),
         "top_kernels_ms_per_step": {
-            name[:80]: t / 1e3 / steps for name, t in top},
+            name: t / 1e3 / steps for name, t in top},
     }
 
 
@@ -105,26 +135,45 @@ def main(argv=None) -> int:
                     help="decode steps timed and profiled per path")
     ap.add_argument("--context", type=int, default=300,
                     help="tokens already resident in every slot")
+    ap.add_argument("--quant", type=parse_quant, default=QuantConfig(),
+                    help="quantized step, e.g. kv:int8,w:int8 or "
+                         "kv:fp8_e4m3,w:int8 (default: unquantized)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA GPU")
     cfg = llama.llama3_8b()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    if args.quant.weight_dtype == "int8":
+        params = quantize_weights(params, cfg)
     pk = PagedKV(cfg=cfg, max_batch=BATCH, max_seq=1024, block_size=64,
-                 num_blocks=BATCH * 16 + 1, device="cuda")
-    pk.cache["k"].normal_(generator=gen)
-    pk.cache["v"].normal_(generator=gen)
+                 num_blocks=BATCH * 16 + 1, device="cuda",
+                 quant_kv=args.quant.kv_dtype)
+    quantized = "k_scale" in pk.cache
+    for name in ("k", "v"):
+        vals = torch.randn(pk.cache[name].shape, generator=gen,
+                           device="cuda")
+        if quantized:
+            # random stored values over the dtype's range, scales ~1/qmax
+            qmax = KV_QMAX[args.quant.kv_dtype]
+            vals = (vals * qmax / 4).clamp_(-qmax, qmax)
+            if args.quant.kv_dtype == "int8":
+                vals = vals.round_()
+            pk.cache[name + "_scale"].uniform_(0.5 / qmax, 2.0 / qmax,
+                                               generator=gen)
+        pk.cache[name].copy_(vals)
     tables = live_tables(pk, args.context)
-    bound_ms = paged_kernel_bound_ms(cfg, BATCH, args.context,
-                                     tables.shape[1])
+    bound_ms = paged_kernel_bound_ms(
+        cfg, BATCH, args.context, tables.shape[1],
+        itemsize=pk.cache["k"].element_size(), block_size=pk.block_size,
+        quantized=quantized)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     out = {"card": card, "batch": BATCH, "context": args.context,
-           "steps": args.steps, "paged_kernel_bound_ms": bound_ms,
-           "paths": []}
+           "steps": args.steps, "quant": args.quant.tag(),
+           "paged_kernel_bound_ms": bound_ms, "paths": []}
     for kernel in ("paged", "gather", "paged"):
         r = measure(params, cfg, pk.cache, tables, kernel, args.context,
                     args.steps)

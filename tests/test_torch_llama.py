@@ -99,15 +99,37 @@ def test_prefill_ragged_lengths_matches_jax(tiny):
 
 
 def test_moe_and_int8_raise_naming_the_slice(tiny):
+    """MoE raises, naming its slice. int8 weight trees, which raised until
+    the quantized-serving slice, are served now: prefill over the JAX
+    package's int8 tree (tied and untied heads) matches its quantized
+    prefill, logits and cache."""
+    from kubeflow_tpu.serving.quant import quantize_weights
+
     jcfg, jp, tcfg, tp = tiny
     moe = dataclasses.replace(tcfg, n_experts=4)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.forward(tp, torch.zeros((1, 4), dtype=torch.long), moe)
     with pytest.raises(NotImplementedError, match="MoE"):
         tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
-    q8 = dict(tp, layers={**tp["layers"], "wq_q": tp["layers"]["wq"]})
-    with pytest.raises(NotImplementedError, match="int8"):
-        tl.forward(q8, torch.zeros((1, 4), dtype=torch.long), tcfg)
+    untied = dataclasses.replace(jcfg, tie_embeddings=False)
+    for jc, (jw, tc, _) in ((jcfg, (jp, tcfg, tp)),
+                            (untied, _pair(untied, seed=2))):
+        jq = quantize_weights(jw, jc)
+        tq = interop.params_from_jax(jax.device_get(jq), device="cpu")
+        assert tq["embed_q"].dtype == torch.int8
+        toks = _tokens(3, 2, 8, jc.vocab_size)
+        lengths = np.array([8, 3], np.int32)
+        jlog, jcache = jl.prefill(jq, jnp.asarray(toks), jc,
+                                  jl.init_cache(jc, 2, 8),
+                                  lengths=jnp.asarray(lengths))
+        tlog, tcache = tl.prefill(tq, torch.tensor(toks), tc,
+                                  tl.init_cache(tc, 2, 8, device="cpu"),
+                                  lengths=torch.tensor(lengths))
+        np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog),
+                                   **LOGIT_TOL)
+        for key in ("k", "v"):
+            np.testing.assert_allclose(tcache[key].numpy(),
+                                       np.asarray(jcache[key]), **LOGIT_TOL)
 
 
 def test_init_params_layout_and_generator():

@@ -316,6 +316,9 @@ def test_pipelined_decode_matches_synchronous_and_jax(tiny):
 
 
 def test_engine_rejects_later_slices(tiny):
+    """Speculative decoding raises (a later slice); the exact-parity hatch
+    serves unquantized. Quantized serving is served now: its cases are in
+    tests/test_torch_quant.py."""
     from kubeflow_tpu_torch.serving.scheduler import (
         QuantConfig, SchedulerConfig,
     )
@@ -324,11 +327,6 @@ def test_engine_rejects_later_slices(tiny):
     with pytest.raises(NotImplementedError, match="speculative"):
         LLMEngine(tp, tcfg, device="cpu", max_seq=64, prefill_buckets=(8,),
                   scheduler=SchedulerConfig(spec_decode=True))
-    for q in (QuantConfig(kv_dtype="int8"),
-              QuantConfig(weight_dtype="int8")):
-        with pytest.raises(NotImplementedError, match="quantized"):
-            LLMEngine(tp, tcfg, device="cpu", max_seq=64,
-                      prefill_buckets=(8,), quant=q)
     eng = LLMEngine(tp, tcfg, device="cpu", max_seq=64, prefill_buckets=(8,),
                     quant=QuantConfig(kv_dtype="int8", exact_parity=True))
     assert eng.quant.tag() == "quant=off"
