@@ -25,6 +25,15 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 3t. quant timing — as phase 3 for the fused-dequant kernel, int8 and
              fp8, beside its bound (one byte per K/V element plus the
              scale words of the live blocks).
+3s. sharded kernel — ``paged_decode_attention_sharded`` (the JAX
+             package's shard_map of the kernel over KV heads) at the
+             serving shape split over tensor=4: each rank's contiguous
+             slice through the kernels, the outputs concatenated, BITWISE
+             equal to the unsharded launch in bf16 and f32, unquantized
+             and int8/fp8 (each head's arithmetic is the same, so any
+             difference is a slicing fault). CUDA-event medians of one
+             rank's launch (KV_H 2, H 8) and its plain version, beside
+             its bound and SDPA over the rank's dense view.
 4. serving — llama3_8b at its published widths, all 32 layers, random
              bf16 weights from a seeded CUDA generator, behind the port's
              LLMModel + ModelServer on 127.0.0.1:0: four concurrent V2
@@ -41,6 +50,27 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              steps with the unquantized kernel's count at 0, prefix hits,
              chunked prefill, the active quant tag, no downgrade. Prints
              pool and weight bytes and the decode step beside phase 4's.
+4tp. tensor-parallel serving — the same llama3_8b weights on 4 ranks
+             (each rank draws only its shard from the same seed):
+             ``LLMModel(mesh=TensorMesh(4, ...))`` behind ModelServer,
+             one card per rank over NCCL where the machine has 4, else
+             all ranks on card 0 over gloo (no tensor-parallel speedup
+             then; the line before the phase says which). The four
+             requests of phase 4, 32 greedy tokens each: token counts,
+             the paged kernel's launches ON EVERY RANK == n_layers x
+             decode device steps (local KV_H 2), prefix hits, chunked
+             prefill, every rank's sampling bodies and token digest
+             equal (every token sampled alike on every rank), one
+             stream against the unsharded full forward within the bf16
+             tie tolerance, and the teacher-forced logits of two seeded
+             streams against the one-card engine's under an rms limit
+             set against planted faults (tools/tp_quality.py). Then the
+             same with int8 KV + int8 weights (the fused-dequant kernel
+             on every rank, row 1 at 0; compared with the one-card int8
+             engine). Prints the decode step as served (batch 8, one
+             dispatch per decode_chunk steps) beside a one-card model's
+             timed the same way, and the dispatch round trip alone.
+             Everything is freed before phase 5.
 4g. quant quality — the JAX package's gate (bench.py
              _quant_teacher_forced) at full width: the bf16 engine
              free-runs greedy through paged_decode_step (kernel path) on
@@ -71,6 +101,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              and one micro batch's loss and gradients through the kernels
              against attn_impl="xla" (plain einsum attention) from the
              same parameters.
+
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4g, 4tp, 5, 6, 7.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"), the nvidia-smi line,
@@ -163,6 +195,17 @@ QUALITY_DRIFT_MAX = 1.0
 QUALITY_RMS_MAX = {"int8": 0.080, "fp8_e4m3": 0.114}
 GATE_TINY = dict(n_prompts=4, prompt_len=8, gen=24, kernel="gather")
 GATE_FULL = dict(n_prompts=2, prompt_len=16, gen=32, kernel="auto")
+# tensor-parallel ranks of phases 3s and 4tp (llama3_8b: 8 KV heads, 2 a
+# rank). Phase 4tp's rms logit error limit against the one-card engine,
+# per weight type, read with tools/tp_quality.py (the same check) on one
+# card, 4 ranks over gloo: sound 0.02212 (bf16) and 0.02784 (int8 KV +
+# int8 W); planted faults: layer 1's two all-reduces skipped 1.0636,
+# each rank's queries paired with its other KV head 1.4181 (bf16), the
+# row-parallel int8 scales from each rank's own amax 0.04793 (int8).
+# Each limit is the geometric mean of the sound reading and the nearest
+# fault: the same ratio of headroom on both sides (see PERF.md)
+TP = 4
+TP_RMS_MAX = {"bf16": 0.153, "int8": 0.0365}
 
 
 def log(msg: str) -> None:
@@ -441,6 +484,87 @@ def quant_timing(torch, pa) -> dict:
     return out
 
 
+def sharded_kernel(torch, pa) -> dict:
+    """Phase 3s: row 3 (the sharded call) against the unsharded launch,
+    bitwise, then one rank's launch timed."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.parallel import TensorMesh
+
+    s = SHAPE
+    mesh = TensorMesh(TP, ["cuda:0"] * TP)    # a description: no processes
+    cases = [(str(dt).split(".")[-1], "none", paged_case(torch, dt), {})
+             for dt in (torch.bfloat16, torch.float32)]
+    for kv in KV_QMAX:
+        for dt in (torch.bfloat16, torch.float32):
+            q, kq, vq, tables, kv_len, ks, vs = quant_case(torch, dt, kv)
+            cases.append((str(dt).split(".")[-1], kv,
+                          (q, kq, vq, tables, kv_len),
+                          {"k_scale": ks, "v_scale": vs}))
+    for name, kv, case, sc in cases:
+        whole = pa.paged_decode_attention(*case, **sc)
+        parts = pa.paged_decode_attention_sharded(*case, mesh=mesh, **sc)
+        torch.cuda.synchronize()
+        same = torch.equal(whole, parts)
+        log(f"parity paged_decode_attention_sharded tensor={TP}, {kv} pool, "
+            f"q {name}: bitwise equal to the unsharded launch: {same} "
+            f"(max abs diff {(whole.float() - parts.float()).abs().max().item()!r})")
+        if not same:
+            raise SystemExit("the sharded paged attention differs from the "
+                             "unsharded launch")
+    # one rank's launch: rank 0's contiguous slice, as a rank holds it
+    qh, kh = s["H"] // TP, s["KVH"] // TP
+    q, kp, vp, tables, kv_len = paged_case(torch, torch.bfloat16, seed=1)
+    q0 = q[:, :qh].contiguous()
+    k0, v0 = kp[:, :, :kh].contiguous(), vp[:, :, :kh].contiguous()
+    out = pa.paged_decode_attention_shard(q0, k0, v0, tables, kv_len,
+                                          mesh=mesh, n_kv_heads=s["KVH"])
+    ref = pa.paged_decode_attention_reference(q0, k0, v0, tables, kv_len)
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    ulps = (diff / bf16_ulp(torch, ref)).max().item()
+    if ulps > BF16_ULPS or not torch.isfinite(out).all():
+        raise SystemExit("one rank's paged attention disagrees with its "
+                         "plain version")
+    kernel_ms = time_ms(torch, lambda: pa.paged_decode_attention_shard(
+        q0, k0, v0, tables, kv_len, mesh=mesh, n_kv_heads=s["KVH"]))
+    plain_ms = time_ms(torch, lambda: pa.paged_decode_attention_reference(
+        q0, k0, v0, tables, kv_len))
+    item = q0.element_size()
+    kv_bytes = 2 * sum(KV_LEN) * kh * s["D"] * item
+    io_bytes = (2 * q0.numel() * item + tables.numel() * 4
+                + kv_len.numel() * 4 + kv_bytes)
+    flops = 4 * qh * s["D"] * sum(KV_LEN)
+    t_bytes, t_ops = io_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    idx = tables.long()
+    g = qh // kh
+
+    def dense(pool):
+        return pool[idx].reshape(s["B"], -1, kh, s["D"]).transpose(1, 2) \
+            .repeat_interleave(g, dim=1).contiguous()
+
+    kd, vd = dense(k0), dense(v0)
+    mask = (torch.arange(kd.shape[2], device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q0[:, :, None, :], kd, vd, attn_mask=mask))
+    log(f"timing paged_decode_attention_sharded, one rank of tensor={TP} "
+        f"(B=8 H={qh} KV_H={kh} D=128 bs=64, kv_len {KV_LEN}, bf16): kernel "
+        f"{kernel_ms!r} ms, plain {plain_ms!r} ms, bound {bound_ms!r} ms "
+        f"({bound_by}: {io_bytes} B, {flops} FLOP), roofline share "
+        f"{bound_ms / kernel_ms!r}; max_abs_err {err!r} ({ulps!r} bf16 ulps "
+        f"of the plain value)")
+    log(f"reference only, not a port path: SDPA over the rank's "
+        f"pre-gathered dense view {sdpa_ms!r} ms")
+    del kd, vd
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "sdpa_dense_view_ms": sdpa_ms}
+
+
 def post_json(url: str, payload: dict, timeout: float = 600.0) -> dict:
     from urllib import request as urlrequest
 
@@ -551,9 +675,13 @@ def serve_four(torch, pa, model, cfg) -> dict:
         except Exception as e:           # surfaced below, never swallowed
             errors.append((tag, repr(e)))
 
+    eng = model.engine
     try:
-        pa.paged_decode_attention.launches = 0      # the main path's counts
-        pa.paged_decode_attention_quant.launches = 0
+        if eng.mesh is not None:                    # the main path's counts
+            eng.tp_status(reset_launches=True)      # on every rank
+        else:
+            pa.paged_decode_attention.launches = 0
+            pa.paged_decode_attention_quant.launches = 0
         t_start = time.perf_counter()
         threads = [threading.Thread(target=run, args=kv)
                    for kv in prompts.items()]
@@ -562,10 +690,13 @@ def serve_four(torch, pa, model, cfg) -> dict:
         for t in threads:
             t.join()
         wall = time.perf_counter() - t_start
-        launches = {
-            "paged_decode_attention": pa.paged_decode_attention.launches,
-            "paged_decode_attention_quant":
-                pa.paged_decode_attention_quant.launches}
+        if eng.mesh is not None:
+            launches = [st["launches"] for st in eng.tp_status()]
+        else:
+            launches = {
+                "paged_decode_attention": pa.paged_decode_attention.launches,
+                "paged_decode_attention_quant":
+                    pa.paged_decode_attention_quant.launches}
         stats = model.stats()
     finally:
         srv.stop()
@@ -756,6 +887,195 @@ def quant_quality(torch, cfg, params, qparams) -> dict:
                              "limits at full width")
     log(f"quant quality: {time.perf_counter() - t0:.1f} s")
     return {"gate": tiny, "full_width": full}
+
+def served_step_ms(torch, model, chunks: int = 4) -> float:
+    """Host clock per decode step of a loaded LLMModel (tensor-parallel
+    or one card) as it serves: eight greedy requests with STEP_CONTEXT-
+    token prompts go in through ``generate_stream`` and the model's own
+    stepping loop runs them (admission, then pipelined decode dispatches
+    of ``decode_chunk`` steps, one dispatch per chunk). Once every slot
+    is live, the clock runs from one commit of the first stream's tokens
+    to the commit ``chunks`` dispatches later, over the tokens between;
+    the streams are closed (aborted) after: each is started first, since
+    closing a stream that never ran aborts nothing."""
+    eng = model.engine
+    rng = torch.Generator().manual_seed(5)
+    streams = [model.generate_stream(
+        torch.randint(1, eng.cfg.vocab_size, (STEP_CONTEXT,),
+                      generator=rng).tolist(), {"max_tokens": 200})
+        for _ in range(eng.max_batch)]
+    t0, n0 = None, 0
+    try:
+        first = [next(it) for it in streams]
+        n = len(first[0].get("tokens", ()))
+        for ev in streams[0]:
+            n += len(ev.get("tokens", ()))
+            full = (len(eng._active) == eng.max_batch and not eng._waiting
+                    and not eng._chunked)
+            if t0 is None and full:
+                t0, n0 = time.perf_counter(), n
+            elif t0 is not None and n - n0 >= chunks * eng.decode_chunk:
+                ms = (time.perf_counter() - t0) * 1e3 / (n - n0)
+                break
+        else:
+            raise SystemExit("the timed requests ended before the clock")
+    finally:
+        for it in streams:
+            it.close()
+    while eng.has_work():
+        time.sleep(0.01)
+    return ms
+
+
+def dispatch_round_trip_ms(eng, n: int = 50) -> float:
+    """Median host time of an empty command to every rank and back
+    (``serving.tp.Workers.ping``): what each device body's dispatch
+    adds under a mesh."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        eng.tp.ping()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def check_ranks_agree(eng, sampled=None) -> None:
+    """Every rank ran the same sampling bodies (``sampled`` of them,
+    when given) and sampled the same tokens: equal running digests
+    (``serving.tp.status``)."""
+    ranks = eng.tp_status()
+    seen = {(r["samples"], r["token_digest"]) for r in ranks}
+    log(f"tensor={TP}: per-rank (sampling bodies, token digest) {seen}"
+        + (f", sampling dispatches {sampled}" if sampled is not None else ""))
+    if len(seen) != 1 or (sampled is not None
+                          and ranks[0]["samples"] != sampled):
+        raise SystemExit("tensor-parallel ranks sampled different tokens")
+
+
+def tp_serve_one(torch, pa, cfg, params, mesh, tag, quant, streams,
+                 ref, one_ms) -> dict:
+    """Phase 4tp for one weight type: serve the four requests on the
+    mesh and check them (module docstring)."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.tools.tp_quality import TP_KW, logit_errors
+
+    t0 = time.perf_counter()
+    model = LLMModel(f"llama3-8b-tp{TP}-{tag}",
+                     llama.SeededParams(0, torch.bfloat16), cfg,
+                     quant=quant, mesh=mesh, **TP_KW)
+    model.load()
+    eng = model.engine
+    ranks = eng.tp_status()
+    log(f"tensor={TP} {tag} engine up in {time.perf_counter() - t0:.1f} s "
+        f"(spawn, rendezvous, each rank drawing its shard): kernel="
+        f"{eng.kernel}, ranks (rank, device, local KV heads) "
+        f"{[(r['rank'], r['device'], r['kv_heads']) for r in ranks]}, "
+        f"rank 0's pool {pool_bytes(eng.cache)} B, weights "
+        f"{tree_bytes(eng.params)} B")
+    if any(r["kv_heads"] != cfg.n_kv_heads // TP for r in ranks):
+        raise SystemExit("a rank does not hold n_kv_heads / tensor heads")
+    run = serve_four(torch, pa, model, cfg)
+    stats, sched = run["stats"], run["stats"]["sched"]
+    want = cfg.n_layers * run["device_steps"]
+    kern, off = (("paged_decode_attention_quant", "paged_decode_attention")
+                 if quant is not None else
+                 ("paged_decode_attention", "paged_decode_attention_quant"))
+    log(f"tensor={TP} {tag}: launches per rank {run['launches']} (want "
+        f"{kern} == n_layers x device steps = {want}, {off} == 0 on every "
+        f"rank); mesh {stats['mesh']}")
+    if want == 0 or any(r[kern] != want or r[off] != 0
+                        for r in run["launches"]):
+        raise SystemExit(f"tensor-parallel decode ({tag}) did not run "
+                         f"through {kern} on every rank")
+    sampled = (sched["decode_dispatches_total"]
+               + stats["prefill_dispatches_total"]
+               + sched["chunked_admitted_total"])
+    check_ranks_agree(eng, sampled)
+    if quant is None:
+        # one stream against the unsharded full forward
+        prompt, toks = run["prompts"]["mid_300"], run["results"]["mid_300"]
+        with torch.no_grad():
+            seq = torch.tensor([prompt + toks], device="cuda")
+            rows = llama.forward(params, seq, cfg)[0][
+                len(prompt) - 1:len(prompt) - 1 + len(toks)]
+        margin = (rows.max(-1).values
+                  - rows[torch.arange(len(toks)), torch.tensor(toks)])
+        worst = margin.max().item()
+        log(f"tensor={TP} teacher-forced check mid_300 against the unsharded "
+            f"forward: {int((margin == 0).sum())}/{len(toks)} exact argmax, "
+            f"worst margin {worst!r} (tolerance {TIE_TOL})")
+        if worst > TIE_TOL:
+            raise SystemExit("the tensor-parallel stream disagrees with the "
+                             "unsharded forward")
+        del rows, margin
+    err = logit_errors(ref, eng.teacher_forced_logits(streams).cpu())
+    log(f"tensor={TP} {tag} vs one card, teacher-forced ({len(streams)} "
+        f"streams, {err['positions']} positions): greedy-token agreement "
+        f"{err['greedy_token_agreement']!r}, max logit drift "
+        f"{err['max_logit_drift']!r}, rms logit error "
+        f"{err['rms_logit_error']!r} (limit {TP_RMS_MAX[tag]})")
+    if err["rms_logit_error"] > TP_RMS_MAX[tag]:
+        raise SystemExit(f"tensor-parallel logits ({tag}) err past the limit")
+    step_ms = served_step_ms(torch, model)
+    rt_ms = dispatch_round_trip_ms(eng)
+    check_ranks_agree(eng)
+    log(f"tensor={TP} {tag} decode step as served (batch 8, "
+        f"{cfg.n_layers} layers, ~{STEP_CONTEXT}-token contexts, one "
+        f"dispatch per {eng.decode_chunk} steps, {mesh.backend}"
+        f"{', all ranks on one card' if mesh.shared else ''}): "
+        f"{step_ms!r} ms against one card's {one_ms!r} ms (same method); "
+        f"dispatch round trip alone {rt_ms!r} ms; "
+        f"{run['tok_s']!r} generated tok/s over HTTP")
+    model.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_per_rank": [r[kern] for r in run["launches"]],
+            "tok_s": run["tok_s"], "decode_ms_per_step": step_ms,
+            "one_card_ms_per_step": one_ms, "round_trip_ms": rt_ms,
+            "errors": err}
+
+
+def tp_serving(torch, pa, cfg, params) -> dict:
+    """Phase 4tp: the one-card references (teacher-forced logits, and the
+    decode step at phase 4's geometry), then the bf16 and int8 runs on
+    the mesh."""
+    from kubeflow_tpu_torch.parallel import TensorMesh
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.serving.scheduler import QuantConfig
+    from kubeflow_tpu_torch.tools.tp_quality import (
+        REF_KW, TP_KW, reference_streams, tp_devices,
+    )
+
+    mesh = TensorMesh(TP, tp_devices(TP))
+    log(f"phase 4tp: tensor={TP} over {[str(d) for d in mesh.devices]}, "
+        f"device collectives over {mesh.backend}: "
+        + ("all ranks share one card (the times are no tensor-parallel "
+           "speedup)" if mesh.shared else "one card per rank"))
+    int8 = QuantConfig(kv_dtype="int8", weight_dtype="int8")
+    kinds = (("bf16", None), ("int8", int8))
+    t0 = time.perf_counter()
+    streams, refs, one_ms = None, {}, {}
+    for tag, quant in kinds:
+        one = LLMEngine(params, cfg, device="cuda", quant=quant, **REF_KW)
+        if streams is None:
+            streams = reference_streams(one, cfg.vocab_size)
+        refs[tag] = one.teacher_forced_logits(streams).cpu()
+        del one
+        one = LLMModel(f"llama3-8b-one-{tag}", params, cfg, device="cuda",
+                       quant=quant, **TP_KW)
+        one.load()
+        one_ms[tag] = served_step_ms(torch, one)
+        one.unload()
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"one-card references (bf16, int8): {time.perf_counter() - t0:.1f} "
+        f"s; decode step as served at batch 8, one card: {one_ms}")
+    return {tag: tp_serve_one(torch, pa, cfg, params, mesh, tag, quant,
+                              streams, refs[tag], one_ms[tag])
+            for tag, quant in kinds}
 
 # ---------------------------------------------------------------------------
 # Flash attention (training slice)
@@ -1029,6 +1349,25 @@ def training(torch) -> dict:
             "mfu": mfu, "peak_bytes": peak, "losses": losses}
 
 
+def row3(sharded: dict, tp: dict) -> dict:
+    """The kernel line's entry of the sharded call: one rank's launch
+    timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
+    run (its int8 run's per rank beside them)."""
+    return {
+        "name": "paged_decode_attention_sharded", "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
+        "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:257",
+        "launches": sum(tp["bf16"]["launches_per_rank"]),
+        "launches_per_rank": tp["bf16"]["launches_per_rank"],
+        "launches_per_rank_int8": tp["int8"]["launches_per_rank"],
+        **{k: sharded[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by")},
+        # no PyTorch call reads a paged pool: SDPA over the rank's dense
+        # view is a yardstick only
+        "library_ms": None, "sdpa_dense_view_ms": sharded["sdpa_dense_view_ms"],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1049,10 +1388,18 @@ def main() -> int:
     t = timing(torch, pa)
     q_errs = quant_parity(torch, pa)
     q_t = quant_timing(torch, pa)
+    sharded = sharded_kernel(torch, pa)
     cfg, params = llama3_8b(torch)
     served = serving(torch, pa, cfg, params)
     q_served = quant_serving(torch, pa, cfg, params, served)
     quant_quality(torch, cfg, params, q_served.pop("qparams"))
+    tp = tp_serving(torch, pa, cfg, params)
+    for tag, one in (("bf16", served), ("int8", q_served)):
+        log(f"decode step, batch 8, {tag}: as served, one card "
+            f"{tp[tag]['one_card_ms_per_step']!r} ms and tensor={TP} "
+            f"{tp[tag]['decode_ms_per_step']!r} ms; paged_decode_step "
+            f"alone on one card (phase 4/4q) {one['decode_ms_per_step']!r} "
+            f"ms")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1081,7 +1428,7 @@ def main() -> int:
         "library_ms": None,
         "by_kv_dtype": {kv: {"max_abs_err": q_errs[kv], **q_t[kv]}
                         for kv in KV_QMAX},
-    }]
+    }, row3(sharded, tp)]
     for name, line in (("flash_attention_fwd", 54),
                        ("flash_attention_dq", 135),
                        ("flash_attention_dkv", 170)):

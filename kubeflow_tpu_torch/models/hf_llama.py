@@ -8,10 +8,17 @@ the port's own safetensors reader (``models/safetensors_io.py``), one at
 a time, cast and moved to ``device`` as they arrive. HF Llama uses the
 rotate-half RoPE layout that ``ops/rotary.py`` implements, so no weight
 permutation is needed.
+
+The sharded load (``mesh=``; the JAX loader's ``mesh`` path) gives one
+tensor-parallel rank its shard: each HF tensor is read only in the rows
+or columns that hold the rank's heads, MLP columns or vocab entries, so
+no rank reads or holds the whole tree. ``CheckpointParams`` is the same
+load as a parameter source each rank of a serving engine calls itself.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Optional
@@ -53,53 +60,82 @@ def load_config(model_dir: str, **overrides) -> llama.LlamaConfig:
 
 
 def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
-                dtype=torch.bfloat16, device: DeviceLike = None):
+                dtype=torch.bfloat16, device: DeviceLike = None, mesh=None):
     """Read an HF-layout Llama checkpoint into the stacked parameter dict
     on ``device`` (``device.resolve_device``: CUDA unless ``"cpu"`` is
-    asked for) in ``dtype``. Returns (cfg, params)."""
+    asked for) in ``dtype``. Returns (cfg, params). With ``mesh``, the
+    rank ``mesh.rank``'s shard of it, read slice by slice."""
     device = resolve_device(device)
     cfg = cfg or load_config(model_dir, dtype=dtype)
     llama.check_dense(cfg)
     idx = CheckpointIndex(model_dir)
-    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
+    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
+    h, kv, hd, d = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim,
+                    cfg.dim)
+    every = slice(None)
 
-    def get(name):
-        return idx.get(name).to(device=device, dtype=dtype)
+    def part(n: int) -> slice:
+        """The rank's share of an HF dim of size n (rows of heads, MLP
+        columns or vocab entries)."""
+        return slice(rank * n // tp, (rank + 1) * n // tp)
 
-    def layer_stack(fmt: str, transform=lambda w: w) -> torch.Tensor:
-        return torch.stack([transform(get(fmt.format(i)))
+    def get(name, index=None):
+        return idx.get(name, index).to(device=device, dtype=dtype)
+
+    def layer_stack(fmt: str, index=None,
+                    transform=lambda w: w) -> torch.Tensor:
+        return torch.stack([transform(get(fmt.format(i), index))
                             for i in range(cfg.n_layers)])
 
+    rows_q = (part(cfg.n_heads * hd), every)
+    rows_kv = (part(cfg.n_kv_heads * hd), every)
+    rows_mlp, cols_mlp = (part(cfg.mlp_dim), every), (every, part(
+        cfg.mlp_dim))
+    rows_vocab = (part(cfg.vocab_size), every)
     layers = {
         "attn_norm": layer_stack("model.layers.{}.input_layernorm.weight"),
         "mlp_norm": layer_stack(
             "model.layers.{}.post_attention_layernorm.weight"),
         "wq": layer_stack("model.layers.{}.self_attn.q_proj.weight",
-                          lambda w: w.T.reshape(d, h, hd)),
+                          rows_q, lambda w: w.T.reshape(d, h, hd)),
         "wk": layer_stack("model.layers.{}.self_attn.k_proj.weight",
-                          lambda w: w.T.reshape(d, kv, hd)),
+                          rows_kv, lambda w: w.T.reshape(d, kv, hd)),
         "wv": layer_stack("model.layers.{}.self_attn.v_proj.weight",
-                          lambda w: w.T.reshape(d, kv, hd)),
+                          rows_kv, lambda w: w.T.reshape(d, kv, hd)),
         "wo": layer_stack("model.layers.{}.self_attn.o_proj.weight",
+                          (every, part(cfg.n_heads * hd)),
                           lambda w: w.T.reshape(h, hd, d)),
         "w_gate": layer_stack("model.layers.{}.mlp.gate_proj.weight",
-                              lambda w: w.T),
+                              rows_mlp, lambda w: w.T),
         "w_up": layer_stack("model.layers.{}.mlp.up_proj.weight",
-                            lambda w: w.T),
+                            rows_mlp, lambda w: w.T),
         "w_down": layer_stack("model.layers.{}.mlp.down_proj.weight",
-                              lambda w: w.T),
+                              cols_mlp, lambda w: w.T),
     }
     params = {
-        "embed": get("model.embed_tokens.weight"),
+        "embed": get("model.embed_tokens.weight", rows_vocab),
         "layers": layers,
         "final_norm": get("model.norm.weight"),
     }
     if not cfg.tie_embeddings:
         name = ("lm_head.weight" if "lm_head.weight" in idx.names()
                 else "model.embed_tokens.weight")
-        params["lm_head"] = get(name).T.contiguous()
+        params["lm_head"] = get(name, rows_vocab).T.contiguous()
     idx.close()
     return cfg, params
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointParams:
+    """A parameter source for ``LLMEngine`` (``serving.llm.
+    local_params``): each rank loads its own shard of the checkpoint."""
+
+    model_dir: str
+    dtype: Any = torch.bfloat16
+
+    def __call__(self, cfg, mesh, device):
+        return load_params(self.model_dir, cfg, dtype=self.dtype,
+                           device=device, mesh=mesh)[1]
 
 
 def load_pretrained(model_dir: str, *, dtype=torch.bfloat16,

@@ -14,6 +14,17 @@ The port is dense: a config with ``n_experts > 0`` raises
 functions also take the int8 weight trees of ``serving.quant.
 quantize_weights`` (``wq_q`` + ``wq_s`` ...): ``qmm`` is their product.
 
+Tensor parallelism (``mesh=``, a launched ``parallel.mesh.TensorMesh``;
+None is the one-card path, unchanged): each rank holds its shard of the
+tree (``param_logical_axes`` through ``parallel.sharding``) and the
+serving functions are Megatron's column- and row-parallel products.
+``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are column-parallel (the
+rank's heads, the rank's slice of the MLP), ``wo`` and ``w_down``
+row-parallel (a partial product, then an all-reduce), the embedding a
+masked lookup of the rank's vocab rows plus an all-reduce, and the LM
+head the rank's vocab columns of the logits, all-gathered. Norms are
+replicated.
+
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
 (``torch.utils.checkpoint``), and "dots" saves only the weight products
@@ -39,6 +50,7 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel.sharding import shard_slices
 
 MOE_SLICE = ("MoE layers (n_experts > 0) are a later slice of the "
              "PyTorch port (queue 1: MoE)")
@@ -117,42 +129,110 @@ def check_dense(cfg: LlamaConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
-                device: DeviceLike = None, dtype=torch.float32) -> dict:
+                device: DeviceLike = None, dtype=torch.float32,
+                mesh=None) -> dict:
     """Random parameters in the JAX layout on ``device``
     (``device.resolve_device``: CUDA unless ``"cpu"`` is asked for), drawn
     from ``generator``, which must live there too: N(0, 1/fan_in) for the
     matrices, ones for the norms. The draws differ from ``jax.random``'s;
     tests that compare the two packages convert one tree with
-    ``interop.params_from_jax``."""
-    check_dense(cfg)
-    device = resolve_device(device)
-    d, h, kv, hd, m, L = (cfg.dim, cfg.n_heads, cfg.n_kv_heads,
-                          cfg.head_dim, cfg.mlp_dim, cfg.n_layers)
+    ``interop.params_from_jax``.
 
-    def dense(shape, fan_in):
+    With ``mesh``, the rank's shard only: every matrix is drawn whole
+    (one at a time, so the full tree never exists) and cut to the rank's
+    slice, so the shards of a seed are exactly the slices of its
+    unsharded tree."""
+    device = resolve_device(device)
+    shapes, axes = param_shapes(cfg), param_logical_axes(cfg)
+    d, m, hd = cfg.dim, cfg.mlp_dim, cfg.n_heads * cfg.head_dim
+    fan_in = {"wq": d, "wk": d, "wv": d, "wo": hd, "w_gate": d, "w_up": d,
+              "w_down": m, "embed": d, "lm_head": d}
+
+    def dense(shape, names, fan):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return w.mul_(fan_in ** -0.5).to(dtype)
+        if mesh is None:
+            return w.mul_(fan ** -0.5).to(dtype)
+        part = w[tuple(shard_slices(names, shape, mesh.rank, mesh.tp))]
+        out = torch.empty(part.shape, dtype=dtype, device=device)
+        return out.copy_(part.mul_(fan ** -0.5))
 
-    layers = {
-        "attn_norm": torch.ones((L, d), dtype=dtype, device=device),
-        "mlp_norm": torch.ones((L, d), dtype=dtype, device=device),
-        "wq": dense((L, d, h, hd), d),
-        "wk": dense((L, d, kv, hd), d),
-        "wv": dense((L, d, kv, hd), d),
-        "wo": dense((L, h, hd, d), h * hd),
-        "w_gate": dense((L, d, m), d),
-        "w_up": dense((L, d, m), d),
-        "w_down": dense((L, m, d), m),
-    }
-    params = {
-        "embed": dense((cfg.vocab_size, d), d),
-        "layers": layers,
-        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+    def leaf(name, shape, names):
+        if name not in fan_in:                       # the norms
+            return torch.ones(shape, dtype=dtype, device=device)
+        return dense(shape, names, fan_in[name])
+
+    # the draw order (layers, then embed, then lm_head) fixes the values
+    layers = {k: leaf(k, shp, axes["layers"][k])
+              for k, shp in shapes["layers"].items()}
+    params = {k: layers if k == "layers" else leaf(k, shapes[k], axes[k])
+              for k in shapes}
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class SeededParams:
+    """A parameter source for ``LLMEngine`` (``serving.llm.
+    local_params``): ``init_params`` from a generator seeded ``seed`` on
+    the rank's device, so each rank of a mesh draws only its shard."""
+
+    seed: int
+    dtype: Any = torch.float32
+
+    def __call__(self, cfg: LlamaConfig, mesh, device):
+        device = resolve_device(device)
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        params = init_params(gen, cfg, device=device, dtype=self.dtype,
+                             mesh=mesh)
+        if device.type == "cuda":
+            # hand the whole-tensor draws back: ranks sharing a card
+            # allocate from the same memory
+            torch.cuda.empty_cache()
+        return params
+
+
+def param_shapes(cfg: LlamaConfig) -> dict:
+    """Each parameter's full shape, in ``init_params``' structure."""
+    check_dense(cfg)
+    d, h, kv, hd, m, L = (cfg.dim, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim, cfg.mlp_dim, cfg.n_layers)
+    shapes = {
+        "embed": (cfg.vocab_size, d),
+        "layers": {
+            "attn_norm": (L, d), "mlp_norm": (L, d),
+            "wq": (L, d, h, hd), "wk": (L, d, kv, hd), "wv": (L, d, kv, hd),
+            "wo": (L, h, hd, d),
+            "w_gate": (L, d, m), "w_up": (L, d, m), "w_down": (L, m, d),
+        },
+        "final_norm": (d,),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.vocab_size), d)
-    return params
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical axis names per param, mirroring init_params' structure
+    (the JAX package's ``param_logical_axes``, dense layers)."""
+    check_dense(cfg)
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "embed"),
+            "mlp_norm": ("layers", "embed"),
+            "wq": ("layers", "embed", "heads", "head_dim"),
+            "wk": ("layers", "embed", "kv_heads", "head_dim"),
+            "wv": ("layers", "embed", "kv_heads", "head_dim"),
+            "wo": ("layers", "heads", "head_dim", "embed"),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -170,15 +250,29 @@ def inv_freq_for(cfg: LlamaConfig, device) -> torch.Tensor:
 # Forward
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, tokens, cfg: LlamaConfig):
+def embed_tokens(params, tokens, cfg: LlamaConfig, mesh=None):
     """Embedding lookup, quant-aware: int8 tables dequant the gathered
     rows with their per-vocab-row scale (gathered first, so only those
-    rows are upcast; int8 values are exact in any compute dtype)."""
+    rows are upcast; int8 values are exact in any compute dtype).
+
+    With ``mesh`` the table is the rank's vocab rows: tokens outside
+    them give zero rows, and the all-reduce adds each token's one
+    nonzero row (exactly)."""
     tokens = tokens.long()
+    if mesh is not None:
+        n = (params["embed_q"] if "embed_q" in params
+             else params["embed"]).shape[0]
+        local = tokens - mesh.rank * n
+        hit = (local >= 0) & (local < n)
+        tokens = torch.where(hit, local, 0)
     if "embed_q" in params:
         rows = params["embed_q"][tokens].to(cfg.dtype)
-        return rows * params["embed_s"][tokens].to(cfg.dtype)[..., None]
-    return params["embed"].to(cfg.dtype)[tokens]
+        rows = rows * params["embed_s"][tokens].to(cfg.dtype)[..., None]
+    else:
+        rows = params["embed"].to(cfg.dtype)[tokens]
+    if mesh is None:
+        return rows
+    return mesh.all_reduce(torch.where(hit[..., None], rows, 0))
 
 
 def _rows_mm(x, w, cfg: LlamaConfig):
@@ -202,7 +296,9 @@ def qmm(x, w_q, w_s, cfg: LlamaConfig):
 
 def qkv_proj(lp, h, cfg: LlamaConfig):
     """Attention input projections [B, S, D] -> q [B,S,H,hd], k/v
-    [B,S,KV,hd]; int8 layer trees (``wq_q`` present) go through qmm."""
+    [B,S,KV,hd]; int8 layer trees (``wq_q`` present) go through qmm.
+    Column-parallel under a mesh as it stands: a rank's weights hold its
+    heads, so H and KV are the rank's."""
     if "wq_q" in lp:
         return tuple(qmm(h, lp[n + "_q"], lp[n + "_s"], cfg)
                      for n in ("wq", "wk", "wv"))
@@ -210,26 +306,40 @@ def qkv_proj(lp, h, cfg: LlamaConfig):
             _rows_mm(h, lp["wv"], cfg))
 
 
-def out_proj(lp, o, cfg: LlamaConfig):
-    """[..., H, hd] -> [..., D]."""
+def _reduced(x, mesh):
+    """A row-parallel product's partial sums, all-reduced under a mesh."""
+    return x if mesh is None else mesh.all_reduce(x)
+
+
+def out_proj(lp, o, cfg: LlamaConfig, mesh=None):
+    """[..., H, hd] -> [..., D]. Row-parallel under a mesh: the rank's
+    heads give a partial product (int8: already times the replicated
+    per-output-channel scales, which factor out of the sum), then the
+    all-reduce."""
     o = o.reshape(*o.shape[:-2], -1)
     if "wo_q" in lp:
         wo_q = lp["wo_q"]
-        return qmm(o, wo_q.reshape(-1, wo_q.shape[-1]), lp["wo_s"], cfg)
-    wo = lp["wo"]
-    return _rows_mm(o, wo.reshape(-1, wo.shape[-1]), cfg)
+        out = qmm(o, wo_q.reshape(-1, wo_q.shape[-1]), lp["wo_s"], cfg)
+    else:
+        wo = lp["wo"]
+        out = _rows_mm(o, wo.reshape(-1, wo.shape[-1]), cfg)
+    return _reduced(out, mesh)
 
 
-def _ffn(h, lp, cfg: LlamaConfig):
-    """Dense SwiGLU FFN on the normed input h -> delta."""
+def _ffn(h, lp, cfg: LlamaConfig, mesh=None):
+    """Dense SwiGLU FFN on the normed input h -> delta. Under a mesh the
+    gate/up products are the rank's MLP columns and the down product is
+    row-parallel, then all-reduced."""
     check_dense(cfg)
     if "w_gate_q" in lp:
         gate = qmm(h, lp["w_gate_q"], lp["w_gate_s"], cfg)
         up = qmm(h, lp["w_up_q"], lp["w_up_s"], cfg)
-        return qmm(F.silu(gate) * up, lp["w_down_q"], lp["w_down_s"], cfg)
-    gate = _rows_mm(h, lp["w_gate"], cfg)
-    up = _rows_mm(h, lp["w_up"], cfg)
-    return _rows_mm(F.silu(gate) * up, lp["w_down"], cfg)
+        out = qmm(F.silu(gate) * up, lp["w_down_q"], lp["w_down_s"], cfg)
+    else:
+        gate = _rows_mm(h, lp["w_gate"], cfg)
+        up = _rows_mm(h, lp["w_up"], cfg)
+        out = _rows_mm(F.silu(gate) * up, lp["w_down"], cfg)
+    return _reduced(out, mesh)
 
 
 def lm_head_weight(params, cfg: LlamaConfig):
@@ -237,24 +347,35 @@ def lm_head_weight(params, cfg: LlamaConfig):
     return head.to(cfg.dtype)
 
 
-def quant_head_logits(params, x, cfg: LlamaConfig):
+def _gathered(logits, mesh):
+    """The ranks' vocab columns of the logits, concatenated in rank
+    order (each rank holds every logit after it)."""
+    return logits if mesh is None else mesh.all_gather(logits, dim=-1)
+
+
+def quant_head_logits(params, x, cfg: LlamaConfig, mesh=None):
     """LM-head product over the int8 tree: tied embeddings reuse the
     embedding table (its per-vocab-ROW scales become per-output-channel
     scales of the transposed head); untied heads carry their own
-    per-vocab-channel scales. x: [..., D] -> [..., V] compute dtype."""
+    per-vocab-channel scales. x: [..., D] -> [..., V] compute dtype.
+    Under a mesh: the rank's vocab columns, then the all-gather."""
     if cfg.tie_embeddings:
         out = x @ params["embed_q"].T.to(cfg.dtype)
-        return out * params["embed_s"].to(cfg.dtype)
-    out = x @ params["lm_head_q"].to(cfg.dtype)
-    return out * params["lm_head_s"].to(cfg.dtype)
+        out = out * params["embed_s"].to(cfg.dtype)
+    else:
+        out = x @ params["lm_head_q"].to(cfg.dtype)
+        out = out * params["lm_head_s"].to(cfg.dtype)
+    return _gathered(out, mesh)
 
 
-def head_logits(params, x, cfg: LlamaConfig):
+def head_logits(params, x, cfg: LlamaConfig, mesh=None):
     """The LM head on the final-normed x [..., D] -> [..., V] in the
-    compute dtype, for full-precision and int8 trees alike."""
+    compute dtype, for full-precision and int8 trees alike (under a
+    mesh, every rank gets all V logits)."""
     if "embed_q" in params:
-        return quant_head_logits(params, x, cfg)
-    return torch.einsum("...d,dv->...v", x, lm_head_weight(params, cfg))
+        return quant_head_logits(params, x, cfg, mesh)
+    return _gathered(
+        torch.einsum("...d,dv->...v", x, lm_head_weight(params, cfg)), mesh)
 
 
 def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
@@ -315,11 +436,13 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
-               device: DeviceLike = None) -> dict:
-    """Dense KV cache on ``device`` (``device.resolve_device``)."""
+               device: DeviceLike = None, mesh=None) -> dict:
+    """Dense KV cache on ``device`` (``device.resolve_device``); under a
+    mesh, of the rank's KV heads."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = cfg.n_kv_heads // (mesh.tp if mesh is not None else 1)
+    shape = (cfg.n_layers, batch, max_len, kv, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -328,10 +451,11 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
 
 
 def prefill(params, tokens, cfg: LlamaConfig, cache,
-            lengths: Optional[torch.Tensor] = None):
+            lengths: Optional[torch.Tensor] = None, mesh=None):
     """Run the prompt through the model, filling ``cache`` IN PLACE (the
     JAX version returns a new cache; here the dense scratch cache is
-    written where it lies).
+    written where it lies). Under ``mesh``: the rank's shard, heads and
+    cache (see the module docstring).
 
     tokens: [B, S] left-aligned, right-padded. ``lengths`` ([B], default
     S) gives each prompt's true length: logits are read at position
@@ -347,7 +471,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
     inv_freq = inv_freq_for(cfg, device)
     impl = cfg.attn_impl if cfg.attn_impl in ("xla", "flash", "pallas") \
         else "pallas"
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, mesh)
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -355,14 +479,14 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         o = attention(q, k, v, causal=True, impl=impl)
-        x = x + out_proj(lp, o, cfg)
+        x = x + out_proj(lp, o, cfg, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(h, lp, cfg)
+        x = x + _ffn(h, lp, cfg, mesh)
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     last_idx = (lengths.long() - 1).clamp(min=0)
     last = x[torch.arange(b, device=device), last_idx]
-    logits = head_logits(params, last, cfg)
+    logits = head_logits(params, last, cfg, mesh)
     cache["len"] = lengths.to(torch.int32)
     return logits.float(), cache

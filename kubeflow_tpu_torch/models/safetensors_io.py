@@ -6,7 +6,8 @@ A file is: 8 bytes little-endian header length N, N bytes of JSON header
 "__metadata__": {...}}``, then the raw little-endian tensor bytes, offsets
 relative to the end of the header. The file is memory-mapped and each
 tensor is copied out when asked for, so host memory holds one tensor at
-a time. The sharded form (``model.safetensors.index.json`` with a
+a time; asked for a slice (``index``), only the slice is copied, so a
+tensor-parallel rank reads its shard and never the whole tensor. The sharded form (``model.safetensors.index.json`` with a
 ``weight_map`` of name -> file) is read through ``CheckpointIndex``.
 """
 
@@ -42,8 +43,9 @@ class SafetensorsFile:
     def keys(self) -> list[str]:
         return list(self._header)
 
-    def get(self, name: str) -> torch.Tensor:
-        """A CPU tensor holding a copy of ``name``'s bytes."""
+    def get(self, name: str, index=None) -> torch.Tensor:
+        """A CPU tensor holding a copy of ``name``'s bytes, or of the
+        part ``index`` (a tuple of slices, numpy basic indexing) selects."""
         meta = self._header[name]
         tag = meta["dtype"]
         if tag not in _DTYPES:
@@ -53,11 +55,12 @@ class SafetensorsFile:
         begin, end = meta["data_offsets"]
         raw = np.frombuffer(self._map, dtype=np_dtype,
                             count=(end - begin) // np.dtype(np_dtype).itemsize,
-                            offset=self._data_start + begin)
-        t = torch.from_numpy(raw.copy())
-        if t.dtype != t_dtype:
-            t = t.view(t_dtype)
-        return t.reshape(meta["shape"])
+                            offset=self._data_start + begin
+                            ).reshape(meta["shape"])
+        if index is not None:
+            raw = raw[index]
+        t = torch.from_numpy(np.array(raw, order="C"))
+        return t.view(t_dtype) if t.dtype != t_dtype else t
 
     def close(self) -> None:
         self._map.close()
@@ -85,12 +88,12 @@ class CheckpointIndex:
     def names(self) -> set[str]:
         return set(self._where)
 
-    def get(self, name: str) -> torch.Tensor:
+    def get(self, name: str, index=None) -> torch.Tensor:
         fname = self._where[name]
         if fname not in self._open:
             self._open[fname] = SafetensorsFile(
                 os.path.join(self.model_dir, fname))
-        return self._open[fname].get(name)
+        return self._open[fname].get(name, index)
 
     def close(self) -> None:
         for f in self._open.values():

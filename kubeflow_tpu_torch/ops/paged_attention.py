@@ -19,6 +19,15 @@ with the scales given; it hands them to
 ``paged_decode_attention_quant``, the wrapper of the same source's
 fused-dequant kernel, whose launches count separately in
 ``paged_decode_attention_quant.launches``.
+
+Tensor parallelism (the JAX package's ``paged_decode_attention_sharded``,
+a ``shard_map`` of the kernel over the KV-head axis with no collectives)
+needs no kernel of its own: GQA decode is independent per KV head. Each
+rank of the port's mesh owns its contiguous slice of the pool (and of
+the scale tables) and calls the kernel on it, ``paged_decode_attention_
+shard``; ``paged_decode_attention_sharded`` takes whole arrays and does
+every rank's call in turn on contiguous copies of the slices, for checks
+against the unsharded call.
 """
 
 from __future__ import annotations
@@ -247,3 +256,70 @@ def _library():
                           ctypes.c_void_p])
         fq.restype = ctypes.c_int
     return lib
+
+
+def shard_unsupported_reason(mesh, n_kv_heads: int):
+    """Why the KV heads cannot be split over the mesh, or None when they
+    can (the JAX package's check and text): the KV-head dim must divide
+    evenly over the ``tensor`` axis."""
+    if mesh is None:
+        return None
+    tp = int(dict(mesh.shape).get("tensor", 1))
+    if tp > 1 and n_kv_heads % tp:
+        return f"n_kv_heads={n_kv_heads} not divisible by tensor={tp}"
+    return None
+
+
+def paged_decode_attention_shard(q, k_pool, v_pool, tables, kv_len, *,
+                                 mesh, n_kv_heads: int, k_scale=None,
+                                 v_scale=None):
+    """One rank's part of ``paged_decode_attention_sharded``: q
+    [B, H/tp, D] holds the rank's query heads, the pools [NB, bs,
+    KV_H/tp, D] (and scales [NB, KV_H/tp]) its KV heads, tables and
+    lengths are whole. Checks that the local shapes are the rank's share
+    of ``n_kv_heads``, then runs ``paged_decode_attention`` (rows 1-2's
+    kernels on a CUDA pool, counted there)."""
+    reason = shard_unsupported_reason(mesh, n_kv_heads)
+    if reason is not None:
+        raise ValueError(f"cannot shard paged attention: {reason}")
+    local = n_kv_heads // mesh.tp
+    if k_pool.dim() != 4 or k_pool.shape[2] != local:
+        raise ValueError(f"rank pool {tuple(k_pool.shape)}: want KV_H = "
+                         f"{n_kv_heads} / tensor={mesh.tp} = {local}")
+    return paged_decode_attention(q, k_pool, v_pool, tables, kv_len,
+                                  k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_decode_attention_sharded(q, k_pool, v_pool, tables, kv_len, *,
+                                   mesh, k_scale=None, v_scale=None):
+    """``paged_decode_attention`` partitioned over the mesh's ``tensor``
+    axis, on whole arrays (the JAX function's signature and result): q
+    [B, H, D] splits on H, the pools on KV_H, the scales on their KV_H,
+    tables and lengths go whole to every part. Each rank's slice is made
+    a contiguous tensor of its own, as a rank's pool is, and goes through
+    ``paged_decode_attention_shard``; the outputs concatenate on H. A
+    1-sized axis is the plain call; an indivisible one raises."""
+    kvh = k_pool.shape[2]
+    reason = shard_unsupported_reason(mesh, kvh)
+    if reason is not None:
+        raise ValueError(f"cannot shard paged attention: {reason}")
+    tp = int(dict(mesh.shape).get("tensor", 1))
+    if tp <= 1:
+        return paged_decode_attention(q, k_pool, v_pool, tables, kv_len,
+                                      k_scale=k_scale, v_scale=v_scale)
+    h = q.shape[1]
+    if h % tp:
+        raise ValueError(f"H={h} not divisible by tensor={tp}")
+    qh, kh = h // tp, kvh // tp
+    outs = []
+    for r in range(tp):
+        heads = slice(r * kh, (r + 1) * kh)
+        sc = ({} if k_scale is None else
+              {"k_scale": k_scale[:, heads].contiguous(),
+               "v_scale": v_scale[:, heads].contiguous()})
+        outs.append(paged_decode_attention_shard(
+            q[:, r * qh:(r + 1) * qh].contiguous(),
+            k_pool[:, :, heads].contiguous(),
+            v_pool[:, :, heads].contiguous(), tables, kv_len,
+            mesh=mesh, n_kv_heads=kvh, **sc))
+    return torch.cat(outs, dim=1)

@@ -14,7 +14,16 @@
   to the host;
 - quantized serving (``quant=``, serving/quant.py): int8 weights are
   quantized once at build, int8/fp8 KV pools quantize on insert and on
-  write, and decode reads them through the fused-dequant kernel.
+  write, and decode reads them through the fused-dequant kernel;
+- tensor-parallel serving (``mesh=``, a ``parallel.mesh.TensorMesh`` of
+  tp ranks): this engine is rank 0 and spawns the other ranks, each an
+  ``LLMEngine`` on its shard of the weights and of the KV heads. The
+  device bodies (``_body_*``) take host inputs only; ``_run`` sends each
+  one to every rank (serving/tp.py) and runs it here. Every rank samples
+  the same all-gathered logits with the same seeded generator, and folds
+  the tokens it sampled into a running digest on its device (no
+  collective, no readback); ``tp_status`` reports each rank's digest,
+  so a caller checks that the ranks agree.
 
 Pipelined decode keeps the JAX engine's structure: chunk N+1 is
 dispatched before chunk N's tokens are read back. CUDA launches are
@@ -25,7 +34,7 @@ read-back waits for chunk N only.
 Not in this slice (each raises or is absent, never quietly different):
 the executable depot (``precompile``), speculative decoding
 (``spec_decode=True`` raises), the disaggregated hold/export/inject
-methods, tensor-parallel meshes.
+methods, meshes over axes other than ``tensor``.
 """
 
 from __future__ import annotations
@@ -44,12 +53,17 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs import trace as obs_trace
 from kubeflow_tpu_torch.obs.histogram import Histogram, log_buckets
+from kubeflow_tpu_torch.parallel.mesh import tensor_parallel
+from kubeflow_tpu_torch.parallel.sharding import (
+    shard_tree, validate_divisibility,
+)
+from kubeflow_tpu_torch.serving import tp as tp_serving
 from kubeflow_tpu_torch.serving.paged_kv import (
-    PagedKV, _lm_head, blocks_for, paged_decode_step, paged_insert_batch,
-    paged_prefill_chunk, resolve_decode_kernel,
+    PagedKV, _lm_head, blocks_for, init_paged_cache, paged_decode_step,
+    paged_insert_batch, paged_prefill_chunk, resolve_decode_kernel,
 )
 from kubeflow_tpu_torch.serving.quant import (
-    is_weight_quantized, quantize_weights, resolve_quant,
+    is_weight_quantized, quant_logical_axes, quantize_weights, resolve_quant,
 )
 from kubeflow_tpu_torch.serving.scheduler import (
     QuantConfig, SchedulerConfig, StepScheduler,
@@ -60,6 +74,9 @@ logger = logging.getLogger(__name__)
 # Request-latency buckets at factor 2**0.25 (~19% relative error), the
 # JAX engine's choice: A/B comparisons discriminate inside one octave.
 _REQ_LAT_BUCKETS = log_buckets(0.001, 64.0, factor=2 ** 0.25)
+# modulus of a rank's running token digest (``_note_tokens``): a prime
+# that keeps digest * 1000003 + one dispatch's weighted sum inside int64
+_DIGEST_PRIME = 2 ** 31 - 1
 
 SPEC_SLICE = ("speculative decoding (paged_verify_step + drafter) is a "
               "later slice of the PyTorch port")
@@ -141,8 +158,7 @@ class _ChunkedPrefill:
     req: GenRequest
     offset: int
     share_len: int
-    tables: Any
-    x_last: Any = None
+    tables: np.ndarray
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -213,13 +229,34 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+def local_params(params, cfg: llama.LlamaConfig, mesh, device):
+    """The parameters this rank serves, on ``device``. ``params`` is a
+    full tree (float or int8), cut to the rank's shard under a mesh, or a
+    source: a callable ``source(cfg, mesh, device)`` that builds the
+    rank's tree itself (``llama.SeededParams``,
+    ``hf_llama.CheckpointParams``), so no rank needs the full tree."""
+    if callable(params):
+        return params(cfg, mesh, device)
+    if mesh is not None:
+        axes = (quant_logical_axes(cfg) if is_weight_quantized(params)
+                else llama.param_logical_axes(cfg))
+        params = shard_tree(params, axes, mesh.rank, mesh.tp)
+    return _tree_to(params, device)
+
+
 class LLMEngine:
     """Continuous-batching generation over the paged prefill/decode path.
 
     Runs on ``device`` (resolved by ``device.resolve_device``: CUDA
     unless ``"cpu"`` is asked for; raises with no GPU and no request).
-    ``params`` move there if they are elsewhere. ``kernel``: the decode
-    attention path (serving/paged_kv.resolve_decode_kernel)."""
+    ``params`` move there if they are elsewhere (``local_params``: a
+    full tree or a source). ``kernel``: the decode attention path
+    (serving/paged_kv.resolve_decode_kernel).
+
+    ``mesh``: tensor-parallel serving (module docstring) on the mesh's
+    devices; rank 0's device is this engine's, ``device`` must be None
+    or the same. A full tree ``params`` must then lie on the CPU (it is
+    handed to the spawned ranks); ``close()`` stops them."""
 
     def __init__(self, params, cfg: llama.LlamaConfig, *,
                  max_batch: int = 8, max_seq: int = 1024,
@@ -232,11 +269,33 @@ class LLMEngine:
                  scheduler: Optional[SchedulerConfig] = None,
                  quant: Optional[QuantConfig] = None,
                  obs: Optional[obs_trace.SpanCollector] = None,
-                 device: DeviceLike = None):
-        self.device = resolve_device(device)
+                 device: DeviceLike = None,
+                 mesh=None):
+        # what every other rank builds its engine from
+        rank_kwargs = dict(
+            max_batch=max_batch, max_seq=max_seq,
+            prefill_buckets=tuple(prefill_buckets),
+            kv_block_size=kv_block_size, kv_num_blocks=kv_num_blocks,
+            decode_chunk=decode_chunk, decode_pipeline=decode_pipeline,
+            kernel=kernel, scheduler=scheduler, quant=quant)
         llama.check_dense(cfg)
+        self.mesh = tensor_parallel(mesh)
+        if self.mesh is not None:
+            tp = self.mesh.tp
+            if cfg.n_kv_heads % tp:
+                raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not "
+                                 f"divisible by tensor={tp}")
+            validate_divisibility(self.mesh, llama.param_logical_axes(cfg),
+                                  llama.param_shapes(cfg))
+            if device is not None and \
+                    resolve_device(device) != self.mesh.device:
+                raise ValueError(f"device={device} is not rank "
+                                 f"{self.mesh.rank}'s {self.mesh.device}")
+            device = self.mesh.device
+        self.device = resolve_device(device)
         self.cfg = cfg
-        self.kernel = resolve_decode_kernel(kernel)
+        self.kernel = resolve_decode_kernel(kernel, mesh=self.mesh,
+                                            n_kv_heads=cfg.n_kv_heads)
         self.kernel_downgrades = 0
         # quantized serving: resolve the requested config against the
         # build/model. A mode that can't be honored (no fp8 dtype, MoE
@@ -251,13 +310,6 @@ class LLMEngine:
         self.kernel_downgrades += self.quant_downgrades
         for q_requested, q_reason in quant_downgrades:
             _log_quant_downgrade_once(q_requested, q_reason)
-        params = _tree_to(params, self.device)
-        if (self.quant.weight_dtype == "int8"
-                and not is_weight_quantized(params)):
-            # quantize ONCE at build: decode, chunked prefill and bucket
-            # prefill all read the same int8 tree
-            params = quantize_weights(params, cfg)
-        self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq
         self.buckets = sorted(b for b in prefill_buckets if b <= max_seq)
@@ -280,10 +332,28 @@ class LLMEngine:
                     f"every prefill bucket (got {b})")
         if kv_num_blocks is None:
             kv_num_blocks = max_batch * (max_seq // kv_block_size) + 1
-        self.paged = PagedKV(cfg=cfg, max_batch=max_batch, max_seq=max_seq,
-                             block_size=kv_block_size,
-                             num_blocks=kv_num_blocks, device=self.device,
-                             quant_kv=self.quant.kv_dtype)
+        if scheduler is not None and scheduler.spec_decode:
+            raise NotImplementedError(SPEC_SLICE)
+        # every check that can fail on the host is behind us: rank 0 now
+        # starts the other ranks, which build the same engine on theirs
+        self.tp = None
+        if self.mesh is not None and self.mesh.rank == 0:
+            self.tp = tp_serving.launch(self.mesh, params, cfg, rank_kwargs)
+        try:
+            params = local_params(params, cfg, self.mesh, self.device)
+            if (self.quant.weight_dtype == "int8"
+                    and not is_weight_quantized(params)):
+                # quantize ONCE at build: decode, chunked prefill and
+                # bucket prefill all read the same int8 tree
+                params = quantize_weights(params, cfg, mesh=self.mesh)
+            self.params = params
+            self.paged = PagedKV(cfg=cfg, max_batch=max_batch,
+                                 max_seq=max_seq, block_size=kv_block_size,
+                                 num_blocks=kv_num_blocks, device=self.device,
+                                 quant_kv=self.quant.kv_dtype, mesh=self.mesh)
+        except BaseException:
+            self.close()
+            raise
         self.cache = self.paged.cache
         self._free: list[int] = list(range(max_batch))
         self._active: dict[int, GenRequest] = {}     # slot -> request
@@ -292,8 +362,16 @@ class LLMEngine:
         self._ids = itertools.count()
         self._lock = threading.Lock()
         self._tokens = np.zeros((max_batch,), np.int32)   # next input token
+        # the same seed on every rank: the ranks sample the same logits
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(0)
+        self._carry = None           # the last decode dispatch's next tokens
+        # under a mesh: this rank's sampling bodies and a running digest
+        # of every token it sampled (``_note_tokens``)
+        self.tp_samples = 0
+        self._token_digest = (torch.zeros((), dtype=torch.int64,
+                                          device=self.device)
+                              if self.mesh is not None else None)
         self.steps = 0
         self.generated_tokens = 0
         self.prefill_dispatches = 0
@@ -309,8 +387,6 @@ class LLMEngine:
         self._fresh = np.ones((max_batch,), bool)
         self.sched = StepScheduler(scheduler, default_budget=self.buckets[-1],
                                    decode_chunk=self.decode_chunk)
-        if self.sched.cfg.spec_decode:
-            raise NotImplementedError(SPEC_SLICE)
         self.obs = obs or obs_trace.collector()
         self.request_hists = {"ttft": Histogram(_REQ_LAT_BUCKETS),
                               "itl": Histogram(_REQ_LAT_BUCKETS),
@@ -351,16 +427,52 @@ class LLMEngine:
         return [h.numpy() for h in host]
 
     # ---------------- device bodies ----------------
+    # Each ``_body_<name>`` takes host inputs only (numpy arrays, Python
+    # scalars) and is run through ``_run``: on every rank under a mesh.
 
-    def _decode_impl(self, token, tables, active, temperature, top_k,
-                     top_p, greedy_only: bool, chunk_len: int):
-        """``chunk_len`` decode+sample steps over every slot. Returns
-        (toks [chunk, B], lps [chunk, B], next_tok [B]) on the device."""
+    def _run(self, name: str, **host):
+        body = getattr(self, "_body_" + name)
+        if self.tp is None:
+            return body(**host)
+        return self.tp.run(name, host, body)
+
+    def _note_tokens(self, toks) -> None:
+        """Under a mesh, fold the tokens this rank sampled into its
+        running digest: position-weighted, modulo a prime, on the device
+        (a few elementwise ops; no collective, no readback)."""
+        if self._token_digest is None:
+            return
+        flat = toks.reshape(-1).to(torch.int64)
+        pos = torch.arange(1, flat.numel() + 1, device=flat.device)
+        self._token_digest = ((self._token_digest * 1000003
+                               + (flat * pos).sum()) % _DIGEST_PRIME)
+        self.tp_samples += 1
+
+    def _sample(self, logits, temperature, top_k, top_p):
+        """First-token sampling of admission rows -> device (tok, lp)."""
+        tok = sample_logits(logits, self._rng, self._dev(temperature),
+                            self._dev(top_k), self._dev(top_p))
+        self._note_tokens(tok)
+        return tok, chosen_logprob(logits, tok)
+
+    def _body_decode(self, tokens, fresh, carry: bool, tables, active,
+                     temperature, top_k, top_p, greedy_only: bool,
+                     chunk_len: int):
+        """``chunk_len`` decode+sample steps over every slot. The input
+        token is the host's ``tokens`` or, with ``carry``, the previous
+        dispatch's device-side next tokens where ``fresh`` is False.
+        Returns (toks [chunk, B], lps [chunk, B]) on the device."""
+        token = self._dev(tokens)
+        if carry:
+            token = torch.where(self._dev(fresh), token, self._carry)
+        tables, active = self._dev(tables), self._dev(active)
+        temperature, top_k, top_p = (self._dev(temperature),
+                                     self._dev(top_k), self._dev(top_p))
         toks, lps = [], []
         for _ in range(chunk_len):
             logits, self.cache = paged_decode_step(
                 self.params, token, self.cfg, self.cache, tables,
-                kernel=self.kernel)
+                kernel=self.kernel, mesh=self.mesh)
             nxt = sample_logits(logits, self._rng, temperature, top_k,
                                 top_p, greedy_only=greedy_only)
             lps.append(chosen_logprob(logits, nxt))
@@ -369,7 +481,84 @@ class LLMEngine:
             # max_seq (their scatter lands in the scratch block 0)
             self.cache["len"] = torch.where(active, self.cache["len"], 0)
             token = nxt
-        return torch.stack(toks), torch.stack(lps), token
+        self._carry = token
+        toks = torch.stack(toks)
+        self._note_tokens(toks)
+        return toks, torch.stack(lps)
+
+    def _body_prefill_chunk(self, piece, tables, slot: int, offset: int,
+                            length: int, share_len: int, final: bool,
+                            temperature, top_k, top_p):
+        """One chunk of a long prompt into the pool; the final one also
+        runs the LM head, samples the first token and publishes the
+        slot's length. Returns ``_sample``'s pair, or None."""
+        x_last, self.cache = paged_prefill_chunk(
+            self.params, self._dev(piece), self.cfg, self.cache,
+            self._dev(tables), slot, offset, length, share_len,
+            mesh=self.mesh)
+        if not final:
+            return None
+        logits = _lm_head(self.params, x_last, self.cfg, self.mesh)
+        out = self._sample(logits, temperature, top_k, top_p)
+        self.cache["len"][slot] = length
+        return out
+
+    def _body_admit(self, toks, lengths, blk, slots, temperature, top_k,
+                    top_p):
+        """Prefill of a padded admission batch into a scratch cache, one
+        insert into the pool, first-token sampling (``_sample``)."""
+        width, bucket = toks.shape
+        scratch = llama.init_cache(self.cfg, width, bucket,
+                                   device=self.device, mesh=self.mesh)
+        lengths_dev = self._dev(lengths)
+        logits, filled = llama.prefill(
+            self.params, self._dev(toks), self.cfg, scratch,
+            lengths=lengths_dev, mesh=self.mesh)
+        paged_insert_batch(self.cache, filled["k"], filled["v"],
+                           self._dev(blk), lengths_dev, self._dev(slots))
+        return self._sample(logits, temperature, top_k, top_p)
+
+    def _body_score(self, streams):
+        """Teacher-forced logits of equal-length token streams [S, n]
+        through this engine's decode path, one slot a stream, over a
+        fresh pool of the engine's KV dtype and block size (the live pool
+        is untouched)."""
+        n_streams, n = streams.shape
+        bs = self.paged.block_size
+        nb = blocks_for(n, bs)
+        cache = init_paged_cache(self.cfg, n_streams, nb * bs, bs,
+                                 n_streams * nb + 1, device=self.device,
+                                 quant_kv=self.quant.kv_dtype, mesh=self.mesh)
+        tables = torch.arange(1, n_streams * nb + 1, dtype=torch.int32,
+                              device=self.device).reshape(n_streams, nb)
+        rows = []
+        with torch.no_grad():
+            for t in range(n):
+                logits, cache = paged_decode_step(
+                    self.params, self._dev(streams[:, t]), self.cfg, cache,
+                    tables, kernel=self.kernel, mesh=self.mesh)
+                rows.append(logits)
+        return torch.stack(rows, dim=1)
+
+    def teacher_forced_logits(self, streams) -> torch.Tensor:
+        """f32 [S, n, V] logits of S token streams of length n, each fed
+        one token per decode step through this engine's decode path
+        (kernel, quantized pool and weights, and mesh): row t of a
+        stream predicts its token t + 1. Call it while the engine is
+        idle."""
+        return self._run("score", streams=np.asarray(streams, np.int32))
+
+    def close(self) -> None:
+        """Stop the other ranks of a mesh (no-op without one)."""
+        if self.tp is not None:
+            self.tp.close()
+            self.tp = None
+
+    def tp_status(self, reset_launches: bool = False) -> list:
+        """Per-rank identity and kernel launch counts
+        (``serving.tp.status``), in rank order; [] without a mesh."""
+        return [] if self.tp is None else self.tp.status(self,
+                                                         reset_launches)
 
     # ---------------- public API ----------------
 
@@ -515,14 +704,10 @@ class LLMEngine:
                 temp[slot] = req.sampling.temperature
                 top_k[slot] = req.sampling.top_k
                 top_p[slot] = req.sampling.top_p
-            if self._inflight is None or self._fresh.all():
-                token_in = self._dev(self._tokens)
-            else:
-                # device carry from the in-flight chunk; fresh host tokens
-                # (admissions since that dispatch) override their slots
-                token_in = torch.where(self._dev(self._fresh),
-                                       self._dev(self._tokens),
-                                       self._inflight["next"])
+            # the device carry of the in-flight chunk, except where fresh
+            # host tokens (admissions since that dispatch) override it
+            carry = not (self._inflight is None or self._fresh.all())
+            fresh = self._fresh.copy()
             self._fresh[:] = False
             chunk_len = self.sched.decode_chunk_len(
                 self._min_deterministic_remaining(),
@@ -531,14 +716,15 @@ class LLMEngine:
             dspan = self._dispatch_span(
                 "decode.step", [r for _, r in self._active.items()],
                 chunk_len=chunk_len, batch=len(self._active))
-            toks, lps, next_tok = self._decode_impl(
-                token_in, self._dev(self._dispatch_tables()),
-                self._dev(active_mask), self._dev(temp), self._dev(top_k),
-                self._dev(top_p), greedy_only=not bool((temp > 0).any()),
+            toks, lps = self._run(
+                "decode", tokens=self._tokens.copy(), fresh=fresh,
+                carry=carry, tables=self._dispatch_tables(),
+                active=active_mask, temperature=temp, top_k=top_k,
+                top_p=top_p, greedy_only=not bool((temp > 0).any()),
                 chunk_len=chunk_len)
             host, event = self._start_readback(toks, lps)
             new_inflight = {
-                "host": host, "event": event, "next": next_tok,
+                "host": host, "event": event,
                 "chunk_len": chunk_len, "span": dspan,
                 # tokens belong to the requests active at DISPATCH time
                 "snapshot": list(self._active.items()),
@@ -666,7 +852,7 @@ class LLMEngine:
         start = min((share_len // W) * W, ((L - 1) // W) * W)
         self._chunked[slot] = _ChunkedPrefill(
             req=req, offset=start, share_len=share_len,
-            tables=self._dev(self.paged.tables))
+            tables=self.paged.tables.copy())
         self.sched.note_chunked_started()
 
     def _advance_chunked(self, slot: int) -> int:
@@ -683,9 +869,11 @@ class LLMEngine:
         piece = np.zeros((1, W), np.int32)
         part = req.prompt[st.offset:st.offset + W]
         piece[0, :len(part)] = part
-        st.x_last, self.cache = paged_prefill_chunk(
-            self.params, self._dev(piece), self.cfg, self.cache, st.tables,
-            slot, st.offset, L, st.share_len)
+        final = st.offset + W >= L
+        first = self._run("prefill_chunk", piece=piece, tables=st.tables,
+                          slot=slot, offset=st.offset, length=L,
+                          share_len=st.share_len, final=final,
+                          **self._sampling_arrays([req]))
         st.offset += W
         self.sched.note_prefill_chunk(W)
         self.obs.end(pspan, final=st.offset >= L)
@@ -694,10 +882,8 @@ class LLMEngine:
         # stream-ordered behind the content
         self.paged.publish_prompt_blocks(slot, req.prompt,
                                          min(st.offset, L))
-        if st.offset >= L:
-            logits = _lm_head(self.params, st.x_last, self.cfg)
-            tok, lp = self._sample_rows(logits, [req])
-            self.cache["len"][slot] = L
+        if final:
+            tok, lp = self._read_sample(first)
             del self._chunked[slot]
             self.sched.note_chunked_admitted()
             self._post_admit(req, slot, int(tok[0]), float(lp[0]))
@@ -809,26 +995,21 @@ class LLMEngine:
             ids = self.paged.slot_blocks(slot)
             blk[i, n_shared:nb_prefill] = ids[n_shared:nb_prefill]
             slots[i] = slot
-        scratch = llama.init_cache(self.cfg, width, bucket,
-                                   device=self.device)
         self.prefill_dispatches += 1
         pspan = self._dispatch_span(
             "prefill.batch", [r for r, _, _ in batch],
             bucket=bucket, batch=len(batch))
-        lengths_dev = self._dev(lengths)
-        logits, filled = llama.prefill(
-            self.params, self._dev(toks), self.cfg, scratch,
-            lengths=lengths_dev)
-        paged_insert_batch(self.cache, filled["k"], filled["v"],
-                           self._dev(blk), lengths_dev, self._dev(slots))
-        tok, lp = self._sample_rows(logits, [r for r, _, _ in batch],
-                                    width=width)
+        tok, lp = self._read_sample(self._run(
+            "admit", toks=toks, lengths=lengths, blk=blk, slots=slots,
+            **self._sampling_arrays([r for r, _, _ in batch], width)))
         self.obs.end(pspan)
         for i, (req, slot, _) in enumerate(batch):
             self._post_admit(req, slot, int(tok[i]), float(lp[i]))
 
-    def _sample_rows(self, logits, reqs, width: Optional[int] = None):
-        """First-token sampling for admission rows -> host (tok, lp)."""
+    @staticmethod
+    def _sampling_arrays(reqs, width: Optional[int] = None) -> dict:
+        """Admission rows' sampling parameters as host arrays (pad rows
+        greedy)."""
         width = width or len(reqs)
         temp = np.zeros((width,), np.float32)
         top_k = np.zeros((width,), np.int32)
@@ -837,9 +1018,12 @@ class LLMEngine:
             temp[i] = r.sampling.temperature
             top_k[i] = r.sampling.top_k
             top_p[i] = r.sampling.top_p
-        tok = sample_logits(logits, self._rng, self._dev(temp),
-                            self._dev(top_k), self._dev(top_p))
-        lp = chosen_logprob(logits, tok)
+        return {"temperature": temp, "top_k": top_k, "top_p": top_p}
+
+    @staticmethod
+    def _read_sample(sampled):
+        """``_sample``'s device pair -> host (tok, lp)."""
+        tok, lp = sampled
         return tok.cpu().numpy(), lp.cpu().numpy()
 
     def _post_admit(self, req, slot: int, first_tok: int,

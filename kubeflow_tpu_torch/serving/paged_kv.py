@@ -34,6 +34,14 @@ fused-dequant kernel, the gather path reads ``dequant_gather_view``.
 fp8 pools are indexed through a ``uint8`` view of the same bytes
 (``_raw``), so no index op ever needs an fp8 kernel.
 
+Tensor parallelism (``mesh=``, a launched ``parallel.mesh.TensorMesh``;
+None is the one-card path): every rank runs the same step on its shard.
+Its pool and scale tables hold its ``n_kv_heads / tp`` KV heads, its
+tables and lengths are the same as every rank's, the decode attention is
+``ops.paged_attention.paged_decode_attention_shard`` (rows 1-2's kernels
+on the rank's heads) or the gather oracle over the rank's heads, and the
+model's collectives are those of ``models/llama.py``.
+
 Block 0 is the pool's scratch block: idle slots (len 0, all-zero table
 row) and pad rows scatter into it, several idle slots into the same row,
 which is harmless only because nothing live ever reads block 0.
@@ -51,7 +59,10 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.ops.attention import _xla_attention, decode_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
-from kubeflow_tpu_torch.ops.paged_attention import paged_decode_attention
+from kubeflow_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_shard,
+    shard_unsupported_reason,
+)
 from kubeflow_tpu_torch.ops.rotary import apply_rope
 from kubeflow_tpu_torch.serving.quant import KV_QMAX, kv_store_dtype
 
@@ -59,11 +70,12 @@ from kubeflow_tpu_torch.serving.quant import KV_QMAX, kv_store_dtype
 def init_paged_cache(cfg: llama.LlamaConfig, max_batch: int, max_seq: int,
                      block_size: int, num_blocks: int, dtype=None,
                      device: DeviceLike = None,
-                     quant_kv: str = "none") -> dict:
+                     quant_kv: str = "none", mesh=None) -> dict:
     """Pool + per-slot lengths on ``device`` (``device.resolve_device``:
     CUDA unless ``"cpu"`` is asked for). ``num_blocks`` bounds total
     resident tokens (num_blocks * block_size), independent of
-    max_batch * max_seq.
+    max_batch * max_seq. Under ``mesh`` the pool and scales hold the
+    rank's KV heads, allocated as tensors of their own.
 
     ``quant_kv`` != "none" stores the pools in the quantized dtype
     ("int8" | "fp8_e4m3") and adds per-block per-kv-head f32 scale
@@ -73,11 +85,14 @@ def init_paged_cache(cfg: llama.LlamaConfig, max_batch: int, max_seq: int,
                          f"block_size={block_size}")
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-             cfg.head_dim)
+    reason = shard_unsupported_reason(mesh, cfg.n_kv_heads)
+    if reason is not None:
+        raise ValueError(reason)
+    kv = cfg.n_kv_heads // (mesh.tp if mesh is not None else 1)
+    shape = (cfg.n_layers, num_blocks, block_size, kv, cfg.head_dim)
     if quant_kv and quant_kv != "none":
         sdtype = kv_store_dtype(quant_kv)
-        sshape = (cfg.n_layers, num_blocks, cfg.n_kv_heads)
+        sshape = (cfg.n_layers, num_blocks, kv)
         return {
             "k": torch.zeros(shape, dtype=sdtype, device=device),
             "v": torch.zeros(shape, dtype=sdtype, device=device),
@@ -275,12 +290,14 @@ class PagedKV:
     prefix_cache: bool = True
     device: DeviceLike = None        # where the pool lives (resolve_device)
     quant_kv: str = "none"           # "none" | "int8" | "fp8_e4m3"
+    mesh: object = None              # the rank's KV heads (init_paged_cache)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.cache = init_paged_cache(
             self.cfg, self.max_batch, self.max_seq, self.block_size,
-            self.num_blocks, device=self.device, quant_kv=self.quant_kv)
+            self.num_blocks, device=self.device, quant_kv=self.quant_kv,
+            mesh=self.mesh)
         self.max_blocks_per_seq = self.max_seq // self.block_size
         self.tables = np.zeros(
             (self.max_batch, self.max_blocks_per_seq), np.int32)
@@ -409,16 +426,16 @@ def _layer_qkv(lp, x, positions, cfg, inv_freq):
     return q, k, v
 
 
-def _layer_out(lp, x, o, cfg):
+def _layer_out(lp, x, o, cfg, mesh=None):
     """Shared attention-output + FFN path (see _layer_qkv)."""
-    x = x + llama.out_proj(lp, o, cfg)
+    x = x + llama.out_proj(lp, o, cfg, mesh)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + llama._ffn(h, lp, cfg)
+    return x + llama._ffn(h, lp, cfg, mesh)
 
 
-def _lm_head(params, x_last, cfg):
+def _lm_head(params, x_last, cfg, mesh=None):
     x_last = rms_norm(x_last, params["final_norm"], cfg.norm_eps)
-    return llama.head_logits(params, x_last, cfg).float()
+    return llama.head_logits(params, x_last, cfg, mesh).float()
 
 
 # ---- quantized-pool value path (int8 / fp8_e4m3 KV) ----
@@ -543,19 +560,29 @@ def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
     return cache
 
 
-def resolve_decode_kernel(kernel: str) -> str:
+def resolve_decode_kernel(kernel: str, mesh=None,
+                          n_kv_heads: Optional[int] = None) -> str:
     """The ``kernel=`` switch -> the path ``paged_decode_step`` runs:
     "gather" (the view oracle) or "paged" (the paged kernel: CUDA on a
     CUDA pool, its plain version on a CPU pool). "auto" and "pallas" both
     mean "paged"; the JAX names stay so configs carry over. Resolved
-    names resolve to themselves."""
+    names resolve to themselves.
+
+    Under a mesh both paths run per rank on the rank's KV heads. Where
+    the JAX package downgrades an unshardable topology to "gather", the
+    port has no path at all (a rank's pool is its KV-head slice), so
+    that raises with the JAX reason."""
     if kernel not in ("auto", "pallas", "paged", "gather"):
         raise ValueError(f"kernel={kernel!r} (want auto|pallas|gather)")
+    reason = shard_unsupported_reason(
+        mesh, n_kv_heads if n_kv_heads is not None else 0)
+    if reason is not None:
+        raise ValueError(f"cannot shard paged attention: {reason}")
     return "gather" if kernel == "gather" else "paged"
 
 
 def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
-                      kernel: str = "gather"):
+                      kernel: str = "gather", mesh=None):
     """One decode step over the paged pool. token: [B] integer; tables:
     [B, max_blocks_per_seq] int32 -> (logits [B, V] float32, cache). Each
     slot's new KV row is scattered in place at its current length, then
@@ -563,8 +590,9 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
     one. Idle slots (len 0, zero table row) write scratch block 0.
     A quantized pool quantizes the new rows on write and dequantizes on
     read: inside the fused kernel ("paged") or through the dequant view
-    ("gather")."""
-    kernel = resolve_decode_kernel(kernel)
+    ("gather"). ``mesh``: the rank's step (module docstring)."""
+    kernel = resolve_decode_kernel(kernel, mesh=mesh,
+                                   n_kv_heads=cfg.n_kv_heads)
     quantized = "k_scale" in cache
     b = token.shape[0]
     bs = cache["k"].shape[2]
@@ -572,7 +600,7 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
     pos = cache["len"]                                   # [B] int32
     positions = pos[:, None]
     inv_freq = llama.inv_freq_for(cfg, token.device)
-    x = llama.embed_tokens(params, token[:, None], cfg)
+    x = llama.embed_tokens(params, token[:, None], cfg, mesh)
     # the write cursor's block; past the table's end (a request finishing
     # mid-chunk keeps stepping) it clamps to the last entry, as the JAX
     # gather does, instead of indexing out of bounds
@@ -592,7 +620,12 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
         else:
             k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
             v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
-        if kernel == "paged":
+        if kernel == "paged" and mesh is not None:
+            o = paged_decode_attention_shard(
+                q[:, 0].contiguous(), k_pool, v_pool, tables, kv_len,
+                mesh=mesh, n_kv_heads=cfg.n_kv_heads, k_scale=k_sc,
+                v_scale=v_sc)[:, None]
+        elif kernel == "paged":
             o = paged_decode_attention(q[:, 0].contiguous(), k_pool, v_pool,
                                        tables, kv_len, k_scale=k_sc,
                                        v_scale=v_sc)[:, None]
@@ -606,15 +639,15 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
             k_view = k_pool[tables.long()].reshape(b, -1, *k_pool.shape[2:])
             v_view = v_pool[tables.long()].reshape(b, -1, *v_pool.shape[2:])
             o = decode_attention(q, k_view, v_view, kv_len)
-        x = _layer_out(lp, x, o, cfg)
-    logits = _lm_head(params, x[:, 0], cfg)
+        x = _layer_out(lp, x, o, cfg, mesh)
+    logits = _lm_head(params, x[:, 0], cfg, mesh)
     cache["len"] = pos + 1
     return logits, cache
 
 
 def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
                         tables, slot: int, offset: int, length: int,
-                        share_len: int = 0):
+                        share_len: int = 0, mesh=None):
     """Chunked prefill straight into the paged pool: processes ``tokens``
     [1, C] as positions offset..offset+C-1 of ``slot``'s sequence,
     attending to everything the slot's blocks already hold.
@@ -626,7 +659,8 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
     [1, D]: the PRE-final-norm hidden state at the chunk's last true row,
     and the cache). ``cache["len"]`` for the slot is NOT advanced here;
     the engine sets it once after the last chunk. A quantized pool
-    quantizes on write and attends over the dequant view."""
+    quantizes on write and attends over the dequant view. ``mesh``: the
+    rank's chunk (module docstring)."""
     _, c = tokens.shape
     bs = cache["k"].shape[2]
     device = tokens.device
@@ -638,7 +672,7 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
                       torch.zeros_like(pos))
     off = pos % bs
     positions = pos[None, :]
-    x = llama.embed_tokens(params, tokens, cfg)
+    x = llama.embed_tokens(params, tokens, cfg, mesh)
     quantized = "k_scale" in cache
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
@@ -657,6 +691,6 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
             v_view = v_pool[row].reshape(1, -1, *v_pool.shape[2:])
         # row i (absolute position offset+i) attends kv rows <= offset+i
         o = _xla_attention(q, k_view, v_view, causal=True, q_offset=offset)
-        x = _layer_out(lp, x, o, cfg)
+        x = _layer_out(lp, x, o, cfg, mesh)
     last_row = min(max(length - offset - 1, 0), c - 1)
     return x[:, last_row], cache

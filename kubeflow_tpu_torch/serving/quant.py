@@ -14,6 +14,13 @@ Two quantization surfaces, both configured by ``QuantConfig``
   the int8 tensor, upcast it to the compute dtype for the product, and
   multiply the OUTPUT by the channel scales.
 
+Under a tensor-parallel mesh each rank quantizes its own shard, and
+the result is exactly the full tree's quantization, sliced (what the
+JAX package gets by quantizing the sharded tree): a scale reduces over
+the contraction, which a rank holds whole for the column-parallel
+weights; for the row-parallel ``wo`` and ``w_down`` the ranks' amaxes
+are all-reduced (max, exact) before anything is rounded.
+
 ``resolve_quant`` is the single downgrade authority: a requested mode
 the build or model can't honor resolves to the unquantized path WITH a
 reason the engine counts (kernel_downgrades / quant_downgrades) and logs
@@ -26,6 +33,8 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from kubeflow_tpu_torch.models.llama import param_logical_axes
+from kubeflow_tpu_torch.parallel.sharding import pspec
 from kubeflow_tpu_torch.serving.scheduler import QuantConfig
 
 # Symmetric-quant clip points per KV storage dtype. fp8_e4m3's 448 is
@@ -106,12 +115,17 @@ def is_weight_quantized(params) -> bool:
     return "embed_q" in params
 
 
-def _quantize_channels(w, axes) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_channels(w, axes, mesh=None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 per-output-channel quantization: amax over the
     contraction ``axes`` -> scale, round (half to even) / clip -> int8.
-    Returns (q int8, scale f32 with ``axes`` squeezed out)."""
+    Returns (q int8, scale f32 with ``axes`` squeezed out). ``mesh``:
+    the contraction is sharded, so the amax is the max over the ranks."""
     w32 = w.float()
-    s = w32.abs().amax(dim=axes) / WEIGHT_QMAX
+    amax = w32.abs().amax(dim=axes)
+    if mesh is not None:
+        mesh.all_reduce(amax, op="max")
+    s = amax / WEIGHT_QMAX
     s = s.clamp(min=1e-12)  # all-zero channels quantize to 0 cleanly
     s_b = s
     for a in sorted(axes):
@@ -120,16 +134,47 @@ def _quantize_channels(w, axes) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.to(torch.int8), s.float()
 
 
-def _quantize_layers(w, axes) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_layers(w, axes, mesh=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``_quantize_channels`` of a stacked [L, ...] weight, one layer at
     a time: the same bytes (no reduction crosses the L axis), with the
     transient f32 copy one layer wide instead of L."""
-    qs, ss = zip(*(_quantize_channels(w[i], tuple(a - 1 for a in axes))
+    qs, ss = zip(*(_quantize_channels(w[i], tuple(a - 1 for a in axes),
+                                      mesh)
                    for i in range(w.shape[0])))
     return torch.stack(qs), torch.stack(ss)
 
 
-def quantize_weights(params, cfg):
+def _contraction_sharded(names, axes) -> bool:
+    """Whether any contraction axis of a weight maps to the tensor axis."""
+    spec = pspec(names)
+    return any(spec[a] == "tensor"
+               or (isinstance(spec[a], tuple) and "tensor" in spec[a])
+               for a in axes)
+
+
+def quant_logical_axes(cfg) -> dict:
+    """Logical axes of ``quantize_weights``' tree: an int8 payload keeps
+    its weight's axes, a scale drops the contraction axes (the tree
+    ``parallel.sharding.shard_tree`` cuts an int8 tree by)."""
+    axes = param_logical_axes(cfg)
+    out = {"final_norm": axes["final_norm"],
+           "embed_q": axes["embed"], "embed_s": axes["embed"][:1]}
+    if not cfg.tie_embeddings:
+        out["lm_head_q"] = axes["lm_head"]
+        out["lm_head_s"] = axes["lm_head"][1:]
+    layers = {k: v for k, v in axes["layers"].items()
+              if k not in _LAYER_WEIGHTS}
+    for name, caxes in _LAYER_WEIGHTS.items():
+        names = axes["layers"][name]
+        layers[name + "_q"] = names
+        layers[name + "_s"] = tuple(n for i, n in enumerate(names)
+                                    if i not in caxes)
+    out["layers"] = layers
+    return out
+
+
+def quantize_weights(params, cfg, mesh=None):
     """int8-quantize the big matmul weights ONCE (the engine's build
     path). Each quantized tensor ``name`` is replaced by ``name_q``
     (int8) + ``name_s`` (f32 per-output-channel scales); everything else
@@ -140,7 +185,10 @@ def quantize_weights(params, cfg):
     scale): the lookup dequants with one scalar per gathered row, and a
     tied LM head gets per-vocab-channel output scaling from the same
     table. MoE configs must be downgraded before calling (resolve_quant
-    does this)."""
+    does this).
+
+    ``mesh``: ``params`` is the rank's shard; every rank calls this
+    together (the row-parallel scales take one all-reduce per layer)."""
     if getattr(cfg, "n_experts", 0):
         raise ValueError("int8 weights unsupported for MoE configs; "
                          "resolve_quant should have downgraded")
@@ -152,8 +200,12 @@ def quantize_weights(params, cfg):
         out["lm_head_q"], out["lm_head_s"] = _quantize_channels(
             params["lm_head"], (0,))
     layers = dict(params["layers"])
+    layer_axes = param_logical_axes(cfg)["layers"]
     for name, axes in _LAYER_WEIGHTS.items():
         w = layers.pop(name)
-        layers[name + "_q"], layers[name + "_s"] = _quantize_layers(w, axes)
+        reduce_over = (mesh if mesh is not None and _contraction_sharded(
+            layer_axes[name], axes) else None)
+        layers[name + "_q"], layers[name + "_s"] = _quantize_layers(
+            w, axes, reduce_over)
     out["layers"] = layers
     return out

@@ -23,10 +23,15 @@ initializer step and exits. The env contract is the JAX runtime's:
                      (speculative decoding is a later slice)
   KFT_COMPILE_CACHE  accepted and unused: the port compiles no programs
                      (its kernels build once per checkout, under _build/)
+  KFT_MESH          "tensor=N": tensor-parallel serving on N ranks, one
+                     process and one card each (NCCL), or N CPU ranks
+                     (gloo) with KFT_FORCE_PLATFORM=cpu; fewer cards than
+                     N raise. Other axes (data, fsdp, ..., and KFT_DCN)
+                     set above 1 raise: they are a later slice
 
-KFT_MESH, KFT_TIER, KFT_DEPOT, KFT_MODELS_CONFIG_DIR and
-KFT_V2_SOCKET_BIND belong to later slices of the port: when one is set
-the runtime raises, naming the slice, instead of ignoring it.
+KFT_TIER, KFT_DEPOT, KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong
+to later slices of the port: when one is set the runtime raises, naming
+the slice, instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -39,13 +44,13 @@ from typing import Mapping, Optional
 import torch
 
 from kubeflow_tpu_torch.device import platform_device
+from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
 from kubeflow_tpu_torch.serving import storage
 from kubeflow_tpu_torch.serving.model import Model, ModelRepository
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
 
 LATER_SLICES = {
-    "KFT_MESH": "tensor-parallel serving (4-card slice)",
     "KFT_TIER": "disaggregated prefill/decode serving",
     "KFT_DEPOT": "the executable depot",
     "KFT_MODELS_CONFIG_DIR": "multi-model serving (model puller)",
@@ -117,19 +122,24 @@ def quant_from_env(env: Mapping[str, str]):
 
 def build_model_from_env(env: Mapping[str, str]) -> Model:
     """Construct the Model the env contract describes, on CUDA unless
-    KFT_FORCE_PLATFORM=cpu asks for the CPU."""
+    KFT_FORCE_PLATFORM=cpu asks for the CPU; KFT_MESH=tensor=N shards it
+    over N ranks (as the JAX runtime's mesh_from_topology_env)."""
     check_env_slices(env)
     name = env.get("KFT_MODEL_NAME", "model")
     fmt = (env.get("KFT_MODEL_FORMAT") or "llama").lower()
     if fmt not in ("llama", "llm", "huggingface"):
         raise ValueError(f"unsupported KFT_MODEL_FORMAT {fmt!r}")
     device = platform_device(env.get("KFT_FORCE_PLATFORM"))
+    mesh = (mesh_from_topology_env(env)
+            if env.get("KFT_MESH") or env.get("KFT_DCN") else None)
+    if mesh is not None:
+        device = None                # the mesh places every rank
     model_dir = init_storage(env)
     if not model_dir:
         raise ValueError("llama format needs KFT_STORAGE_URI/KFT_MODEL_DIR")
     return LLMModel.from_pretrained(
         name, model_dir, dtype=_DTYPES[env.get("KFT_DTYPE", "bfloat16")],
-        device=device,
+        device=device, mesh=mesh,
         max_batch=int(env.get("KFT_MAX_BATCH", 8)),
         max_seq=int(env.get("KFT_MAX_SEQ", 1024)),
         scheduler=scheduler_from_env(env),

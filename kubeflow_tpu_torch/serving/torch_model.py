@@ -5,8 +5,11 @@ continuous-batching engine (counterpart of ``LLMModel`` in
 ``LLMModel`` drives one ``LLMEngine`` from a background stepping thread,
 so concurrent HTTP requests share one decode batch. It runs on ``device``
 (CUDA unless ``"cpu"`` is asked for; ``load()`` raises when no GPU is
-visible and none was asked for). The executable depot, disaggregated
-tiers and meshes of the JAX runtime belong to later slices.
+visible and none was asked for), or with ``mesh=`` (a
+``parallel.mesh.TensorMesh``) tensor-parallel over the mesh's ranks:
+``load()`` starts them, ``unload()`` stops and joins them. The
+executable depot, disaggregated tiers and meshes over other axes belong
+to later slices.
 """
 
 from __future__ import annotations
@@ -100,7 +103,8 @@ class LLMModel(Model):
                  max_seq: int = 1024, pad_id: int = 0,
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  tokenizer=None, request_timeout: float = 600.0,
-                 scheduler=None, quant=None, device: DeviceLike = None):
+                 scheduler=None, quant=None, device: DeviceLike = None,
+                 mesh=None):
         super().__init__(name)
         self._params = params
         self.cfg = cfg
@@ -113,6 +117,7 @@ class LLMModel(Model):
         self.tokenizer = tokenizer
         self.request_timeout = request_timeout
         self.device = device
+        self.mesh = mesh
         self.engine: Optional[LLMEngine] = None
         self._wake = threading.Condition()
         self._thread: Optional[threading.Thread] = None
@@ -121,21 +126,28 @@ class LLMModel(Model):
     @classmethod
     def from_pretrained(cls, name: str, model_dir: str, *,
                         dtype=torch.bfloat16, device: DeviceLike = None,
-                        **kw) -> "LLMModel":
+                        mesh=None, **kw) -> "LLMModel":
         """Build from an HF-layout checkpoint directory (config.json +
         model*.safetensors [+ tokenizer.json]). Text in/text out when a
         tokenizer is present; token ids otherwise. Weights load straight
-        onto the serving device."""
+        onto the serving device; with ``mesh``, each rank loads its own
+        shard when ``load()`` starts it (the sharded load)."""
         from kubeflow_tpu_torch.device import resolve_device
         from kubeflow_tpu_torch.models import hf_llama
         from kubeflow_tpu_torch.serving.tokenizer import load_tokenizer
 
-        dev = resolve_device(device)
-        cfg, params = hf_llama.load_pretrained(model_dir, dtype=dtype,
-                                               device=dev)
+        if mesh is not None:
+            cfg = hf_llama.load_config(model_dir, dtype=dtype)
+            params = hf_llama.CheckpointParams(model_dir, dtype)
+            dev = None
+        else:
+            dev = resolve_device(device)
+            cfg, params = hf_llama.load_pretrained(model_dir, dtype=dtype,
+                                                   device=dev)
         tok = load_tokenizer(model_dir)
         kw.setdefault("max_seq", min(cfg.max_seq, 1024))
-        return cls(name, params, cfg, tokenizer=tok, device=dev, **kw)
+        return cls(name, params, cfg, tokenizer=tok, device=dev, mesh=mesh,
+                   **kw)
 
     def load(self) -> bool:
         self.engine = LLMEngine(
@@ -143,7 +155,8 @@ class LLMModel(Model):
             max_seq=self.max_seq,
             prefill_buckets=[b for b in self.prefill_buckets
                              if b <= self.max_seq] or [self.max_seq],
-            scheduler=self.scheduler, quant=self.quant, device=self.device)
+            scheduler=self.scheduler, quant=self.quant, device=self.device,
+            mesh=self.mesh)
         self._shutdown = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -156,6 +169,8 @@ class LLMModel(Model):
             self._wake.notify_all()
         if self._thread:
             self._thread.join(timeout=5)
+        if self.engine is not None:
+            self.engine.close()
         self.engine = None
         self.ready = False
 
@@ -203,11 +218,12 @@ class LLMModel(Model):
         decode steps, KV pool occupancy, prefix hits, downgrades, the
         active and requested quant config (nested under "quant"), the step
         scheduler's counter set (nested under "sched") and the
-        request-latency histograms."""
+        request-latency histograms; under a mesh, the mesh (tensor size,
+        collective backend, devices)."""
         eng = self.engine
         if eng is None:
             return {}
-        return {
+        out = {
             "generated_tokens_total": eng.generated_tokens,
             "decode_steps_total": eng.steps,
             "prefill_dispatches_total": eng.prefill_dispatches,
@@ -233,6 +249,9 @@ class LLMModel(Model):
             "request_histograms": {
                 k: h.snapshot() for k, h in eng.request_hists.items()},
         }
+        if eng.mesh is not None:
+            out["mesh"] = eng.mesh.describe()
+        return out
 
     def predict(self, request: InferRequest) -> InferResponse:
         arr = request.as_numpy()

@@ -120,7 +120,9 @@ def _constructors():
 
     from kubeflow_tpu_torch import interop, training
     from kubeflow_tpu_torch.models import hf_llama, llama
+    from kubeflow_tpu_torch.parallel import TensorMesh, mesh_from_topology_env
     from kubeflow_tpu_torch.serving import paged_kv
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
 
     cfg = llama.llama_tiny(dtype=torch.float32)
     return {
@@ -143,6 +145,16 @@ def _constructors():
             training.TrainerConfig()),
         "to_device": lambda tmp: training.to_device(
             {"tokens": np.zeros((2, 3), np.int32)}),
+        # tensor parallelism: one card per rank unless the CPU is asked
+        # for, and no rank is spawned onto a missing card
+        "mesh_from_topology_env": lambda tmp: mesh_from_topology_env(
+            {"KFT_MESH": "tensor=2"}),
+        "SeededParams": lambda tmp: llama.SeededParams(0)(cfg, None, None),
+        "CheckpointParams": lambda tmp: hf_llama.CheckpointParams(
+            _tiny_checkpoint(tmp))(cfg, None, None),
+        "LLMEngine(mesh=)": lambda tmp: LLMEngine(
+            llama.SeededParams(0), cfg, max_seq=16, prefill_buckets=(8,),
+            mesh=TensorMesh(2, ["cuda:0", "cuda:1"])),
     }
 
 
@@ -153,6 +165,39 @@ def test_allocating_functions_raise_without_gpu_unless_cpu_asked(
     hidden and no device named, each raises instead."""
     with pytest.raises(RuntimeError, match="CUDA"):
         _constructors()[name](tmp_path)
+
+
+def test_mesh_runs_on_the_cpu_only_when_asked(no_cuda):
+    from kubeflow_tpu_torch.parallel import mesh_from_topology_env
+
+    mesh = mesh_from_topology_env({"KFT_MESH": "tensor=2",
+                                   "KFT_FORCE_PLATFORM": "cpu"})
+    assert [d.type for d in mesh.devices] == ["cpu", "cpu"]
+    assert mesh.backend == "gloo"
+
+
+def test_spawned_rank_imports_no_jax(tmp_path):
+    """A tensor-parallel engine's other ranks are fresh processes that
+    import neither JAX nor the JAX package (whatever rank 0 imported);
+    close() stops and joins them."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel import TensorMesh
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+
+    cfg = llama.llama_tiny(dtype=torch.float32)
+    eng = LLMEngine(llama.SeededParams(0), cfg, max_seq=32,
+                    prefill_buckets=(8,),
+                    mesh=TensorMesh(2, ["cpu", "cpu"],
+                                    rendezvous_dir=str(tmp_path)))
+    procs = list(eng.tp.procs)
+    try:
+        [worker] = eng.tp_status()[1:]
+    finally:
+        eng.close()
+    assert worker["rank"] == 1 and worker["pid"] != os.getpid()
+    assert not {"jax", "jaxlib", "kubeflow_tpu"} & set(worker["packages"])
+    assert "kubeflow_tpu_torch" in worker["packages"]
+    assert [p.exitcode for p in procs] == [0]
 
 
 def _run(cwd, *args):

@@ -451,10 +451,12 @@ def test_runtime_http_text_matches_jax(tmp_path):
 @pytest.mark.parametrize("key", ["KFT_MESH", "KFT_TIER", "KFT_DEPOT",
                                  "KFT_MODELS_CONFIG_DIR"])
 def test_runtime_raises_for_later_slices(tmp_path, key):
+    """KFT_MESH: the tensor axis is served now (tests/test_torch_tp.py);
+    a mesh over another axis is the later slice that raises."""
     from kubeflow_tpu_torch.serving.runtime import build_model_from_env
 
     env = {"KFT_MODEL_DIR": str(tmp_path), "KFT_FORCE_PLATFORM": "cpu",
-           key: "tensor=2" if key == "KFT_MESH" else "x"}
+           key: "data=2,tensor=2" if key == "KFT_MESH" else "x"}
     with pytest.raises(NotImplementedError, match=key):
         build_model_from_env(env)
 
