@@ -9,7 +9,11 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 
 1. probe   — card name and power limit, torch/CUDA/nvcc versions, and the
              build of every kernel from csrc/ (one nvcc per source, all
-             started together), with its seconds and ptxas report.
+             started together), with its seconds; per kernel body its
+             registers and spills (ptxas). Disassembles the flash dQ
+             and dK/dV libraries (cuobjdump -sass, beside nvcc) and fails
+             unless their bf16 bodies hold HGMMA (wgmma, the tensor
+             cores).
 2. parity  — each kernel against its plain PyTorch version on the card,
              at the serving shape (B=8, H=32, KV_H=8, D=128, bs=64) with
              ragged kv_len (0, 1, a block crossing, ~1000), bf16 and f32.
@@ -85,6 +89,12 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              against their plain versions on the card: the training
              shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
              unaligned non-causal S=1000 with G=4, and D=64; bf16 and f32.
+             The bf16 dQ and dK/dV kernels round P and dS to bf16 on the
+             tensor cores and are held two ways (tools/flash_parity.py):
+             (a) within one ulp plus a near-tie allowance of the plain
+             version that rounds at the same points, and (b) under an
+             rms limit against the float32 plain version (the JAX
+             function); a float64-ordered control must meet (a) too.
 6. flash timing — CUDA-event medians (L2 flushed) of each flash kernel
              and its plain version at the training shape in bf16, beside
              its bound and SDPA's forward / backward time (a yardstick
@@ -115,11 +125,13 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores
@@ -134,32 +146,31 @@ SHAPE = dict(B=8, H=32, KVH=8, D=128, bs=64, max_blocks=16)
 # flash parity limits. f32: both sides sum up to S = 2048 products in
 # float32 in another order (blockwise online softmax against one dense
 # softmax), ~1e-6 relative on values of magnitude up to ~10; 1e-4 leaves
-# that a 10x margin. bf16: both finish in float32 and round once to bf16,
-# so an element may differ by one bf16 ulp of the plain value; where
-# float32 sums cancel to near zero the ulp is tiny and the order of the
-# sums decides the rounding, so the limit is floored at 2^-8 x the plain
-# tensor's rms (half a bf16 ulp at rms magnitude)
+# that a 10x margin. bf16 forward: both finish in float32 and round once
+# to bf16, so an element may differ by one bf16 ulp of the plain value;
+# where float32 sums cancel to near zero the ulp is tiny and the order of
+# the sums decides the rounding, so the limit is floored at 2^-8 x the
+# plain tensor's rms (half a bf16 ulp at rms magnitude). bf16 backward:
+# tools/flash_parity.py's limits (a) and (b); the shapes are its SHAPES
 FLASH_F32_TOL = 1e-4
 FLASH_BF16_FLOOR = 2.0 ** -8
-FLASH_SHAPES = [   # name, B, S, H, KV_H, D, causal
-    ("train", 2, 2048, 16, 8, 128, True),
-    ("unaligned", 2, 1000, 16, 4, 128, False),
-    ("d64", 2, 512, 8, 2, 64, True),
-]
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 # training phase (bench.py:74-94 on the card)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 32, 2048, 16
 TRAIN_STEPS = 3                # one warm-up step, two timed
 # kernel path against attn_impl="xla" on one micro batch at full width:
 # both run the model in bf16 and differ only in where attention rounds
-# (the kernels keep P in float32 and round O once; the einsum path rounds
-# q.k^T and P.V in its own order), over 16 layers. Measured agreement:
-# loss up to 2.2e-5 relative, worst cosine 0.99974 (1 - cos = 2.6e-4),
-# norms up to 1.8e-4 share. Planted faults read: dK/dV summing one of
-# the G heads, cosine 0.505 and norms 0.27 share; dQ skipping KV block 0
-# for the last query block, cosine 0.99932 (1 - cos = 6.8e-4). Loss
-# sees only forward faults; the cosine limit sits between 2.6e-4 and
-# 6.8e-4 (see PERF.md)
+# (the forward kernel keeps P in float32 and rounds O once, the backward
+# kernels round P and dS to bf16 for their tensor-core products; the
+# einsum path rounds q.k^T and P.V in its own order), over 16 layers.
+# Measured agreement: loss up to 2.2e-5 relative, worst cosine 0.99974
+# (1 - cos = 2.6e-4), norms up to 1.8e-4 share, with the backward in
+# float32 FMAs and with it on the tensor cores alike (there loss 1.3e-5,
+# 1 - cos 2.6e-4, norms 1.1e-4 share). Planted faults read: dK/dV
+# summing one of the G heads, cosine 0.505 and norms 0.27 share; dQ
+# skipping KV block 0 for the last query block, cosine 0.99932 (1 - cos
+# = 6.8e-4). Loss sees only forward faults; the cosine limit sits between
+# 2.6e-4 and 6.8e-4 (see PERF.md)
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_COS_MIN = 0.9995
 TRAIN_NORM_SHARE = 5e-3
@@ -235,11 +246,65 @@ def probe(torch, cuda_build) -> dict:
                              verbose=True)
     for name, info in built.items():
         log(f"build {name}: {info['seconds']:.3f} s (built={info['built']})")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas: {line.strip()}")
+        for fn, rep in ptxas_report(info["log"]).items():
+            log(f"  ptxas {kernel_label(fn)}: {rep}")
     log(f"build total {time.perf_counter() - t0:.3f} s")
+    tensor_core_check(cuda_build)
     return built
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v`` output (empty when the library was not rebuilt)."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def kernel_label(mangled: str) -> str:
+    """The kernel's name and template arguments out of its mangled name
+    (flash_dq_kernel_sm90ILi128E: the bf16 body at D = 128)."""
+    m = re.search(r"\d((?:flash|paged)_\w+?I\w+?E)Ev", mangled)
+    return m.group(1) if m else mangled
+
+
+def sass_counts(cuda_build, name: str) -> dict:
+    """{kernel label: {"HGMMA": n, "STL": n, "LDL": n}}: tensor-core
+    products and local-memory stores and loads (spills) in the built
+    library of csrc/<name>.cu, disassembled by cuobjdump from the toolkit
+    beside nvcc."""
+    tool = Path(cuda_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass",
+                           str(cuda_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    return {kernel_label(part.split(None, 1)[0]):
+            {op: len(re.findall(rf"\b{op}\b", part))
+             for op in ("HGMMA", "STL", "LDL")}
+            for part in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def tensor_core_check(cuda_build) -> None:
+    """Fail unless the bf16 bodies of the flash backward kernels (their
+    names end in _sm90) are on the tensor cores: HGMMA in their SASS.
+    Prints every flash backward body's SASS counts."""
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        counts = sass_counts(cuda_build, name)
+        log(f"  sass {name}: {counts}")
+        bf16 = [c["HGMMA"] for fn, c in counts.items() if "_sm90" in fn]
+        if not bf16 or not all(bf16):
+            raise SystemExit(f"{name}: the bf16 body's SASS holds no HGMMA "
+                             f"({counts}): it is not on the tensor cores")
 
 
 def paged_case(torch, dtype, seed=0):
@@ -1081,22 +1146,9 @@ def tp_serving(torch, pa, cfg, params) -> dict:
 # Flash attention (training slice)
 # ---------------------------------------------------------------------------
 
-def flash_case(torch, b, s, h, kvh, d, causal, dtype, seed=0):
-    """q, k, v, dO on the card, and lse / delta from the plain forward."""
-    from kubeflow_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    rnd = lambda *shape: torch.randn(shape, generator=g,
-                                     device="cuda").to(dtype)
-    q, k, v = rnd(b, s, h, d), rnd(b, s, kvh, d), rnd(b, s, kvh, d)
-    do = rnd(b, s, h, d)
-    o, lse = fa.flash_attention_fwd_reference(q, k, v, causal)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    return q, k, v, do, lse, delta
-
-
 def flash_err(torch, out, ref, dtype) -> tuple:
-    """(max abs error, within the limit) of a kernel output."""
+    """(max abs error, within the limit) of a forward kernel output or a
+    float32 backward one."""
     diff = (out.float() - ref.float()).abs()
     err = diff.max().item()
     if not torch.isfinite(out).all():
@@ -1110,42 +1162,53 @@ def flash_err(torch, out, ref, dtype) -> tuple:
 
 def flash_parity(torch) -> dict:
     """Each flash kernel against its plain version; returns the max abs
-    errors at the training shape in bf16."""
+    errors at the training shape in bf16 (the backward kernels' against
+    the plain version that rounds P and dS where they do)."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.tools import flash_parity as fp
 
     train_errs = {}
-    for name, b, s, h, kvh, d, causal in FLASH_SHAPES:
+    for name, b, s, h, kvh, d, causal in fp.SHAPES:
+        shape = (f"{name} (B={b} S={s} H={h} KV_H={kvh} D={d} "
+                 f"causal={causal})")
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do, lse, delta = flash_case(torch, b, s, h, kvh, d,
-                                                 causal, dtype)
+            tag = str(dtype).split(".")[-1]
+            case = fp.flash_case(b, s, h, kvh, d, causal, dtype)
+            q, k, v = case[:3]
             o, lse_k = fa.flash_attention_fwd(q, k, v, causal)
-            dq = fa.flash_attention_dq(q, k, v, do, lse, delta, causal)
-            dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, causal)
             torch.cuda.synchronize()
             ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
-            ref_dq = fa.flash_attention_dq_reference(q, k, v, do, lse, delta,
-                                                     causal)
-            ref_dk, ref_dv = fa.flash_attention_dkv_reference(
-                q, k, v, do, lse, delta, causal)
-            checks = {"flash_attention_fwd": [(o, ref_o), (lse_k, ref_lse)],
-                      "flash_attention_dq": [(dq, ref_dq)],
-                      "flash_attention_dkv": [(dk, ref_dk), (dv, ref_dv)]}
-            tag = str(dtype).split(".")[-1]
+            checks = {"flash_attention_fwd": [(o, ref_o), (lse_k, ref_lse)]}
+            if dtype == torch.float32:
+                dq = fa.flash_attention_dq(*case, causal)
+                dk, dv = fa.flash_attention_dkv(*case, causal)
+                torch.cuda.synchronize()
+                ref_dk, ref_dv = fa.flash_attention_dkv_reference(*case,
+                                                                  causal)
+                checks["flash_attention_dq"] = [
+                    (dq, fa.flash_attention_dq_reference(*case, causal))]
+                checks["flash_attention_dkv"] = [(dk, ref_dk), (dv, ref_dv)]
             for kernel, pairs in checks.items():
                 results = [flash_err(torch, out, ref, dtype)
                            for out, ref in pairs]
                 err = max(e for e, _ in results)
-                ok = all(good for _, good in results)
-                log(f"parity {kernel} {name} (B={b} S={s} H={h} KV_H={kvh} "
-                    f"D={d} causal={causal}) {tag}: max_abs_err {err!r} "
+                log(f"parity {kernel} {shape} {tag}: max_abs_err {err!r} "
                     f"({'f32 limit ' + repr(FLASH_F32_TOL) if dtype == torch.float32 else 'bf16: 1 ulp, floor 2^-8 rms'})")
-                if not ok:
+                if not all(good for _, good in results):
                     raise SystemExit(f"{kernel} {name} {tag} disagrees with "
                                      "its plain version")
                 if name == "train" and dtype == torch.bfloat16:
                     train_errs[kernel] = err
-            del q, k, v, do, lse, delta, ref_o, ref_dq, ref_dk, ref_dv
-    torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:
+                for kernel, r in fp.backward_readings(case, causal).items():
+                    log(f"parity {kernel} {shape} {tag}: {fp.describe(r)}")
+                    if not fp.passes(r):
+                        raise SystemExit(f"{kernel} {name} {tag} is outside "
+                                         "limit (a) or (b)")
+                    if name == "train":
+                        train_errs[kernel] = r["max_abs_err"]
+            del case, q, k, v, o, lse_k, ref_o, ref_lse, checks
+            torch.cuda.empty_cache()
     return train_errs
 
 
@@ -1170,10 +1233,11 @@ def flash_timing(torch) -> dict:
     import torch.nn.functional as F
 
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.tools import flash_parity as fp
 
-    name, b, s, h, kvh, d, causal = FLASH_SHAPES[0]
-    q, k, v, do, lse, delta = flash_case(torch, b, s, h, kvh, d, causal,
-                                         torch.bfloat16, seed=1)
+    name, b, s, h, kvh, d, causal = fp.SHAPES[0]
+    q, k, v, do, lse, delta = fp.flash_case(b, s, h, kvh, d, causal,
+                                            torch.bfloat16, seed=1)
     calls = {
         "flash_attention_fwd": (
             lambda: fa.flash_attention_fwd(q, k, v, causal),

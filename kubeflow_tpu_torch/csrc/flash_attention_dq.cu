@@ -10,24 +10,47 @@
 // rowsum(dO * O) is computed outside the kernel in float32, as `_bwd`
 // does (pallas_attention.py:230).
 //
-// Design. The same grid and loop as the forward: one CTA of 128 threads
-// per (query block of 64 rows, query head, batch), looping over the KV
-// blocks up to the diagonal; thread (r, c) owns rows r + 8i (i < 8), tile
-// columns c + 16j (j < 4) and dQ columns c + 16j (j < D / 16). The q and
-// dO tiles stay in shared memory for the whole loop; each KV block's k and
-// v tiles are staged beside them; dS goes through shared memory to the
-// dS . k product. float32 FMAs, no tensor cores.
-//
 // Bound. 6 * D FLOPs per (q, k) pair that meets the mask (three products
-// of the pair's row with a D-vector, counted as in the forward); at the
-// training shape bound by operations over the bf16 tensor-core peak, which
-// this FMA kernel does not reach (see flash_attention_fwd.cu).
+// of the pair's row with a D-vector); at the training shape bound by
+// operations over the bf16 tensor-core peak.
+//
+// Two bodies, chosen by dtype (the C entry below); neither gives way to
+// the other.
+//
+// bf16: flash_dq_kernel_sm90, on the tensor cores. One warpgroup (128
+// threads) per (query block of 64 rows, query head, batch), two CTAs an
+// SM (__launch_bounds__; 99,328 B of shared memory each at D = 128). q and dO stay in shared
+// memory; k and v stream through a two-stage ring of tiles, the next KV
+// block's cp.async copies in flight while the current one is in the
+// tensor cores. Per KV block: S = q . k^T and dP = dO . v^T as wgmma
+// m64n64k16 with both operands from shared memory (K-major); P and dS in
+// registers, in the accumulator layout; dQ += dS . k as wgmma m64nDk16
+// with dS as the register A operand and k read MN-major from the same
+// tile (flash_attention_sm90.cuh). Causal: the query blocks nearest the
+// end walk the most KV blocks, so blockIdx.x runs over them first; KV
+// blocks past the diagonal are not visited.
+// Rounding points: dS is rounded to bf16 once, as it leaves the
+// accumulator for the dS . k product; S, P, dP, dS before that rounding,
+// and the dQ sum stay float32 until the one final write in bf16. Every
+// tensor-core flash backward rounds there; the plain version's
+// `operand_dtype=torch.bfloat16` rounds at the same point
+// (ops/flash_attention.py).
+//
+// float32: flash_dq_kernel, float32 FMAs on tiles staged in shared memory
+// as float32, one CTA of 128 threads per (query block, query head,
+// batch); thread (r, c) owns rows r + 8i (i < 8), tile columns c + 16j
+// (j < 4) and dQ columns c + 16j (j < D / 16). The tensor cores would
+// take float32 as TF32 (10-bit mantissa), which cannot meet the float32
+// parity limit of 1e-4; this body keeps every product in float32.
 
 #include "flash_attention_common.cuh"
+#include "flash_attention_sm90.cuh"
 
 namespace {
 
 using namespace flash;
+
+// ------------------------------------------------------------ float32 body
 
 constexpr int kThreads = 128;
 
@@ -155,32 +178,194 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const void* lse, const void* delta, void* dq, int B, int Sq,
-           int Skv, int H, int KVH, int causal, float scale,
-           cudaStream_t stream) {
+// ------------------------------------------------------------- bf16 body
+
+constexpr int kWgThreads = 128;   // one warpgroup
+
+template <int D>
+constexpr size_t dq_sm90_smem_bytes() {
+  // q, dO, and two stages of k and v; 1 KB to align the base
+  return (size_t)6 * sm90::tile_bytes<D>() + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+flash_dq_kernel_sm90(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dq, int B, int Sq, int Skv,
+                     int H, int KVH, int causal, float scale) {
+  using namespace sm90;
+  constexpr int T = tile_bytes<D>();
+  constexpr int KS = D / 16;    // k16 steps over D
+  const int tid = threadIdx.x;
+  const int n_q = (Sq + kBlockQ - 1) / kBlockQ;
+  const int per = H * B;
+  const int qb = n_q - 1 - (int)(blockIdx.x / per);   // heaviest first
+  const int h = (int)(blockIdx.x % per) % H;
+  const int b = (int)(blockIdx.x % per) / H;
+  const int q0 = qb * kBlockQ;
+  const int kvh = h / (H / KVH);
+
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t do_s = base + T;
+  const uint32_t kv_s = base + 2 * T;   // stage st: k at + 2 T st, v + T
+
+  int n_kv = (Skv + kBlockKV - 1) / kBlockKV;
+  if (causal) n_kv = min(n_kv, (q0 + kBlockQ + kBlockKV - 1) / kBlockKV);
+
+  load_tile<D, kWgThreads>(q_s, q, b, q0, Sq, H, h, tid);
+  load_tile<D, kWgThreads>(do_s, dout, b, q0, Sq, H, h, tid);
+  load_tile<D, kWgThreads>(kv_s, k, b, 0, Skv, KVH, kvh, tid);   // n_kv >= 1
+  load_tile<D, kWgThreads>(kv_s + T, v, b, 0, Skv, KVH, kvh, tid);
+  cp_async_commit();
+
+  // this thread's two accumulator rows
+  const int qp0 = q0 + acc_row(tid, 0);
+  const int qp1 = q0 + acc_row(tid, 2);
+  const size_t stat = ((size_t)b * H + h) * Sq;
+  const float lse_r[2] = {qp0 < Sq ? lse[stat + qp0] : 0.f,
+                          qp1 < Sq ? lse[stat + qp1] : 0.f};
+  const float delta_r[2] = {qp0 < Sq ? delta[stat + qp0] : 0.f,
+                            qp1 < Sq ? delta[stat + qp1] : 0.f};
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int jb = 0; jb < n_kv; ++jb) {
+    const int k0 = jb * kBlockKV;
+    const uint32_t k_s = kv_s + (jb & 1) * 2 * T;
+    const uint32_t v_s = k_s + T;
+    if (jb + 1 < n_kv) {   // the next KV block into the other stage
+      const uint32_t nk = kv_s + ((jb + 1) & 1) * 2 * T;
+      load_tile<D, kWgThreads>(nk, k, b, k0 + kBlockKV, Skv, KVH, kvh, tid);
+      load_tile<D, kWgThreads>(nk + T, v, b, k0 + kBlockKV, Skv, KVH, kvh,
+                               tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    ready_for_wgmma();
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = 0.f;
+      dp[i] = 0.f;
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      mma_ss_n64(s, desc_kmajor(q_s, kk), desc_kmajor(k_s, kk));
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      mma_ss_n64(dp, desc_kmajor(do_s, kk), desc_kmajor(v_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS in place of S: P = exp(S * scale - lse), masked to 0
+    const bool edge = k0 + kBlockKV > Skv || (causal && k0 + kBlockKV - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const int qp = e < 2 ? qp0 : qp1;
+        const int kp = k0 + acc_col(tid, j, e);
+        const bool live = !edge || (kp < Skv && !(causal && qp < kp));
+        const float p = live ? expf(s[i] * scale - lse_r[e / 2]) : 0.f;
+        s[i] = p * (dp[i] - delta_r[e / 2]) * scale;
+      }
+
+    uint32_t a[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) to_operand(s, kk, a[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs(acc, a[kk], desc_mnmajor(k_s, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();   // the next iteration's copies reuse this stage
+  }
+
+  const int t = tid % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? qp1 : qp0;
+    if (row < Sq) {
+      __nv_bfloat16* out = dq + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half],
+                                  acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------- launches
+
+template <int D>
+int launch_fma(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, int B, int Sq,
+               int Skv, int H, int KVH, int causal, float scale,
+               cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
   static bool opted_in = false;
   if (!opted_in) {
-    const int err = set_smem(flash_dq_kernel<T, D>, smem);
+    const int err = set_smem(flash_dq_kernel<float, D>, smem);
     if (err != 0) return err;
     opted_in = true;
   }
   dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+  flash_dq_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), Sq, Skv, H, KVH, causal, scale);
+      static_cast<float*>(dq), Sq, Skv, H, KVH, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_sm90(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dq, int B, int Sq, int Skv, int H, int KVH, int causal,
+                float scale, cudaStream_t stream) {
+  constexpr size_t smem = dq_sm90_smem_bytes<D>();
+  static bool opted_in = false;
+  if (!opted_in) {
+    const int err = set_smem(flash_dq_kernel_sm90<D>, smem);
+    if (err != 0) return err;
+    opted_in = true;
+  }
+  const long long blocks =
+      (long long)((Sq + kBlockQ - 1) / kBlockQ) * H * B;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
+  flash_dq_kernel_sm90<D><<<(unsigned)blocks, kWgThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), B, Sq, Skv, H, KVH, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dO and dq share it; lse and
-// delta are float32). Returns cudaGetLastError() after the launch;
-// cudaErrorInvalidValue for a geometry the kernel does not take.
+// dtype: 0 = float32 (the FMA body), 1 = bfloat16 (the tensor-core body);
+// q, k, v, dO and dq share it, lse and delta are float32. Returns
+// cudaGetLastError() after the launch; cudaErrorInvalidValue for a
+// geometry the kernels do not take.
 extern "C" int kft_flash_attention_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
@@ -191,16 +376,16 @@ extern "C" int kft_flash_attention_dq(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
-                             KVH, causal, scale, s);
+    return launch_fma<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
+                          causal, scale, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
-                              KVH, causal, scale, s);
+    return launch_fma<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H, KVH,
+                           causal, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, B, Sq,
-                                     Skv, H, KVH, causal, scale, s);
+    return launch_sm90<64>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                           KVH, causal, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, Sq,
-                                      Skv, H, KVH, causal, scale, s);
+    return launch_sm90<128>(q, k, v, dout, lse, delta, dq, B, Sq, Skv, H,
+                            KVH, causal, scale, s);
   return (int)cudaErrorInvalidValue;
 }

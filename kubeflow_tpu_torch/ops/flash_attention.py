@@ -17,6 +17,15 @@ anything the kernel does not take, and runs its plain version
 tensors on the CPU. There is no fallback from one to the other, and no
 padding copy: the kernels mask the ragged edge themselves. Each wrapper's
 ``.launches`` counts kernel launches.
+
+The backward kernels have two bodies each, chosen by dtype. bf16 runs on
+the tensor cores (wgmma) and rounds P and dS to bf16 once, as they leave
+the accumulators for the products that take them (dS . k; P^T . dO and
+dS^T . q); everything else stays float32 until the one final write.
+float32 runs float32 FMAs throughout. The backward plain versions take
+``operand_dtype`` to round at the same points (None, the default and the
+CPU path, keeps P and dS float32 as the JAX function does);
+``tools/flash_parity.py`` holds the bf16 kernels to both.
 """
 
 from __future__ import annotations
@@ -118,22 +127,37 @@ def _dscores(q, k, v, do, lse, delta, causal):
     return p, ds, qf, dof
 
 
+def _operand(x, operand_dtype):
+    """``x`` as the product that takes it sees it: rounded to
+    ``operand_dtype`` and back to float32, or ``x`` itself for None."""
+    return x if operand_dtype is None else x.to(operand_dtype).float()
+
+
 def flash_attention_dq_reference(q, k, v, do, lse, delta,
-                                 causal: bool = True):
+                                 causal: bool = True, operand_dtype=None):
     """Plain dQ: P = exp(S * scale - lse), dS = P * (dO.v^T - delta) *
-    scale, dQ = dS . k, in float32, returned in q's dtype."""
+    scale, dQ = dS . k, in float32, returned in q's dtype.
+
+    ``operand_dtype`` (None or a dtype such as torch.bfloat16) rounds dS
+    to that dtype before the dS . k product, where the tensor-core kernel
+    rounds it; None keeps it float32, as the JAX function does."""
     _, ds, _, _ = _dscores(q, k, v, do, lse, delta, causal)
-    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.float())
+    dq = torch.einsum("bkgqs,bskd->bqkgd", _operand(ds, operand_dtype),
+                      k.float())
     return dq.reshape(q.shape).to(q.dtype)
 
 
 def flash_attention_dkv_reference(q, k, v, do, lse, delta,
-                                  causal: bool = True):
+                                  causal: bool = True, operand_dtype=None):
     """Plain dK, dV: P^T . dO and dS^T . q summed over the G query heads
-    of each KV head, in float32, returned in k's dtype."""
+    of each KV head, in float32, returned in k's dtype.
+
+    ``operand_dtype`` rounds P and dS to that dtype before the two
+    products, where the tensor-core kernel rounds them; None keeps them
+    float32, as the JAX function does."""
     p, ds, qf, dof = _dscores(q, k, v, do, lse, delta, causal)
-    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
-    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", _operand(p, operand_dtype), dof)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", _operand(ds, operand_dtype), qf)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -329,7 +353,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: int = 512,
 
     ``block_q``/``block_kv`` are the JAX kernel's tiling knobs (its VMEM
     budget); they are checked and do not change the result. The CUDA
-    kernels tile 64 x 64 rows on their own.
+    kernels choose their own tiles (64-row query and KV blocks, sized
+    for the SM's shared memory and registers, not for VMEM).
     """
     _check_shapes(q, k, v)
     if block_q <= 0 or block_kv <= 0:
