@@ -6,12 +6,14 @@
 // copy is made); lse and delta are [B, H, Sq] float32. Query head h reads
 // KV head h / (H / KV_H): KV heads are never repeated.
 //
-// Tiles. Every kernel works on 64-row query blocks and 64-row KV blocks. A
-// tile is staged in shared memory as float32 with a row stride of D + 1
-// words, so that both access patterns the kernels use are free of bank
-// conflicts: sixteen threads reading sixteen different rows at one column
-// (row stride D + 1 is odd, so the rows fall in different banks), and
-// sixteen threads reading one row at sixteen consecutive columns. Global
+// Tiles. Every kernel works on 64-row query blocks and 64-row KV blocks.
+// The float32 bodies stage a tile in shared memory as float32 with a row
+// stride of D + 1 words (the bf16 bodies keep bf16 tiles in the layout of
+// flash_attention_sm90.cuh), so that both access patterns they use are
+// free of bank conflicts: sixteen threads reading sixteen different rows
+// at one column (row stride D + 1 is odd, so the rows fall in different
+// banks), and sixteen threads reading one row at sixteen consecutive
+// columns. Global
 // reads are 16-byte vectors along a D-row. Rows at or past the sequence
 // end are staged as zeros and never written back: the kernels mask the
 // ragged edge themselves, with no padding copy.

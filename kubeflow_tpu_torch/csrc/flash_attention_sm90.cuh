@@ -18,7 +18,7 @@
 //   MN-major (desc_mnmajor, transpose bit set): rows are the reduction,
 //     the D columns are N; k-step kk (16 rows) starts at row 16 kk, 8-row
 //     groups 1024 bytes apart (SBO), the second 64-column half 8 KB on
-//     (LBO). dQ += dS . k reads k so.
+//     (LBO). dQ += dS . k reads k so, and O += P . v reads v.
 // So every tile is copied once, in one layout, and read by both products.
 //
 // Copies. cp.async.cg 16-byte copies, one chunk a thread at a time,

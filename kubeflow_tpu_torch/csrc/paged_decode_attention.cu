@@ -13,27 +13,43 @@
 // same dtype as q); tables [B, max_blocks] int32; kv_len [B] int32 counting
 // this step's row; out [B, H, D]. D in {64, 128}, bs <= 64, H / KV_H <= 8.
 //
-// Design. One thread block of 128 threads per (KV head, slot): it holds
-// that head's G = H / KV_H query rows (pre-scaled, f32, in shared memory)
-// and walks the slot's live table entries itself (on the TPU, scalar
-// prefetch brought them in). Per block it stages the [bs, D] K and V tiles
-// in shared memory with 16-byte loads, computes the G x bs logits (one warp
-// per token, lanes across D, shuffle reduction), runs the online-softmax
-// update (one warp per query row) and accumulates P.V in registers (each
-// thread owns G*D/128 output elements). K/V of a head are read once per
-// slot, never repeated per query head.
+// Design (flash-decoding: each slot's walk split over thread blocks, then
+// a combine pass). Pass 1, paged_decode_kernel: one thread block of 128
+// threads per (split s, KV head, slot). Split s walks the slot's live
+// blocks [s P, min((s + 1) P, n_live)), P = blocks_per_split; it holds the
+// head's G = H / KV_H query rows (pre-scaled, f32, in shared memory) and
+// runs the online softmax over its blocks: per block the [bs, D] K and V
+// tiles are in shared memory, the G x bs logits are computed (one warp
+// per token, lanes across D, shuffle reduction), the online-softmax update
+// runs (one warp per query row) and P.V accumulates in registers (each
+// thread owns G*D/128 output elements). The next block's tiles are copied
+// by cp.async into the other of two buffers while the current block is
+// computed (a split walks 64 KV rows: one block at the serving block size
+// of 64, so there each split's copies overlap only other splits' work).
+// The split writes its unnormalised partial (acc [G, D], m, l,
+// f32) to a workspace the caller allocates; splits past the slot's live
+// count exit at once. Pass 2, paged_decode_combine: one thread block of D
+// threads per (query head, slot) merges the slot's partials in split
+// order, out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)
+// with M = max_s m_s, and writes the output in q's dtype (zeros for a
+// slot with no live block). Both passes launch from one C entry on one
+// stream. K/V of a head are read once per slot, never repeated per query
+// head.
+//
+// The split length P is fixed by the caller from the block size alone,
+// and the split count from the table width (ops/paged_attention.
+// split_plan), never from B, KV_H or the other slots: a slot's output is
+// the same whatever else shares its batch, one rank's heads under tensor
+// parallelism give bitwise what the unsharded launch gives them, and a
+// slot whose live blocks fit one split gives bitwise what the serial walk
+// gave.
 //
 // Bound. At decode shapes the work is a few FLOPs per KV byte, so the
 // kernel is bound by the bytes of the KV rows below kv_len (plus q and
 // out): the least time is those bytes over the card's 3.35 TB/s. The
 // kernel reads exactly those rows, not the dead tail of a slot's last
-// block. What this first design leaves on the table: its (KV head, slot)
-// grid gives only B * KV_H blocks -- 64 at the serving smoke's shape
-// (B=8, KV_H=8) on 132 SMs -- and each block loads a tile, then computes,
-// with no overlap.
-// Splitting each slot's blocks over several thread blocks with a second
-// reduction pass (flash-decoding) and a cp.async/TMA pipeline are the next
-// steps; both are later work.
+// block. At the serving shape the bound is a few microseconds, so the two
+// launches' latency, not the bytes, sets the time.
 //
 // Quantized pools (second C entry, kft_paged_decode_attention_quant).
 // Replaces the same TPU kernel's `quantized=True` form
@@ -42,17 +58,14 @@
 // per-KV-head f32 scales k_scale/v_scale [NB, KV_H]. The body is the same
 // template, instantiated on the pool's storage type: tiles are staged in
 // shared memory at one byte per element (a D = 128 row is eight 16-byte
-// loads), the CTA reads its two scale words per live block beside its
+// copies), the CTA reads its two scale words per live block beside its
 // table entry, and each K/V element is upcast to f32 and multiplied by its
 // block's scale where the tile is read, before the FMA. The dequantized
-// value is never rounded to q's dtype, and the summation order is the
-// unquantized kernel's, so over an f32 q the quantized kernel equals the
-// unquantized kernel over the f32 dequant view bit for bit. Bound: the
-// same walk over half (bf16) or a quarter (f32) of the K/V bytes, plus
-// 8 bytes of scales per live block and KV head; the design leaves the same
-// things on the table as the unquantized form (64 CTAs at the serving
-// shape, no load/compute overlap), so it is bound by the serial walk, not
-// the bytes.
+// value is never rounded to q's dtype, and the summation order (split and
+// combine included) is the unquantized kernel's, so over an f32 q the
+// quantized kernel equals the unquantized kernel over the f32 dequant view
+// bit for bit. Bound: the same walk over half (bf16) or a quarter (f32)
+// of the K/V bytes, plus 8 bytes of scales per live block and KV head.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -104,9 +117,62 @@ __host__ __device__ inline size_t scalar_smem_bytes(int G, int D, int bs) {
   return (n + 15) & ~(size_t)15;
 }
 
-// T: q/out type (float or bf16). KV: the pool's storage type -- T itself
-// (unquantized) or a one-byte type (int8_t, __nv_fp8_e4m3), which makes
-// the kernel read k_scale/v_scale (else they are null and unread).
+// Shared memory of pass 1: the scalars, then two buffers of K and V tiles.
+template <typename KV>
+size_t split_smem_bytes(int G, int D, int bs) {
+  return scalar_smem_bytes(G, D, bs) + 4 * (size_t)bs * D * sizeof(KV);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The slot's live block count: ceil(kv_len / bs), clamped at the table
+// width.
+__device__ __forceinline__ int live_blocks(int len, int bs, int max_blocks) {
+  const int n = len > 0 ? (len + bs - 1) / bs : 0;
+  return n < max_blocks ? n : max_blocks;
+}
+
+// Copy the head's K and V rows below kv_len of pool block `blk` into
+// k_s / v_s ([bs, D] each) by cp.async (the dead tail of the last block is
+// never read): consecutive threads copy consecutive 16-byte pieces of one
+// D-row. The caller commits.
+template <typename KV>
+__device__ __forceinline__ void stage_block(KV* k_s, KV* v_s,
+                                            const KV* k_pool,
+                                            const KV* v_pool, int blk,
+                                            int valid, int h, int KVH,
+                                            int D, int bs, int tid) {
+  constexpr int kVec = 16 / sizeof(KV);   // elements per 16-byte copy
+  const int vecs_per_row = D / kVec;
+  const size_t base = ((size_t)blk * bs * KVH + h) * D;
+  const size_t row_stride = (size_t)KVH * D;   // elements between rows
+  const int n_vec = valid * vecs_per_row;
+  for (int i = tid; i < n_vec; i += kThreads) {
+    const int t = i / vecs_per_row;
+    const int c = (i - t * vecs_per_row) * kVec;
+    const size_t src = base + (size_t)t * row_stride + c;
+    cp_async16(k_s + t * D + c, k_pool + src);
+    cp_async16(v_s + t * D + c, v_pool + src);
+  }
+}
+
+// Pass 1. T: q's type (float or bf16). KV: the pool's storage type -- T
+// itself (unquantized) or a one-byte type (int8_t, __nv_fp8_e4m3), which
+// makes the kernel read k_scale/v_scale (else they are null and unread).
+// Writes split s's partial: acc to ws_acc[b, h G + g, s, :], m and l to
+// ws_m / ws_l[b, h G + g, s].
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
@@ -114,12 +180,21 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
                     const int* __restrict__ tables,
-                    const int* __restrict__ kv_len, T* __restrict__ out,
-                    int H, int KVH, int D, int bs, int max_blocks,
+                    const int* __restrict__ kv_len,
+                    float* __restrict__ ws_acc, float* __restrict__ ws_m,
+                    float* __restrict__ ws_l, int H, int KVH, int D, int bs,
+                    int max_blocks, int blocks_per_split, int n_split,
                     float scale) {
   constexpr bool kQuant = sizeof(KV) == 1;
-  const int h = blockIdx.x;  // KV head
-  const int b = blockIdx.y;  // slot
+  const int split = blockIdx.x;
+  const int h = blockIdx.y;  // KV head
+  const int b = blockIdx.z;  // slot
+  const int len = kv_len[b];
+  const int n_live = live_blocks(len, bs, max_blocks);
+  const int j0 = split * blocks_per_split;
+  if (j0 >= n_live) return;   // past the slot's live blocks
+  const int j1 = min(j0 + blocks_per_split, n_live);
+
   const int G = H / KVH;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -132,17 +207,13 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
   float* m_s = p_s + G * bs;                    // [G]
   float* l_s = m_s + G;                         // [G]
   float* a_s = l_s + G;                         // [G]
-  KV* k_s = reinterpret_cast<KV*>(smem + scalar_smem_bytes(G, D, bs));
-  KV* v_s = k_s + bs * D;  // [bs, D] each
+  KV* tiles = reinterpret_cast<KV*>(smem + scalar_smem_bytes(G, D, bs));
+  // buffer u: K at tiles + 2 u bs D, V bs D after it
 
-  const int len = kv_len[b];
-  int n_live = len > 0 ? (len + bs - 1) / bs : 0;
-  if (n_live > max_blocks) n_live = max_blocks;
-  T* out_rows = out + ((size_t)b * H + (size_t)h * G) * D;
-  if (n_live == 0) {
-    for (int e = tid; e < n_out; e += kThreads) store(out_rows + e, 0.f);
-    return;
-  }
+  const int* table_row = tables + (size_t)b * max_blocks;
+  stage_block(tiles, tiles + bs * D, k_pool, v_pool, table_row[j0],
+              min(bs, len - j0 * bs), h, KVH, D, bs, tid);
+  cp_async_commit();
 
   const T* q_rows = q + ((size_t)b * H + (size_t)h * G) * D;
   for (int e = tid; e < n_out; e += kThreads)
@@ -155,15 +226,22 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) acc[i] = 0.f;
 
-  const int* table_row = tables + (size_t)b * max_blocks;
-  const size_t row_stride = (size_t)KVH * D;  // elements between token rows
-  constexpr int kVec = 16 / sizeof(KV);       // elements per 16-byte load
-  const int vecs_per_row = D / kVec;
-  __syncthreads();
+  for (int j = j0; j < j1; ++j) {
+    const int u = (j - j0) & 1;
+    const KV* k_s = tiles + 2 * u * bs * D;
+    const KV* v_s = k_s + bs * D;
+    if (j + 1 < j1) {   // the next block's tiles into the other buffer
+      KV* nk = tiles + 2 * (u ^ 1) * bs * D;
+      stage_block(nk, nk + bs * D, k_pool, v_pool, table_row[j + 1],
+                  min(bs, len - (j + 1) * bs), h, KVH, D, bs, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // every thread's copies of block j, and q_s / m_s
 
-  for (int j = 0; j < n_live; ++j) {
     const int blk = table_row[j];
-    const size_t base = ((size_t)blk * bs * KVH + h) * D;
     const int valid = min(bs, len - j * bs);  // >= 1 for a live block
     // this block's dequant scales for head h (1.0 and unread unquantized)
     float ks = 1.f, vs = 1.f;
@@ -171,23 +249,9 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
       ks = k_scale[(size_t)blk * KVH + h];
       vs = v_scale[(size_t)blk * KVH + h];
     }
-    // stage the head's K and V rows below kv_len (the dead tail of the
-    // last block is never read): consecutive threads load consecutive
-    // 16-byte pieces of one D-row
-    const int n_vec = valid * vecs_per_row;
-    for (int i = tid; i < n_vec; i += kThreads) {
-      const int t = i / vecs_per_row;
-      const int c = (i - t * vecs_per_row) * kVec;
-      const size_t src = base + (size_t)t * row_stride + c;
-      *reinterpret_cast<uint4*>(k_s + t * D + c) =
-          *reinterpret_cast<const uint4*>(k_pool + src);
-      *reinterpret_cast<uint4*>(v_s + t * D + c) =
-          *reinterpret_cast<const uint4*>(v_pool + src);
-    }
-    __syncthreads();
 
     // logits: one warp per token, lanes across D; rows past kv_len get
-    // the mask value without touching their (unstaged) tile rows
+    // the mask value without touching their (uncopied) tile rows
     for (int t = warp; t < bs; t += kWarps) {
       if (t >= valid) {
         if (lane < G) p_s[lane * bs + t] = kNegInf;
@@ -254,27 +318,71 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
         acc[i] = acc[i] * a_s[g] + s;
       }
     }
-    __syncthreads();  // the next block overwrites the tiles and p_s
+    __syncthreads();  // the next copies reuse this buffer; p_s is rewritten
   }
 
+  // the unnormalised partial of this split
+  const size_t row0 = (size_t)b * H + (size_t)h * G;   // first query row
 #pragma unroll
   for (int i = 0; i < kMaxAcc; ++i) {
     const int e = tid + i * kThreads;
     if (e < n_out) {
       const int g = e / D;
-      store(out_rows + e, acc[i] / fmaxf(l_s[g], 1e-30f));
+      const int d = e - g * D;
+      ws_acc[((row0 + g) * n_split + split) * D + d] = acc[i];
     }
   }
+  for (int g = tid; g < G; g += kThreads) {
+    ws_m[(row0 + g) * n_split + split] = m_s[g];
+    ws_l[(row0 + g) * n_split + split] = l_s[g];
+  }
+}
+
+// Pass 2: thread d of block (query head h, slot b) merges output column d
+// of the slot's ceil(n_live / P) partials in split order. A split whose
+// rows were all masked (m = -1e30, l = 0) weighs exp(-1e30 - M) = 0 when
+// another split is live, and yields 0 / 1e-30 = 0 when none is.
+template <typename T>
+__global__ void paged_decode_combine(const float* __restrict__ ws_acc,
+                                     const float* __restrict__ ws_m,
+                                     const float* __restrict__ ws_l,
+                                     const int* __restrict__ kv_len,
+                                     T* __restrict__ out, int H, int D,
+                                     int bs, int max_blocks,
+                                     int blocks_per_split, int n_split) {
+  const int h = blockIdx.x;  // query head
+  const int b = blockIdx.y;  // slot
+  const int d = threadIdx.x;
+  const int n_live = live_blocks(kv_len[b], bs, max_blocks);
+  const int ns = (n_live + blocks_per_split - 1) / blocks_per_split;
+  const size_t row = (size_t)b * H + h;
+  T* dst = out + row * D + d;
+  if (ns == 0) {   // kv_len 0: zeros
+    store(dst, 0.f);
+    return;
+  }
+  const float* m = ws_m + row * n_split;
+  const float* l = ws_l + row * n_split;
+  const float* acc = ws_acc + row * n_split * D + d;
+  float mx = kNegInf;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, m[s]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < ns; ++s) {
+    const float w = expf(m[s] - mx);
+    den += w * l[s];
+    num += w * acc[(size_t)s * D];
+  }
+  store(dst, num / fmaxf(den, 1e-30f));
 }
 
 template <typename T, typename KV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* k_scale, const void* v_scale, const void* tables,
-           const void* kv_len, void* out, int B, int H, int KVH, int D,
-           int bs, int max_blocks, float scale, cudaStream_t stream) {
+           const void* kv_len, void* out, void* workspace, int B, int H,
+           int KVH, int D, int bs, int max_blocks, int blocks_per_split,
+           int n_split, float scale, cudaStream_t stream) {
   const int G = H / KVH;
-  const size_t smem =
-      scalar_smem_bytes(G, D, bs) + 2 * (size_t)bs * D * sizeof(KV);
+  const size_t smem = split_smem_bytes<KV>(G, D, bs);
   static size_t smem_opted_in = 48 * 1024;
   if (smem > smem_opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -283,82 +391,108 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
     if (err != cudaSuccess) return (int)err;
     smem_opted_in = smem;
   }
-  dim3 grid(KVH, B);
-  paged_decode_kernel<T, KV><<<grid, kThreads, smem, stream>>>(
+  // workspace: acc [B, H, n_split, D], then m and l [B, H, n_split], f32
+  float* ws_acc = static_cast<float*>(workspace);
+  float* ws_m = ws_acc + (size_t)B * H * n_split * D;
+  float* ws_l = ws_m + (size_t)B * H * n_split;
+  paged_decode_kernel<T, KV><<<dim3(n_split, KVH, B), kThreads, smem,
+                               stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k_pool),
       static_cast<const KV*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), H, KVH, D, bs,
-      max_blocks, scale);
+      static_cast<const int*>(kv_len), ws_acc, ws_m, ws_l, H, KVH, D, bs,
+      max_blocks, blocks_per_split, n_split, scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_decode_combine<T><<<dim3(H, B), D, 0, stream>>>(
+      ws_acc, ws_m, ws_l, static_cast<const int*>(kv_len),
+      static_cast<T*>(out), H, D, bs, max_blocks, blocks_per_split, n_split);
   return (int)cudaGetLastError();
 }
 
-bool geometry_ok(int B, int H, int KVH, int D, int bs, int max_blocks) {
-  return B > 0 && KVH > 0 && H % KVH == 0 && H / KVH <= kMaxGroups &&
+// The split plan must be the one ops/paged_attention.split_plan gives:
+// n_split = ceil(max_blocks / blocks_per_split).
+bool geometry_ok(int B, int H, int KVH, int D, int bs, int max_blocks,
+                 int blocks_per_split, int n_split) {
+  return B > 0 && B <= 65535 && KVH > 0 && KVH <= 65535 && H <= 65535 &&
+         H % KVH == 0 && H / KVH <= kMaxGroups &&
          (D == 64 || D == kMaxHeadDim) && bs > 0 && bs <= kMaxBlockSize &&
-         max_blocks > 0;
+         max_blocks > 0 && blocks_per_split > 0 &&
+         n_split == (max_blocks + blocks_per_split - 1) / blocks_per_split;
 }
 
 template <typename KV>
 int launch_quant(int dtype, const void* q, const void* k_pool,
                  const void* v_pool, const void* k_scale,
                  const void* v_scale, const void* tables, const void* kv_len,
-                 void* out, int B, int H, int KVH, int D, int bs,
-                 int max_blocks, float scale, cudaStream_t s) {
+                 void* out, void* workspace, int B, int H, int KVH, int D,
+                 int bs, int max_blocks, int blocks_per_split, int n_split,
+                 float scale, cudaStream_t s) {
   if (dtype == 0)
     return launch<float, KV>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                             kv_len, out, B, H, KVH, D, bs, max_blocks,
-                             scale, s);
+                             kv_len, out, workspace, B, H, KVH, D, bs,
+                             max_blocks, blocks_per_split, n_split, scale, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, KV>(q, k_pool, v_pool, k_scale, v_scale,
-                                     tables, kv_len, out, B, H, KVH, D, bs,
-                                     max_blocks, scale, s);
+                                     tables, kv_len, out, workspace, B, H,
+                                     KVH, D, bs, max_blocks,
+                                     blocks_per_split, n_split, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success); cudaErrorInvalidValue for shapes the kernel does
-// not take. Launches on `stream`, does not synchronize, allocates nothing.
+// dtype: 0 = float32, 1 = bfloat16. workspace: B * H * n_split * (D + 2)
+// float32 (the partials); blocks_per_split and n_split from split_plan.
+// Returns cudaGetLastError() after the launches (0 on success);
+// cudaErrorInvalidValue for shapes the kernel does not take. Launches both
+// passes on `stream`, does not synchronize, allocates nothing.
 extern "C" int kft_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* kv_len, void* out, int B, int H,
-    int KVH, int D, int bs, int max_blocks, float scale, int dtype,
+    const void* tables, const void* kv_len, void* out, void* workspace,
+    int B, int H, int KVH, int D, int bs, int max_blocks,
+    int blocks_per_split, int n_split, float scale, int dtype,
     void* stream) {
-  if (!geometry_ok(B, H, KVH, D, bs, max_blocks))
+  if (!geometry_ok(B, H, KVH, D, bs, max_blocks, blocks_per_split, n_split))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, tables,
-                                kv_len, out, B, H, KVH, D, bs, max_blocks,
-                                scale, s);
+                                kv_len, out, workspace, B, H, KVH, D, bs,
+                                max_blocks, blocks_per_split, n_split, scale,
+                                s);
   if (dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        q, k_pool, v_pool, nullptr, nullptr, tables, kv_len, out, B, H, KVH,
-        D, bs, max_blocks, scale, s);
+        q, k_pool, v_pool, nullptr, nullptr, tables, kv_len, out, workspace,
+        B, H, KVH, D, bs, max_blocks, blocks_per_split, n_split, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // The quantized form: k_pool/v_pool [NB, bs, KV_H, D] int8 (kv_dtype 0) or
-// fp8 e4m3 (kv_dtype 1); k_scale/v_scale [NB, KV_H] float32; q/out as
-// above (dtype 0 = float32, 1 = bfloat16). Same return convention.
+// fp8 e4m3 (kv_dtype 1); k_scale/v_scale [NB, KV_H] float32; q/out and the
+// workspace as above (dtype 0 = float32, 1 = bfloat16). Same return
+// convention.
 extern "C" int kft_paged_decode_attention_quant(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* kv_len, void* out, int B, int H, int KVH, int D, int bs,
-    int max_blocks, float scale, int dtype, int kv_dtype, void* stream) {
-  if (!geometry_ok(B, H, KVH, D, bs, max_blocks) || k_scale == nullptr ||
-      v_scale == nullptr)
+    const void* kv_len, void* out, void* workspace, int B, int H, int KVH,
+    int D, int bs, int max_blocks, int blocks_per_split, int n_split,
+    float scale, int dtype, int kv_dtype, void* stream) {
+  if (!geometry_ok(B, H, KVH, D, bs, max_blocks, blocks_per_split,
+                   n_split) ||
+      k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv_dtype == 0)
     return launch_quant<int8_t>(dtype, q, k_pool, v_pool, k_scale, v_scale,
-                                tables, kv_len, out, B, H, KVH, D, bs,
-                                max_blocks, scale, s);
+                                tables, kv_len, out, workspace, B, H, KVH, D,
+                                bs, max_blocks, blocks_per_split, n_split,
+                                scale, s);
   if (kv_dtype == 1)
     return launch_quant<__nv_fp8_e4m3>(dtype, q, k_pool, v_pool, k_scale,
-                                       v_scale, tables, kv_len, out, B, H,
-                                       KVH, D, bs, max_blocks, scale, s);
+                                       v_scale, tables, kv_len, out,
+                                       workspace, B, H, KVH, D, bs,
+                                       max_blocks, blocks_per_split, n_split,
+                                       scale, s);
   return (int)cudaErrorInvalidValue;
 }

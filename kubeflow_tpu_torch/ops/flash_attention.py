@@ -18,11 +18,13 @@ tensors on the CPU. There is no fallback from one to the other, and no
 padding copy: the kernels mask the ragged edge themselves. Each wrapper's
 ``.launches`` counts kernel launches.
 
-The backward kernels have two bodies each, chosen by dtype. bf16 runs on
-the tensor cores (wgmma) and rounds P and dS to bf16 once, as they leave
-the accumulators for the products that take them (dS . k; P^T . dO and
-dS^T . q); everything else stays float32 until the one final write.
-float32 runs float32 FMAs throughout. The backward plain versions take
+Each kernel has two bodies, chosen by dtype. bf16 runs on the tensor
+cores (wgmma) and rounds P (forward, dK/dV) and dS (dQ, dK/dV) to bf16
+once, as they leave the accumulators for the products that take them
+(P . v; dS . k; P^T . dO and dS^T . q); in the forward P is taken against
+the running max of its 64-wide KV block's walk. Everything else stays
+float32 until the one final write. float32 runs float32 FMAs
+throughout and keeps P float32. The plain versions take
 ``operand_dtype`` to round at the same points (None, the default and the
 CPU path, keeps P and dS float32 as the JAX function does);
 ``tools/flash_parity.py`` holds the bf16 kernels to both.
@@ -89,11 +91,23 @@ def _grouped(x, kvh):
     return x.float().reshape(b, s, kvh, h // kvh, d)
 
 
-def flash_attention_fwd_reference(q, k, v, causal: bool = True):
+def flash_attention_fwd_reference(q, k, v, causal: bool = True,
+                                  operand_dtype=None):
     """Plain forward: (o [B, S, H, D] in q's dtype, lse [B, H, S] f32),
-    with q pre-scaled by 1/sqrt(D), the -1e30 mask and l clamped at
-    1e-30, as the kernel computes them."""
+    with the -1e30 mask and l clamped at 1e-30, as the kernels compute
+    them.
+
+    ``operand_dtype=None`` (the default and the CPU path) is the dense
+    float32 function the JAX package computes, with q pre-scaled by
+    1/sqrt(D); float32 rounds nothing and gives the same. A narrower
+    dtype (torch.bfloat16) is the tensor-core kernel's arithmetic: S =
+    (q . k^T) * scale in float32, then a walk over 64-wide KV blocks
+    with the running max m, P = exp(S - m) rounded to ``operand_dtype``
+    for the P . v product and summed into l in float32, and O rescaled
+    by exp(m_old - m_new) at each block (``_fwd_walk``)."""
     _check_shapes(q, k, v)
+    if operand_dtype not in (None, torch.float32):
+        return _fwd_walk(q, k, v, causal, operand_dtype)[:2]
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     qf = _grouped(q, kvh) * (1.0 / math.sqrt(d))
@@ -107,6 +121,54 @@ def flash_attention_fwd_reference(q, k, v, causal: bool = True):
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
     lse = (m + torch.log(lc))[..., 0].reshape(b, h, sq)
     return o, lse
+
+
+BLOCK_KV = 64   # the kernels' KV block: the walk's rescale points
+
+
+def _fwd_walk(q, k, v, causal, operand_dtype, wide=False, on_p=None):
+    """The bf16 forward kernel's walk: (o, lse, extra) with P rounded to
+    ``operand_dtype`` where it enters P . v. ``wide`` takes the two
+    products' sums in float64 (another order) and l and O in float64,
+    with the same rounding points (S and P float32, P then rounded).
+    ``on_p(p, vf)`` is called per KV block with the float32 P and returns
+    a [B, KV_H, G, Sq, D] term that the walk rescales and sums as it does
+    P . v (``tools/flash_parity.py`` adds its near-tie allowance so);
+    ``extra`` is that sum over max(l, 1e-30), or None."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    acc_t = torch.float64 if wide else torch.float32
+    qx = _grouped(q, kvh).to(acc_t)
+    kx, vx = k.to(acc_t), v.to(acc_t)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qx, kx).float() * scale
+    s = torch.where(_mask(sq, skv, causal, q.device), s,
+                    torch.tensor(NEG_INF, device=q.device))
+    m = torch.full(s.shape[:-1] + (1,), NEG_INF, device=q.device)
+    l = torch.zeros(m.shape, dtype=acc_t, device=q.device)
+    acc = torch.zeros(s.shape[:-1] + (d,), dtype=acc_t, device=q.device)
+    extra = None
+    for k0 in range(0, skv, BLOCK_KV):
+        blk = s[..., k0:k0 + BLOCK_KV]
+        m_new = torch.maximum(m, blk.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(blk - m_new)
+        m = m_new
+        l = l * alpha + p.to(acc_t).sum(dim=-1, keepdim=True)
+        vb = vx[:, k0:k0 + BLOCK_KV]
+        acc = acc * alpha + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(operand_dtype).to(acc_t), vb)
+        if on_p is not None:
+            term = on_p(p, vb.float())
+            extra = term if extra is None else extra * alpha + term
+    lc = l.clamp_min(1e-30)
+    o = (acc / lc).float()
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    lse = (m + torch.log(lc.float()))[..., 0].reshape(b, h, sq)
+    if extra is not None:
+        extra = (extra / lc.float()).permute(0, 3, 1, 2, 4).reshape(
+            b, sq, h, d)
+    return o, lse, extra
 
 
 def _dscores(q, k, v, do, lse, delta, causal):

@@ -5,7 +5,11 @@ version (counterpart of ``kubeflow_tpu.ops.pallas_paged_attention``).
 One query row per slot attends to the KV rows of the pool blocks its
 block-table row names, walking only the ``ceil(kv_len / bs)`` live blocks;
 no ``[max_seq]`` view of the cache is ever built by the kernel. The kernel
-source carries the design notes and what bounds it on the card.
+splits each slot's walk over thread blocks of ``split_plan(max_blocks,
+bs).blocks_per_split`` pool blocks each and merges their partials in a
+second pass (flash-decoding); the wrapper allocates the partials'
+workspace. The kernel source carries the design notes and what bounds it
+on the card.
 
 ``paged_decode_attention`` launches the kernel for CUDA tensors (raising
 on anything the kernel does not take) and runs the plain version,
@@ -34,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +50,32 @@ _KV_DTYPE_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_BLOCK_SIZE = 64
 _MAX_GROUPS = 8
+# KV rows a split of the kernel walks at most: one 64-row pool block at
+# the serving block size, several smaller ones (whose copies then overlap
+# the previous block's arithmetic). At the serving shape 1, 2, 4 and 16
+# blocks a split take 0.0356, 0.0466, 0.0780 and 0.2426 ms
+# (tools/paged_split.py on NVIDIA H100 80GB HBM3, 700 W): the widest
+# spread wins there
+_SPLIT_ROWS = 64
+
+
+class SplitPlan(NamedTuple):
+    """How the kernel splits a slot's walk: split s walks live blocks
+    [s * blocks_per_split, min((s + 1) * blocks_per_split, n_live)) with
+    n_live = min(ceil(kv_len / bs), max_blocks), and ``n_split`` splits
+    cover a full table row; the splits past n_live exit without work."""
+    blocks_per_split: int
+    n_split: int
+
+
+def split_plan(max_blocks: int, block_size: int) -> SplitPlan:
+    """The kernel's split of a slot's walk, from the table width and the
+    pool block size alone: never from the batch, the KV heads or the
+    other slots' lengths, so a slot's output is bitwise the same whatever
+    shares its launch (and one rank's heads the same as in the unsharded
+    launch)."""
+    p = max(1, _SPLIT_ROWS // block_size)
+    return SplitPlan(p, -(-max_blocks // p))
 
 
 def _check_shapes(q, k_pool, v_pool, tables, kv_len):
@@ -181,11 +212,12 @@ def paged_decode_attention(q, k_pool, v_pool, tables, kv_len,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    plan, ws = _workspace(q, bs, tables.shape[1])
     lib = _library()
     err = lib.kft_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        b, h, kvh, d, bs, tables.shape[1], 1.0 / math.sqrt(d),
+        tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, h, kvh, d, bs, tables.shape[1], *plan, 1.0 / math.sqrt(d),
         _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     paged_decode_attention.launches += 1
@@ -222,12 +254,13 @@ def paged_decode_attention_quant(q, k_pool, v_pool, tables, kv_len,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    plan, ws = _workspace(q, bs, tables.shape[1])
     lib = _library()
     err = lib.kft_paged_decode_attention_quant(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), b, h, kvh, d, bs,
-        tables.shape[1], 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype],
+        kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h, kvh, d, bs,
+        tables.shape[1], *plan, 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype],
         _KV_DTYPE_CODE[k_pool.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     paged_decode_attention_quant.launches += 1
@@ -240,18 +273,29 @@ def paged_decode_attention_quant(q, k_pool, v_pool, tables, kv_len,
 paged_decode_attention_quant.launches = 0
 
 
+def _workspace(q, block_size: int, max_blocks: int):
+    """The split plan and the kernel's partials, [B, H, n_split] x (D + 2)
+    float32 (acc, then m and l), from the caching allocator on q's
+    stream."""
+    plan = split_plan(max_blocks, block_size)
+    b, h, d = q.shape
+    ws = torch.empty(b * h * plan.n_split * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    return plan, ws
+
+
 def _library():
     from kubeflow_tpu_torch.ops import cuda_build
 
     lib = cuda_build.load(KERNEL)
     fn = lib.kft_paged_decode_attention
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     fq = lib.kft_paged_decode_attention_quant
     if fq.argtypes is None:
-        fq.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+        fq.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fq.restype = ctypes.c_int

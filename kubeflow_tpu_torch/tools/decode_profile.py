@@ -15,10 +15,11 @@ Prints, for the paged kernel path and for the gather path: host-clock ms
 per step (ending in a synchronize), device busy ms per step (the sum of
 CUDA kernel times under ``torch.profiler``), the device's idle share,
 kernel launches per step, and the device time of the biggest kernels;
-for the paged path also the paged kernel's device time per launch beside
-its byte bound at this shape (q, out, tables, kv_len and the K/V rows
-below kv_len over 3.35 TB/s); then one JSON line with those numbers and
-the card's name and power limit. Needs one CUDA GPU.
+for the paged path also the paged kernel's device time per call (its
+split pass and its combine pass, two device launches) beside its byte
+bound at this shape (q, out, tables, kv_len and the K/V rows below
+kv_len over 3.35 TB/s); then one JSON line with those numbers and the
+card's name and power limit. Needs one CUDA GPU.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ from kubeflow_tpu_torch.serving.scheduler import QuantConfig
 
 BATCH = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
+# device kernel names of the paged kernel's two passes; one call of the
+# wrapper launches each once
 PAGED_KERNEL = "paged_decode_kernel"
+PAGED_COMBINE = "paged_decode_combine"
 
 
 def live_tables(pk: PagedKV, context: int) -> torch.Tensor:
@@ -115,14 +119,18 @@ def measure(params, cfg, cache, tables, kernel: str, context: int,
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     paged = [e for e in kernels if PAGED_KERNEL in e.name]
+    both = [e for e in kernels
+            if PAGED_KERNEL in e.name or PAGED_COMBINE in e.name]
     return {
         "kernel": kernel, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "launches_per_step": len(kernels) / steps,
         "paged_kernel_launches_per_step": len(paged) / steps,
+        "paged_combine_launches_per_step": (len(both) - len(paged)) / steps,
+        # both passes' device time over the calls (split-pass launches)
         "paged_kernel_ms_per_launch": (
-            sum(e.time_range.elapsed_us() for e in paged) / 1e3 / len(paged)
+            sum(e.time_range.elapsed_us() for e in both) / 1e3 / len(paged)
             if paged else None),
         "top_kernels_ms_per_step": {
             name: t / 1e3 / steps for name, t in top},
@@ -184,9 +192,10 @@ def main(argv=None) -> int:
               f"{r['launches_per_step']!r} launches/step", flush=True)
         per = r["paged_kernel_ms_per_launch"]
         if per is not None:
-            print(f"    {PAGED_KERNEL}: {per!r} ms per launch, "
-                  f"{r['paged_kernel_launches_per_step']!r} launches/step, "
-                  f"byte bound {bound_ms!r} ms per launch "
+            print(f"    {PAGED_KERNEL} + {PAGED_COMBINE}: {per!r} ms per "
+                  f"call, {r['paged_kernel_launches_per_step']!r} calls/step "
+                  f"({r['paged_combine_launches_per_step']!r} combine "
+                  f"launches/step), byte bound {bound_ms!r} ms per call "
                   f"({per / bound_ms!r} x the bound)", flush=True)
         for name, ms in r["top_kernels_ms_per_step"].items():
             print(f"    {ms!r:>24} ms  {name}", flush=True)

@@ -1,20 +1,25 @@
-"""How far the flash-attention backward kernels' bf16 outputs are from
-their plain versions on the card, in the two readings of the parity
-contract, at ``chip_smoke.py``'s phase 5 shapes.
+"""How far the flash-attention kernels' bf16 outputs are from their
+plain versions on the card, in the two readings of the parity contract,
+at ``chip_smoke.py``'s phase 5 shapes.
 
     python -m kubeflow_tpu_torch.tools.flash_parity
 
-The tensor-core kernels round P and dS to bf16 once, as they leave the
-accumulators for the products that take them (dV, dQ, dK). So each bf16
-output (dQ; dK and dV) is held two ways:
+The tensor-core kernels round P (forward, dK/dV) and dS (dQ, dK/dV) to
+bf16 once, as they leave the accumulators for the products that take
+them (O, dV, dQ, dK); the forward takes P against the running max of its
+walk over 64-wide KV blocks. So each bf16 output (O; dQ; dK and dV) is
+held two ways:
 
 (a) against the plain version with P and dS rounded to bf16 at the same
     points (``operand_dtype=torch.bfloat16``): the largest ratio of an
     element's error to its limit, one bf16 ulp of the plain value
     (floored at 2^-8 x the plain tensor's rms) plus the near-tie
-    allowance (``tie_allowances``); limit 1;
+    allowance (``tie_allowances``; the forward's from its walk); limit 1;
 (b) against the float32 plain version (the JAX function): the rms of the
-    error over the rms of the plain tensor (``BF16_RMS_LIMIT``).
+    error over the rms of the plain tensor (``RMS_LIMITS``, per kernel).
+
+The forward's lse is float32 in both bodies and stays within ``LSE_TOL``
+of the plain lse.
 
 Why the allowance. Both sides finish in float32 and round once, but the
 kernel's float32 P and dS are not bit for bit the plain version's: S and
@@ -24,15 +29,17 @@ can round it to neighbours, and that one term of the product then
 differs by one bf16 ulp of P or dS. So each output element's limit
 adds, over the terms of its sum whose P or dS lies within ``TIE_TOL``
 (relative) of a bf16 tie, one bf16 ulp of that operand times the other
-factor's magnitude. The control reading shows the need: a version that
-takes every sum in float64 and rounds at the same points
-(``float64_ordered``) is held to limit (a) beside the kernel, and read
-against one ulp alone.
+factor's magnitude (in the forward, times the rescale that the walk
+applies to that term and over l). The control reading shows the need: a
+version that takes every sum in float64 and rounds at the same points
+(``float64_ordered``; the forward's ``_fwd_walk(wide=True)``) is held to
+limit (a) beside the kernel, and read against one ulp alone.
 
 Prints one line per kernel and shape and one JSON line with the readings
 and the card's name and power limit. A copy of the tree with a fault
 planted in a kernel reads what the limits would see.
-``backward_readings`` is the check's method; ``chip_smoke.py`` runs it.
+``forward_readings`` and ``backward_readings`` are the check's method;
+``chip_smoke.py`` runs them.
 """
 
 from __future__ import annotations
@@ -67,6 +74,19 @@ TIE_TOL = 2.0 ** -14
 # G heads 0.713-0.871. The limit is the geometric mean of the worst sound
 # reading and the nearest fault: the same ratio of headroom on both sides
 BF16_RMS_LIMIT = 6.3e-3
+# limit (b) of the bf16 forward (O), set the same way from its own
+# readings with this tool on the card (NVIDIA H100 80GB HBM3, 700 W):
+# sound 0.00211 / 0.00241 / 0.00201 (train, unaligned, d64); planted
+# faults, each in a copy of the package: the last query block skipping KV
+# block 0, 0.01297 / 0.0520 / 0.0658; O rescaled by alpha only at every
+# other KV block, 0.342 / 0.528 / 0.269. The limit is the geometric mean
+# of the worst sound reading (0.00241) and the nearest fault (0.01297)
+FWD_RMS_LIMIT = 5.6e-3
+RMS_LIMITS = {"flash_attention_fwd": FWD_RMS_LIMIT,
+              "flash_attention_dq": BF16_RMS_LIMIT,
+              "flash_attention_dkv": BF16_RMS_LIMIT}
+# the forward's lse against the plain lse, float32 in both
+LSE_TOL = 1e-4
 
 
 def flash_case(b, s, h, kvh, d, causal, dtype, seed=0):
@@ -158,6 +178,41 @@ def float64_ordered(q, k, v, do, lse, delta, causal):
     return [x.float().to(q.dtype) for x in (dq, dk, dv)]
 
 
+def forward_rounded(q, k, v, causal) -> tuple:
+    """(O, allowance): the plain forward that rounds P to bf16 where the
+    kernel does, and limit (a)'s near-tie allowance per element of O: over
+    the terms whose float32 P lies within ``TIE_TOL`` of a bf16 tie, one
+    bf16 ulp of P times |v|, rescaled by the walk as that term is and
+    divided by l."""
+    near = lambda p, vb: torch.einsum("bkgqs,bskd->bkgqd", near_tie_ulps(p),
+                                      vb.abs())
+    o, _, allow = fa._fwd_walk(q, k, v, causal, torch.bfloat16, on_p=near)
+    return o, allow
+
+
+def forward_readings(case, causal) -> dict:
+    """{"flash_attention_fwd": reading} of the forward kernel's O on one
+    bf16 case, with the keys of ``backward_readings`` and "lse_err", the
+    largest error of its lse against the float32 plain lse."""
+    q, k, v = case[:3]
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    rounded, allow = forward_rounded(q, k, v, causal)
+    plain, plain_lse = fa.flash_attention_fwd_reference(q, k, v, causal)
+    control = fa._fwd_walk(q, k, v, causal, torch.bfloat16, wide=True)[0]
+    return {"flash_attention_fwd": {
+        "ulp_ratio": ulp_ratio(o, rounded, allow),
+        "one_ulp_ratio": ulp_ratio(o, rounded),
+        "rms_rel": rms_rel(o, plain),
+        "max_abs_err": (o.float() - rounded.float()).abs().max().item(),
+        "finite": bool(torch.isfinite(o).all() and torch.isfinite(lse).all()),
+        "control_ulp_ratio": ulp_ratio(control, rounded, allow),
+        "control_one_ulp_ratio": ulp_ratio(control, rounded),
+        "lse_err": (lse - plain_lse).abs().max().item(),
+        "rms_limit": RMS_LIMITS["flash_attention_fwd"],
+    }}
+
+
 def backward_readings(case, causal) -> dict:
     """{kernel: {"ulp_ratio", "one_ulp_ratio", "rms_rel", "max_abs_err",
     "finite", "control_ulp_ratio", "control_one_ulp_ratio"}} of the dQ
@@ -197,26 +252,30 @@ def backward_readings(case, causal) -> dict:
                                      for o, r, a in ctrl),
             "control_one_ulp_ratio": max(ulp_ratio(o, r)
                                          for o, r, _ in ctrl),
+            "rms_limit": RMS_LIMITS[name],
         }
     return out
 
 
 def passes(reading: dict) -> bool:
-    """Limits (a) and (b) on one kernel's reading, and limit (a) on the
-    float64-ordered control (a control outside it means the limit, not
-    the kernel, is at fault)."""
+    """Limits (a) and (b) on one kernel's reading, the forward's lse
+    within ``LSE_TOL``, and limit (a) on the float64-ordered control (a
+    control outside it means the limit, not the kernel, is at fault)."""
     return (reading["finite"] and reading["ulp_ratio"] <= 1.0
-            and reading["rms_rel"] <= BF16_RMS_LIMIT
+            and reading["rms_rel"] <= reading["rms_limit"]
+            and reading.get("lse_err", 0.0) <= LSE_TOL
             and reading["control_ulp_ratio"] <= 1.0)
 
 
 def describe(r: dict) -> str:
+    lse = (f"; lse max_abs_err {r['lse_err']!r} (limit {LSE_TOL})"
+           if "lse_err" in r else "")
     return (f"(a) {r['ulp_ratio']!r} of one ulp + near-tie allowance "
             f"(limit 1; one ulp alone {r['one_ulp_ratio']!r}), (b) rms "
-            f"{r['rms_rel']!r} (limit {BF16_RMS_LIMIT}), max_abs_err "
+            f"{r['rms_rel']!r} (limit {r['rms_limit']}), max_abs_err "
             f"{r['max_abs_err']!r}; float64-ordered control (a) "
             f"{r['control_ulp_ratio']!r}, one ulp alone "
-            f"{r['control_one_ulp_ratio']!r}")
+            f"{r['control_one_ulp_ratio']!r}{lse}")
 
 
 def main() -> int:
@@ -230,7 +289,8 @@ def main() -> int:
     result = {}
     for name, b, s, h, kvh, d, causal in SHAPES:
         case = flash_case(b, s, h, kvh, d, causal, torch.bfloat16)
-        readings = backward_readings(case, causal)
+        readings = {**forward_readings(case, causal),
+                    **backward_readings(case, causal)}
         for kernel, r in readings.items():
             print(f"{kernel} {name} (B={b} S={s} H={h} KV_H={kvh} D={d} "
                   f"causal={causal}) bf16: {describe(r)}"
@@ -239,7 +299,7 @@ def main() -> int:
         del case
         torch.cuda.empty_cache()
     print(json.dumps({"readings": result, "card": card,
-                      "limit_b": BF16_RMS_LIMIT}), flush=True)
+                      "limit_b": RMS_LIMITS}), flush=True)
     return 0 if all(passes(r) for rs in result.values()
                     for r in rs.values()) else 1
 
