@@ -80,7 +80,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              engine). Prints the decode step as served (batch 8, one
              dispatch per decode_chunk steps) beside a one-card model's
              timed the same way, and the dispatch round trip alone.
-             Everything is freed before phase 5.
+             Everything is freed before phase 5s.
 4g. quant quality — the JAX package's gate (bench.py
              _quant_teacher_forced) at full width: the bf16 engine
              free-runs greedy through paged_decode_step (kernel path) on
@@ -91,6 +91,42 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              (llama_tiny f32); at full width the drift budget and an rms
              logit error limit per KV dtype set against planted faults.
              The model is freed after.
+5s. speculative decoding — (a) llama_tiny in f32 (at head_dim 64, the
+             paged kernel's smallest) on the card: speculative streams
+             token-identical to plain ones. Then llama3_8b at full width
+             (phase 4's weights and geometry, spec_k 3, verify width 4):
+             phase 4's four prompts and two whose second half repeats
+             the first, 64 greedy V2 tokens each over HTTP, first with
+             the drafter off, then on (prefix cache cleared between):
+             drafted, accepted and committed tokens, tokens per verify
+             dispatch, the undrafted rounds that fell back to decode and
+             their row 1 launches (== n_layers x those device steps);
+             (b) teacher-forced, 4 verify dispatches against 16 decode
+             steps over the same tokens and pool, rms error over rms
+             under a limit between the sound reading and a planted fault
+             (the query offset one too far), both printed; (c) the first
+             index where each speculative stream leaves the plain one,
+             passing only where the decode program's top-2 gap there is
+             under 2 x (b)'s largest error; the verify and decode steps
+             timed and profiled (batch 8, 300-token contexts). The same
+             with int8 KV + int8 weights (row 2). Then tensor=4 as phase
+             4tp runs it: three prompts, 24 tokens, rank digests equal,
+             row 3 on every rank for the fallbacks, (c) against the
+             one-card plain streams with phase 4tp's drift allowed.
+5d. disaggregated serving — a prefill tier and a decode tier, each an
+             LLMModel with its own copy of the llama3_8b weights behind
+             its own ModelServer, attached as the runtime attaches
+             KFT_TIER replicas: phase 4's 100-, 300- and 700-token
+             prompts migrated one at a time through
+             /v2/models/{m}/disagg/prefill and /collect (32 tokens),
+             each equal token for token to the same prompt served
+             co-located; per request the migrated blocks and bytes,
+             prefill/export/transfer and inject-to-first-commit seconds
+             and the host round trip's GB/s; the decode tier's row 1
+             launches (== n_layers x its decode device steps) over
+             blocks it did not write; a duplicate kv frame injects once
+             and a release frame frees the decode side's blocks; no
+             migration failure. Then the same with int8 KV (row 2).
 5. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain versions on the card: the training
              shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
@@ -121,10 +157,11 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              against attn_impl="xla" (plain einsum attention) from the
              same parameters.
 
-Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4g, 4tp, 5, 6, 7.
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4g, 4tp, 5s, 5d, 5, 6, 7.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
-its numbers per pool dtype under "by_kv_dtype"), the nvidia-smi line,
+its numbers per pool dtype under "by_kv_dtype"; rows 1-3 their launches
+per phase under "launches_by_phase"), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``. Exits nonzero (printing no result)
 without a CUDA device or outside the repository.
@@ -228,6 +265,24 @@ GATE_FULL = dict(n_prompts=2, prompt_len=16, gen=32, kernel="auto")
 # fault: the same ratio of headroom on both sides (see PERF.md)
 TP = 4
 TP_RMS_MAX = {"bf16": 0.153, "int8": 0.0365}
+# phase 5s: draft tokens a verify (the verify width is SPEC_K + 1 = 4),
+# greedy tokens a request at full width, and under tensor=4 (fewer there:
+# gloo on one card takes ~0.5 s a decode step)
+SPEC_K = 3
+SPEC_TOKENS = 64
+SPEC_TP_TOKENS = 24
+# phase 5s (b): rms of the verify step's logit error against sequential
+# decode over the same tokens, over the decode logits' rms, per weight
+# type. Verify and decode are different programs (dense attention over
+# the gathered view and [B*4, .] products against the paged kernel and
+# [B, .] products), so bf16 rounds differently in each. Read on one H100
+# (verify_vs_decode, 128 positions): sound 0.01586 (bf16) and 0.01812
+# (int8 KV + int8 W); planted fault, the query offset one too far (each
+# row sees the next row's KV): 0.09631 / 0.08501. Each limit is the
+# geometric mean of the two (see PERF.md)
+SPEC_RMS_MAX = {"bf16": 0.0391, "int8": 0.0393}
+# phase 5d: greedy tokens of each migrated request
+DISAGG_TOKENS = 32
 
 
 def log(msg: str) -> None:
@@ -747,25 +802,32 @@ def pool_bytes(cache) -> int:
                for k in ("k", "v", "k_scale", "v_scale") if k in cache)
 
 
-def serve_four(torch, pa, model, cfg) -> dict:
-    """The four concurrent greedy V2 requests over HTTP against ``model``
-    behind a fresh ModelServer. Every launch count is set to 0 just
-    before and read just after."""
-    from kubeflow_tpu_torch.serving import ModelRepository, ModelServer
-
-    repo = ModelRepository()
-    repo.register(model)
-    srv = ModelServer(repo).start()
+def four_prompts(torch, cfg) -> dict:
+    """Phase 4's four prompts, from seed 1: ~100 and ~300 tokens, one
+    longer than the largest prefill bucket, one sharing mid_300's four
+    block-aligned 64-token blocks."""
     rng = torch.Generator().manual_seed(1)
     rand = lambda n: torch.randint(1, cfg.vocab_size, (n,),
                                    generator=rng).tolist()
     shared = rand(256)                       # 4 full 64-token blocks
-    prompts = {
+    return {
         "short_100": rand(100),
         "mid_300": shared + rand(44),
         "chunked_700": rand(700),            # > largest bucket (512)
         "prefix_300": shared + rand(52),     # shares mid_300's 4 blocks
     }
+
+
+def serve_prompts(torch, pa, model, cfg, prompts: dict,
+                  max_tokens: int) -> dict:
+    """Concurrent greedy V2 requests over HTTP against ``model`` behind a
+    fresh ModelServer, ``max_tokens`` each. Every launch count is set to
+    0 just before and read just after (on every rank under a mesh)."""
+    from kubeflow_tpu_torch.serving import ModelRepository, ModelServer
+
+    repo = ModelRepository()
+    repo.register(model)
+    srv = ModelServer(repo).start()
     results: dict = {}
     errors: list = []
 
@@ -773,7 +835,8 @@ def serve_four(torch, pa, model, cfg) -> dict:
         try:
             body = {"inputs": [{"name": "ids", "shape": [1, len(prompt)],
                                 "datatype": "INT32", "data": prompt}],
-                    "parameters": {"max_tokens": 32, "temperature": 0.0}}
+                    "parameters": {"max_tokens": max_tokens,
+                                   "temperature": 0.0}}
             out = post_json(f"{srv.url}/v2/models/{model.name}/infer", body)
             tensors = {t["name"]: t for t in out["outputs"]}
             results[tag] = tensors["tokens"]["data"][
@@ -782,6 +845,7 @@ def serve_four(torch, pa, model, cfg) -> dict:
             errors.append((tag, repr(e)))
 
     eng = model.engine
+    steps0 = eng.sched.decode_device_steps
     try:
         if eng.mesh is not None:                    # the main path's counts
             eng.tp_status(reset_launches=True)      # on every rank
@@ -810,7 +874,7 @@ def serve_four(torch, pa, model, cfg) -> dict:
         model.unload()
         raise SystemExit(f"{model.name}: serving requests failed: {errors}")
     sched = stats["sched"]
-    device_steps = sched["decode_device_steps_total"]
+    device_steps = sched["decode_device_steps_total"] - steps0  # this run's
     n_tokens = sum(len(v) for v in results.values())
     log(f"{model.name}: {len(results)} requests, {n_tokens} tokens in "
         f"{wall!r} s -> {n_tokens / wall!r} generated tok/s; "
@@ -822,15 +886,23 @@ def serve_four(torch, pa, model, cfg) -> dict:
     log(f"{model.name}: kernel launches on the main path: {launches} "
         f"(n_layers x device steps = {cfg.n_layers * device_steps})")
     for tag, toks in results.items():
-        if len(toks) != 32:
-            raise SystemExit(f"{tag}: {len(toks)} tokens, want 32")
+        if len(toks) != max_tokens:
+            raise SystemExit(f"{tag}: {len(toks)} tokens, want {max_tokens}")
+    return {"prompts": prompts, "results": results, "wall": wall,
+            "tok_s": n_tokens / wall, "launches": launches, "stats": stats,
+            "device_steps": device_steps}
+
+
+def serve_four(torch, pa, model, cfg) -> dict:
+    """Phase 4's four concurrent greedy requests (32 tokens each), with
+    the prefix-sharing and chunked-prefill checks."""
+    run = serve_prompts(torch, pa, model, cfg, four_prompts(torch, cfg), 32)
+    sched = run["stats"]["sched"]
     if sched["prefix_hit_blocks_total"] < 4:
         raise SystemExit("the shared-prefix request did not share blocks")
     if sched["prefill_chunks_total"] < 2:
         raise SystemExit("the long prompt did not stream through chunks")
-    return {"prompts": prompts, "results": results, "wall": wall,
-            "tok_s": n_tokens / wall, "launches": launches, "stats": stats,
-            "device_steps": device_steps}
+    return run
 
 
 def serving(torch, pa, cfg, params) -> dict:
@@ -1184,6 +1256,666 @@ def tp_serving(torch, pa, cfg, params) -> dict:
             for tag, quant in kinds}
 
 # ---------------------------------------------------------------------------
+# Speculative decoding (phase 5s) and disaggregated serving (phase 5d)
+# ---------------------------------------------------------------------------
+
+def spec_prompts(torch, cfg) -> dict:
+    """Phase 4's four prompts and two whose second half repeats the first
+    (seed 2): the n-gram drafter finds matches in those."""
+    prompts = dict(four_prompts(torch, cfg))
+    rng = torch.Generator().manual_seed(2)
+    for n in (48, 96):
+        half = torch.randint(1, cfg.vocab_size, (n,), generator=rng).tolist()
+        prompts[f"repeat_{2 * n}"] = half + half
+    return prompts
+
+
+def clear_prefix_cache(eng) -> None:
+    """Evict every unpinned cached block of an idle engine, so the next
+    run admits its prompts from scratch (no radix hits)."""
+    pk = eng.paged
+    pk.allocator.free(pk.radix.evict_lru(pk.num_blocks, pk._ref))
+
+
+def step_profile(torch, run, steps: int = 5) -> dict:
+    """Host clock per call of ``run`` over ``steps`` calls (ending in a
+    synchronize, after three warm-up calls), then one profiled call: its
+    device busy ms and kernel launches, and 1 - busy / the unprofiled
+    wall as the idle share (one call: the profiler's event processing
+    grows with the ~2,600 launches a call and takes tens of seconds over
+    ten)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),   # unprofiled wall
+            "launches": len(kernels)}
+
+
+def verify_and_decode_steps(torch, eng) -> dict:
+    """``step_profile`` of one verify dispatch (width SPEC_K + 1) and of
+    one decode step over the engine's params and pool, every slot live
+    at STEP_CONTEXT tokens (the engine must be idle; it is left with
+    every slot reserved, ready to unload)."""
+    from kubeflow_tpu_torch.serving.paged_kv import (
+        paged_decode_step, paged_verify_step,
+    )
+
+    pk = eng.paged
+    for slot in range(pk.max_batch):
+        pk.release(slot)
+        if pk.reserve(slot, STEP_CONTEXT, 32) is None:
+            raise SystemExit("pool too small for the timed steps")
+    tables = torch.tensor(pk.tables, device=eng.device)
+    b = pk.max_batch
+    tok = torch.ones((b,), dtype=torch.int32, device=eng.device)
+    cand = torch.ones((b, SPEC_K + 1), dtype=torch.int32, device=eng.device)
+    limit = torch.full((b,), STEP_CONTEXT + 32, dtype=torch.int32,
+                       device=eng.device)
+
+    def decode():
+        eng.cache["len"] = torch.full_like(eng.cache["len"], STEP_CONTEXT)
+        paged_decode_step(eng.params, tok, eng.cfg, eng.cache, tables,
+                          kernel=eng.kernel)
+
+    def verify():
+        eng.cache["len"] = torch.full_like(eng.cache["len"], STEP_CONTEXT)
+        paged_verify_step(eng.params, cand, eng.cfg, eng.cache, tables,
+                          limit)
+
+    with torch.no_grad():
+        return {"decode": step_profile(torch, decode),
+                "verify": step_profile(torch, verify)}
+
+
+def _filled_pool(torch, eng, n_slots: int, prompt_len: int, extra: int,
+                 seed: int):
+    """A fresh pool of the engine's geometry and KV dtype with
+    ``n_slots`` seeded prompts prefilled (``llama.prefill`` at batch
+    ``n_slots``, inserted as the engine inserts), room for ``extra``
+    more tokens each. -> (cache, tables [max_batch, width])."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.paged_kv import (
+        blocks_for, init_paged_cache, paged_insert_batch,
+    )
+
+    cfg, dev, bs = eng.cfg, eng.device, eng.paged.block_size
+    nb = blocks_for(prompt_len + extra, bs)
+    nbp = blocks_for(prompt_len, bs)
+    cache = init_paged_cache(cfg, eng.max_batch, eng.max_seq, bs,
+                             n_slots * nb + 1, device=dev,
+                             quant_kv=eng.quant.kv_dtype)
+    tables = torch.zeros((eng.max_batch, eng.max_seq // bs),
+                         dtype=torch.int32, device=dev)
+    tables[:n_slots, :nb] = torch.arange(
+        1, n_slots * nb + 1, dtype=torch.int32, device=dev).reshape(
+            n_slots, nb)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.zeros((n_slots, nbp * bs), dtype=torch.int32)
+    toks[:, :prompt_len] = torch.randint(1, cfg.vocab_size,
+                                         (n_slots, prompt_len), generator=gen)
+    lengths = torch.full((n_slots,), prompt_len, dtype=torch.int32,
+                         device=dev)
+    scratch = llama.init_cache(cfg, n_slots, nbp * bs, device=dev)
+    _, filled = llama.prefill(eng.params, toks.to(dev), cfg, scratch,
+                              lengths=lengths)
+    paged_insert_batch(cache, filled["k"], filled["v"],
+                       tables[:n_slots, :nbp], lengths,
+                       torch.arange(n_slots, dtype=torch.int32, device=dev))
+    return cache, tables
+
+
+def verify_vs_decode(torch, eng, rounds: int = 4) -> dict:
+    """Phase 5s (b): teacher-forced logits of ``rounds`` verify
+    dispatches of width SPEC_K + 1 against ``rounds * (SPEC_K + 1)``
+    decode steps (the paged kernel) over the same seeded tokens, from
+    the same pool (8 slots, 100-token prompts): the rms error over the
+    decode logits' rms, and the largest error. Then the same verify with
+    a planted fault: the attention's query offset one too far (each row
+    sees the next row's KV)."""
+    from kubeflow_tpu_torch.serving import paged_kv
+    from kubeflow_tpu_torch.serving.paged_kv import (
+        paged_decode_step, paged_verify_step,
+    )
+
+    w, b, dev = SPEC_K + 1, eng.max_batch, eng.device
+    n = rounds * w
+    base, tables = _filled_pool(torch, eng, b, 100, n, seed=11)
+    gen = torch.Generator().manual_seed(12)
+    toks = torch.randint(1, eng.cfg.vocab_size, (b, n),
+                         generator=gen).to(dev, torch.int32)
+    limit = torch.full((b,), 100 + n, dtype=torch.int32, device=dev)
+    clone = lambda c: {k: v.clone() for k, v in c.items()}
+
+    def verify_logits():
+        cache, rows = clone(base), []
+        for r in range(rounds):
+            lg, cache = paged_verify_step(
+                eng.params, toks[:, r * w:(r + 1) * w], eng.cfg, cache,
+                tables, limit)
+            rows.append(lg)
+            cache["len"] = cache["len"] + w
+        return torch.cat(rows, dim=1)
+
+    with torch.no_grad():
+        cache, rows = clone(base), []
+        for t in range(n):
+            lg, cache = paged_decode_step(eng.params, toks[:, t], eng.cfg,
+                                          cache, tables, kernel=eng.kernel)
+            rows.append(lg)
+        dec = torch.stack(rows, dim=1)
+        del cache, rows
+        sound = verify_logits()
+        orig = paged_kv._xla_attention
+        paged_kv._xla_attention = (
+            lambda q, k, v, *, causal, q_offset=0, bias=None: orig(
+                q, k, v, causal=causal, q_offset=q_offset + 1, bias=bias))
+        try:
+            fault = verify_logits()
+        finally:
+            paged_kv._xla_attention = orig
+    ref_rms = dec.double().pow(2).mean().sqrt().item()
+    err = lambda x: (x - dec).double().pow(2).mean().sqrt().item() / ref_rms
+    out = {"rms": err(sound), "fault_rms": err(fault),
+           "max_abs": (sound - dec).abs().max().item(),
+           "positions": b * n}
+    del base, dec, sound, fault
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_path_gaps(torch, eng, cases: dict) -> dict:
+    """Top-1 minus top-2 logit of the decode program predicting token i
+    of each stream, ``cases``: tag -> (prompt, tokens, i). A replica of
+    the engine's program at its batch width, one stream a slot: each
+    prompt through ``llama.prefill`` into a fresh pool of the engine's
+    geometry and KV dtype, then its tokens[:i] one ``paged_decode_step``
+    each through the engine's kernel (a slot past its i keeps stepping
+    into its own blocks)."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.paged_kv import (
+        blocks_for, init_paged_cache, paged_decode_step, paged_insert_batch,
+    )
+
+    if not cases:
+        return {}
+    cfg, dev, bs = eng.cfg, eng.device, eng.paged.block_size
+    tags = list(cases)[:eng.max_batch]
+    steps = max(cases[t][2] for t in tags)
+    nb = {t: blocks_for(len(cases[t][0]) + steps + 1, bs) for t in tags}
+    cache = init_paged_cache(cfg, eng.max_batch, eng.max_seq, bs,
+                             sum(nb.values()) + 1, device=dev,
+                             quant_kv=eng.quant.kv_dtype)
+    tables = torch.zeros((eng.max_batch, eng.max_seq // bs),
+                         dtype=torch.int32, device=dev)
+    gaps, first = {}, 1
+    gap = lambda row: (lambda top: (top[0] - top[1]).item())(
+        row.float().topk(2).values)
+    with torch.no_grad():
+        for slot, t in enumerate(tags):
+            prompt = cases[t][0]
+            n, nbp = len(prompt), blocks_for(len(prompt), bs)
+            tables[slot, :nb[t]] = torch.arange(
+                first, first + nb[t], dtype=torch.int32, device=dev)
+            first += nb[t]
+            toks = torch.zeros((1, nbp * bs), dtype=torch.int32, device=dev)
+            toks[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+            lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+            logits, filled = llama.prefill(
+                eng.params, toks, cfg,
+                llama.init_cache(cfg, 1, nbp * bs, device=dev),
+                lengths=lengths)
+            paged_insert_batch(cache, filled["k"], filled["v"],
+                               tables[slot:slot + 1, :nbp], lengths,
+                               torch.tensor([slot], dtype=torch.int32,
+                                            device=dev))
+            if cases[t][2] == 0:
+                gaps[t] = gap(logits[0])
+        live = torch.zeros((eng.max_batch,), dtype=torch.bool, device=dev)
+        live[:len(tags)] = True
+        for step in range(steps):
+            tok = torch.zeros((eng.max_batch,), dtype=torch.int32)
+            for slot, t in enumerate(tags):
+                toks_t = cases[t][1]
+                tok[slot] = toks_t[min(step, len(toks_t) - 1)]
+            logits, cache = paged_decode_step(eng.params, tok.to(dev), cfg,
+                                              cache, tables,
+                                              kernel=eng.kernel)
+            cache["len"] = torch.where(live, cache["len"], 0)
+            for slot, t in enumerate(tags):
+                if cases[t][2] == step + 1:
+                    gaps[t] = gap(logits[slot])
+    del cache
+    return gaps
+
+
+def first_divergences(torch, eng, prompts, spec, plain, threshold,
+                      what: str) -> dict:
+    """Phase 5s (c): the first index where each speculative stream leaves
+    the plain one, and there the decode program's top-2 gap
+    (``decode_path_gaps``); fails unless every such gap is under
+    ``threshold``."""
+    cases = {}
+    for tag, prompt in prompts.items():
+        a, b = spec[tag], plain[tag][:len(spec[tag])]
+        i = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            cases[tag] = (prompt, b, i)
+    gaps = decode_path_gaps(torch, eng, cases)
+    out = {tag: ({"index": cases[tag][2], "gap": gaps[tag]}
+                 if tag in cases else None) for tag in prompts}
+    log(f"{what}: first divergence of each speculative stream from the plain "
+        f"one (index, decode top-2 gap there; threshold {threshold!r}): "
+        f"{out}")
+    for tag, gap in gaps.items():
+        if gap > threshold:
+            raise SystemExit(
+                f"{what} {tag}: speculative stream leaves the plain one at "
+                f"token {cases[tag][2]} where the decode program's top-2 gap "
+                f"is {gap!r}, over the near-tie threshold {threshold!r}")
+    return out
+
+
+def spec_tiny_f32(torch) -> None:
+    """Phase 5s (a): llama_tiny in float32 on the card (widened to head_dim
+    64, the paged kernel's smallest): speculative streams token-identical
+    to the plain engine's."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving.llm import LLMEngine, SamplingParams
+    from kubeflow_tpu_torch.serving.scheduler import SchedulerConfig
+
+    cfg = dataclasses.replace(llama.llama_tiny(dtype=torch.float32), dim=256,
+                              mlp_dim=512)
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+    kw = dict(max_batch=4, max_seq=128, prefill_buckets=(16, 32),
+              decode_chunk=4, device="cuda")
+    prompts = [[5, 6, 7], [9, 10, 11, 12, 13], [3] * 12,
+               [1, 2, 3, 1, 2, 3, 1, 2], [42, 17] * 5,
+               [(7 * i) % 250 + 1 for i in range(40)]]
+    streams = {}
+    for name, sched in (("plain", None), ("spec", SchedulerConfig(
+            spec_decode=True, spec_k=SPEC_K))):
+        eng = LLMEngine(params, cfg, scheduler=sched, **kw)
+        reqs = eng.generate(prompts, SamplingParams(max_tokens=24))
+        streams[name] = [r.generated for r in reqs]
+        if name == "spec":
+            st = eng.scheduler_stats()
+    same = streams["spec"] == streams["plain"]
+    log(f"phase 5s (a) llama_tiny f32 on the card: speculative streams "
+        f"token-identical to plain: {same} ({len(prompts)} streams x 24; "
+        f"verify dispatches {st['spec_dispatches_total']}, drafted "
+        f"{st['spec_draft_tokens_total']}, accepted "
+        f"{st['spec_accepted_draft_tokens_total']})")
+    if not same or st["spec_dispatches_total"] == 0:
+        raise SystemExit("f32 speculative streams differ from plain decode "
+                         "(or nothing was verified)")
+
+
+def spec_one(torch, pa, cfg, params, tag, quant) -> dict:
+    """Phase 5s at full width for one weight type: the plain run, then
+    the speculative run of the same engine (the prefix cache cleared
+    between them), the verify-vs-decode readings (b), the streams'
+    first divergences (c), and the verify and decode steps timed."""
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.scheduler import SchedulerConfig
+
+    model = LLMModel(f"llama3-8b-spec-{tag}", params, cfg, max_batch=8,
+                     max_seq=1024, device="cuda", quant=quant,
+                     scheduler=SchedulerConfig(spec_decode=True,
+                                               spec_k=SPEC_K))
+    model.load()
+    eng = model.engine
+    drafter, eng.spec = eng.spec, None
+    prompts = spec_prompts(torch, cfg)
+    plain = serve_prompts(torch, pa, model, cfg, prompts, SPEC_TOKENS)
+    clear_prefix_cache(eng)
+    eng.spec = drafter
+    run = serve_prompts(torch, pa, model, cfg, prompts, SPEC_TOKENS)
+    st = run["stats"]["sched"]
+    kern, off = (("paged_decode_attention_quant", "paged_decode_attention")
+                 if quant is not None else
+                 ("paged_decode_attention", "paged_decode_attention_quant"))
+    want = cfg.n_layers * run["device_steps"]
+    n_tok = sum(len(v) for v in run["results"].values())
+    per_dispatch = st["spec_committed_tokens_total"] / max(
+        1, st["spec_dispatches_total"])
+    log(f"phase 5s {tag}: drafted {st['spec_draft_tokens_total']}, accepted "
+        f"{st['spec_accepted_draft_tokens_total']}, committed by verifies "
+        f"{st['spec_committed_tokens_total']} over "
+        f"{st['spec_dispatches_total']} verify dispatches ({per_dispatch!r} "
+        f"tokens per dispatch, {st['accepted_tokens_per_step']!r} per "
+        f"stream and dispatch); undrafted rounds that fell back to decode "
+        f"{st['spec_undrafted_steps_total']} ({run['device_steps']} decode "
+        f"device steps), non-greedy fallbacks {st['spec_fallbacks_total']}; "
+        f"their {kern} launches {run['launches'][kern]} (want n_layers x "
+        f"device steps = {want}), {off} {run['launches'][off]} (want 0)")
+    if st["spec_dispatches_total"] == 0 or st["spec_fallbacks_total"] \
+            or run["launches"][kern] != want or want == 0 \
+            or run["launches"][off] != 0:
+        raise SystemExit(f"speculative serving ({tag}) did not verify, or "
+                         f"its decode fallbacks did not run through {kern}")
+    log(f"phase 5s {tag}: {n_tok} tokens in {run['wall']!r} s speculative "
+        f"({run['wall'] * 1e3 / n_tok!r} ms per committed token over "
+        f"HTTP) against {plain['wall']!r} s plain "
+        f"({plain['wall'] * 1e3 / n_tok!r} ms per token), the same six "
+        f"prompts, batch 8, {SPEC_TOKENS} greedy tokens each")
+    b = verify_vs_decode(torch, eng)
+    log(f"phase 5s (b) {tag}: verify vs sequential decode, teacher-forced "
+        f"({b['positions']} positions): rms error / rms {b['rms']!r} (limit "
+        f"{SPEC_RMS_MAX[tag]}), max abs {b['max_abs']!r}; planted fault "
+        f"(query offset + 1) {b['fault_rms']!r}")
+    if not b["rms"] <= SPEC_RMS_MAX[tag] < b["fault_rms"]:
+        raise SystemExit(f"verify logits ({tag}) err past the limit, or the "
+                         "planted fault does not")
+    threshold = 2 * b["max_abs"]
+    first_divergences(torch, eng, prompts, run["results"], plain["results"],
+                      threshold, f"phase 5s (c) {tag}")
+    steps = verify_and_decode_steps(torch, eng)
+    v, d = steps["verify"], steps["decode"]
+    log(f"phase 5s {tag} steps (batch 8, {STEP_CONTEXT}-token contexts): "
+        f"verify (width {SPEC_K + 1}) {v['wall_ms']!r} ms, device busy "
+        f"{v['device_busy_ms']!r} ms, idle share {v['idle_share']!r}, "
+        f"{v['launches']!r} device launches; decode {d['wall_ms']!r} ms, "
+        f"busy {d['device_busy_ms']!r} ms, idle {d['idle_share']!r}, "
+        f"{d['launches']!r} launches; at {st['accepted_tokens_per_step']!r} "
+        f"tokens per stream and verify: "
+        f"{v['wall_ms'] / st['accepted_tokens_per_step']!r} ms per "
+        f"committed token against decode's {d['wall_ms']!r}")
+    model.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": run["launches"][kern], "b": b,
+            "plain": plain["results"], "prompts": prompts}
+
+
+def spec_tp(torch, pa, cfg, one: dict, tp_drift: float) -> dict:
+    """Phase 5s under tensor=4 (phase 4tp's mesh): three of the prompts
+    served speculatively, rank digests equal, row 3's kernels on every
+    rank for the decode fallbacks. Its streams are held against the
+    one-card plain streams of the same prompts (phase 5s bf16) by the
+    caller, with phase 4tp's measured drift in the threshold."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel import TensorMesh
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.scheduler import SchedulerConfig
+    from kubeflow_tpu_torch.tools.tp_quality import TP_KW, tp_devices
+
+    t0 = time.perf_counter()
+    model = LLMModel(f"llama3-8b-tp{TP}-spec",
+                     llama.SeededParams(0, torch.bfloat16), cfg,
+                     mesh=TensorMesh(TP, tp_devices(TP)),
+                     scheduler=SchedulerConfig(spec_decode=True,
+                                               spec_k=SPEC_K), **TP_KW)
+    model.load()
+    eng = model.engine
+    log(f"tensor={TP} speculative engine up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = {k: one["prompts"][k]
+               for k in ("short_100", "repeat_96", "repeat_192")}
+    run = serve_prompts(torch, pa, model, cfg, prompts, SPEC_TP_TOKENS)
+    st = run["stats"]["sched"]
+    want = cfg.n_layers * run["device_steps"]
+    log(f"tensor={TP} speculative: verify dispatches "
+        f"{st['spec_dispatches_total']}, drafted "
+        f"{st['spec_draft_tokens_total']}, accepted "
+        f"{st['spec_accepted_draft_tokens_total']}, committed "
+        f"{st['spec_committed_tokens_total']}; undrafted "
+        f"{st['spec_undrafted_steps_total']}; launches per rank "
+        f"{run['launches']} (want paged_decode_attention == n_layers x "
+        f"device steps = {want} on every rank); {run['wall']!r} s")
+    if st["spec_dispatches_total"] == 0 or want == 0 or any(
+            r["paged_decode_attention"] != want
+            or r["paged_decode_attention_quant"] != 0
+            for r in run["launches"]):
+        raise SystemExit("tensor-parallel speculative serving did not "
+                         "verify, or its fallbacks missed row 3's kernels")
+    check_ranks_agree(eng, st["decode_dispatches_total"]
+                      + run["stats"]["prefill_dispatches_total"]
+                      + st["chunked_admitted_total"]
+                      + st["spec_dispatches_total"])
+    model.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches_per_rank": [r["paged_decode_attention"]
+                                  for r in run["launches"]],
+            "results": run["results"],
+            "plain": {k: one["plain"][k] for k in prompts},
+            "prompts": prompts, "threshold": 2 * (one["b"]["max_abs"]
+                                                  + tp_drift)}
+
+
+def spec_phase(torch, pa, cfg, params, tp: dict) -> dict:
+    """Phase 5s: (a) on llama_tiny f32, then bf16, int8 KV + int8
+    weights, and tensor=4 at full width."""
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.serving.scheduler import QuantConfig
+
+    t0 = time.perf_counter()
+    spec_tiny_f32(torch)
+    out = {"bf16": spec_one(torch, pa, cfg, params, "bf16", None),
+           "int8": spec_one(torch, pa, cfg, params, "int8",
+                            QuantConfig(kv_dtype="int8",
+                                        weight_dtype="int8"))}
+    tpr = spec_tp(torch, pa, cfg, out["bf16"],
+                  tp["bf16"]["errors"]["max_logit_drift"])
+    # (c) under the mesh: against the one-card plain streams, the gaps
+    # read on one card's decode program
+    ref = LLMEngine(params, cfg, max_batch=8, max_seq=1024, device="cuda")
+    first_divergences(torch, ref, tpr["prompts"], tpr["results"],
+                      tpr["plain"], tpr["threshold"],
+                      f"phase 5s (c) tensor={TP}")
+    del ref
+    out["tp"] = tpr
+    log(f"phase 5s: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def held_payload(torch, model, prompt, max_tokens: int) -> dict:
+    """A prefill tier's migration payload for ``prompt``, made as
+    ``TierRuntime.prefill_and_migrate`` makes it (hold, export, release
+    on the engine's thread), without sending it."""
+    from kubeflow_tpu_torch.serving.llm import SamplingParams
+
+    rt, eng = model.disagg, model.engine
+    req = eng.add_request(prompt, SamplingParams(max_tokens=max_tokens),
+                          hold_after_prefill=True)
+    model.kick()
+    deadline = time.monotonic() + 120
+    while req.t_first_token == 0 and time.monotonic() < deadline:
+        time.sleep(0.005)
+    payload = rt.run_on_engine(lambda: eng.export_held_kv(req))
+    rt.run_on_engine(lambda: eng.release_held(req))
+    if payload is None:
+        raise SystemExit("no held request to export")
+    return payload
+
+
+def wait_for(pred, timeout: float = 60.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def disagg_run(torch, pa, cfg, params, params2, tag, quant) -> dict:
+    """Phase 5d for one KV dtype: a prefill tier (``params``) and a decode
+    tier (``params2``, its own copy), each an LLMModel behind its own
+    ModelServer, attached as the runtime attaches KFT_TIER replicas;
+    phase 4's 100-, 300- and 700-token prompts migrated one at a time
+    through /disagg/prefill and /disagg/collect, then served co-located
+    one at a time on the prefill tier's engine: token for token equal."""
+    from kubeflow_tpu_torch.serving import (
+        LLMModel, ModelRepository, ModelServer,
+    )
+    from kubeflow_tpu_torch.serving.runtime import attach_tier
+
+    models, servers = {}, {}
+    for tier, p in (("prefill", params), ("decode", params2)):
+        m = LLMModel(f"llama3-8b-{tier}-{tag}", p, cfg, max_batch=8,
+                     max_seq=1024, device="cuda", quant=quant, tier=tier)
+        repo = ModelRepository()
+        repo.register(m)
+        attach_tier(m, {"KFT_TIER": tier, "KFT_KV_BIND": "127.0.0.1:0"})
+        models[tier], servers[tier] = m, ModelServer(repo).start()
+    pre, dec = models["prefill"], models["decode"]
+    kv_addr = list(dec.disagg.kv_addr)
+    url = {t: f"{servers[t].url}/v2/models/{models[t].name}/disagg/"
+           for t in models}
+    four = four_prompts(torch, cfg)
+    prompts = {k: four[k] for k in ("short_100", "mid_300", "chunked_700")}
+    cache = dec.engine.cache
+    block_bytes = sum(cache[k][:, 0].numel() * cache[k].element_size()
+                      for k in ("k", "v", "k_scale", "v_scale")
+                      if k in cache)
+    kern, off = (("paged_decode_attention_quant", "paged_decode_attention")
+                 if quant is not None else
+                 ("paged_decode_attention", "paged_decode_attention_quant"))
+    rows, migrated = {}, {}
+    try:
+        steps0 = dec.stats()["sched"]["decode_device_steps_total"]
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention_quant.launches = 0
+        for name, prompt in prompts.items():
+            sent0 = pre.disagg.stats.get("bytes_sent_total")
+            hid = f"{tag}-{name}"
+            out = post_json(url["prefill"] + "prefill",
+                        {"inputs": prompt, "decode_addr": kv_addr,
+                         "handoff_id": hid,
+                         "parameters": {"max_tokens": DISAGG_TOKENS}})
+            if out.get("status") != "migrated":
+                raise SystemExit(f"phase 5d {tag} {name}: {out}")
+            res = post_json(url["decode"] + "collect", {"handoff_id": hid})
+            migrated[name] = res["tokens"]
+            t = out["timings"]
+            nbytes = out["migrated_blocks"] * block_bytes
+            rt_s = t["export_s"] + t["transfer_s"]
+            rows[name] = {
+                "blocks": out["migrated_blocks"], "bytes": nbytes,
+                "frame_bytes": pre.disagg.stats.get("bytes_sent_total")
+                - sent0,
+                "prefill_s": t["prefill_s"], "export_s": t["export_s"],
+                "transfer_s": t["transfer_s"],
+                "inject_to_first_commit_s":
+                    res["timings"].get("inject_to_first_commit_s"),
+                "host_round_trip_gb_s": nbytes / rt_s / 1e9}
+            log(f"phase 5d {tag} {name}: {rows[name]}")
+        launches = {"paged_decode_attention":
+                    pa.paged_decode_attention.launches,
+                    "paged_decode_attention_quant":
+                    pa.paged_decode_attention_quant.launches}
+        steps = dec.stats()["sched"]["decode_device_steps_total"] - steps0
+        want = cfg.n_layers * steps
+        log(f"phase 5d {tag}: decode tier launches {launches} (want {kern} "
+            f"== n_layers x its decode device steps = {want}, {off} == 0)")
+        if launches[kern] != want or want == 0 or launches[off] != 0:
+            raise SystemExit(f"phase 5d {tag}: the decode tier's steps did "
+                             f"not run through {kern} over migrated blocks")
+        for name, prompt in prompts.items():
+            body = {"inputs": [{"name": "ids", "shape": [1, len(prompt)],
+                                "datatype": "INT32", "data": prompt}],
+                    "parameters": {"max_tokens": DISAGG_TOKENS}}
+            o = post_json(f"{servers['prefill'].url}/v2/models/"
+                          f"{pre.name}/infer", body)
+            toks = {t["name"]: t for t in o["outputs"]}["tokens"]["data"]
+            same = toks[:DISAGG_TOKENS] == migrated[name]
+            log(f"phase 5d {tag} {name}: migrated stream equals the "
+                f"co-located one token for token: {same}")
+            if not same:
+                raise SystemExit(f"phase 5d {tag} {name}: migrated stream "
+                                 "differs from the co-located stream")
+        if tag == "bf16":
+            disagg_races(torch, pre, dec)
+        labelled = 'tier="prefill"' in servers["prefill"]._render_metrics()
+        fails = pre.stats()["disagg"].get("migration_failures_total", 0)
+        log(f"phase 5d {tag}: kft_disagg_migration_failures_total {fails}; "
+            f"tier label on the prefill tier's /metrics: {labelled}")
+        if fails or not labelled:
+            raise SystemExit(f"phase 5d {tag}: migration failures, or no "
+                             "tier label")
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        dec.disagg.receiver.close()
+        for m in models.values():
+            m.unload()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches[kern]}
+
+
+def disagg_races(torch, pre, dec) -> None:
+    """Phase 5d's wire cases: a duplicate ``kv`` frame injects once, and a
+    ``release`` frame frees the decode side's blocks."""
+    from kubeflow_tpu_torch.serving.disagg import KVMigrator, MigrationStats
+
+    rd, eng = dec.disagg, dec.engine
+    prompt = list(range(1, 200))
+    payload = held_payload(torch, pre, prompt, 8)
+    mig = KVMigrator(MigrationStats())
+    inj0 = rd.stats.get("handoffs_injected_total")
+    dup0 = rd.stats.get("duplicate_deliveries_total")
+    ok = [mig.send(rd.kv_addr, "dup-1", payload)[0] for _ in range(2)]
+    res = rd.collect("dup-1")
+    dup_ok = (all(ok) and rd.stats.get("handoffs_injected_total") == inj0 + 1
+              and rd.stats.get("duplicate_deliveries_total") == dup0 + 1
+              and len(res.get("tokens", ())) == 8)
+    payload = held_payload(torch, pre, prompt, 400)
+    rel0 = rd.stats.get("releases_total")
+    sent = mig.send(rd.kv_addr, "rel-1", payload)[0]
+    released = mig.release(rd.kv_addr, "rel-1")
+    freed = wait_for(lambda: rd.stats.get("releases_total") == rel0 + 1
+                     and not eng.has_work())
+    free_ok = (sent and released and freed and not eng._active
+               and eng.paged.reclaimable_blocks == eng.paged.num_blocks - 1)
+    log(f"phase 5d: duplicate kv frame injected once: {dup_ok}; release "
+        f"frame freed the decode side's blocks: {free_ok} (reclaimable "
+        f"{eng.paged.reclaimable_blocks} of {eng.paged.num_blocks - 1})")
+    if not (dup_ok and free_ok):
+        raise SystemExit("phase 5d: duplicate delivery or release failed")
+
+
+def disagg_phase(torch, pa, cfg, params) -> dict:
+    """Phase 5d: bf16, then int8 KV, over the same two weight copies."""
+    from kubeflow_tpu_torch.serving.scheduler import QuantConfig
+
+    t0 = time.perf_counter()
+    params2 = tree_clone(params)        # the decode tier's own weights
+    out = {"bf16": disagg_run(torch, pa, cfg, params, params2, "bf16", None),
+           "int8": disagg_run(torch, pa, cfg, params, params2, "int8",
+                              QuantConfig(kv_dtype="int8"))}
+    del params2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 5d: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+# ---------------------------------------------------------------------------
 # Flash attention (training slice)
 # ---------------------------------------------------------------------------
 
@@ -1447,16 +2179,21 @@ def training(torch) -> dict:
             "mfu": mfu, "peak_bytes": peak, "losses": losses}
 
 
-def row3(sharded: dict, tp: dict) -> dict:
+def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
-    run (its int8 run's per rank beside them)."""
+    run and phase 5s's tensor=4 run (per rank beside them, and phase
+    4tp's int8 run's)."""
     return {
         "name": "paged_decode_attention_sharded", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:257",
-        "launches": sum(tp["bf16"]["launches_per_rank"]),
+        "launches": (sum(tp["bf16"]["launches_per_rank"])
+                     + sum(spec_tp["launches_per_rank"])),
+        "launches_by_phase": {"4tp": sum(tp["bf16"]["launches_per_rank"]),
+                              "5s": sum(spec_tp["launches_per_rank"])},
         "launches_per_rank": tp["bf16"]["launches_per_rank"],
+        "launches_per_rank_5s": spec_tp["launches_per_rank"],
         "launches_per_rank_int8": tp["int8"]["launches_per_rank"],
         **{k: sharded[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by")},
@@ -1498,6 +2235,8 @@ def main() -> int:
             f"{tp[tag]['decode_ms_per_step']!r} ms; paged_decode_step "
             f"alone on one card (phase 4/4q) {one['decode_ms_per_step']!r} "
             f"ms")
+    spec = spec_phase(torch, pa, cfg, params, tp)
+    disagg = disagg_phase(torch, pa, cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1508,14 +2247,23 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:65",
-        "launches": served["launches"], "max_abs_err": errs["bfloat16"],
+        "launches": (served["launches"] + spec["bf16"]["launches"]
+                     + disagg["bf16"]["launches"]),
+        "launches_by_phase": {"4": served["launches"],
+                              "5s": spec["bf16"]["launches"],
+                              "5d": disagg["bf16"]["launches"]},
+        "max_abs_err": errs["bfloat16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
     }, {
         "name": "paged_decode_attention_quant", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:68",
-        "launches": q_served["launches"],
+        "launches": (q_served["launches"] + spec["int8"]["launches"]
+                     + disagg["int8"]["launches"]),
+        "launches_by_phase": {"4q": q_served["launches"],
+                              "5s": spec["int8"]["launches"],
+                              "5d": disagg["int8"]["launches"]},
         # the served pool's dtype (int8) in the top-level numbers; both
         # pool dtypes under by_kv_dtype. No PyTorch call reads a
         # quantized paged pool: SDPA over the dequantized dense view is
@@ -1526,7 +2274,7 @@ def main() -> int:
         "library_ms": None,
         "by_kv_dtype": {kv: {"max_abs_err": q_errs[kv], **q_t[kv]}
                         for kv in KV_QMAX},
-    }, row3(sharded, tp)]
+    }, row3(sharded, tp, spec["tp"])]
     for name, line in (("flash_attention_fwd", 54),
                        ("flash_attention_dq", 135),
                        ("flash_attention_dkv", 170)):

@@ -23,7 +23,19 @@
   the same all-gathered logits with the same seeded generator, and folds
   the tokens it sampled into a running digest on its device (no
   collective, no readback); ``tp_status`` reports each rank's digest,
-  so a caller checks that the ranks agree.
+  so a caller checks that the ranks agree;
+- speculative decoding (``SchedulerConfig(spec_decode=True)``): a
+  host-side drafter (serving/spec_decode.py) proposes up to ``spec_k``
+  tokens per stream, ONE verify dispatch (``paged_kv.paged_verify_step``)
+  scores them all, and the longest prefix matching the target's greedy
+  chain commits, plus the target's own next token — greedy streams equal
+  the non-speculative ones, and every round commits at least one token;
+- disaggregated prefill/decode (serving/disagg.py): a prefill tier parks
+  a request after its first token (``hold_after_prefill``) and exports
+  its prompt blocks to host numpy (``export_held_kv``); a decode tier
+  scatters them into its own pool and resumes (``inject_request``).
+  Every touch of the pool from another thread queues through
+  ``submit_ctl`` and runs at the top of the next ``step()``.
 
 Pipelined decode keeps the JAX engine's structure: chunk N+1 is
 dispatched before chunk N's tokens are read back. CUDA launches are
@@ -32,9 +44,9 @@ chunk N's tokens travel through a pinned buffer and an event, so the
 read-back waits for chunk N only.
 
 Not in this slice (each raises or is absent, never quietly different):
-the executable depot (``precompile``), speculative decoding
-(``spec_decode=True`` raises), the disaggregated hold/export/inject
-methods, meshes over axes other than ``tensor``.
+the executable depot (``precompile``), meshes over axes other than
+``tensor``, and disaggregated serving under a tensor mesh (a rank's pool
+holds only its KV heads: hold, export and inject raise ``DISAGG_SLICE``).
 """
 
 from __future__ import annotations
@@ -59,15 +71,17 @@ from kubeflow_tpu_torch.parallel.sharding import (
 )
 from kubeflow_tpu_torch.serving import tp as tp_serving
 from kubeflow_tpu_torch.serving.paged_kv import (
-    PagedKV, _lm_head, blocks_for, init_paged_cache, paged_decode_step,
-    paged_insert_batch, paged_prefill_chunk, resolve_decode_kernel,
+    PagedKV, _lm_head, blocks_for, gather_kv_blocks, init_paged_cache,
+    paged_decode_step, paged_insert_batch, paged_prefill_chunk,
+    paged_verify_step, resolve_decode_kernel, scatter_kv_blocks, wire_dtype,
 )
 from kubeflow_tpu_torch.serving.quant import (
     is_weight_quantized, quant_logical_axes, quantize_weights, resolve_quant,
 )
 from kubeflow_tpu_torch.serving.scheduler import (
-    QuantConfig, SchedulerConfig, StepScheduler,
+    QuantConfig, SchedulerConfig, StepScheduler, ceil_pow2,
 )
+from kubeflow_tpu_torch.serving.spec_decode import make_drafter
 
 logger = logging.getLogger(__name__)
 
@@ -78,8 +92,9 @@ _REQ_LAT_BUCKETS = log_buckets(0.001, 64.0, factor=2 ** 0.25)
 # that keeps digest * 1000003 + one dispatch's weighted sum inside int64
 _DIGEST_PRIME = 2 ** 31 - 1
 
-SPEC_SLICE = ("speculative decoding (paged_verify_step + drafter) is a "
-              "later slice of the PyTorch port")
+DISAGG_SLICE = ("disaggregated serving under a tensor mesh (hold, export "
+                "and inject of a pool that holds one rank's KV heads) is a "
+                "later slice of the PyTorch port (ROADMAP queue 1 item 8.7)")
 
 # downgrade reasons already logged this process: counted per engine
 # (kft_model_kernel_downgrades_total) but LOGGED once — a fleet restarting
@@ -124,12 +139,19 @@ class GenRequest:
     # then reads as a clean "stop" finish, not a client disconnect
     stop_matched: bool = False
     slot: Optional[int] = None
+    # disaggregated prefill tier (serving/disagg.py): park the request
+    # after prefill + first token instead of decoding; its KV stays
+    # resident (blocks refcount-pinned) until export_held_kv/release_held
+    hold_after_prefill: bool = False
     # observability: trace context ((trace_id, span_id) of the queue
     # span), wall-clock latency marks feeding the request histograms, and
     # the live span handles the engine closes as the request advances
     trace: Optional[tuple] = None
     t_enqueue: float = 0.0
     t_first_token: float = 0.0
+    # first DECODE commit (token #2): on a decode tier it closes the
+    # migration's inject -> first commit interval
+    t_second_token: float = 0.0
     t_last_commit: float = 0.0
     t_done: float = 0.0
     spans: dict = dataclasses.field(default_factory=dict)
@@ -217,9 +239,10 @@ def sample_logits(logits, generator: torch.Generator, temperature, top_k,
 
 
 def chosen_logprob(logits, tok):
-    """log softmax(logits)[tok] without materializing the [B, V] log
-    softmax (OpenAI convention: pre-temperature/filtering)."""
-    return (logits.gather(-1, tok.long()[:, None])[:, 0]
+    """log softmax(logits)[tok] without materializing the [..., V] log
+    softmax (OpenAI convention: pre-temperature/filtering). logits
+    [..., V], tok [...]."""
+    return (logits.gather(-1, tok.long()[..., None])[..., 0]
             - torch.logsumexp(logits, dim=-1))
 
 
@@ -332,8 +355,11 @@ class LLMEngine:
                     f"every prefill bucket (got {b})")
         if kv_num_blocks is None:
             kv_num_blocks = max_batch * (max_seq // kv_block_size) + 1
+        # speculative decoding (scheduler knob): the host-side drafter; a
+        # verify dispatch scores its proposals (_spec_step)
+        self.spec = None
         if scheduler is not None and scheduler.spec_decode:
-            raise NotImplementedError(SPEC_SLICE)
+            self.spec = make_drafter(scheduler.spec_drafter, scheduler.spec_k)
         # every check that can fail on the host is behind us: rank 0 now
         # starts the other ranks, which build the same engine on theirs
         self.tp = None
@@ -359,6 +385,14 @@ class LLMEngine:
         self._active: dict[int, GenRequest] = {}     # slot -> request
         self._waiting: list[GenRequest] = []
         self._aborted: set[int] = set()              # request ids to retire
+        # disaggregated prefill tier: slot -> request parked after prefill
+        # (hold_after_prefill) awaiting KV export; its blocks stay
+        # refcount-pinned so eviction can never reach them
+        self._held: dict[int, GenRequest] = {}
+        # control ops (export/inject/release from other threads): every
+        # touch of the pool runs on the stepping thread, drained at the
+        # top of step()
+        self._ctl: list = []
         self._ids = itertools.count()
         self._lock = threading.Lock()
         self._tokens = np.zeros((max_batch,), np.int32)   # next input token
@@ -486,6 +520,22 @@ class LLMEngine:
         self._note_tokens(toks)
         return toks, torch.stack(lps)
 
+    def _body_verify(self, tokens, tables, limit):
+        """One speculative verify dispatch (``paged_verify_step``) over
+        the [B, S] candidate tokens: the target's greedy chain with the
+        decode sampler's tie-break, and each chosen token's logprob.
+        Returns (toks [B, S], lps [B, S]) on the device."""
+        logits, self.cache = paged_verify_step(
+            self.params, self._dev(tokens), self.cfg, self.cache,
+            self._dev(tables), self._dev(limit), mesh=self.mesh)
+        nxt = greedy_argmax(logits)
+        self._note_tokens(nxt)
+        return nxt, chosen_logprob(logits, nxt)
+
+    def _body_set_lens(self, lens):
+        """Commit the slots' lengths after a verify (host-side acceptance)."""
+        self.cache["len"] = self._dev(lens)
+
     def _body_prefill_chunk(self, piece, tables, slot: int, offset: int,
                             length: int, share_len: int, final: bool,
                             temperature, top_k, top_p):
@@ -584,13 +634,19 @@ class LLMEngine:
 
     def add_request(self, prompt: Sequence[int],
                     sampling: Optional[SamplingParams] = None,
-                    trace: Optional[str] = None) -> GenRequest:
+                    trace: Optional[str] = None,
+                    hold_after_prefill: bool = False) -> GenRequest:
         """``trace``: an incoming W3C traceparent (router/server span) —
-        the request's queue span roots under it."""
+        the request's queue span roots under it. ``hold_after_prefill``:
+        disaggregated prefill tier — park after prefill + first token for
+        KV export instead of decoding."""
         sampling = sampling or SamplingParams()
         self.validate_prompt(prompt, sampling)
+        if hold_after_prefill:
+            self._check_disagg()
         req = GenRequest(id=next(self._ids), prompt=list(map(int, prompt)),
-                         sampling=sampling)
+                         sampling=sampling,
+                         hold_after_prefill=bool(hold_after_prefill))
         req.t_enqueue = time.time()
         qspan = self.obs.start(
             "request.queue", parent=trace,
@@ -615,6 +671,128 @@ class LLMEngine:
         with self._lock:
             self._waiting = [r for r in self._waiting if r.id not in ids]
             self._aborted.update(ids)
+
+    # ------------- disaggregated prefill/decode (serving/disagg.py) -------
+    # Stepping-thread only: these touch the pool, so callers on other
+    # threads go through submit_ctl. Single-threaded tests may call them
+    # directly between step()s.
+
+    def _check_disagg(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(DISAGG_SLICE)
+
+    def held_requests(self) -> list[GenRequest]:
+        return list(self._held.values())
+
+    def export_held_kv(self, req: GenRequest) -> Optional[dict]:
+        """Package a held request's PROMPT blocks for migration: the first
+        ``blocks_for(len(prompt))`` blocks of its reservation (the empty
+        generation-budget tail never travels) as host numpy
+        (``paged_kv.gather_kv_blocks``, with ``kv_dtype`` naming the
+        pool dtype its bytes are in), plus what the decode tier needs to
+        resume: prompt, the prefill-sampled token #1 and its logprob,
+        sampling params and the original enqueue time. Returns None when
+        the request was aborted or released before export."""
+        self._check_disagg()
+        slot = req.slot
+        if slot is None or self._held.get(slot) is not req:
+            return None
+        bs = self.paged.block_size
+        n = blocks_for(len(req.prompt), bs)
+        ids = self.paged.slot_blocks(slot)[:n]
+        return {
+            "prompt": list(req.prompt),
+            "first_token": int(req.generated[0]),
+            "first_lp": float(req.logprobs[0]),
+            "sampling": dataclasses.asdict(req.sampling),
+            "t_enqueue": req.t_enqueue,
+            "t_prefill_done": req.t_first_token,
+            "block_size": bs,
+            "n_blocks": n,
+            "kv_dtype": wire_dtype(self.cache),
+            "blocks": gather_kv_blocks(self.cache, ids),
+        }
+
+    def release_held(self, req: GenRequest) -> bool:
+        """Drop a held request's slot and blocks: the prefill side of the
+        ownership edge, after the decode tier acked the handoff or on a
+        failed/aborted migration (its radix-published blocks stay cached
+        and evictable, so a local re-prefill is one cheap chunk)."""
+        slot = req.slot
+        if slot is None or self._held.get(slot) is not req:
+            return False
+        del self._held[slot]
+        req.done = True
+        self.paged.release(slot)
+        self._free.append(slot)
+        return True
+
+    def inject_request(self, prompt: Sequence[int],
+                       sampling: SamplingParams, *, first_token: int,
+                       first_lp: float, blocks: dict, n_blocks: int,
+                       t_enqueue: float = 0.0,
+                       kv_dtype: Optional[str] = None
+                       ) -> Optional[GenRequest]:
+        """Decode-tier admission of a migrated prefill: reserve a slot,
+        scatter the imported prompt blocks into the pool in place
+        (radix-shared prefix blocks are skipped — the pool already holds
+        them), set the slot's length and commit token #1 as a local
+        admission does. The reservation refcounts every imported block
+        BEFORE the scatter, so eviction can never reclaim a mid-handoff
+        block. Returns None when no slot or pool capacity is free (the
+        caller nacks and the prefill side falls back to local
+        generation). A payload whose ``kv_dtype`` or block size is not
+        this pool's raises."""
+        self._check_disagg()
+        if kv_dtype is not None and kv_dtype != wire_dtype(self.cache):
+            raise ValueError(f"payload KV dtype {kv_dtype} is not this "
+                             f"pool's {wire_dtype(self.cache)}")
+        bs = self.paged.block_size
+        if n_blocks != blocks_for(len(prompt), bs):
+            raise ValueError(f"{n_blocks} blocks for a {len(prompt)}-token "
+                             f"prompt at block size {bs}")
+        self.validate_prompt(prompt, sampling)
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+        L = len(prompt)
+        n_shared = self.paged.reserve(
+            slot, L, sampling.max_tokens, min_blocks=n_blocks,
+            prompt=prompt, defer_publish=True)
+        if n_shared is None:
+            with self._lock:
+                self._free.append(slot)
+            return None
+        req = GenRequest(id=next(self._ids),
+                         prompt=list(map(int, prompt)), sampling=sampling)
+        req.t_enqueue = t_enqueue or time.time()
+        ids = self.paged.slot_blocks(slot)[:n_blocks]
+        if n_shared < n_blocks:
+            scatter_kv_blocks(self.cache, ids[n_shared:],
+                              {k: v[:, n_shared:n_blocks]
+                               for k, v in blocks.items()})
+        self.cache["len"][slot] = L
+        # publish the imported full prompt blocks to THIS pool's radix
+        # tree: a later request sharing the prefix admits here at
+        # radix-hit cost
+        self.paged.publish_prompt_blocks(slot, prompt, L)
+        self._post_admit(req, slot, int(first_token), float(first_lp))
+        return req
+
+    def submit_ctl(self, fn) -> None:
+        """Queue ``fn`` to run on the stepping thread at the top of the
+        next step(): the only safe way for another thread to touch engine
+        or pool state. Callers needing the result wrap ``fn`` to capture
+        it and wake the model loop (serving/disagg.TierRuntime)."""
+        with self._lock:
+            self._ctl.append(fn)
+
+    def _drain_ctl(self) -> None:
+        with self._lock:
+            ops, self._ctl = self._ctl, []
+        for fn in ops:
+            fn()
 
     # ---------------- observability hooks ----------------
 
@@ -650,6 +828,8 @@ class LLMEngine:
             if req.t_enqueue:
                 self.request_hists["ttft"].observe(now - req.t_enqueue)
             n_new -= 1
+        elif req.t_second_token == 0.0:
+            req.t_second_token = now
         if n_new > 0 and req.t_last_commit:
             gap = max(0.0, now - req.t_last_commit) / n_new
             itl = self.request_hists["itl"]
@@ -659,7 +839,8 @@ class LLMEngine:
 
     def has_work(self) -> bool:
         with self._lock:
-            return bool(self._waiting or self._active or self._chunked)
+            return bool(self._waiting or self._active or self._chunked
+                        or self._ctl)
 
     def scheduler_stats(self) -> dict:
         with self._lock:
@@ -681,6 +862,7 @@ class LLMEngine:
         previous chunk's tokens are read, so results lag one chunk.
         Returns requests that finished this step."""
         self.sched.note_step()
+        self._drain_ctl()
         with self._lock:
             aborted, self._aborted = self._aborted, set()
         if aborted:
@@ -689,10 +871,41 @@ class LLMEngine:
                     del self._active[slot]
                     self.paged.release(slot)
                     self._free.append(slot)
+            # a held prefill whose request aborted mid-migration releases
+            # its side here: the prefill half of the "releases on both
+            # sides" contract (the decode half is disagg release/collect)
+            for slot, req in list(self._held.items()):
+                if req.id in aborted:
+                    del self._held[slot]
+                    self.paged.release(slot)
+                    self._free.append(slot)
             for slot, st in list(self._chunked.items()):
                 if st.req.id in aborted:
                     self._cancel_chunked(slot)
         self._admit()
+        finished_pre: list[GenRequest] = []
+        if self.spec is not None and self._active:
+            if all(r.sampling.temperature == 0
+                   for r in self._active.values()):
+                # speculative path: flush the pipelined chunk first (its
+                # tokens are this round's draft context), then one
+                # draft+verify round, synchronous by construction
+                if self._inflight is not None:
+                    prev, self._inflight = self._inflight, None
+                    finished_pre = self._process_chunk(prev)
+                if not self._active:
+                    return finished_pre
+                spec_finished = self._spec_step()
+                if spec_finished is not None:
+                    return finished_pre + spec_finished
+                # no stream drafted anything: a width-1 verify would
+                # commit ONE token a dispatch where plain multistep decode
+                # commits chunk_len; fall through to it (counted)
+                self.sched.note_spec_undrafted()
+            else:
+                # a non-greedy request in the batch: acceptance is exact
+                # only for greedy, so this dispatch decodes (counted)
+                self.sched.note_spec_fallback()
         new_inflight = None
         if self._active and self._need_dispatch():
             active_mask = np.zeros((self.max_batch,), bool)
@@ -734,7 +947,7 @@ class LLMEngine:
         if not self.decode_pipeline and self._inflight is not None:
             flush, self._inflight = self._inflight, None
             finished += self._process_chunk(flush)
-        return finished
+        return finished_pre + finished
 
     def _need_dispatch(self) -> bool:
         """Skip the next dispatch when the in-flight chunk already covers
@@ -794,13 +1007,14 @@ class LLMEngine:
             self._free.append(slot)
 
     def _dispatch_tables(self) -> np.ndarray:
-        """Block tables for a decode dispatch: mid-prefill slots' rows
-        zeroed so their idle scatter lands in the scratch block, never a
-        half-prefilled prompt block."""
+        """Block tables for a decode/verify dispatch: mid-prefill and held
+        slots' rows zeroed so their idle scatter lands in the scratch
+        block, never in a half-prefilled prompt block or in the prompt
+        blocks a held request is about to export."""
         tab = self.paged.tables
-        if self._chunked:
+        if self._chunked or self._held:
             tab = tab.copy()
-            for s in self._chunked:
+            for s in itertools.chain(self._chunked, self._held):
                 tab[s] = 0
         return tab
 
@@ -830,6 +1044,89 @@ class LLMEngine:
         if span is not None:
             self.obs.end(span, tokens_committed=committed_total,
                          device_steps=int(toks.shape[0]))
+        return finished
+
+    def _spec_step(self) -> Optional[list[GenRequest]]:
+        """One speculative draft+verify round over the active batch, or
+        None when no stream drafted anything (the caller decodes).
+
+        The drafter proposes up to spec_k tokens per stream from its
+        committed context; ONE verify dispatch writes every candidate's
+        KV row (tail rows past a slot's blocks go to scratch) and returns
+        the target's greedy chain + logprobs; the longest draft prefix
+        matching that chain commits, plus the target's own next token.
+        ``cache["len"]`` then advances by the COMMITTED count only:
+        rejected rows sit beyond it, invisible to attention, and the next
+        dispatch rewrites them before they could be unmasked."""
+        bs = self.paged.block_size
+        drafts: dict[int, list[int]] = {}
+        for slot, req in self._active.items():
+            # drafts past the deterministic remaining budget can never
+            # commit; they would only widen the verify for nothing
+            rem = min(req.sampling.max_tokens - len(req.generated),
+                      self.max_seq - len(req.prompt) - len(req.generated))
+            drafts[slot] = self.spec.draft(
+                req.prompt + req.generated)[:max(0, rem - 1)]
+        k_max = max(len(d) for d in drafts.values())
+        if k_max == 0:
+            return None
+        # pow-2 verify width (input column + drafts): the JAX engine's
+        # static widths, log2(spec_k + 1) of them
+        width = ceil_pow2(1 + k_max)
+        tokens = np.zeros((self.max_batch, width), np.int32)
+        limit = np.zeros((self.max_batch,), np.int32)
+        for slot, d in drafts.items():
+            tokens[slot, 0] = self._tokens[slot]
+            tokens[slot, 1:1 + len(d)] = d
+            # rows at/after the slot's reserved tokens scatter to scratch
+            limit[slot] = len(self.paged.slot_blocks(slot)) * bs
+        drafted = sum(len(d) for d in drafts.values())
+        self.sched.note_spec_dispatch(drafted)
+        vspan = self._dispatch_span(
+            "decode.verify", [r for _, r in self._active.items()],
+            width=width, drafted=drafted, batch=len(self._active))
+        toks, lps = self._read_sample(self._run(
+            "verify", tokens=tokens, tables=self._dispatch_tables(),
+            limit=limit))
+        self.steps += 1
+        finished = []
+        committed_total = 0
+        new_len = np.zeros((self.max_batch,), np.int32)
+        for slot, req in list(self._active.items()):
+            if req.done:
+                continue               # aborted after dispatch
+            d = drafts[slot]
+            # acceptance: position i's target token commits; a matching
+            # draft i validates position i + 1
+            accepted = 0
+            committed: list[tuple[int, float]] = []
+            for i in range(len(d) + 1):
+                committed.append((int(toks[slot, i]), float(lps[slot, i])))
+                if i < len(d) and d[i] == committed[-1][0]:
+                    accepted += 1
+                    continue
+                break
+            n_appended = 0
+            done = False
+            for tok, lp in committed:
+                n_appended += 1
+                if self._commit_token(req, slot, tok, lp):
+                    done = True
+                    break
+            # only draft tokens that actually committed count: an early
+            # stop (eos/budget) truncates acceptance too
+            self.sched.note_spec_result(min(accepted, n_appended),
+                                        n_appended)
+            committed_total += n_appended
+            self._note_request_latency(req, n_appended)
+            if done:
+                finished.append(req)
+                self._retire(req, slot)
+            else:
+                # committed length only: rejected rows stay beyond it
+                new_len[slot] = len(req.prompt) + len(req.generated) - 1
+        self._run("set_lens", lens=new_len)
+        self.obs.end(vspan, tokens_committed=committed_total)
         return finished
 
     def generate(self, prompts: Sequence[Sequence[int]],
@@ -1038,3 +1335,9 @@ class LLMEngine:
         self._note_request_latency(req, 1)       # TTFT closes here
         if done:
             self._retire(req, slot)
+        elif req.hold_after_prefill:
+            # disagg prefill tier: park the request for export_held_kv
+            # instead of decoding; the slot and its refcount-pinned blocks
+            # stay until release_held moves or drops ownership
+            del self._active[slot]
+            self._held[slot] = req

@@ -42,6 +42,13 @@ tables and lengths are the same as every rank's, the decode attention is
 on the rank's heads) or the gather oracle over the rank's heads, and the
 model's collectives are those of ``models/llama.py``.
 
+Speculative decoding scores its drafts with ``paged_verify_step``: S
+candidate rows a slot in one dispatch, through the JAX package's plain
+attention over the gathered (or dequantized) view with per-slot query
+offsets, as JAX's verify step does; no paged kernel runs there.
+Disaggregated serving moves whole blocks between pools through host
+numpy (``gather_kv_blocks`` / ``scatter_kv_blocks``).
+
 Block 0 is the pool's scratch block: idle slots (len 0, all-zero table
 row) and pad rows scatter into it, several idle slots into the same row,
 which is harmless only because nothing live ever reads block 0.
@@ -414,6 +421,121 @@ class PagedKV:
         return list(self._slot_blocks.get(slot, []))
 
 
+# -------------------------------------------------- KV block migration ----
+# Device<->host movers for disaggregated serving (serving/disagg.py): a
+# finished prefill's pool blocks leave the prefill replica as host numpy
+# and land in another replica's pool. Both sides pad the id list to the
+# next power of two, as the JAX package does; pad ids are block 0 — the
+# scratch block whose content is garbage by contract — so the extra
+# gather rows are dropped on the host and the extra scatter writes land
+# where writes are already allowed.
+#
+# numpy has no bfloat16 or float8 dtype, so the host payload carries each
+# pool's BYTES: bf16 (and f16) as their uint16 bit pattern, fp8 as uint8,
+# int8 and f32 as themselves; ``wire_dtype`` names the pool dtype beside
+# them. Layout is the JAX payload's, [L, n, bs, KV, D] per pool and
+# [L, n, KV] f32 per scale table, so the bytes compare one for one.
+
+# bf16/f16 pools cross as int16 on the device and uint16 on the host;
+# fp8 pools are read through ``_raw`` (uint8) already
+_WIRE_VIEW = {torch.bfloat16: (torch.int16, np.uint16),
+              torch.float16: (torch.int16, np.uint16)}
+
+
+def _pool_keys(cache: dict) -> tuple:
+    return tuple(k for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+
+
+def wire_dtype(cache: dict) -> str:
+    """Name of the pool's storage dtype ("bfloat16", "int8",
+    "float8_e4m3fn", ...): what the payload's bytes mean."""
+    return str(cache["k"].dtype).replace("torch.", "")
+
+
+def _pad_pow2(ids) -> tuple:
+    n = len(ids)
+    m = 1 << max(0, (n - 1).bit_length())
+    idx = np.zeros((max(1, m),), np.int64)
+    idx[:n] = ids
+    return idx, n
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """A pool (or scale table) as the integer/float view the host gets."""
+    t = _raw(t)
+    view = _WIRE_VIEW.get(t.dtype)
+    return t.view(view[0]) if view is not None else t
+
+
+def gather_kv_blocks(cache: dict, ids) -> dict:
+    """Fetch pool blocks ``ids`` to host numpy: [L, n, bs, KV, D] per pool
+    (bit patterns, module note above) plus [L, n, KV] f32 scale tables
+    when the pool is quantized. A CUDA pool copies through pinned host
+    memory."""
+    idx, n = _pad_pow2(ids)
+    dev = cache["k"].device
+    index = torch.as_tensor(idx, device=dev)
+    out = {}
+    for key in _pool_keys(cache):
+        t = _wire(cache[key]).index_select(1, index)
+        if dev.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            t = host
+        out[key] = t
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    for key, t in out.items():
+        arr = t.numpy()
+        view = _WIRE_VIEW.get(cache[key].dtype)
+        if view is not None:
+            arr = arr.view(view[1])
+        # an owning copy of the live rows: no numpy array may alias a
+        # pinned buffer or the pool
+        out[key] = arr[:, :n].copy()
+    return out
+
+
+def _host_to_pool(arr: np.ndarray, pool: torch.Tensor) -> torch.Tensor:
+    """Payload bytes -> a host tensor in ``_wire(pool)``'s dtype (the
+    inverse of gather's views; a JAX payload's bf16 or fp8 array has the
+    same bytes and is read the same way)."""
+    want = _wire(pool).dtype
+    arr = np.ascontiguousarray(arr)
+    if want in (torch.int16, torch.uint8):
+        arr = arr.view(np.uint16 if want == torch.int16 else np.uint8)
+        return torch.from_numpy(arr).view(want)
+    return torch.from_numpy(arr).to(want)
+
+
+def scatter_kv_blocks(cache: dict, ids, blocks: dict) -> dict:
+    """Write migrated block payloads into pool blocks ``ids``, in place,
+    and return the cache. ``blocks`` is ``gather_kv_blocks`` output,
+    possibly sliced on axis 1 to drop radix-shared prefix blocks the
+    destination already holds."""
+    if not len(ids):
+        return cache
+    idx, n = _pad_pow2(ids)
+    dev = cache["k"].device
+    index = torch.as_tensor(idx, device=dev)
+    for key in (k for k in _pool_keys(cache) if k in blocks):
+        dst = _wire(cache[key])
+        src = _host_to_pool(np.asarray(blocks[key]), cache[key])
+        if tuple(src.shape[2:]) != tuple(dst.shape[2:]) \
+                or src.shape[:2] != (dst.shape[0], n):
+            raise ValueError(f"payload {key!r} of shape {tuple(src.shape)} "
+                             f"does not fit {n} blocks of a pool "
+                             f"{tuple(dst.shape)}")
+        if len(idx) > n:
+            pad = src.new_zeros((src.shape[0], len(idx) - n)
+                                + tuple(src.shape[2:]))
+            src = torch.cat([src, pad], dim=1)
+        if dev.type == "cuda":
+            src = src.pin_memory().to(dev, non_blocking=True)
+        dst.index_copy_(1, index, src)
+    return cache
+
+
 # ------------------------------------------------------------- step bodies
 
 def _layer_qkv(lp, x, positions, cfg, inv_freq):
@@ -694,3 +816,64 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
         x = _layer_out(lp, x, o, cfg, mesh)
     last_row = min(max(length - offset - 1, 0), c - 1)
     return x[:, last_row], cache
+
+
+def paged_verify_step(params, tokens, cfg: llama.LlamaConfig, cache, tables,
+                      limit, mesh=None):
+    """Batched multi-token target step for speculative decoding: ONE
+    dispatch scores ``S`` candidate positions per slot. tokens: [B, S]
+    integer where column 0 is the slot's last committed token and columns
+    1.. are drafter proposals; row s of slot b lands at position
+    ``cache['len'][b] + s`` (the decode step's "the input token's KV is
+    written this step" convention), and logits[b, s] predicts position
+    len+s+1. limit: [B] integer, the tokens the slot's reserved blocks
+    can hold; rows at or past it (a draft tail running past the
+    allocation, or an idle/mid-prefill slot with limit 0) scatter to the
+    scratch block 0, never into live data.
+
+    Rejected-tail KV rows need no cleanup: the next dispatch (verify or
+    decode) starts at the committed length and rewrites every rejected
+    position before attention can see it. ``cache["len"]`` is NOT
+    advanced here; the engine commits the accepted length on the host.
+
+    Attention is the JAX package's: the gathered view (dequantized for a
+    quantized pool) and plain attention with per-slot causal offsets
+    (row s of slot b attends kv rows <= len[b] + s). ``mesh``: the rank's
+    step on its KV heads (module docstring).
+
+    Returns (logits [B, S, V] float32, cache)."""
+    b, s = tokens.shape
+    bs = cache["k"].shape[2]
+    device = tokens.device
+    inv_freq = llama.inv_freq_for(cfg, device)
+    start = cache["len"]                                         # [B]
+    pos = start[:, None].long() + torch.arange(s, device=device)  # [B, S]
+    valid = pos < limit.long()[:, None]
+    tab = tables.long()
+    blk = torch.where(
+        valid, tab.gather(1, (pos // bs).clamp(0, tab.shape[1] - 1)),
+        torch.zeros_like(pos))
+    off = pos % bs
+    x = llama.embed_tokens(params, tokens, cfg, mesh)            # [B, S, D]
+    quantized = "k_scale" in cache
+    for i in range(cfg.n_layers):
+        lp = llama.layer_params(params, i)
+        k_pool, v_pool = cache["k"][i], cache["v"][i]
+        q, k, v = _layer_qkv(lp, x, pos, cfg, inv_freq)
+        if quantized:
+            # duplicate blk entries (several rows of one slot's block)
+            # are safe: quant_scatter_rows folds their amaxes first
+            k_sc, v_sc = cache["k_scale"][i], cache["v_scale"][i]
+            quant_scatter_rows(k_pool, k_sc, blk, off, k)
+            quant_scatter_rows(v_pool, v_sc, blk, off, v)
+            k_view = dequant_gather_view(k_pool, k_sc, tab, cfg)
+            v_view = dequant_gather_view(v_pool, v_sc, tab, cfg)
+        else:
+            k_pool[blk, off] = k.to(k_pool.dtype)
+            v_pool[blk, off] = v.to(v_pool.dtype)
+            k_view = k_pool[tab].reshape(b, -1, *k_pool.shape[2:])
+            v_view = v_pool[tab].reshape(b, -1, *v_pool.shape[2:])
+        o = _xla_attention(q, k_view, v_view, causal=True, q_offset=start)
+        x = _layer_out(lp, x, o, cfg, mesh)
+    logits = _lm_head(params, x.reshape(b * s, -1), cfg, mesh)
+    return logits.reshape(b, s, -1), cache

@@ -19,8 +19,10 @@ initializer step and exits. The env contract is the JAX runtime's:
   KFT_QUANT_KV       "none" | "int8" | "fp8_e4m3": the paged-KV pool dtype
   KFT_QUANT_WEIGHTS  "none" | "int8": weights quantized once at load
   KFT_QUANT_EXACT_PARITY  forces both off (the unquantized program)
-  KFT_SPEC_DECODE    parsed as in the JAX runtime; enabling it raises
-                     (speculative decoding is a later slice)
+  KFT_SPEC_DECODE / KFT_SPEC_K / KFT_SPEC_DRAFTER
+                     speculative decoding: "1" turns it on, with up to
+                     KFT_SPEC_K draft tokens a verify (default 3) from
+                     drafter KFT_SPEC_DRAFTER ("ngram", the default)
   KFT_COMPILE_CACHE  accepted and unused: the port compiles no programs
                      (its kernels build once per checkout, under _build/)
   KFT_MESH          "tensor=N": tensor-parallel serving on N ranks, one
@@ -28,10 +30,19 @@ initializer step and exits. The env contract is the JAX runtime's:
                      (gloo) with KFT_FORCE_PLATFORM=cpu; fewer cards than
                      N raise. Other axes (data, fsdp, ..., and KFT_DCN)
                      set above 1 raise: they are a later slice
+  KFT_TIER          disaggregated serving: "prefill" | "decode" (unset =
+                     co-located). Stamps tier="..." on /metrics and
+                     attaches the KV-migration runtime (serving/disagg.py)
+                     behind the /v2/models/{m}/disagg routes. Other
+                     values raise ValueError; with KFT_MESH it raises
+                     NotImplementedError (a later slice)
+  KFT_KV_BIND       decode tier: host:port of the paged-KV migration
+                     listener (default 127.0.0.1:0; the bound address is
+                     printed and rides stats()["disagg"]["kv_addr"])
 
-KFT_TIER, KFT_DEPOT, KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong
-to later slices of the port: when one is set the runtime raises, naming
-the slice, instead of ignoring it.
+KFT_DEPOT, KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong to later
+slices of the port: when one is set the runtime raises, naming the slice,
+instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -46,12 +57,13 @@ import torch
 from kubeflow_tpu_torch.device import platform_device
 from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
 from kubeflow_tpu_torch.serving import storage
+from kubeflow_tpu_torch.serving.disagg import TIERS, TierRuntime
+from kubeflow_tpu_torch.serving.llm import DISAGG_SLICE
 from kubeflow_tpu_torch.serving.model import Model, ModelRepository
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
 
 LATER_SLICES = {
-    "KFT_TIER": "disaggregated prefill/decode serving",
     "KFT_DEPOT": "the executable depot",
     "KFT_MODELS_CONFIG_DIR": "multi-model serving (model puller)",
     "KFT_V2_SOCKET_BIND": "the binary V2 socket data plane",
@@ -62,11 +74,19 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def check_env_slices(env: Mapping[str, str]) -> None:
-    """Raise for env knobs whose feature the port does not have yet."""
+    """Raise for env knobs whose feature the port does not have yet, and
+    for a KFT_TIER that names no tier."""
     for key, what in LATER_SLICES.items():
         if env.get(key):
             raise NotImplementedError(
                 f"{key} is set: {what} is a later slice of the PyTorch port")
+    tier = env.get("KFT_TIER", "")
+    if tier:
+        if tier not in TIERS:
+            raise ValueError(f"KFT_TIER={tier!r} (want prefill|decode)")
+        if env.get("KFT_MESH"):
+            raise NotImplementedError(
+                f"KFT_TIER with KFT_MESH: {DISAGG_SLICE}")
 
 
 def init_storage(env: Mapping[str, str]) -> Optional[str]:
@@ -143,7 +163,23 @@ def build_model_from_env(env: Mapping[str, str]) -> Model:
         max_batch=int(env.get("KFT_MAX_BATCH", 8)),
         max_seq=int(env.get("KFT_MAX_SEQ", 1024)),
         scheduler=scheduler_from_env(env),
-        quant=quant_from_env(env))
+        quant=quant_from_env(env),
+        tier=env.get("KFT_TIER", ""))
+
+
+def attach_tier(model, env: Mapping[str, str]):
+    """A KFT_TIER replica's KV-migration runtime on its loaded engine
+    (the server's /disagg routes dispatch to it); the decode tier also
+    binds its KV listener at KFT_KV_BIND. Returns the listener's bound
+    (host, port), or None."""
+    tier = env.get("KFT_TIER", "")
+    if not tier or getattr(model, "engine", None) is None:
+        return None
+    model.disagg = TierRuntime(model.engine, tier, model=model)
+    if tier != "decode":
+        return None
+    return model.disagg.attach_receiver(env.get("KFT_KV_BIND")
+                                        or "127.0.0.1:0")
 
 
 def main(argv=None) -> int:
@@ -157,7 +193,12 @@ def main(argv=None) -> int:
         print(f"storage-initializer: materialized {path}", flush=True)
         return 0
     repo = ModelRepository()
-    repo.register(build_model_from_env(env))   # load()s eagerly
+    model = build_model_from_env(env)
+    repo.register(model)                       # load()s eagerly
+    kv_addr = attach_tier(model, env)
+    if kv_addr is not None:
+        print(f"disagg decode kv listener at {kv_addr[0]}:{kv_addr[1]}",
+              flush=True)
     bind = env.get("KFT_BIND", "127.0.0.1:8080")
     host, _, port = bind.rpartition(":")
     server = ModelServer(repo, host=host or "127.0.0.1", port=int(port))

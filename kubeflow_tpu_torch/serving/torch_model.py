@@ -7,9 +7,13 @@ so concurrent HTTP requests share one decode batch. It runs on ``device``
 (CUDA unless ``"cpu"`` is asked for; ``load()`` raises when no GPU is
 visible and none was asked for), or with ``mesh=`` (a
 ``parallel.mesh.TensorMesh``) tensor-parallel over the mesh's ranks:
-``load()`` starts them, ``unload()`` stops and joins them. The
-executable depot, disaggregated tiers and meshes over other axes belong
-to later slices.
+``load()`` starts them, ``unload()`` stops and joins them.
+
+A disaggregated tier replica (``tier="prefill"|"decode"``) carries the
+KV-migration glue in ``disagg`` (a ``serving.disagg.TierRuntime``,
+attached by the runtime or the caller), which the server's ``/disagg``
+routes dispatch to; ``stats()`` then reports ``tier`` and ``disagg``.
+The executable depot and meshes over other axes belong to later slices.
 """
 
 from __future__ import annotations
@@ -104,7 +108,7 @@ class LLMModel(Model):
                  prefill_buckets: Sequence[int] = (64, 128, 256, 512),
                  tokenizer=None, request_timeout: float = 600.0,
                  scheduler=None, quant=None, device: DeviceLike = None,
-                 mesh=None):
+                 mesh=None, tier: str = ""):
         super().__init__(name)
         self._params = params
         self.cfg = cfg
@@ -118,6 +122,11 @@ class LLMModel(Model):
         self.request_timeout = request_timeout
         self.device = device
         self.mesh = mesh
+        # disaggregated serving: which tier this replica plays ("" =
+        # co-located); it labels stats and /metrics, and ``disagg`` holds
+        # the TierRuntime the server's /disagg routes dispatch to
+        self.tier = str(tier or "")
+        self.disagg = None
         self.engine: Optional[LLMEngine] = None
         self._wake = threading.Condition()
         self._thread: Optional[threading.Thread] = None
@@ -174,6 +183,12 @@ class LLMModel(Model):
         self.engine = None
         self.ready = False
 
+    def kick(self) -> None:
+        """Wake the stepping thread (a control op was queued on the
+        engine, or work arrived by a path that did not notify)."""
+        with self._wake:
+            self._wake.notify_all()
+
     def _loop(self) -> None:
         while not self._shutdown:
             with self._wake:
@@ -219,7 +234,8 @@ class LLMModel(Model):
         active and requested quant config (nested under "quant"), the step
         scheduler's counter set (nested under "sched") and the
         request-latency histograms; under a mesh, the mesh (tensor size,
-        collective backend, devices)."""
+        collective backend, devices); on a tier replica, the tier and the
+        migration counters (nested under "disagg")."""
         eng = self.engine
         if eng is None:
             return {}
@@ -251,6 +267,12 @@ class LLMModel(Model):
         }
         if eng.mesh is not None:
             out["mesh"] = eng.mesh.describe()
+        if self.tier:
+            # tier attribution: the /metrics renderer labels every family
+            # of this replica with it
+            out["tier"] = self.tier
+        if self.disagg is not None:
+            out["disagg"] = self.disagg.snapshot()
         return out
 
     def predict(self, request: InferRequest) -> InferResponse:

@@ -316,17 +316,26 @@ def test_pipelined_decode_matches_synchronous_and_jax(tiny):
 
 
 def test_engine_rejects_later_slices(tiny):
-    """Speculative decoding raises (a later slice); the exact-parity hatch
-    serves unquantized. Quantized serving is served now: its cases are in
+    """Speculative decoding is served now: spec_decode=True builds the
+    drafter and serves (its parity cases are in
+    tests/test_torch_spec_decode.py). The exact-parity hatch serves
+    unquantized; quantized serving's cases are in
     tests/test_torch_quant.py."""
     from kubeflow_tpu_torch.serving.scheduler import (
         QuantConfig, SchedulerConfig,
     )
+    from kubeflow_tpu_torch.serving.spec_decode import NgramDrafter
 
     _, _, tcfg, tp = tiny
-    with pytest.raises(NotImplementedError, match="speculative"):
-        LLMEngine(tp, tcfg, device="cpu", max_seq=64, prefill_buckets=(8,),
-                  scheduler=SchedulerConfig(spec_decode=True))
+    spec = LLMEngine(tp, tcfg, device="cpu", max_seq=64,
+                     prefill_buckets=(8,),
+                     scheduler=SchedulerConfig(spec_decode=True, spec_k=2))
+    assert isinstance(spec.spec, NgramDrafter) and spec.spec.k == 2
+    [req] = spec.generate([[1, 2, 3, 1, 2, 3, 1, 2]],
+                          SamplingParams(max_tokens=6))
+    assert len(req.generated) == 6
+    st = spec.scheduler_stats()          # every round ran the spec branch
+    assert st["spec_dispatches_total"] + st["spec_undrafted_steps_total"] > 0
     eng = LLMEngine(tp, tcfg, device="cpu", max_seq=64, prefill_buckets=(8,),
                     quant=QuantConfig(kv_dtype="int8", exact_parity=True))
     assert eng.quant.tag() == "quant=off"
@@ -452,13 +461,26 @@ def test_runtime_http_text_matches_jax(tmp_path):
                                  "KFT_MODELS_CONFIG_DIR"])
 def test_runtime_raises_for_later_slices(tmp_path, key):
     """KFT_MESH: the tensor axis is served now (tests/test_torch_tp.py);
-    a mesh over another axis is the later slice that raises."""
+    a mesh over another axis is the later slice that raises. KFT_TIER:
+    disaggregated serving is served now (tests/test_torch_disagg.py);
+    a tier under a tensor mesh is the later slice that raises."""
     from kubeflow_tpu_torch.serving.runtime import build_model_from_env
 
     env = {"KFT_MODEL_DIR": str(tmp_path), "KFT_FORCE_PLATFORM": "cpu",
            key: "data=2,tensor=2" if key == "KFT_MESH" else "x"}
+    if key == "KFT_TIER":
+        env.update(KFT_TIER="decode", KFT_MESH="tensor=2")
     with pytest.raises(NotImplementedError, match=key):
         build_model_from_env(env)
+
+
+def test_runtime_rejects_an_unknown_tier(tmp_path):
+    """KFT_TIER names prefill or decode, as the JAX TierRuntime insists."""
+    from kubeflow_tpu_torch.serving.runtime import build_model_from_env
+
+    with pytest.raises(ValueError, match="KFT_TIER"):
+        build_model_from_env({"KFT_MODEL_DIR": str(tmp_path),
+                              "KFT_FORCE_PLATFORM": "cpu", "KFT_TIER": "x"})
 
 
 def test_runtime_env_parsing():
