@@ -51,9 +51,12 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              ~100 and ~300 tokens, one longer than the largest prefill
              bucket, one sharing a block-aligned prefix). Checks the
              token counts, that decode ran through the kernel (launch
-             count == n_layers x decode device steps), prefix hits, and
-             one stream against the full forward's teacher-forced argmax
-             within the bf16 tie tolerance.
+             count == n_layers x decode device steps), that it replayed
+             the decode program LLMModel.load captured as a CUDA graph,
+             prefix hits, and one stream against the full forward's
+             teacher-forced argmax within the bf16 tie tolerance. Phases
+             4q, 5s (its decode fallbacks) and 5d (the decode tier)
+             serve through load()'s captured program the same way.
 4q. quantized serving — the same weights behind LLMModel(quant=int8 KV +
              int8 weights), the same four requests: 32 tokens each, the
              fused-dequant kernel's launches == n_layers x decode device
@@ -81,7 +84,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              dispatch per decode_chunk steps) beside a one-card model's
              timed the same way, and the dispatch round trip alone.
              Everything is freed before phase 5s.
-4g. quant quality — the JAX package's gate (bench.py
+4qq. quant quality — the JAX package's gate (bench.py
              _quant_teacher_forced) at full width: the bf16 engine
              free-runs greedy through paged_decode_step (kernel path) on
              two prompts, each quantized configuration (int8 KV + int8
@@ -91,6 +94,23 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              (llama_tiny f32); at full width the drift budget and an rms
              logit error limit per KV dtype set against planted faults.
              The model is freed after.
+4g. decode graph — llama3_8b at its published widths (phase 4's
+             weights), max_batch 8, max_seq 1024, block 64, decode_chunk
+             8, bf16 and int8 KV + int8 weights: an eager LLMEngine and
+             one whose decode program precompile() captured as a CUDA
+             graph, on the same weights. (a) Phase 4's four prompts, 32
+             greedy tokens each, pipelined, through both: token for token
+             equal streams and bitwise equal logprobs (the largest
+             difference printed); (d) a fifth request admitted
+             mid-stream, so that replays run with fresh host tokens and
+             a new table row: its stream equal too; the paged kernel's
+             launches over both runs == n_layers x their device steps.
+             (b) torch.profiler over one replay counts n_layers x
+             decode_chunk launches of each of the paged kernel's two
+             passes. (c) Capture seconds and the graph's pool bytes;
+             eager against replay, eight 300-token streams decoding
+             (tools/decode_profile.dispatch_readings): wall ms per step,
+             device busy ms, idle share, API launches per step.
 5s. speculative decoding — (a) llama_tiny in f32 (at head_dim 64, the
              paged kernel's smallest) on the card: speculative streams
              token-identical to plain ones. Then llama3_8b at full width
@@ -157,7 +177,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              against attn_impl="xla" (plain einsum attention) from the
              same parameters.
 
-Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4g, 4tp, 5s, 5d, 5, 6, 7.
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5, 6, 7.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; rows 1-3 their launches
@@ -283,6 +303,12 @@ SPEC_TP_TOKENS = 24
 SPEC_RMS_MAX = {"bf16": 0.0391, "int8": 0.0393}
 # phase 5d: greedy tokens of each migrated request
 DISAGG_TOKENS = 32
+# phase 4g: greedy tokens a stream in (a)/(d); dispatches timed per
+# engine in (c), and the budget of (c)'s eight streams (enough that none
+# finishes inside the warm-up, timed and profiled dispatches)
+GRAPH_TOKENS = 32
+GRAPH_DISPATCHES = 4
+GRAPH_FILL_TOKENS = 8 * (GRAPH_DISPATCHES + 6)
 
 
 def log(msg: str) -> None:
@@ -752,7 +778,7 @@ def decode_step_ms(torch, eng, steps: int = 20) -> float:
 
     def run(n):
         for _ in range(n):
-            eng.cache["len"] = torch.full_like(eng.cache["len"], STEP_CONTEXT)
+            eng.cache["len"].fill_(STEP_CONTEXT)
             paged_decode_step(eng.params, tok, eng.cfg, eng.cache, tables,
                               kernel=eng.kernel)
 
@@ -905,6 +931,30 @@ def serve_four(torch, pa, model, cfg) -> dict:
     return run
 
 
+def captured(model) -> int:
+    """Log the decode program ``model.load()`` captured; returns its
+    replays so far. Fails when nothing was captured."""
+    g = model.engine.decode_graph
+    if g is None:
+        raise SystemExit(f"{model.name}: load() captured no decode program")
+    log(f"{model.name}: decode program captured at load "
+        f"({model.precompile_seconds!r} s of load; capture "
+        f"{g.capture_seconds!r} s, graph pool {g.pool_bytes} B, kernel "
+        f"launches a replay {g.launches})")
+    return g.replays
+
+
+def replayed(model, replays0: int, what: str) -> int:
+    """The captured program's replays since ``replays0``; fails when
+    none ran."""
+    n = model.engine.decode_graph.replays - replays0
+    log(f"{model.name}: {what}: {n} decode dispatches replayed the captured "
+        f"program")
+    if n <= 0:
+        raise SystemExit(f"{model.name}: {what} replayed no decode program")
+    return n
+
+
 def serving(torch, pa, cfg, params) -> dict:
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.serving import LLMModel
@@ -917,9 +967,11 @@ def serving(torch, pa, cfg, params) -> dict:
         f"num_blocks={eng.paged.num_blocks} pool "
         f"{pool_bytes(eng.cache) / 1e9:.3f} GB "
         f"buckets={eng.buckets}")
+    replays0 = captured(model)
     run = serve_four(torch, pa, model, cfg)
+    replayed(model, replays0, "phase 4")
     launches = run["launches"]["paged_decode_attention"]
-    if launches < cfg.n_layers * run["device_steps"] or launches == 0 \
+    if launches != cfg.n_layers * run["device_steps"] or launches == 0 \
             or run["launches"]["paged_decode_attention_quant"] != 0:
         raise SystemExit("decode did not run through the paged kernel")
 
@@ -969,7 +1021,9 @@ def quant_serving(torch, pa, cfg, params, base: dict) -> dict:
         f"{time.perf_counter() - t0:.1f} s: kernel={eng.kernel} pool dtype "
         f"{eng.cache['k'].dtype}, weights int8: "
         f"{is_weight_quantized(eng.params)}")
+    replays0 = captured(model)
     run = serve_four(torch, pa, model, cfg)
+    replayed(model, replays0, "phase 4q")
     launches = run["launches"]
     stats = run["stats"]
     want = cfg.n_layers * run["device_steps"]
@@ -1013,7 +1067,7 @@ def _report(tag: str, res: dict) -> str:
 
 
 def quant_quality(torch, cfg, params, qparams) -> dict:
-    """Phase 4g: the JAX package's quality gate in its own configuration,
+    """Phase 4qq: the JAX package's quality gate in its own configuration,
     then the same method at full width (int8 and fp8 KV, int8 weights)
     beside bf16 against f32 compute on the same weights."""
     import dataclasses
@@ -1065,6 +1119,132 @@ def quant_quality(torch, cfg, params, qparams) -> dict:
                              "limits at full width")
     log(f"quant quality: {time.perf_counter() - t0:.1f} s")
     return {"gate": tiny, "full_width": full}
+
+def graph_streams(eng, prompts: dict) -> tuple:
+    """Phase 4g (a) and (d) on one engine: phase 4's prompts, pipelined
+    greedy, then after two steps a fifth request. -> ({tag: (tokens,
+    logprobs)}, the decode program's replays while the fifth request was
+    in the batch; 0 without a program)."""
+    from kubeflow_tpu_torch.serving.llm import SamplingParams
+
+    reqs = {tag: eng.add_request(p, SamplingParams(max_tokens=GRAPH_TOKENS))
+            for tag, p in prompts.items() if tag != "fifth"}
+    for _ in range(2):
+        eng.step()
+    reqs["fifth"] = eng.add_request(prompts["fifth"],
+                                    SamplingParams(max_tokens=GRAPH_TOKENS))
+    g, seen = eng.decode_graph, None
+    while eng.has_work():
+        eng.step()
+        if seen is None and reqs["fifth"].slot is not None and g is not None:
+            seen = g.replays
+    with_fifth = 0 if g is None or seen is None else g.replays - seen
+    return {t: (r.generated, r.logprobs) for t, r in reqs.items()}, \
+        with_fifth
+
+
+def graph_phase(torch, pa, cfg, params) -> dict:
+    """Phase 4g: the captured decode program against the eager body, bf16
+    and int8 KV + int8 weights (module docstring)."""
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.serving.quant import quantize_weights
+    from kubeflow_tpu_torch.serving.scheduler import QuantConfig
+    from kubeflow_tpu_torch.tools.decode_profile import (
+        PAGED_COMBINE, PAGED_KERNEL, dispatch_readings, fill_batch,
+    )
+
+    t_phase = time.perf_counter()
+    prompts = dict(four_prompts(torch, cfg))
+    rng = torch.Generator().manual_seed(4)
+    prompts["fifth"] = torch.randint(1, cfg.vocab_size, (150,),
+                                     generator=rng).tolist()
+    out = {}
+    for tag, quant in (("bf16", None),
+                       ("int8", QuantConfig(kv_dtype="int8",
+                                            weight_dtype="int8"))):
+        kern, off = (("paged_decode_attention_quant",
+                      "paged_decode_attention") if quant is not None else
+                     ("paged_decode_attention",
+                      "paged_decode_attention_quant"))
+        p = params if quant is None else quantize_weights(params, cfg)
+        kw = dict(max_batch=8, max_seq=1024, kv_block_size=64,
+                  decode_chunk=8, device="cuda", quant=quant)
+        eager, graph = LLMEngine(p, cfg, **kw), LLMEngine(p, cfg, **kw)
+        outcome = graph.precompile()
+        g = graph.decode_graph
+        log(f"phase 4g {tag}: precompile() -> {outcome!r}: capture "
+            f"{g.capture_seconds!r} s (two warm-up chunks and the capture), "
+            f"graph pool {g.pool_bytes} B, kernel launches a replay "
+            f"{g.launches}")
+        if outcome != "no_depot" or g.launches[kern] != \
+                cfg.n_layers * graph.decode_chunk or g.launches[off] != 0:
+            raise SystemExit(f"phase 4g {tag}: the captured program does not "
+                             f"hold n_layers x decode_chunk {kern} launches")
+        # (a) + (d): the main path's run, counts from 0
+        steps0 = {n: e.sched.decode_device_steps
+                  for n, e in (("eager", eager), ("graph", graph))}
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention_quant.launches = 0
+        res, fifth = {}, {}
+        for name, eng in (("eager", eager), ("graph", graph)):
+            res[name], fifth[name] = graph_streams(eng, prompts)
+        launches = {k.__name__: k.launches for k in (
+            pa.paged_decode_attention, pa.paged_decode_attention_quant)}
+        steps = sum(e.sched.decode_device_steps - steps0[n]
+                    for n, e in (("eager", eager), ("graph", graph)))
+        same = all(res["eager"][t][0] == res["graph"][t][0] for t in prompts)
+        lp_diff = max(abs(a - b) for t in prompts for a, b in zip(
+            res["eager"][t][1], res["graph"][t][1]))
+        log(f"phase 4g {tag} (a): {len(prompts)} streams of {GRAPH_TOKENS} "
+            f"greedy tokens, eager against {g.replays} replays: token for "
+            f"token equal {same}, largest logprob difference {lp_diff!r} "
+            f"(want 0.0: the same kernels on the same inputs)")
+        log(f"phase 4g {tag} (d): the fifth request, admitted mid-stream, "
+            f"rode {fifth['graph']} replays; its stream equal "
+            f"{res['eager']['fifth'][0] == res['graph']['fifth'][0]}; "
+            f"launches {launches} (want {kern} == n_layers x device steps "
+            f"= {cfg.n_layers * steps}, {off} == 0)")
+        if not same or lp_diff != 0.0 or fifth["graph"] <= 0:
+            raise SystemExit(f"phase 4g {tag}: replayed streams differ from "
+                             "eager ones, or no replay saw the fifth request")
+        if launches[kern] != cfg.n_layers * steps or launches[off] != 0:
+            raise SystemExit(f"phase 4g {tag}: launch counts do not match "
+                             "the device steps")
+        # (c) and (b): eight 300-token streams decoding, eager then replay
+        readings = {}
+        for name, eng in (("eager", eager), ("graph", graph)):
+            fill_batch(eng, STEP_CONTEXT, GRAPH_FILL_TOKENS)
+            r = readings[name] = dispatch_readings(eng, GRAPH_DISPATCHES)
+            log(f"phase 4g {tag} (c) {name}: {r['wall_ms_per_step']!r} ms "
+                f"per step wall, {r['device_busy_ms_per_step']!r} ms device "
+                f"busy, idle share {r['device_idle_share']!r}, API launches "
+                f"per step {r['api_launches_per_step']!r} "
+                f"{r['api_launches_by_name_per_step']}; the profiled "
+                f"dispatch {r['profiled_wall_ms_per_step']!r} ms per step")
+            for req in list(eng._active.values()):
+                eng.abort([req])
+            while eng.has_work():
+                eng.step()
+        r = readings["graph"]
+        want = cfg.n_layers * graph.decode_chunk
+        log(f"phase 4g {tag} (b): one replay under torch.profiler: "
+            f"{r['paged_kernel_per_dispatch']!r} {PAGED_KERNEL} and "
+            f"{r['paged_combine_per_dispatch']!r} {PAGED_COMBINE} launches "
+            f"(want n_layers x decode_chunk = {want} each)")
+        if r["paged_kernel_per_dispatch"] != want \
+                or r["paged_combine_per_dispatch"] != want:
+            raise SystemExit(f"phase 4g {tag}: the profiled replay did not "
+                             "run the paged kernels n_layers x decode_chunk "
+                             "times")
+        out[tag] = {"launches": launches[kern], "readings": readings,
+                    "capture_seconds": g.capture_seconds,
+                    "pool_bytes": g.pool_bytes, "lp_diff": lp_diff}
+        del eager, graph, p, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 4g: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 def served_step_ms(torch, model, chunks: int = 4) -> float:
     """Host clock per decode step of a loaded LLMModel (tensor-parallel
@@ -1328,12 +1508,12 @@ def verify_and_decode_steps(torch, eng) -> dict:
                        device=eng.device)
 
     def decode():
-        eng.cache["len"] = torch.full_like(eng.cache["len"], STEP_CONTEXT)
+        eng.cache["len"].fill_(STEP_CONTEXT)
         paged_decode_step(eng.params, tok, eng.cfg, eng.cache, tables,
                           kernel=eng.kernel)
 
     def verify():
-        eng.cache["len"] = torch.full_like(eng.cache["len"], STEP_CONTEXT)
+        eng.cache["len"].fill_(STEP_CONTEXT)
         paged_verify_step(eng.params, cand, eng.cfg, eng.cache, tables,
                           limit)
 
@@ -1584,10 +1764,14 @@ def spec_one(torch, pa, cfg, params, tag, quant) -> dict:
     eng = model.engine
     drafter, eng.spec = eng.spec, None
     prompts = spec_prompts(torch, cfg)
+    replays0 = captured(model)
     plain = serve_prompts(torch, pa, model, cfg, prompts, SPEC_TOKENS)
+    replays0 += replayed(model, replays0, f"phase 5s {tag} plain run")
     clear_prefix_cache(eng)
     eng.spec = drafter
     run = serve_prompts(torch, pa, model, cfg, prompts, SPEC_TOKENS)
+    log(f"phase 5s {tag}: {eng.decode_graph.replays - replays0} of the "
+        f"speculative run's decode fallbacks replayed the captured program")
     st = run["stats"]["sched"]
     kern, off = (("paged_decode_attention_quant", "paged_decode_attention")
                  if quant is not None else
@@ -1791,6 +1975,10 @@ def disagg_run(torch, pa, cfg, params, params2, tag, quant) -> dict:
                  ("paged_decode_attention", "paged_decode_attention_quant"))
     rows, migrated = {}, {}
     try:
+        if pre.engine.decode_graph is not None:
+            raise SystemExit("phase 5d: the prefill tier captured a decode "
+                             "program")
+        replays0 = captured(dec)
         steps0 = dec.stats()["sched"]["decode_device_steps_total"]
         pa.paged_decode_attention.launches = 0
         pa.paged_decode_attention_quant.launches = 0
@@ -1823,6 +2011,7 @@ def disagg_run(torch, pa, cfg, params, params2, tag, quant) -> dict:
                     "paged_decode_attention_quant":
                     pa.paged_decode_attention_quant.launches}
         steps = dec.stats()["sched"]["decode_device_steps_total"] - steps0
+        replayed(dec, replays0, f"phase 5d {tag} decode tier")
         want = cfg.n_layers * steps
         log(f"phase 5d {tag}: decode tier launches {launches} (want {kern} "
             f"== n_layers x its decode device steps = {want}, {off} == 0)")
@@ -2228,6 +2417,7 @@ def main() -> int:
     served = serving(torch, pa, cfg, params)
     q_served = quant_serving(torch, pa, cfg, params, served)
     quant_quality(torch, cfg, params, q_served.pop("qparams"))
+    graphed = graph_phase(torch, pa, cfg, params)
     tp = tp_serving(torch, pa, cfg, params)
     for tag, one in (("bf16", served), ("int8", q_served)):
         log(f"decode step, batch 8, {tag}: as served, one card "
@@ -2247,9 +2437,11 @@ def main() -> int:
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:65",
-        "launches": (served["launches"] + spec["bf16"]["launches"]
+        "launches": (served["launches"] + graphed["bf16"]["launches"]
+                     + spec["bf16"]["launches"]
                      + disagg["bf16"]["launches"]),
         "launches_by_phase": {"4": served["launches"],
+                              "4g": graphed["bf16"]["launches"],
                               "5s": spec["bf16"]["launches"],
                               "5d": disagg["bf16"]["launches"]},
         "max_abs_err": errs["bfloat16"],
@@ -2259,9 +2451,11 @@ def main() -> int:
         "name": "paged_decode_attention_quant", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:68",
-        "launches": (q_served["launches"] + spec["int8"]["launches"]
+        "launches": (q_served["launches"] + graphed["int8"]["launches"]
+                     + spec["int8"]["launches"]
                      + disagg["int8"]["launches"]),
         "launches_by_phase": {"4q": q_served["launches"],
+                              "4g": graphed["int8"]["launches"],
                               "5s": spec["int8"]["launches"],
                               "5d": disagg["int8"]["launches"]},
         # the served pool's dtype (int8) in the top-level numbers; both

@@ -241,9 +241,19 @@ def layer_params(params: dict, i: int) -> dict:
 
 
 def inv_freq_for(cfg: LlamaConfig, device) -> torch.Tensor:
+    """RoPE inverse frequencies of ``cfg`` on ``device``: made once per
+    (frequency parameters, device) and kept, so a step never copies them
+    from host memory (a decode step captured as a CUDA graph must not).
+    The tensor is shared; callers only read it."""
+    return _inv_freq(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
+                     cfg.max_seq, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, scaling, max_seq: int,
+              device: torch.device) -> torch.Tensor:
     return torch.as_tensor(rope_frequencies(
-        cfg.head_dim, cfg.rope_theta, cfg.rope_scaling,
-        original_max_seq=cfg.max_seq), device=device)
+        head_dim, theta, scaling, original_max_seq=max_seq), device=device)
 
 
 # ---------------------------------------------------------------------------

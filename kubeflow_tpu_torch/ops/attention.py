@@ -43,8 +43,7 @@ def _xla_attention(q, k, v, *, causal: bool, q_offset=0, bias=None):
         q_pos = torch.arange(sq, device=q.device)[None, :] + off[:, None]
         kv_pos = torch.arange(skv, device=q.device)
         mask = q_pos[:, :, None] >= kv_pos[None, None, :]  # [B|1, Sq, Skv]
-        logits = torch.where(mask[:, None, None, :, :], logits,
-                             torch.tensor(NEG_INF, device=q.device))
+        logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, vf)
     return out.reshape(b, sq, h, d).to(q.dtype)
@@ -85,8 +84,7 @@ def decode_attention(q, k_cache, v_cache, cache_len):
     logits = torch.einsum("bkgd,bskd->bkgs", qf * scale, k_cache.float())
     mask = (torch.arange(k_cache.shape[1], device=q.device)[None, :]
             < cache_len[:, None])
-    logits = torch.where(mask[:, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=q.device))
+    logits = torch.where(mask[:, None, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", probs, v_cache.float())
     return out.reshape(b, 1, h, d).to(q.dtype)

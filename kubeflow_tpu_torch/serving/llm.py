@@ -43,10 +43,23 @@ asynchronous, so the device runs chunk N while the host launches N+1;
 chunk N's tokens travel through a pinned buffer and an event, so the
 read-back waits for chunk N only.
 
+The decode program (serving/decode_graph.py): every decode dispatch
+stages its host inputs into static buffers (one asynchronous copy) and
+runs ONE body over them, ``_decode_steps``. ``precompile()`` captures
+that body once as a CUDA graph (``decode_chunk`` greedy steps), as the
+JAX engine's ``precompile`` installs its AOT-compiled decode program;
+``LLMModel.load`` calls it on a card. A dispatch then replays the graph
+where JAX would run that program (an all-greedy batch and a full
+``decode_chunk``) and runs the same body eagerly otherwise (a sampled
+request in the batch, a chunk trimmed by the scheduler). Verify
+dispatches stay eager.
+
 Not in this slice (each raises or is absent, never quietly different):
-the executable depot (``precompile``), meshes over axes other than
-``tensor``, and disaggregated serving under a tensor mesh (a rank's pool
-holds only its KV heads: hold, export and inject raise ``DISAGG_SLICE``).
+the executable depot's cross-process store and capture of the prefill
+tier's chunked-prefill program or under a mesh (``precompile`` raises
+``GRAPH_SLICE``), meshes over axes other than ``tensor``, and
+disaggregated serving under a tensor mesh (a rank's pool holds only its
+KV heads: hold, export and inject raise ``DISAGG_SLICE``).
 """
 
 from __future__ import annotations
@@ -65,11 +78,15 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs import trace as obs_trace
 from kubeflow_tpu_torch.obs.histogram import Histogram, log_buckets
+from kubeflow_tpu_torch.ops.paged_attention import (
+    paged_decode_attention, paged_decode_attention_quant,
+)
 from kubeflow_tpu_torch.parallel.mesh import tensor_parallel
 from kubeflow_tpu_torch.parallel.sharding import (
     shard_tree, validate_divisibility,
 )
 from kubeflow_tpu_torch.serving import tp as tp_serving
+from kubeflow_tpu_torch.serving.decode_graph import DecodeBuffers, DecodeGraph
 from kubeflow_tpu_torch.serving.paged_kv import (
     PagedKV, _lm_head, blocks_for, gather_kv_blocks, init_paged_cache,
     paged_decode_step, paged_insert_batch, paged_prefill_chunk,
@@ -95,6 +112,17 @@ _DIGEST_PRIME = 2 ** 31 - 1
 DISAGG_SLICE = ("disaggregated serving under a tensor mesh (hold, export "
                 "and inject of a pool that holds one rank's KV heads) is a "
                 "later slice of the PyTorch port (ROADMAP queue 1 item 8.7)")
+
+GRAPH_SLICE = {
+    "mesh": ("capture of the decode program under a tensor mesh (NCCL "
+             "collectives in a CUDA graph) is a later slice of the PyTorch "
+             "port (ROADMAP queue 1 item 6.3)"),
+    "prefill": ("capture of the prefill tier's chunked-prefill program is a "
+                "later slice of the PyTorch port (ROADMAP queue 1 item 6.2)"),
+    "depot": ("the executable depot's cross-process store is a later slice "
+              "of the PyTorch port (ROADMAP queue 1 item 6.4): a CUDA graph "
+              "cannot be serialized to another process"),
+}
 
 # downgrade reasons already logged this process: counted per engine
 # (kft_model_kernel_downgrades_total) but LOGGED once — a fleet restarting
@@ -214,7 +242,7 @@ def sample_logits(logits, generator: torch.Generator, temperature, top_k,
     greedy = greedy_argmax(logits)
     if greedy_only:
         return greedy
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = float("-inf")
     safe_t = torch.where(temperature > 0, temperature,
                          torch.ones_like(temperature))
     scaled = logits / safe_t[:, None]
@@ -399,7 +427,6 @@ class LLMEngine:
         # the same seed on every rank: the ranks sample the same logits
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(0)
-        self._carry = None           # the last decode dispatch's next tokens
         # under a mesh: this rank's sampling bodies and a running digest
         # of every token it sampled (``_note_tokens``)
         self.tp_samples = 0
@@ -419,6 +446,12 @@ class LLMEngine:
         self.decode_pipeline = bool(decode_pipeline)
         self._inflight: Optional[dict] = None
         self._fresh = np.ones((max_batch,), bool)
+        # the decode program's static inputs/outputs, and its captured
+        # graph once precompile() ran (serving/decode_graph.py)
+        self._dec = DecodeBuffers(max_batch, self.paged.max_blocks_per_seq,
+                                  self.decode_chunk, self.device)
+        self.decode_graph: Optional[DecodeGraph] = None
+        self.depot_outcome: Optional[str] = None
         self.sched = StepScheduler(scheduler, default_budget=self.buckets[-1],
                                    decode_chunk=self.decode_chunk)
         self.obs = obs or obs_trace.collector()
@@ -443,9 +476,10 @@ class LLMEngine:
     def _start_readback(self, *tensors):
         """Begin copying device tensors to the host without waiting: pinned
         buffers + an event on CUDA, so a later read waits for exactly the
-        work that produced them."""
+        work that produced them (copies either way: the decode outputs
+        are static buffers the next dispatch overwrites)."""
         if self.device.type != "cuda":
-            return list(tensors), None
+            return [t.clone() for t in tensors], None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 for t in tensors]
         for h, t in zip(host, tensors):
@@ -489,36 +523,48 @@ class LLMEngine:
         self._note_tokens(tok)
         return tok, chosen_logprob(logits, tok)
 
-    def _body_decode(self, tokens, fresh, carry: bool, tables, active,
-                     temperature, top_k, top_p, greedy_only: bool,
-                     chunk_len: int):
-        """``chunk_len`` decode+sample steps over every slot. The input
-        token is the host's ``tokens`` or, with ``carry``, the previous
-        dispatch's device-side next tokens where ``fresh`` is False.
-        Returns (toks [chunk, B], lps [chunk, B]) on the device."""
-        token = self._dev(tokens)
-        if carry:
-            token = torch.where(self._dev(fresh), token, self._carry)
-        tables, active = self._dev(tables), self._dev(active)
-        temperature, top_k, top_p = (self._dev(temperature),
-                                     self._dev(top_k), self._dev(top_p))
-        toks, lps = [], []
-        for _ in range(chunk_len):
+    def _body_decode(self, tokens, fresh, tables, active, temperature,
+                     top_k, top_p, greedy_only: bool, chunk_len: int):
+        """``chunk_len`` decode+sample steps over every slot: the host
+        inputs are staged into the decode program's static buffers, then
+        the captured program replays (``precompile``; an all-greedy full
+        chunk) or ``_decode_steps`` runs eagerly. A slot's input token is
+        its ``tokens`` entry where ``fresh`` is set, else the previous
+        dispatch's device-side next token. Returns (toks [chunk, B], lps
+        [chunk, B]) on the device: views of the static outputs, which the
+        next dispatch overwrites."""
+        d = self._dec
+        d.stage(tokens, fresh, active, tables, temperature, top_k, top_p)
+        if (self.decode_graph is not None and greedy_only
+                and chunk_len == self.decode_chunk):
+            self.decode_graph.replay()
+        else:
+            self._decode_steps(chunk_len, greedy_only)
+        toks, lps = d.toks[:chunk_len], d.lps[:chunk_len]
+        self._note_tokens(toks)
+        return toks, lps
+
+    def _decode_steps(self, chunk_len: int, greedy_only: bool) -> None:
+        """The decode program, over the static buffers alone
+        (serving/decode_graph.DecodeBuffers): ``chunk_len`` decode+sample
+        steps writing the output rows, then the carry. This is the body
+        ``precompile`` captures."""
+        d = self._dec
+        token = torch.where(d.fresh != 0, d.tokens, d.carry)
+        active = d.active != 0
+        for t in range(chunk_len):
             logits, self.cache = paged_decode_step(
-                self.params, token, self.cfg, self.cache, tables,
+                self.params, token, self.cfg, self.cache, d.tables,
                 kernel=self.kernel, mesh=self.mesh)
-            nxt = sample_logits(logits, self._rng, temperature, top_k,
-                                top_p, greedy_only=greedy_only)
-            lps.append(chosen_logprob(logits, nxt))
-            toks.append(nxt)
+            nxt = sample_logits(logits, self._rng, d.temperature, d.top_k,
+                                d.top_p, greedy_only=greedy_only)
+            d.lps[t].copy_(chosen_logprob(logits, nxt))
+            d.toks[t].copy_(nxt)
             # idle slots: pin len to 0 so the cursor can't creep toward
             # max_seq (their scatter lands in the scratch block 0)
-            self.cache["len"] = torch.where(active, self.cache["len"], 0)
+            self.cache["len"].masked_fill_(~active, 0)
             token = nxt
-        self._carry = token
-        toks = torch.stack(toks)
-        self._note_tokens(toks)
-        return toks, torch.stack(lps)
+        d.carry.copy_(token)
 
     def _body_verify(self, tokens, tables, limit):
         """One speculative verify dispatch (``paged_verify_step``) over
@@ -533,8 +579,9 @@ class LLMEngine:
         return nxt, chosen_logprob(logits, nxt)
 
     def _body_set_lens(self, lens):
-        """Commit the slots' lengths after a verify (host-side acceptance)."""
-        self.cache["len"] = self._dev(lens)
+        """Commit the slots' lengths after a verify (host-side acceptance),
+        in place."""
+        self.cache["len"].copy_(torch.from_numpy(lens))
 
     def _body_prefill_chunk(self, piece, tables, slot: int, offset: int,
                             length: int, share_len: int, final: bool,
@@ -611,6 +658,51 @@ class LLMEngine:
                                                          reset_launches)
 
     # ---------------- public API ----------------
+
+    def precompile(self, depot=None, stats=None, wait_s: float = 0.0,
+                   tier: str = "") -> str:
+        """Capture the steady-state decode program as a CUDA graph, the
+        counterpart of the JAX engine's ``precompile`` (which AOT-lowers
+        the same variant): ``decode_chunk`` greedy steps of
+        ``_decode_steps``, warmed up and captured on the idle engine, so
+        the warm-up's writes land in the scratch block 0 alone
+        (serving/decode_graph.DecodeGraph). From then on every dispatch
+        of an all-greedy batch over a full chunk replays it. Returns
+        "no_depot" (JAX's outcome without a depot), also kept as
+        ``self.depot_outcome``; ``stats`` and ``wait_s`` are the depot's
+        and unused.
+
+        Raises NotImplementedError naming the later slice for a
+        ``depot``, for ``tier="prefill"`` and under a mesh (``GRAPH_SLICE``),
+        ValueError on a CPU engine (there is no graph and no stand-in),
+        and RuntimeError when the engine is not idle."""
+        if depot is not None:
+            raise NotImplementedError(GRAPH_SLICE["depot"])
+        if tier == "prefill":
+            raise NotImplementedError(GRAPH_SLICE["prefill"])
+        if self.mesh is not None:
+            raise NotImplementedError(GRAPH_SLICE["mesh"])
+        if self.device.type != "cuda":
+            raise ValueError(f"precompile captures a CUDA graph; this engine "
+                             f"runs on {self.device}")
+        if self.has_work() or self._held or self._inflight is not None:
+            raise RuntimeError("precompile needs an idle engine (no request "
+                               "queued, decoding, held or in flight)")
+        b = self.max_batch
+        self._dec.stage(
+            tokens=np.zeros((b,), np.int32), fresh=np.ones((b,), bool),
+            active=np.zeros((b,), bool),
+            tables=np.zeros_like(self.paged.tables),
+            temperature=np.zeros((b,), np.float32),
+            top_k=np.zeros((b,), np.int32), top_p=np.ones((b,), np.float32))
+        with torch.no_grad():
+            self.decode_graph = DecodeGraph(
+                lambda: self._decode_steps(self.decode_chunk, True),
+                self.cache,
+                (paged_decode_attention, paged_decode_attention_quant),
+                self.device)
+        self.depot_outcome = "no_depot"
+        return self.depot_outcome
 
     def validate_prompt(self, prompt: Sequence[int],
                         sampling: Optional[SamplingParams] = None) -> None:
@@ -918,9 +1010,10 @@ class LLMEngine:
                 top_k[slot] = req.sampling.top_k
                 top_p[slot] = req.sampling.top_p
             # the device carry of the in-flight chunk, except where fresh
-            # host tokens (admissions since that dispatch) override it
-            carry = not (self._inflight is None or self._fresh.all())
-            fresh = self._fresh.copy()
+            # host tokens (admissions since that dispatch) override it;
+            # with nothing in flight every slot takes the host token
+            fresh = (self._fresh.copy() if self._inflight is not None
+                     else np.ones_like(self._fresh))
             self._fresh[:] = False
             chunk_len = self.sched.decode_chunk_len(
                 self._min_deterministic_remaining(),
@@ -931,7 +1024,7 @@ class LLMEngine:
                 chunk_len=chunk_len, batch=len(self._active))
             toks, lps = self._run(
                 "decode", tokens=self._tokens.copy(), fresh=fresh,
-                carry=carry, tables=self._dispatch_tables(),
+                tables=self._dispatch_tables(),
                 active=active_mask, temperature=temp, top_k=top_k,
                 top_p=top_p, greedy_only=not bool((temp > 0).any()),
                 chunk_len=chunk_len)

@@ -10,9 +10,11 @@ mid-flight) and travel to the device as int32 tensors per dispatch.
 
 Where the JAX package donated the pool buffers to each jitted step, the
 port updates the pool IN PLACE: every function here that takes a
-``cache`` dict writes its ``k``/``v`` tensors where they lie and returns
-the same dict (``len`` replaced by a new tensor where the JAX version
-returned a new one).
+``cache`` dict writes its tensors (``k``/``v``, the scales and ``len``)
+where they lie and returns the same dict. No tensor of the dict is ever
+replaced, so a decode program captured as a CUDA graph
+(serving/decode_graph.py), which holds their addresses, reads the live
+state.
 
 Decode attention has two paths, selected by ``paged_decode_step(...,
 kernel=)`` with the JAX package's switch values:
@@ -678,7 +680,7 @@ def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
     dest = torch.where(slots >= 0, slots, n).long()
     ext = torch.cat([cache["len"], cache["len"].new_zeros(1)])
     ext.scatter_(0, dest, lengths.to(ext.dtype))
-    cache["len"] = ext[:n].clone()
+    cache["len"].copy_(ext[:n])
     return cache
 
 
@@ -763,7 +765,7 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
             o = decode_attention(q, k_view, v_view, kv_len)
         x = _layer_out(lp, x, o, cfg, mesh)
     logits = _lm_head(params, x[:, 0], cfg, mesh)
-    cache["len"] = pos + 1
+    cache["len"].add_(1)                     # pos is this tensor: read above
     return logits, cache
 
 

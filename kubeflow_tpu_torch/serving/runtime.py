@@ -64,7 +64,9 @@ from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
 
 LATER_SLICES = {
-    "KFT_DEPOT": "the executable depot",
+    "KFT_DEPOT": ("the executable depot's cross-process store (a CUDA "
+                  "graph cannot be serialized to another process; ROADMAP "
+                  "queue 1 item 6.4)"),
     "KFT_MODELS_CONFIG_DIR": "multi-model serving (model puller)",
     "KFT_V2_SOCKET_BIND": "the binary V2 socket data plane",
 }

@@ -13,7 +13,14 @@ A disaggregated tier replica (``tier="prefill"|"decode"``) carries the
 KV-migration glue in ``disagg`` (a ``serving.disagg.TierRuntime``,
 attached by the runtime or the caller), which the server's ``/disagg``
 routes dispatch to; ``stats()`` then reports ``tier`` and ``disagg``.
-The executable depot and meshes over other axes belong to later slices.
+
+On a card, ``load()`` captures the engine's steady-state decode program
+as a CUDA graph (``LLMEngine.precompile``), where the JAX model
+precompiles through its depot: without a mesh and not on a prefill
+tier, whose steady-state program is chunked prefill. A capture that
+fails fails the load. The executable depot's store, capture under a
+mesh or of the prefill tier's program, and meshes over other axes
+belong to later slices.
 """
 
 from __future__ import annotations
@@ -128,6 +135,9 @@ class LLMModel(Model):
         self.tier = str(tier or "")
         self.disagg = None
         self.engine: Optional[LLMEngine] = None
+        # engine build and decode-program capture seconds (stats())
+        self.load_seconds: Optional[float] = None
+        self.precompile_seconds: Optional[float] = None
         self._wake = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
@@ -159,6 +169,7 @@ class LLMModel(Model):
                    **kw)
 
     def load(self) -> bool:
+        t0 = time.perf_counter()
         self.engine = LLMEngine(
             self._params, self.cfg, max_batch=self.max_batch,
             max_seq=self.max_seq,
@@ -166,6 +177,15 @@ class LLMModel(Model):
                              if b <= self.max_seq] or [self.max_seq],
             scheduler=self.scheduler, quant=self.quant, device=self.device,
             mesh=self.mesh)
+        t1 = time.perf_counter()
+        self.load_seconds = round(t1 - t0, 3)
+        # the JAX model precompiles only under a depot, since its lazy jit
+        # does the same work later; the eager decode is not that work, so
+        # the capture happens here, before any request can wait on it
+        if (self.engine.device.type == "cuda" and self.mesh is None
+                and self.tier != "prefill"):
+            self.engine.precompile(tier=self.tier)
+            self.precompile_seconds = round(time.perf_counter() - t1, 3)
         self._shutdown = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -267,6 +287,18 @@ class LLMModel(Model):
         }
         if eng.mesh is not None:
             out["mesh"] = eng.mesh.describe()
+        if self.load_seconds is not None:
+            # engine build vs decode-program capture (the JAX model's
+            # replica-add decomposition); "none" where nothing was
+            # captured, "no_depot" after a capture
+            out["load_seconds"] = self.load_seconds
+            out["precompile_seconds"] = self.precompile_seconds
+            out["depot_outcome"] = eng.depot_outcome or "none"
+        if eng.decode_graph is not None:
+            g = eng.decode_graph
+            out["decode_graph"] = {"capture_seconds": g.capture_seconds,
+                                   "pool_bytes": g.pool_bytes,
+                                   "replays_total": g.replays}
         if self.tier:
             # tier attribution: the /metrics renderer labels every family
             # of this replica with it

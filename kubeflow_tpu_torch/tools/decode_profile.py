@@ -20,6 +20,28 @@ split pass and its combine pass, two device launches) beside its byte
 bound at this shape (q, out, tables, kv_len and the K/V rows below
 kv_len over 3.35 TB/s); then one JSON line with those numbers and the
 card's name and power limit. Needs one CUDA GPU.
+
+    python -m kubeflow_tpu_torch.tools.decode_profile --graph [--dispatches N]
+        [--context T] [--quant kv:int8,w:int8]
+
+``--graph`` measures the engine's decode dispatch as served instead: two
+``LLMEngine``s on the same weights (max_batch 8, max_seq 1024, block 64,
+decode_chunk 8), one eager and one ``precompile``d (its decode program
+captured as a CUDA graph), each with eight greedy requests of
+``--context``-token prompts decoding, stepped by ``LLMEngine.step()``
+(``dispatch_readings``). For each: host-clock ms per decode step over
+``--dispatches`` dispatches ending in a synchronize, and from a profiled
+dispatch the device busy ms per step, the idle share (against the
+unprofiled wall), the CUDA API calls that launch device work per step
+(``cudaLaunchKernel`` and ``cudaGraphLaunch``) and the paged kernel's
+passes per dispatch; for the
+eager engine also where the device's idle time goes (``gap_breakdown``:
+each idle gap attributed to the host call that spans it, in ms and as a
+share of the idle time; the profiler slows the host, so the profiled
+window's own ms per step is printed beside it). Then
+``staging_probe``: whether a host-to-device copy of a pageable numpy
+array (the engine's ``_dev``) waits for the work queued on the stream,
+against a staged pinned copy. One JSON line ends it.
 """
 
 from __future__ import annotations
@@ -28,7 +50,9 @@ import argparse
 import json
 import subprocess
 import time
+from collections import Counter
 
+import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models import llama
@@ -44,6 +68,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 # wrapper launches each once
 PAGED_KERNEL = "paged_decode_kernel"
 PAGED_COMBINE = "paged_decode_combine"
+# CUDA API calls that put work on the device: one kernel each, or a graph
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
 
 
 def live_tables(pk: PagedKV, context: int) -> torch.Tensor:
@@ -60,7 +89,7 @@ def _steps(params, cfg, cache, tables, kernel, context, n):
     tok = torch.ones((tables.shape[0],), dtype=torch.int32,
                      device=tables.device)
     for _ in range(n):
-        cache["len"] = torch.full_like(cache["len"], context)
+        cache["len"].fill_(context)
         paged_decode_step(params, tok, cfg, cache, tables, kernel=kernel)
 
 
@@ -137,6 +166,248 @@ def measure(params, cfg, cache, tables, kernel: str, context: int,
     }
 
 
+# ---------------------------------------------------------------------------
+# --graph: the engine's decode dispatch, eager against the captured program
+# ---------------------------------------------------------------------------
+
+def host_category(name: str) -> str:
+    """The class of a host-side profiler event, for ``gap_breakdown``."""
+    if name in LAUNCH_CALLS:
+        return "cudaGraphLaunch" if name == "cudaGraphLaunch" \
+            else "cudaLaunchKernel"
+    if name in SYNC_CALLS:
+        return "synchronize"
+    if name.startswith("cudaMemcpy"):
+        return "cudaMemcpyAsync"
+    if name.startswith(("cuda", "cu")):
+        return "other CUDA API"
+    if name.startswith("aten::"):
+        return "aten dispatch"
+    return "other host op"
+
+
+def merge_intervals(intervals) -> list:
+    """Sorted, disjoint union of (start, end) intervals."""
+    out: list = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return [tuple(x) for x in out]
+
+
+def gap_breakdown(device, host) -> dict:
+    """Where the device's idle time goes. ``device``: (start, end) of
+    every device activity; ``host``: (start, end, name) of the host
+    events of the dispatching thread (properly nested, as one thread's
+    are), on the same clock. Each idle gap between the first and last
+    device activity is split at the host events' edges and each piece
+    goes to the innermost host event spanning it (``host_category`` of
+    its name), or to "Python between ops" where none does. Returns
+    {category: idle time}, in ``device``'s unit, and "gaps": their
+    count."""
+    busy = merge_intervals(device)
+    gaps = [(a[1], b[0]) for a, b in zip(busy, busy[1:]) if b[0] > a[1]]
+    events = sorted(host, key=lambda e: (e[0], -e[1]))
+    out: dict = {}
+    stack: list = []
+    i = 0
+    for g0, g1 in gaps:
+        t = g0
+        while t < g1:
+            while i < len(events) and events[i][0] <= t:
+                while stack and stack[-1][1] <= events[i][0]:
+                    stack.pop()
+                stack.append(events[i])
+                i += 1
+            while stack and stack[-1][1] <= t:
+                stack.pop()
+            nxt = g1
+            if i < len(events):
+                nxt = min(nxt, events[i][0])
+            if stack:
+                nxt = min(nxt, stack[-1][1])
+            cat = (host_category(stack[-1][2]) if stack
+                   else "Python between ops")
+            out[cat] = out.get(cat, 0.0) + (nxt - t)
+            t = nxt
+    out["gaps"] = len(gaps)
+    return out
+
+
+def fill_batch(eng, context: int, max_tokens: int) -> list:
+    """Eight (``max_batch``) greedy requests of ``context``-token prompts
+    (numpy seed 7) into ``eng``, stepped until every one is decoding."""
+    from kubeflow_tpu_torch.serving.llm import SamplingParams
+
+    rng = np.random.default_rng(7)
+    reqs = [eng.add_request(
+        rng.integers(1, eng.cfg.vocab_size, context).tolist(),
+        SamplingParams(max_tokens=max_tokens))
+        for _ in range(eng.max_batch)]
+    while eng._waiting or eng._chunked or len(eng._active) < eng.max_batch:
+        eng.step()
+    return reqs
+
+
+def dispatch_readings(eng, dispatches: int, gaps: bool = False) -> dict:
+    """The engine's decode dispatch as served, over a full batch that is
+    decoding (``fill_batch``): one warm-up ``eng.step()``, then the host
+    clock over ``dispatches`` steps (each dispatches ``decode_chunk``
+    device steps and reads the previous chunk back) ending in a
+    synchronize, then one step under ``torch.profiler`` from an idle
+    device, ending in a synchronize (the profiler's event processing
+    grows with the ~16,000-35,000 device activities of an eager
+    dispatch). Per decode step: wall ms
+    (unprofiled), device busy ms and 1 - busy / wall, the API calls that
+    launched device work (by name) and the device activities; per
+    dispatch the paged kernel's two passes; with ``gaps`` the eager
+    gap breakdown (``gap_breakdown``) in ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    chunk = eng.decode_chunk
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(dispatches):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (dispatches * chunk)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in events if e.device_type == cuda]
+    host = [e for e in events if e.device_type != cuda]
+    steps = chunk
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3 / steps
+    launches = Counter(e.name for e in host if e.name in LAUNCH_CALLS)
+    out = {
+        "wall_ms_per_step": wall, "device_busy_ms_per_step": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall),
+        # the profiled window's own clock: the profiler slows the host
+        "profiled_wall_ms_per_step": profiled_wall * 1e3 / steps,
+        "api_launches_per_step": sum(launches.values()) / steps,
+        "api_launches_by_name_per_step": {
+            k: v / steps for k, v in sorted(launches.items())},
+        "device_activities_per_step": len(device) / steps,
+        "paged_kernel_per_dispatch": sum(
+            PAGED_KERNEL in e.name for e in device),
+        "paged_combine_per_dispatch": sum(
+            PAGED_COMBINE in e.name for e in device),
+        "sync_calls_per_step": sum(e.name in SYNC_CALLS
+                                   for e in host) / steps,
+    }
+    if gaps:
+        # the thread that launched the kernels is the dispatching thread
+        thread = Counter(e.thread for e in host
+                         if e.name in LAUNCH_CALLS).most_common(1)[0][0]
+        spans = [(e.time_range.start, e.time_range.end, e.name)
+                 for e in host if e.thread == thread]
+        g = gap_breakdown([(e.time_range.start, e.time_range.end)
+                           for e in device], spans)
+        out["gaps_per_step"] = g.pop("gaps") / steps
+        out["gap_ms_per_step"] = {k: v / 1e3 / steps
+                                  for k, v in sorted(g.items())}
+        idle = sum(g.values())
+        out["gap_share"] = {k: v / idle for k, v in sorted(g.items())}
+    return out
+
+
+def staging_probe() -> dict:
+    """Host ms of one dispatch's input copy while the stream is still busy
+    with ~20 ms of queued work (its measured length is ``spin_ms``):
+    ``torch.tensor(numpy, device=cuda)`` (a pageable copy, the engine's
+    ``_dev``) against ``DecodeBuffers.stage`` (one pinned asynchronous
+    copy). A copy that waits for the stream takes about ``spin_ms``."""
+    from kubeflow_tpu_torch.serving.decode_graph import DecodeBuffers
+
+    b, nb = BATCH, 16
+    buf = DecodeBuffers(b, nb, 8, torch.device("cuda"))
+    host = np.zeros((b, nb), np.int32)
+    zeros = np.zeros((b,), np.int32)
+
+    def spin():
+        # _sleep spins a count of GPU cycles (~2e6 a ms at the H100's
+        # 1.98 GHz); the spin's own length is measured below
+        torch.cuda._sleep(int(20 * 2e6))
+
+    out = {}
+    for name, copy in (
+            ("pageable_copy_host_ms",
+             lambda: torch.tensor(host, device="cuda")),
+            ("pinned_stage_host_ms",
+             lambda: buf.stage(zeros, zeros, zeros, host, zeros, zeros,
+                               zeros))):
+        copy()
+        torch.cuda.synchronize()
+        spin()
+        t0 = time.perf_counter()
+        copy()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    spin()
+    end.record()
+    end.synchronize()
+    out["spin_ms"] = start.elapsed_time(end)
+    return out
+
+
+def graph_main(args, card: str) -> int:
+    """``--graph`` (module docstring)."""
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+
+    cfg = llama.llama3_8b()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    if args.quant.weight_dtype == "int8":
+        params = quantize_weights(params, cfg)
+    kw = dict(max_batch=BATCH, max_seq=1024, kv_block_size=64,
+              decode_chunk=8, device="cuda", quant=args.quant)
+    out = {"card": card, "batch": BATCH, "context": args.context,
+           "dispatches": args.dispatches, "quant": args.quant.tag(),
+           "decode_chunk": kw["decode_chunk"], "engines": {}}
+    max_tokens = kw["decode_chunk"] * (args.dispatches + 6)
+    for name in ("eager", "graph"):
+        eng = LLMEngine(params, cfg, **kw)
+        if name == "graph":
+            eng.precompile()
+            g = eng.decode_graph
+            out["capture_seconds"] = g.capture_seconds
+            out["graph_pool_bytes"] = g.pool_bytes
+            out["graph_launches_per_replay"] = g.launches
+        fill_batch(eng, args.context, max_tokens)
+        r = dispatch_readings(eng, args.dispatches, gaps=name == "eager")
+        out["engines"][name] = r
+        print(f"{name}: {r['wall_ms_per_step']!r} ms/step wall, "
+              f"{r['device_busy_ms_per_step']!r} ms device busy, idle share "
+              f"{r['device_idle_share']!r}, {r['api_launches_per_step']!r} "
+              f"API launches/step {r['api_launches_by_name_per_step']}, "
+              f"{r['device_activities_per_step']!r} device activities/step, "
+              f"paged passes per dispatch {r['paged_kernel_per_dispatch']!r}"
+              f" + {r['paged_combine_per_dispatch']!r}, sync calls/step "
+              f"{r['sync_calls_per_step']!r}; profiled "
+              f"{r['profiled_wall_ms_per_step']!r} ms/step", flush=True)
+        if "gap_ms_per_step" in r:
+            print(f"    idle gaps per step {r['gaps_per_step']!r} in the "
+                  f"profiled window; by the host call spanning them, ms per "
+                  f"step {r['gap_ms_per_step']} and share of the idle time "
+                  f"{r['gap_share']}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    out["staging_probe"] = staging_probe()
+    print(f"staging probe: {out['staging_probe']}", flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20,
@@ -146,9 +417,20 @@ def main(argv=None) -> int:
     ap.add_argument("--quant", type=parse_quant, default=QuantConfig(),
                     help="quantized step, e.g. kv:int8,w:int8 or "
                          "kv:fp8_e4m3,w:int8 (default: unquantized)")
+    ap.add_argument("--graph", action="store_true",
+                    help="the engine's decode dispatch, eager against its "
+                         "captured CUDA graph")
+    ap.add_argument("--dispatches", type=int, default=6,
+                    help="--graph: dispatches timed per engine")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    if args.graph:
+        return graph_main(args, card)
     cfg = llama.llama3_8b()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
@@ -175,10 +457,6 @@ def main(argv=None) -> int:
         cfg, BATCH, args.context, tables.shape[1],
         itemsize=pk.cache["k"].element_size(), block_size=pk.block_size,
         quantized=quantized)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     out = {"card": card, "batch": BATCH, "context": args.context,
            "steps": args.steps, "quant": args.quant.tag(),
            "paged_kernel_bound_ms": bound_ms, "paths": []}

@@ -25,9 +25,10 @@ from kubeflow_tpu_torch.training.data import to_device
 
 MOE_SLICE = ("MoE losses (n_experts > 0) are a later slice of the PyTorch "
              "port (ROADMAP queue 1: MoE)")
-DEPOT_SLICE = ("ahead-of-time lowering and the executable depot are a later "
-               "slice of the PyTorch port (ROADMAP queue 1 item 6: the "
-               "depot / CUDA-graph capture)")
+DEPOT_SLICE = ("ahead-of-time lowering and capture of the training step (a "
+               "CUDA graph of the micro batch, its backward and the "
+               "optimizer) are a later slice of the PyTorch port (ROADMAP "
+               "queue 1 item 6.1)")
 
 
 @dataclasses.dataclass
