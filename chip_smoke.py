@@ -169,13 +169,21 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              from a seeded CUDA generator) as the JAX package's bench
              trains it: remat="dots", attn_impl="pallas", adafactor,
              lr 3e-4, warmup 10, global batch 32 x seq 2048, grad_accum
-             16, through Trainer + fit over synthetic_lm_batches: one
-             warm-up step and two timed steps. Checks finite losses, step
-             0's loss near ln(vocab) + 1/2, the flash launch counts
-             (per micro batch 2 x n_layers forward, n_layers dQ and dK/dV),
-             and one micro batch's loss and gradients through the kernels
-             against attn_impl="xla" (plain einsum attention) from the
-             same parameters.
+             16, as the JAX pod runs it: init_state, then
+             Trainer.precompile(first batch), which captures the step as
+             two CUDA graphs (the micro batch's forward and backward; the
+             optimizer), then fit over synthetic_lm_batches, which
+             replays them: one warm-up step and two timed steps. Logs the
+             precompile outcome, capture seconds and graph pool bytes,
+             the replayed step's wall time, tokens/s and MFU, and peak
+             memory. Checks finite losses, step 0's loss near ln(vocab)
+             + 1/2, the flash launch counts added by the replays (per
+             micro batch 2 x n_layers forward, n_layers dQ and dK/dV),
+             an eager trainer from the same seed over the same batches
+             bitwise equal to the replayed one (losses, grad norms,
+             parameters), and one micro batch's loss and gradients
+             through the kernels against attn_impl="xla" (plain einsum
+             attention) from the same parameters.
 
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5, 6, 7.
 
@@ -2287,75 +2295,130 @@ def kernel_vs_plain(torch, llama, params, cfg, batch) -> None:
                          "plain attention")
 
 
+def train_run(torch, trainer, cfg, steps, precompile) -> dict:
+    """``steps`` steps of ``trainer`` through ``fit`` from batch 0, after
+    ``precompile(batch 0)`` when asked: per step the host seconds (each
+    ending in a synchronize), loss and grad norm; peak memory; the flash
+    launches the steps made (the counts set to 0 just before ``fit``)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training import synthetic_lm_batches
+    from kubeflow_tpu_torch.training.loop import fit
+
+    def batches(start):
+        return synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                    start_step=start)
+
+    tag = "replayed" if precompile else "eager"
+    out: dict = {"marks": [], "losses": [], "grad_norms": []}
+    if precompile:
+        outcome = trainer.precompile(next(batches(0)))
+        g = trainer.step_graph
+        log(f"precompile() -> {outcome!r}: capture {g.capture_seconds!r} s "
+            f"(two warm-up steps' bodies, undone, and two captures), graph "
+            f"pool {g.pool_bytes} B, kernel launches a replayed step "
+            f"{g.launches}")
+        if outcome != "no_depot":
+            raise SystemExit(f"precompile returned {outcome!r}")
+        out.update(outcome=outcome, capture_seconds=g.capture_seconds,
+                   pool_bytes=g.pool_bytes)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        out["marks"].append(time.perf_counter())
+        out["losses"].append(metrics["loss"])
+        out["grad_norms"].append(metrics["grad_norm"])
+        log(f"{tag} step {step}: loss {metrics['loss']!r} grad_norm "
+            f"{metrics['grad_norm']!r} tokens {metrics['tokens']!r} "
+            f"({out['marks'][-1] - out['marks'][-2]!r} s)")
+
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv)
+    for kernel in kernels:
+        kernel.launches = 0                     # the main path's count
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    out["marks"].append(time.perf_counter())
+    fit(trainer, batches, max_steps=steps, on_step=on_step)
+    out["launches"] = {k.__name__: k.launches for k in kernels}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
+    times = [b - a for a, b in zip(out["marks"], out["marks"][1:])]
+    out["step_s"] = statistics.median(times[1:])
+    out["tok_s"] = TRAIN_BATCH * TRAIN_SEQ / out["step_s"]
+    out["mfu"] = out["tok_s"] * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
+    log(f"training, {tag}: step {out['step_s']!r} s (timed steps "
+        f"{times[1:]!r}, warm-up {times[0]!r}), {out['tok_s']!r} tok/s, MFU "
+        f"{out['mfu']!r} against 989 TFLOP/s bf16 ({nvidia_smi_line()}), "
+        f"peak memory {out['peak_bytes']} B allocated "
+        f"({out['peak_bytes'] / 2 ** 30:.2f} GiB), "
+        f"{out['peak_reserved_bytes']} B reserved, losses {out['losses']!r}")
+    return out
+
+
 def training(torch) -> dict:
     import math
 
     from kubeflow_tpu_torch.models import llama
-    from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.training import (
         Trainer, TrainerConfig, lm_loss_fn, synthetic_lm_batches, to_device,
     )
-    from kubeflow_tpu_torch.training.loop import fit
 
     cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
     config = TrainerConfig(learning_rate=3e-4, warmup_steps=10,
                            total_steps=1000, grad_accum=TRAIN_ACCUM,
                            optimizer="adafactor")
-    trainer = Trainer(lambda g: llama.init_params(g, cfg, device="cuda"),
-                      lm_loss_fn(llama.forward, cfg), config, device="cuda")
+
+    def make_trainer():
+        trainer = Trainer(lambda g: llama.init_params(g, cfg, device="cuda"),
+                          lm_loss_fn(llama.forward, cfg), config,
+                          device="cuda")
+        trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+        return trainer
+
     t0 = time.perf_counter()
-    trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+    trainer = make_trainer()
     torch.cuda.synchronize()
     n_params = sum(t.numel() for _, t in _leaves(trainer.params))
     log(f"llama_1b: {n_params} params f32, bf16 compute, remat=dots, "
         f"attn_impl=pallas, adafactor; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
         f"grad_accum {TRAIN_ACCUM}; init {time.perf_counter() - t0:.1f} s")
-    marks, losses = [], []
-
-    def on_step(step, metrics):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        losses.append(metrics["loss"])
-        log(f"step {step}: loss {metrics['loss']!r} grad_norm "
-            f"{metrics['grad_norm']!r} tokens {metrics['tokens']!r} "
-            f"({marks[-1] - marks[-2]!r} s)")
-
-    for kernel in (fa.flash_attention_fwd, fa.flash_attention_dq,
-                   fa.flash_attention_dkv):
-        kernel.launches = 0                     # the main path's count
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    marks.append(time.perf_counter())
-    fit(trainer, lambda start: synthetic_lm_batches(
-        cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, start_step=start),
-        max_steps=TRAIN_STEPS, on_step=on_step)
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "flash_attention_dq": fa.flash_attention_dq.launches,
-                "flash_attention_dkv": fa.flash_attention_dkv.launches}
-    peak = torch.cuda.max_memory_allocated()
-    steps = [b - a for a, b in zip(marks, marks[1:])]
-    step_s = statistics.median(steps[1:])
-    tok_s = TRAIN_BATCH * TRAIN_SEQ / step_s
-    mfu = tok_s * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
-    card = nvidia_smi_line()
-    log(f"training: step {step_s!r} s (timed steps {steps[1:]!r}, warm-up "
-        f"{steps[0]!r}), {tok_s!r} tok/s, MFU {mfu!r} against 989 TFLOP/s "
-        f"bf16 ({card}), peak memory {peak} B "
-        f"({peak / 2 ** 30:.2f} GiB), losses {losses!r}")
+    run = train_run(torch, trainer, cfg, TRAIN_STEPS, precompile=True)
+    launches, losses = run["launches"], run["losses"]
     micro = TRAIN_ACCUM * TRAIN_STEPS
     want = {"flash_attention_fwd": 2 * cfg.n_layers * micro,
             "flash_attention_dq": cfg.n_layers * micro,
             "flash_attention_dkv": cfg.n_layers * micro}
-    log(f"flash launches on the main path: {launches} (expected per micro "
-        f"batch 2 x n_layers / n_layers / n_layers: {want})")
-    if launches != want:
-        raise SystemExit("the training step did not run through the flash "
+    log(f"flash launches on the main path (the replays): {launches} "
+        f"(expected per micro batch 2 x n_layers / n_layers / n_layers: "
+        f"{want}); {trainer.step_graph.replays} replayed steps")
+    if launches != want or trainer.step_graph.replays != TRAIN_STEPS:
+        raise SystemExit("the training step did not replay the flash "
                          "kernels as expected")
     expect0 = math.log(cfg.vocab_size) + 0.5
     if not all(math.isfinite(x) for x in losses) \
             or abs(losses[0] - expect0) > 0.5:
         raise SystemExit(f"losses {losses} not finite or step 0 not within "
                          f"0.5 of ln(vocab) + 1/2 = {expect0}")
+
+    # the same steps eagerly, from the same seed: bitwise the replayed ones
+    eager = make_trainer()
+    ref = train_run(torch, eager, cfg, TRAIN_STEPS, precompile=False)
+    differ = [name for (name, a), b in zip(
+        _leaves(trainer.params), (t for _, t in _leaves(eager.params)))
+        if not torch.equal(a, b)]
+    log(f"replayed vs eager over {TRAIN_STEPS} steps: losses "
+        f"{run['losses']!r} vs {ref['losses']!r}, grad norms "
+        f"{run['grad_norms']!r} vs {ref['grad_norms']!r}; parameters "
+        f"differing: {differ}; eager step {ref['step_s']!r} s against "
+        f"replayed {run['step_s']!r} s")
+    if run["losses"] != ref["losses"] or differ \
+            or run["grad_norms"] != ref["grad_norms"] \
+            or ref["launches"] != want:
+        raise SystemExit("the replayed training step is not bitwise the "
+                         "eager one")
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
 
     batch = to_device(next(synthetic_lm_batches(
         cfg.vocab_size, TRAIN_BATCH // TRAIN_ACCUM, TRAIN_SEQ, seed=1)),
@@ -2364,8 +2427,12 @@ def training(torch) -> dict:
     del trainer, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "step_s": step_s, "tok_s": tok_s,
-            "mfu": mfu, "peak_bytes": peak, "losses": losses}
+    return {"launches": launches, "step_s": run["step_s"],
+            "tok_s": run["tok_s"], "mfu": run["mfu"],
+            "peak_bytes": run["peak_bytes"], "losses": losses,
+            "eager_step_s": ref["step_s"], "eager_peak_bytes":
+            ref["peak_bytes"], "capture_seconds": run["capture_seconds"],
+            "pool_bytes": run["pool_bytes"]}
 
 
 def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:

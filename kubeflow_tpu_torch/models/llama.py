@@ -413,7 +413,10 @@ def _remat_wrap(fn, cfg: LlamaConfig):
         raise ValueError(f"remat={cfg.remat!r} (want none|full|dots)")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    kw = {"use_reentrant": False}
+    # the blocks draw no random numbers, so there is no RNG state to
+    # stash and restore for the recompute (stashing the CUDA generator's
+    # state is not allowed while a CUDA graph captures the step)
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_weight_products)

@@ -74,6 +74,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.cuda_graph import DEPOT_STORE
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs import trace as obs_trace
@@ -119,9 +120,7 @@ GRAPH_SLICE = {
              "port (ROADMAP queue 1 item 6.3)"),
     "prefill": ("capture of the prefill tier's chunked-prefill program is a "
                 "later slice of the PyTorch port (ROADMAP queue 1 item 6.2)"),
-    "depot": ("the executable depot's cross-process store is a later slice "
-              "of the PyTorch port (ROADMAP queue 1 item 6.4): a CUDA graph "
-              "cannot be serialized to another process"),
+    "depot": DEPOT_STORE,
 }
 
 # downgrade reasons already logged this process: counted per engine

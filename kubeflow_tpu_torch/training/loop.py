@@ -203,9 +203,12 @@ def fit(
 
     ``batches`` is a callable ``(start_step) -> iterator`` or a plain
     iterable. The state is initialised from ``generator`` unless the
-    caller already did. Heartbeats and the profiler window follow the pod
-    env (KFT_HEARTBEAT_FILE, KFT_PROFILE_DIR, KFT_PROFILE_STEPS) where the
-    arguments leave them unset.
+    caller already did. A trainer whose step was ``precompile``d replays
+    its captured graphs at every step (``Trainer.train_step``); the
+    profiler window then sees the kernels the replays run. Heartbeats and
+    the profiler window follow the pod env (KFT_HEARTBEAT_FILE,
+    KFT_PROFILE_DIR, KFT_PROFILE_STEPS) where the arguments leave them
+    unset.
     """
     if checkpoint_dir or already_resumed is not None:
         raise NotImplementedError(CHECKPOINT_SLICE)

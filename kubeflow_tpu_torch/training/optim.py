@@ -5,11 +5,15 @@ and ``alias.adafactor``).
 
 A transformation is an ``(init, update)`` pair as in optax: ``init(params)``
 returns its state, ``update(updates, state, params)`` returns the new
-updates and state; ``chain`` composes them and ``apply_updates`` adds the
-result to the parameters IN PLACE (the JAX version returns new arrays;
-here the float32 parameters are updated where they lie, which saves a
-copy of the model). Step counts are host integers, so no update waits on
-the device.
+updates and the state. Unlike optax, ``update`` writes the new state INTO
+the tensors of the state it was given and returns that same state, and
+``apply_updates`` adds the updates to the parameters IN PLACE (the JAX
+version returns new arrays): a training step captured as a CUDA graph
+(``training/step_graph.py``) reads and writes the same tensors at every
+replay. Step counts are 0-d int32 tensors on the parameters' device, and
+the learning rate, the bias corrections and the decay are computed from
+them on the device in float32 (as optax's ``jnp`` arithmetic does), so
+no update reads the host and a replay never sees a frozen count.
 
 ``torch.optim`` is not used: ``torch.optim.Adafactor`` has no
 ``min_dim_size_to_factor`` and no ``multiply_by_parameter_scale``, and
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
+DeviceSchedule = Callable[[torch.Tensor], torch.Tensor]
 
 
 def tree_map(fn, tree, *rest):
@@ -42,6 +47,27 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in tree_leaves(v)]
     return [tree]
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """{path: leaf} over nested dicts, tuples and lists (an optimizer
+    state); empty tuples (stateless transformations) give nothing."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out: dict = {}
+    for k, v in items:
+        out.update(named_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def _count(params) -> torch.Tensor:
+    """A step count: a 0-d int32 zero on the parameters' device."""
+    return torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +121,34 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
+def device_warmup_cosine_decay_schedule(
+        init_value: float, peak_value: float, warmup_steps: int,
+        decay_steps: int, end_value: float = 0.0,
+        exponent: float = 1.0) -> DeviceSchedule:
+    """``warmup_cosine_decay_schedule`` on the device: the value at a 0-d
+    integer count tensor as a 0-d float32 tensor, by optax's float32
+    arithmetic in optax's order (``join_schedules`` of
+    ``linear_schedule`` and ``cosine_decay_schedule``), with no host
+    read."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    decay_len = decay_steps - warmup_steps
+    if decay_len <= 0:
+        raise ValueError(f"decay_steps must be positive, got {decay_len}")
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.to(torch.float32)
+        if warmup_steps > 0:
+            frac = 1.0 - torch.clamp(c, 0, warmup_steps) / warmup_steps
+            warm = (init_value - peak_value) * frac + peak_value
+        else:
+            warm = torch.full_like(c, init_value)
+        k = torch.clamp_max(c - warmup_steps, decay_len)
+        cosine = 0.5 * (1 + torch.cos(math.pi * k / decay_len))
+        decayed = peak_value * ((1 - alpha) * cosine ** exponent + alpha)
+        return torch.where(c < warmup_steps, warm, decayed)
+    return schedule
+
+
 # ---------------------------------------------------------------------------
 # Transformations
 # ---------------------------------------------------------------------------
@@ -104,11 +158,9 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
         return tuple(tx.init(params) for tx in txs)
 
     def update(updates, state, params):
-        new_state = []
         for tx, s in zip(txs, state):
-            updates, s = tx.update(updates, s, params)
-            new_state.append(s)
-        return updates, tuple(new_state)
+            updates, _ = tx.update(updates, s, params)
+        return updates, state
 
     return GradientTransformation(init, update)
 
@@ -130,36 +182,45 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     return GradientTransformation(lambda params: (), update)
 
 
-def _scale_by_schedule(schedule: Schedule, sign: float):
-    """Multiply by ``sign * schedule(count)``; the count starts at 0."""
+def _scale_by_schedule(schedule: DeviceSchedule, sign: float):
+    """Multiply by ``sign * schedule(count)``; the count (a 0-d int32
+    tensor) starts at 0 and is incremented in place."""
     def update(updates, count, params=None):
         lr = sign * schedule(count)
-        return tree_map(lambda u: u * lr, updates), count + 1
+        count.add_(1)
+        return tree_map(lambda u: u * lr, updates), count
 
-    return GradientTransformation(lambda params: 0, update)
+    return GradientTransformation(_count, update)
 
 
-def adamw(learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
+def bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """optax's ``1 - decay ** count`` in float32, for a 0-d integer count
+    tensor (the count after the increment)."""
+    return 1 - torch.pow(decay, count.to(torch.float32))
+
+
+def adamw(learning_rate: DeviceSchedule, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8,
           weight_decay: float = 1e-4) -> GradientTransformation:
     """optax.adamw: bias-corrected Adam moments, decoupled weight decay on
-    every leaf (optax masks nothing by default), then ``-lr(count)``."""
+    every leaf (optax masks nothing by default), then ``-lr(count)``. The
+    moments and the count are updated in place."""
     def init(params):
         zeros = lambda p: torch.zeros_like(p)
-        return {"count": 0, "mu": tree_map(zeros, params),
+        return {"count": _count(params), "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
     def update(updates, state, params):
-        count = state["count"] + 1
-        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state["mu"],
-                      updates)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state["nu"],
-                      updates)
+        count = state["count"].add_(1)
+        c1, c2 = bias_correction(b1, count), bias_correction(b2, count)
+        tree_map(lambda m, g: m.mul_(b1).add_((1 - b1) * g), state["mu"],
+                 updates)
+        tree_map(lambda v, g: v.mul_(b2).add_((1 - b2) * g * g),
+                 state["nu"], updates)
         out = tree_map(
             lambda m, v, p: (m / c1) / (torch.sqrt(v / c2) + eps)
-            + weight_decay * p, mu, nu, params)
-        return out, {"count": count, "mu": mu, "nu": nu}
+            + weight_decay * p, state["mu"], state["nu"], params)
+        return out, state
 
     return chain(GradientTransformation(init, update),
                  _scale_by_schedule(learning_rate, -1.0))
@@ -177,6 +238,14 @@ def _factored_dims(shape, min_dim_size_to_factor: int):
     return int(order[-2]), int(order[-1])
 
 
+def adafactor_decay(count: torch.Tensor,
+                    decay_rate: float = 0.8) -> torch.Tensor:
+    """optax's second-moment decay ``1 - t ** -decay_rate`` with
+    ``t = count + 1`` in float32, for a 0-d integer count tensor (the
+    count before the increment)."""
+    return 1.0 - torch.pow((count + 1).to(torch.float32), -decay_rate)
+
+
 def _scale_by_factored_rms(min_dim_size_to_factor: int, decay_rate: float,
                            eps: float) -> GradientTransformation:
     def init(params):
@@ -187,32 +256,31 @@ def _scale_by_factored_rms(min_dim_size_to_factor: int, decay_rate: float,
             d1, d0 = dims
             return {"v_row": p.new_zeros(p.shape[:d0] + p.shape[d0 + 1:]),
                     "v_col": p.new_zeros(p.shape[:d1] + p.shape[d1 + 1:])}
-        return {"count": 0, "v": tree_map(leaf, params)}
+        return {"count": _count(params), "v": tree_map(leaf, params)}
 
     def update(updates, state, params):
-        t = float(np.float32(state["count"] + 1))
-        decay = 1.0 - t ** (-decay_rate)
+        decay = adafactor_decay(state["count"], decay_rate)
 
         def leaf(g, v):
             g_sqr = g * g + eps
             dims = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
             if dims is None:
-                new_v = decay * v["v"] + (1.0 - decay) * g_sqr
-                return g * new_v.rsqrt(), {"v": new_v}
+                new_v = v["v"].copy_(decay * v["v"] + (1.0 - decay) * g_sqr)
+                return g * new_v.rsqrt()
             d1, d0 = dims
-            v_row = decay * v["v_row"] + (1.0 - decay) * g_sqr.mean(d0)
-            v_col = decay * v["v_col"] + (1.0 - decay) * g_sqr.mean(d1)
+            v_row = v["v_row"].copy_(
+                decay * v["v_row"] + (1.0 - decay) * g_sqr.mean(d0))
+            v_col = v["v_col"].copy_(
+                decay * v["v_col"] + (1.0 - decay) * g_sqr.mean(d1))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_col_mean = v_row.mean(reduced_d1, keepdim=True)
             row_factor = (v_row / row_col_mean).rsqrt()
             col_factor = v_col.rsqrt()
-            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            return u, {"v_row": v_row, "v_col": v_col}
+            return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
-        pairs = tree_map(lambda g, v: leaf(g, v), updates, state["v"])
-        out = tree_map(lambda pair: pair[0], pairs)
-        new_v = tree_map(lambda pair: pair[1], pairs)
-        return out, {"count": state["count"] + 1, "v": new_v}
+        out = tree_map(leaf, updates, state["v"])
+        state["count"].add_(1)
+        return out, state
 
     return GradientTransformation(init, update)
 
@@ -238,7 +306,8 @@ def _scale_by_param_block_rms(min_scale: float = 1e-3):
     return GradientTransformation(lambda params: (), update)
 
 
-def adafactor(learning_rate: Schedule, min_dim_size_to_factor: int = 128,
+def adafactor(learning_rate: DeviceSchedule,
+              min_dim_size_to_factor: int = 128,
               decay_rate: float = 0.8, clipping_threshold: float = 1.0,
               multiply_by_parameter_scale: bool = True,
               eps: float = 1e-30) -> GradientTransformation:

@@ -253,7 +253,10 @@ def _masked_batches(vocab, batch, seq, steps):
             return out
 
 
-def _run_both(jcfg, t_attn, tcfg_kw, batches, seed=0):
+def _run_both(jcfg, t_attn, tcfg_kw, batches, seed=0, precompile=False):
+    """The JAX trainer and the port's from the same weights over
+    ``batches``; with ``precompile`` the JAX trainer's steps run its
+    ``precompile``d executable (no depot)."""
     jp = jl.init_params(jax.random.key(seed), jcfg)
     host = jax.device_get(jp)
     mesh = single_device_mesh()
@@ -263,6 +266,9 @@ def _run_both(jcfg, t_attn, tcfg_kw, batches, seed=0):
         loss_fn=j_trainer.lm_loss_fn(jl.forward, jcfg),
         config=j_trainer.TrainerConfig(**tcfg_kw))
     jt.init_state(jax.random.key(seed))
+    if precompile:
+        assert jt.precompile(j_data.put_batch(mesh, batches[0])) \
+            == "no_depot"
     tcfg = interop.config_from_jax(jcfg)
     tcfg = tl.LlamaConfig(**{**tcfg.__dict__, "attn_impl": t_attn})
     tt = t_trainer.Trainer(
@@ -382,7 +388,7 @@ def test_unported_training_paths_raise_naming_their_slice():
     trainer, cfg = _tiny_trainer()
     with pytest.raises(NotImplementedError, match="checkpoint"):
         t_loop.fit(trainer, [], max_steps=1, checkpoint_dir="/tmp/x")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="precompile needs init_state"):
         trainer.precompile({})
     with pytest.raises(NotImplementedError, match="MoE"):
         t_trainer.lm_loss_fn(tl.forward, tl.llama_tiny(n_experts=4))
