@@ -147,6 +147,33 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              blocks it did not write; a duplicate kv frame injects once
              and a release frame frees the decode side's blocks; no
              migration failure. Then the same with int8 KV (row 2).
+5m. MoE serving — Mixtral-8x7B at its published widths (the literal
+             config.json through hf_llama.config_from_hf), 16 of its 32
+             layers (46.97 GB in bf16; all 32 would not fit the card),
+             random bf16 weights from a seeded CUDA generator, dropless
+             routing (moe_capacity_factor 0), phase 4's geometry. Starts
+             after phase 5d's model is freed and logs the memory still
+             allocated. (a) Phase 4's four requests over HTTP V2 to an
+             LLMModel whose load() captured the decode program, 32 greedy
+             tokens each: token counts, row 1 launches == n_layers x
+             decode device steps, replays, prefix hits, chunked prefill.
+             (b) An eager LLMEngine and a precompiled one on the same
+             weights, driven as phase 4g drives them: equal streams and
+             bitwise equal logprobs. (c) One served stream teacher-forced
+             through the serving path (chunked prefill, then decode
+             steps through row 1) against llama.forward on the capacity
+             path with capacity = the token count (no drops: the same
+             function through other code) and the serving path's
+             routing, the rms of the logit error over the forward's rms
+             under a limit set between the sound reading and a planted
+             fault (tools/moe_quality.py); prints the same against the
+             free forward and the routing decisions that differ.
+             (e) Eight 300-token streams, eager against replay
+             (tools/decode_profile.dispatch_readings), beside the step's
+             weight-read bound (every expert runs on the dropless path).
+             (d) KFT_QUANT_KV=int8 + KFT_QUANT_WEIGHTS=int8 (the runtime's
+             env parsing): the weights downgrade with the JAX package's
+             reason, the four requests run through row 2 alone.
 5. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain versions on the card: the training
              shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
@@ -184,11 +211,23 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              parameters), and one micro batch's loss and gradients
              through the kernels against attn_impl="xla" (plain einsum
              attention) from the same parameters.
+7m. MoE training — llama_1b's widths with 8 experts (top-2, capacity
+             1.25), 8 of its 16 layers (2.38 B f32 parameters), trained
+             as phase 7 trains: an eager trainer takes 3 steps (its
+             losses, grad norms, moe_aux and parameters kept on the
+             host) and is freed, then one from the same seed runs
+             init_state, precompile and fit over the same batches,
+             replayed. Checks finite losses, step 0's loss near ln(vocab)
+             + 1/2 + moe_aux, replayed bitwise equal to eager, the flash
+             launch counts of both runs; logs capture seconds, pool
+             bytes, the step, tokens/s, MFU (active top-k FLOPs) and peak
+             memory.
 
-Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5, 6, 7.
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
+7, 7m.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
-its numbers per pool dtype under "by_kv_dtype"; rows 1-3 their launches
+its numbers per pool dtype under "by_kv_dtype"; every row its launches
 per phase under "launches_by_phase"), the nvidia-smi line,
 and last
 ``{"ok": true, "device": {...}}``. Exits nonzero (printing no result)
@@ -317,6 +356,23 @@ DISAGG_TOKENS = 32
 GRAPH_TOKENS = 32
 GRAPH_DISPATCHES = 4
 GRAPH_FILL_TOKENS = 8 * (GRAPH_DISPATCHES + 6)
+# phase 5m (c): rms of the MoE serving path's logit error against the
+# full forward's with the serving path's routing (tools/moe_quality.
+# readings), over the forward logits' rms. Both run the 16-layer Mixtral
+# cut in bf16 and round in different places (paged kernel and [1, .]
+# products against dense attention and the einsum dispatch). Read with
+# tools/moe_quality.py on one H100: sound 0.01391 (float32 at 2 layers:
+# 4.2e-6); planted fault, the dropless path's gates not renormalised:
+# 0.4958. The limit is their geometric mean (see PERF.md). Free routing
+# is printed beside it and not held: a near tie at the k-th expert sends
+# a token elsewhere on one side, and with random weights that reads
+# 0.06-0.16 from the sound code
+MOE_RMS_MAX = 0.083
+MOE_RMS_FAULT = 0.4958
+# phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
+# (kubeflow_tpu/serving/quant.py:96-101)
+MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
+                   "expert einsums are not int8-lowered)")
 
 
 def log(msg: str) -> None:
@@ -2106,6 +2162,156 @@ def disagg_phase(torch, pa, cfg, params) -> dict:
     return out
 
 
+def free_card(torch) -> None:
+    """Hand the memory of everything no longer referenced back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_serving(torch, pa) -> dict:
+    """Phase 5m: MoE serving at Mixtral-8x7B's published widths, 16 of
+    its 32 layers (module docstring)."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.serving.quant import resolve_quant
+    from kubeflow_tpu_torch.serving.runtime import quant_from_env
+    from kubeflow_tpu_torch.tools.decode_profile import (
+        dispatch_readings, fill_batch,
+    )
+    from kubeflow_tpu_torch.tools.moe_quality import (
+        ENGINE_KW, SEED, mixtral_8x7b, readings,
+    )
+
+    t_phase = time.perf_counter()
+    log(f"phase 5m: {torch.cuda.memory_allocated()} B allocated at its "
+        f"start")
+    cfg = mixtral_8x7b()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_bytes = tree_bytes(params)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"phase 5m: Mixtral-8x7B widths, {cfg.n_layers} of 32 layers, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k}, dropless: "
+        f"{tree_numel(params)} params bf16 ({n_bytes} B), init "
+        f"{time.perf_counter() - t_phase:.1f} s; a decode step reads every "
+        f"weight: bound {bound_ms!r} ms at 3.35 TB/s")
+
+    # (a) the four requests over HTTP, through load()'s captured program
+    model = LLMModel("mixtral-8x7b", params, cfg, max_batch=8,
+                     max_seq=1024, device="cuda")
+    model.load()
+    replays0 = captured(model)
+    run = serve_four(torch, pa, model, cfg)
+    replayed(model, replays0, "phase 5m (a)")
+    row1 = run["launches"]["paged_decode_attention"]
+    if row1 != cfg.n_layers * run["device_steps"] or row1 == 0 \
+            or run["launches"]["paged_decode_attention_quant"] != 0:
+        raise SystemExit("phase 5m: decode did not run through the paged "
+                         "kernel")
+    model.unload()
+
+    # (b) an eager engine against a captured one, the same drive
+    prompts = dict(four_prompts(torch, cfg))
+    rng = torch.Generator().manual_seed(4)
+    prompts["fifth"] = torch.randint(1, cfg.vocab_size, (150,),
+                                     generator=rng).tolist()
+    eager = LLMEngine(params, cfg, device="cuda", **ENGINE_KW)
+    graph = LLMEngine(params, cfg, device="cuda", **ENGINE_KW)
+    graph.precompile()
+    steps0 = eager.sched.decode_device_steps + graph.sched.decode_device_steps
+    pa.paged_decode_attention.launches = 0
+    res = {name: graph_streams(eng, prompts)[0]
+           for name, eng in (("eager", eager), ("graph", graph))}
+    b_launches = pa.paged_decode_attention.launches
+    b_steps = (eager.sched.decode_device_steps
+               + graph.sched.decode_device_steps - steps0)
+    same = all(res["eager"][t][0] == res["graph"][t][0] for t in prompts)
+    lp_diff = max(abs(a - b) for t in prompts for a, b in zip(
+        res["eager"][t][1], res["graph"][t][1]))
+    log(f"phase 5m (b): {len(prompts)} streams of {GRAPH_TOKENS} greedy "
+        f"tokens, eager against {graph.decode_graph.replays} replays: token "
+        f"for token equal {same}, largest logprob difference {lp_diff!r} "
+        f"(want 0.0); row 1 launches {b_launches} (n_layers x device steps "
+        f"= {cfg.n_layers * b_steps})")
+    if not same or lp_diff != 0.0 or graph.decode_graph.replays == 0 \
+            or b_launches != cfg.n_layers * b_steps:
+        raise SystemExit("phase 5m (b): the replayed MoE decode differs "
+                         "from the eager one")
+
+    # (c) one served stream teacher-forced against the full forward
+    tag = "short_100"
+    q = readings(eager, run["prompts"][tag], run["results"][tag])
+    log(f"phase 5m (c): {tag} and its {GRAPH_TOKENS} served tokens, the "
+        f"serving path against llama.forward (capacity path, no drops) "
+        f"with the serving path's routing: rms/rms {q['rms_over_rms']!r} "
+        f"(limit {MOE_RMS_MAX}; the planted fault, gates not renormalised "
+        f"on the dropless path, read {MOE_RMS_FAULT}), max logit "
+        f"difference {q['max_logit_diff']!r}; free routing: rms/rms "
+        f"{q['free_rms_over_rms']!r}, greedy agreement "
+        f"{q['greedy_agreement']!r}, routing decisions differing "
+        f"{q['routing_flips']} of {q['routing_decisions']}")
+    if not q["rms_over_rms"] <= MOE_RMS_MAX:
+        raise SystemExit("phase 5m (c): the MoE decode path's logits are "
+                         "off the full forward's")
+
+    # (e) eight 300-token streams decoding, eager then replay
+    dispatch = {}
+    for name, eng in (("eager", eager), ("graph", graph)):
+        fill_batch(eng, STEP_CONTEXT, GRAPH_FILL_TOKENS)
+        r = dispatch[name] = dispatch_readings(eng, GRAPH_DISPATCHES)
+        log(f"phase 5m (e) {name}: {r['wall_ms_per_step']!r} ms per step "
+            f"wall, {r['device_busy_ms_per_step']!r} ms device busy, idle "
+            f"share {r['device_idle_share']!r}, API launches per step "
+            f"{r['api_launches_per_step']!r} "
+            f"{r['api_launches_by_name_per_step']}; weight-read bound "
+            f"{bound_ms!r} ms ({r['wall_ms_per_step'] / bound_ms!r} x)")
+        for req in list(eng._active.values()):
+            eng.abort([req])
+        while eng.has_work():
+            eng.step()
+    capture = (graph.decode_graph.capture_seconds,
+               graph.decode_graph.pool_bytes)
+    del eager, graph
+    free_card(torch)
+
+    # (d) int8 KV + int8 weights from the env: the weights downgrade
+    quant = quant_from_env({"KFT_QUANT_KV": "int8",
+                            "KFT_QUANT_WEIGHTS": "int8"})
+    _, downgrades = resolve_quant(quant, cfg=cfg)
+    model = LLMModel("mixtral-8x7b-int8kv", params, cfg, max_batch=8,
+                     max_seq=1024, device="cuda", quant=quant)
+    model.load()
+    replays0 = captured(model)
+    qrun = serve_four(torch, pa, model, cfg)
+    replayed(model, replays0, "phase 5m (d)")
+    stats, launches = qrun["stats"], qrun["launches"]
+    want = cfg.n_layers * qrun["device_steps"]
+    log(f"phase 5m (d): KFT_QUANT_KV=int8 KFT_QUANT_WEIGHTS=int8 -> active "
+        f"{stats['quant']['active']} (requested "
+        f"{stats['quant']['requested']}), downgrades {downgrades}; row 2 "
+        f"launches {launches['paged_decode_attention_quant']} (want "
+        f"{want}), row 1 {launches['paged_decode_attention']} (want 0)")
+    if downgrades != [("weight_dtype=int8", MOE_INT8_REASON)] \
+            or stats["quant_downgrades_total"] != 1 \
+            or stats["quant"]["active"] != "quant=kv:int8,w:none":
+        raise SystemExit("phase 5m (d): the MoE weights were not downgraded "
+                         "with the JAX reason")
+    if launches["paged_decode_attention_quant"] != want or want == 0 \
+            or launches["paged_decode_attention"] != 0:
+        raise SystemExit("phase 5m (d): int8 KV decode did not run through "
+                         "the fused-dequant kernel alone")
+    model.unload()
+    del model, params
+    free_card(torch)
+    log(f"phase 5m: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": row1 + b_launches,
+            "int8_launches": launches["paged_decode_attention_quant"],
+            "quality": q, "dispatch": dispatch, "bound_ms": bound_ms,
+            "capture": capture, "weight_bytes": n_bytes}
+
+
 def tree_clone(tree):
     if isinstance(tree, dict):
         return {k: tree_clone(v) for k, v in tree.items()}
@@ -2309,7 +2515,8 @@ def train_run(torch, trainer, cfg, steps, precompile) -> dict:
                                     start_step=start)
 
     tag = "replayed" if precompile else "eager"
-    out: dict = {"marks": [], "losses": [], "grad_norms": []}
+    out: dict = {"marks": [], "losses": [], "grad_norms": [],
+                 "moe_aux": []}
     if precompile:
         outcome = trainer.precompile(next(batches(0)))
         g = trainer.step_graph
@@ -2327,6 +2534,8 @@ def train_run(torch, trainer, cfg, steps, precompile) -> dict:
         out["marks"].append(time.perf_counter())
         out["losses"].append(metrics["loss"])
         out["grad_norms"].append(metrics["grad_norm"])
+        if "moe_aux" in metrics:
+            out["moe_aux"].append(metrics["moe_aux"])
         log(f"{tag} step {step}: loss {metrics['loss']!r} grad_norm "
             f"{metrics['grad_norm']!r} tokens {metrics['tokens']!r} "
             f"({out['marks'][-1] - out['marks'][-2]!r} s)")
@@ -2435,6 +2644,89 @@ def training(torch) -> dict:
             "pool_bytes": run["pool_bytes"]}
 
 
+def moe_training(torch) -> dict:
+    """Phase 7m: llama_1b with 8 experts (top-2, capacity 1.25), 8 of its
+    16 layers, trained as phase 7 trains llama_1b (module docstring)."""
+    import math
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools.train_profile import model_config
+    from kubeflow_tpu_torch.training import (
+        Trainer, TrainerConfig, lm_loss_fn,
+    )
+
+    t_phase = time.perf_counter()
+    log(f"phase 7m: {torch.cuda.memory_allocated()} B allocated at its "
+        f"start")
+    cfg = model_config(moe=True)
+    config = TrainerConfig(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=TRAIN_ACCUM,
+                           optimizer="adafactor")
+
+    def make_trainer():
+        trainer = Trainer(lambda g: llama.init_params(g, cfg, device="cuda"),
+                          lm_loss_fn(llama.forward, cfg), config,
+                          device="cuda")
+        trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+        return trainer
+
+    # eager first; its results kept on the host, then freed, so the two
+    # trainers are never resident together
+    eager = make_trainer()
+    n_params = sum(t.numel() for _, t in _leaves(eager.params))
+    log(f"phase 7m: llama_1b widths with {cfg.n_experts} experts "
+        f"(top-{cfg.moe_top_k}, capacity {cfg.moe_capacity_factor}), "
+        f"{cfg.n_layers} of 16 layers: {n_params} params f32, remat=dots, "
+        f"attn_impl=pallas, adafactor; batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+        f"grad_accum {TRAIN_ACCUM}")
+    ref = train_run(torch, eager, cfg, TRAIN_STEPS, precompile=False)
+    digest = {name: t.detach().cpu() for name, t in _leaves(eager.params)}
+    del eager
+    free_card(torch)
+
+    trainer = make_trainer()
+    run = train_run(torch, trainer, cfg, TRAIN_STEPS, precompile=True)
+    launches, losses, aux = run["launches"], run["losses"], run["moe_aux"]
+    micro = TRAIN_ACCUM * TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * micro,
+            "flash_attention_dq": cfg.n_layers * micro,
+            "flash_attention_dkv": cfg.n_layers * micro}
+    log(f"phase 7m: flash launches on the main path (the replays): "
+        f"{launches} (expected {want}), eager {ref['launches']}; "
+        f"{trainer.step_graph.replays} replayed steps")
+    if launches != want or ref["launches"] != want \
+            or trainer.step_graph.replays != TRAIN_STEPS:
+        raise SystemExit("phase 7m: the MoE training step did not run the "
+                         "flash kernels as expected")
+    expect0 = math.log(cfg.vocab_size) + 0.5 + aux[0]
+    log(f"phase 7m: step 0 loss {losses[0]!r} against ln(vocab) + 1/2 + "
+        f"moe_aux = {expect0!r}; moe_aux per step {aux!r}")
+    if not all(math.isfinite(x) for x in losses + aux) \
+            or abs(losses[0] - expect0) > 0.5:
+        raise SystemExit(f"phase 7m: losses {losses} not finite or step 0 "
+                         f"not within 0.5 of {expect0}")
+    differ = [name for name, t in _leaves(trainer.params)
+              if not torch.equal(t.detach().cpu(), digest[name])]
+    log(f"phase 7m: replayed vs eager over {TRAIN_STEPS} steps: losses "
+        f"{losses!r} vs {ref['losses']!r}, grad norms {run['grad_norms']!r} "
+        f"vs {ref['grad_norms']!r}, moe_aux {aux!r} vs {ref['moe_aux']!r}; "
+        f"parameters differing: {differ}; eager step {ref['step_s']!r} s "
+        f"against replayed {run['step_s']!r} s")
+    if losses != ref["losses"] or run["grad_norms"] != ref["grad_norms"] \
+            or aux != ref["moe_aux"] or differ:
+        raise SystemExit("phase 7m: the replayed MoE training step is not "
+                         "bitwise the eager one")
+    del trainer, digest
+    free_card(torch)
+    log(f"phase 7m: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "step_s": run["step_s"],
+            "tok_s": run["tok_s"], "mfu": run["mfu"],
+            "peak_bytes": run["peak_bytes"], "losses": losses,
+            "moe_aux": aux, "eager_step_s": ref["step_s"],
+            "capture_seconds": run["capture_seconds"],
+            "pool_bytes": run["pool_bytes"]}
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
@@ -2495,22 +2787,25 @@ def main() -> int:
     spec = spec_phase(torch, pa, cfg, params, tp)
     disagg = disagg_phase(torch, pa, cfg, params)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free_card(torch)
+    moe_served = moe_serving(torch, pa)
     flash_errs = flash_parity(torch)
     flash_t = flash_timing(torch)
     trained = training(torch)
+    moe_trained = moe_training(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:65",
         "launches": (served["launches"] + graphed["bf16"]["launches"]
                      + spec["bf16"]["launches"]
-                     + disagg["bf16"]["launches"]),
+                     + disagg["bf16"]["launches"]
+                     + moe_served["launches"]),
         "launches_by_phase": {"4": served["launches"],
                               "4g": graphed["bf16"]["launches"],
                               "5s": spec["bf16"]["launches"],
-                              "5d": disagg["bf16"]["launches"]},
+                              "5d": disagg["bf16"]["launches"],
+                              "5m": moe_served["launches"]},
         "max_abs_err": errs["bfloat16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
@@ -2520,11 +2815,13 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:68",
         "launches": (q_served["launches"] + graphed["int8"]["launches"]
                      + spec["int8"]["launches"]
-                     + disagg["int8"]["launches"]),
+                     + disagg["int8"]["launches"]
+                     + moe_served["int8_launches"]),
         "launches_by_phase": {"4q": q_served["launches"],
                               "4g": graphed["int8"]["launches"],
                               "5s": spec["int8"]["launches"],
-                              "5d": disagg["int8"]["launches"]},
+                              "5d": disagg["int8"]["launches"],
+                              "5m": moe_served["int8_launches"]},
         # the served pool's dtype (int8) in the top-level numbers; both
         # pool dtypes under by_kv_dtype. No PyTorch call reads a
         # quantized paged pool: SDPA over the dequantized dense view is
@@ -2543,7 +2840,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
             "replaces": f"kubeflow_tpu/ops/pallas_attention.py:{line}",
-            "launches": trained["launches"][name],
+            "launches": (trained["launches"][name]
+                         + moe_trained["launches"][name]),
+            "launches_by_phase": {"7": trained["launches"][name],
+                                  "7m": moe_trained["launches"][name]},
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -1,5 +1,6 @@
 """HF-layout Llama checkpoint loader (safetensors -> the port's parameter
-dict), counterpart of ``kubeflow_tpu.models.hf_llama``, dense layout only.
+dict), counterpart of ``kubeflow_tpu.models.hf_llama``: the dense Llama
+layout and Mixtral's ``block_sparse_moe`` layout.
 
 The HF tensors map onto the JAX package's stacked layout exactly as the
 JAX loader maps them: torch Linear ``[out, in]`` becomes ``[in, out]``
@@ -14,6 +15,8 @@ tensor-parallel rank its shard: each HF tensor is read only in the rows
 or columns that hold the rank's heads, MLP columns or vocab entries, so
 no rank reads or holds the whole tree. ``CheckpointParams`` is the same
 load as a parameter source each rank of a serving engine calls itself.
+MoE checkpoints load on one card only (a mesh raises,
+``parallel.moe.MOE_MESH``).
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
     rank ``mesh.rank``'s shard of it, read slice by slice."""
     device = resolve_device(device)
     cfg = cfg or load_config(model_dir, dtype=dtype)
-    llama.check_dense(cfg)
+    llama.check_moe_mesh(cfg, mesh)
     idx = CheckpointIndex(model_dir)
     tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
     h, kv, hd, d = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim,
@@ -87,6 +90,16 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
         return torch.stack([transform(get(fmt.format(i), index))
                             for i in range(cfg.n_layers)])
 
+    def expert_stack(fmt: str, key: str) -> torch.Tensor:
+        """Mixtral experts' [out, in] Linear weights -> [L, E, in, out],
+        written one tensor at a time into the preallocated stack."""
+        out = torch.empty(llama.param_shapes(cfg)["layers"][key],
+                          dtype=dtype, device=device)
+        for i in range(cfg.n_layers):
+            for e in range(cfg.n_experts):
+                out[i, e] = get(fmt.format(i, e)).T
+        return out
+
     rows_q = (part(cfg.n_heads * hd), every)
     rows_kv = (part(cfg.n_kv_heads * hd), every)
     rows_mlp, cols_mlp = (part(cfg.mlp_dim), every), (every, part(
@@ -105,13 +118,23 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
         "wo": layer_stack("model.layers.{}.self_attn.o_proj.weight",
                           (every, part(cfg.n_heads * hd)),
                           lambda w: w.T.reshape(h, hd, d)),
-        "w_gate": layer_stack("model.layers.{}.mlp.gate_proj.weight",
-                              rows_mlp, lambda w: w.T),
-        "w_up": layer_stack("model.layers.{}.mlp.up_proj.weight",
-                            rows_mlp, lambda w: w.T),
-        "w_down": layer_stack("model.layers.{}.mlp.down_proj.weight",
-                              cols_mlp, lambda w: w.T),
     }
+    if cfg.n_experts:
+        layers["moe_router"] = layer_stack(
+            "model.layers.{}.block_sparse_moe.gate.weight",
+            transform=lambda w: w.T)
+        for key, name in (("w_gate", "w1"), ("w_up", "w3"),
+                          ("w_down", "w2")):
+            layers[key] = expert_stack(
+                "model.layers.{}.block_sparse_moe.experts.{}.%s.weight"
+                % name, key)
+    else:
+        layers["w_gate"] = layer_stack(
+            "model.layers.{}.mlp.gate_proj.weight", rows_mlp, lambda w: w.T)
+        layers["w_up"] = layer_stack(
+            "model.layers.{}.mlp.up_proj.weight", rows_mlp, lambda w: w.T)
+        layers["w_down"] = layer_stack(
+            "model.layers.{}.mlp.down_proj.weight", cols_mlp, lambda w: w.T)
     params = {
         "embed": get("model.embed_tokens.weight", rows_vocab),
         "layers": layers,

@@ -9,10 +9,13 @@ takes the same arguments as its JAX counterpart. A Python loop over the
 stacked layers takes the place of ``lax.scan``.
 
 Compute runs in ``cfg.dtype`` with norms, RoPE and softmax in float32.
-The port is dense: a config with ``n_experts > 0`` raises
-``NotImplementedError`` naming the slice that brings it. The serving
-functions also take the int8 weight trees of ``serving.quant.
-quantize_weights`` (``wq_q`` + ``wq_s`` ...): ``qmm`` is their product.
+A config with ``n_experts > 0`` is Mixtral-style MoE: its layers hold
+``moe_router [L, d, E]`` and expert stacks ``w_gate``/``w_up [L, E, d,
+m]``, ``w_down [L, E, m, d]``, and the FFN is ``parallel.moe.
+moe_layer``; ``forward(..., return_aux=True)`` also returns the summed
+MoE penalties. The serving functions also take the int8 weight trees of
+``serving.quant.quantize_weights`` (``wq_q`` + ``wq_s`` ...): ``qmm`` is
+their product.
 
 Tensor parallelism (``mesh=``, a launched ``parallel.mesh.TensorMesh``;
 None is the one-card path, unchanged): each rank holds its shard of the
@@ -23,7 +26,7 @@ rank's heads, the rank's slice of the MLP), ``wo`` and ``w_down``
 row-parallel (a partial product, then an all-reduce), the embedding a
 masked lookup of the rank's vocab rows plus an all-reduce, and the LM
 head the rank's vocab columns of the logits, all-gathered. Norms are
-replicated.
+replicated. MoE under a mesh raises (``parallel.moe.MOE_MESH``).
 
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
@@ -50,10 +53,8 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
+from kubeflow_tpu_torch.parallel import moe
 from kubeflow_tpu_torch.parallel.sharding import shard_slices
-
-MOE_SLICE = ("MoE layers (n_experts > 0) are a later slice of the "
-             "PyTorch port (queue 1: MoE)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +99,12 @@ class LlamaConfig:
         per_layer = attn_proj + attn_out + attn_score + mlp
         return 3 * (self.n_layers * per_layer + 2 * d * v)
 
+    def moe_config(self) -> moe.MoEConfig:
+        return moe.MoEConfig(
+            dim=self.dim, mlp_dim=self.mlp_dim, n_experts=self.n_experts,
+            top_k=self.moe_top_k, capacity_factor=self.moe_capacity_factor,
+            dtype=self.dtype)
+
 
 def llama3_8b(**kw) -> LlamaConfig:
     return LlamaConfig(**kw)
@@ -119,14 +126,27 @@ def llama_tiny(**kw) -> LlamaConfig:
     )
 
 
-def check_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(MOE_SLICE)
+def llama_moe_8x(base: LlamaConfig | None = None, n_experts: int = 8,
+                 **kw) -> LlamaConfig:
+    """Mixtral-style MoE variant of any base config (default 8 experts)."""
+    base = base or llama3_8b()
+    return dataclasses.replace(base, n_experts=n_experts, **kw)
+
+
+def check_moe_mesh(cfg: LlamaConfig, mesh) -> None:
+    """MoE has no sharded path yet: raise ``parallel.moe.MOE_MESH`` for an
+    MoE config under a mesh."""
+    if cfg.n_experts and mesh is not None:
+        raise NotImplementedError(moe.MOE_MESH)
 
 
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
+
+# the layer weights of an MoE FFN (the dense FFN's names, stacked per
+# expert, plus the router)
+MOE_KEYS = ("moe_router", "w_gate", "w_up", "w_down")
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig,
                 device: DeviceLike = None, dtype=torch.float32,
@@ -136,17 +156,21 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     from ``generator``, which must live there too: N(0, 1/fan_in) for the
     matrices, ones for the norms. The draws differ from ``jax.random``'s;
     tests that compare the two packages convert one tree with
-    ``interop.params_from_jax``.
+    ``interop.params_from_jax``. MoE expert stacks (and the router) are
+    drawn one (layer, expert) matrix at a time straight into ``dtype``
+    (``parallel.moe.randn_stack``): a whole stack drawn in float32 at
+    Mixtral's widths would be a 30 GB temporary.
 
     With ``mesh``, the rank's shard only: every matrix is drawn whole
     (one at a time, so the full tree never exists) and cut to the rank's
     slice, so the shards of a seed are exactly the slices of its
-    unsharded tree."""
+    unsharded tree. MoE under a mesh raises."""
+    check_moe_mesh(cfg, mesh)
     device = resolve_device(device)
     shapes, axes = param_shapes(cfg), param_logical_axes(cfg)
     d, m, hd = cfg.dim, cfg.mlp_dim, cfg.n_heads * cfg.head_dim
     fan_in = {"wq": d, "wk": d, "wv": d, "wo": hd, "w_gate": d, "w_up": d,
-              "w_down": m, "embed": d, "lm_head": d}
+              "w_down": m, "embed": d, "lm_head": d, "moe_router": d}
 
     def dense(shape, names, fan):
         w = torch.randn(shape, generator=generator, device=device,
@@ -160,6 +184,9 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     def leaf(name, shape, names):
         if name not in fan_in:                       # the norms
             return torch.ones(shape, dtype=dtype, device=device)
+        if cfg.n_experts and name in MOE_KEYS:
+            return moe.randn_stack(generator, shape, fan_in[name], dtype,
+                                   device)
         return dense(shape, names, fan_in[name])
 
     # the draw order (layers, then embed, then lm_head) fixes the values
@@ -193,19 +220,22 @@ class SeededParams:
 
 def param_shapes(cfg: LlamaConfig) -> dict:
     """Each parameter's full shape, in ``init_params``' structure."""
-    check_dense(cfg)
     d, h, kv, hd, m, L = (cfg.dim, cfg.n_heads, cfg.n_kv_heads,
                           cfg.head_dim, cfg.mlp_dim, cfg.n_layers)
-    shapes = {
-        "embed": (cfg.vocab_size, d),
-        "layers": {
-            "attn_norm": (L, d), "mlp_norm": (L, d),
-            "wq": (L, d, h, hd), "wk": (L, d, kv, hd), "wv": (L, d, kv, hd),
-            "wo": (L, h, hd, d),
-            "w_gate": (L, d, m), "w_up": (L, d, m), "w_down": (L, m, d),
-        },
-        "final_norm": (d,),
+    layers = {
+        "attn_norm": (L, d), "mlp_norm": (L, d),
+        "wq": (L, d, h, hd), "wk": (L, d, kv, hd), "wv": (L, d, kv, hd),
+        "wo": (L, h, hd, d),
     }
+    if cfg.n_experts:
+        e = cfg.n_experts
+        layers.update({"moe_router": (L, d, e), "w_gate": (L, e, d, m),
+                       "w_up": (L, e, d, m), "w_down": (L, e, m, d)})
+    else:
+        layers.update({"w_gate": (L, d, m), "w_up": (L, d, m),
+                       "w_down": (L, m, d)})
+    shapes = {"embed": (cfg.vocab_size, d), "layers": layers,
+              "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
     return shapes
@@ -213,23 +243,30 @@ def param_shapes(cfg: LlamaConfig) -> dict:
 
 def param_logical_axes(cfg: LlamaConfig) -> dict:
     """Logical axis names per param, mirroring init_params' structure
-    (the JAX package's ``param_logical_axes``, dense layers)."""
-    check_dense(cfg)
-    axes = {
-        "embed": ("vocab", "embed"),
-        "layers": {
-            "attn_norm": ("layers", "embed"),
-            "mlp_norm": ("layers", "embed"),
-            "wq": ("layers", "embed", "heads", "head_dim"),
-            "wk": ("layers", "embed", "kv_heads", "head_dim"),
-            "wv": ("layers", "embed", "kv_heads", "head_dim"),
-            "wo": ("layers", "heads", "head_dim", "embed"),
+    (the JAX package's ``param_logical_axes``)."""
+    layers = {
+        "attn_norm": ("layers", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads", "head_dim"),
+        "wk": ("layers", "embed", "kv_heads", "head_dim"),
+        "wv": ("layers", "embed", "kv_heads", "head_dim"),
+        "wo": ("layers", "heads", "head_dim", "embed"),
+    }
+    if cfg.n_experts:
+        layers.update({
+            "moe_router": ("layers", "embed", None),
+            "w_gate": ("layers", "expert", "embed", "mlp"),
+            "w_up": ("layers", "expert", "embed", "mlp"),
+            "w_down": ("layers", "expert", "mlp", "embed"),
+        })
+    else:
+        layers.update({
             "w_gate": ("layers", "embed", "mlp"),
             "w_up": ("layers", "embed", "mlp"),
             "w_down": ("layers", "mlp", "embed"),
-        },
-        "final_norm": ("embed",),
-    }
+        })
+    axes = {"embed": ("vocab", "embed"), "layers": layers,
+            "final_norm": ("embed",)}
     if not cfg.tie_embeddings:
         axes["lm_head"] = ("embed", "vocab")
     return axes
@@ -336,11 +373,21 @@ def out_proj(lp, o, cfg: LlamaConfig, mesh=None):
     return _reduced(out, mesh)
 
 
-def _ffn(h, lp, cfg: LlamaConfig, mesh=None):
-    """Dense SwiGLU FFN on the normed input h -> delta. Under a mesh the
-    gate/up products are the rank's MLP columns and the down product is
-    row-parallel, then all-reduced."""
-    check_dense(cfg)
+def _ffn(h, lp, cfg: LlamaConfig, mesh=None, token_mask=None):
+    """FFN half of a block on the normed input h -> (delta, aux): the dense
+    SwiGLU FFN with aux 0.0, or for MoE configs the routed mixture
+    (``parallel.moe.moe_layer``) with its summed penalties (a float32
+    0-d tensor). ``token_mask`` [B, S] bool: the serving paths keep pad
+    and idle rows out of MoE routing. Under a mesh the dense gate/up
+    products are the rank's MLP columns and the down product is
+    row-parallel, then all-reduced; MoE raises."""
+    if cfg.n_experts:
+        check_moe_mesh(cfg, mesh)
+        moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
+                      "w_up": lp["w_up"], "w_down": lp["w_down"]}
+        y, aux = moe.moe_layer(moe_params, h, cfg.moe_config(),
+                               token_mask=token_mask)
+        return y, moe.moe_aux_total(aux)
     if "w_gate_q" in lp:
         gate = qmm(h, lp["w_gate_q"], lp["w_gate_s"], cfg)
         up = qmm(h, lp["w_up_q"], lp["w_up_s"], cfg)
@@ -349,7 +396,7 @@ def _ffn(h, lp, cfg: LlamaConfig, mesh=None):
         gate = _rows_mm(h, lp["w_gate"], cfg)
         up = _rows_mm(h, lp["w_up"], cfg)
         out = _rows_mm(F.silu(gate) * up, lp["w_down"], cfg)
-    return _reduced(out, mesh)
+    return _reduced(out, mesh), 0.0
 
 
 def lm_head_weight(params, cfg: LlamaConfig):
@@ -389,7 +436,8 @@ def head_logits(params, x, cfg: LlamaConfig, mesh=None):
 
 
 def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
-    """One transformer block on x [B, S, D] in the compute dtype."""
+    """One transformer block on x [B, S, D] in the compute dtype ->
+    (x, the layer's MoE aux: 0.0 for a dense layer)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     q, k, v = qkv_proj(lp, h, cfg)
     q = apply_rope(q, positions, inv_freq)
@@ -397,7 +445,8 @@ def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
     o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     x = x + out_proj(lp, o, cfg)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(h, lp, cfg)
+    delta, aux = _ffn(h, lp, cfg)
+    return x + delta, aux
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -423,10 +472,12 @@ def _remat_wrap(fn, cfg: LlamaConfig):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def forward(params, tokens, cfg: LlamaConfig, positions=None):
+def forward(params, tokens, cfg: LlamaConfig, positions=None,
+            return_aux: bool = False):
     """Full-sequence forward. tokens: [B, S] integer -> logits [B, S, V]
-    float32."""
-    check_dense(cfg)
+    float32. With ``return_aux``, (logits, {"moe_aux": the MoE penalties
+    summed over the layers, float32 0-d; 0 for dense configs}): the
+    training loss adds it."""
     device = params["embed"].device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
@@ -438,10 +489,18 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None):
     # of unbind stacks the layers' gradients once, where indexing would
     # add a zero-filled full [L, ...] gradient into the leaf per layer
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    auxes = []
     for i in range(cfg.n_layers):
-        x = block(x, {k: v[i] for k, v in layers.items()})
+        x, aux = block(x, {k: v[i] for k, v in layers.items()})
+        auxes.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, lm_head_weight(params, cfg)).float()
+    logits = torch.einsum("bsd,dv->bsv", x,
+                          lm_head_weight(params, cfg)).float()
+    if not return_aux:
+        return logits
+    total = (torch.stack(auxes).sum() if cfg.n_experts
+             else torch.zeros((), dtype=torch.float32, device=device))
+    return logits, {"moe_aux": total}
 
 
 # ---------------------------------------------------------------------------
@@ -472,15 +531,17 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
 
     tokens: [B, S] left-aligned, right-padded. ``lengths`` ([B], default
     S) gives each prompt's true length: logits are read at position
-    ``lengths-1`` and ``cache["len"]`` is set per sequence. Returns
-    (logits [B, V] float32, cache).
+    ``lengths-1`` and ``cache["len"]`` is set per sequence; positions at
+    or past it do not route through MoE experts. Returns (logits [B, V]
+    float32, cache). MoE under a mesh raises.
     """
-    check_dense(cfg)
+    check_moe_mesh(cfg, mesh)
     b, s = tokens.shape
     device = tokens.device
     if lengths is None:
         lengths = torch.full((b,), s, dtype=torch.int32, device=device)
     positions = torch.arange(s, device=device)[None, :]
+    real = positions < lengths[:, None]
     inv_freq = inv_freq_for(cfg, device)
     impl = cfg.attn_impl if cfg.attn_impl in ("xla", "flash", "pallas") \
         else "pallas"
@@ -494,7 +555,7 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
         o = attention(q, k, v, causal=True, impl=impl)
         x = x + out_proj(lp, o, cfg, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(h, lp, cfg, mesh)
+        x = x + _ffn(h, lp, cfg, mesh, token_mask=real)[0]
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

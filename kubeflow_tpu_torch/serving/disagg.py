@@ -163,11 +163,20 @@ class KVReceiver:
         self._accept_thread.start()
 
     def close(self) -> None:
+        """Stop listening and end the accept thread. Closing the socket
+        alone does not wake an ``accept()`` blocked in another thread (on
+        Linux): the thread, and through the sink the engine and its
+        weights, would live on. ``shutdown`` wakes it."""
         self._stop = True
+        try:
+            self._srv.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._srv.close()
         except OSError:
             pass
+        self._accept_thread.join(timeout=5.0)
 
     def _accept_loop(self) -> None:
         while not self._stop:

@@ -328,8 +328,8 @@ class LLMEngine:
             kv_block_size=kv_block_size, kv_num_blocks=kv_num_blocks,
             decode_chunk=decode_chunk, decode_pipeline=decode_pipeline,
             kernel=kernel, scheduler=scheduler, quant=quant)
-        llama.check_dense(cfg)
         self.mesh = tensor_parallel(mesh)
+        llama.check_moe_mesh(cfg, self.mesh)
         if self.mesh is not None:
             tp = self.mesh.tp
             if cfg.n_kv_heads % tp:

@@ -550,11 +550,13 @@ def _layer_qkv(lp, x, positions, cfg, inv_freq):
     return q, k, v
 
 
-def _layer_out(lp, x, o, cfg, mesh=None):
-    """Shared attention-output + FFN path (see _layer_qkv)."""
+def _layer_out(lp, x, o, cfg, mesh=None, token_mask=None):
+    """Shared attention-output + FFN path (see _layer_qkv). ``token_mask``
+    [B, S] bool, a device tensor: the rows that route through MoE experts
+    (pad rows, idle slots and rows past a slot's limit do not)."""
     x = x + llama.out_proj(lp, o, cfg, mesh)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + llama._ffn(h, lp, cfg, mesh)
+    return x + llama._ffn(h, lp, cfg, mesh, token_mask=token_mask)[0]
 
 
 def _lm_head(params, x_last, cfg, mesh=None):
@@ -732,6 +734,7 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
                         (pos // bs).long().clamp(max=n_tab - 1)]
     off = (pos % bs).long()
     kv_len = pos + 1
+    routed = (pos > 0)[:, None]          # idle slots (len 0) do not route
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         k_pool, v_pool = cache["k"][i], cache["v"][i]    # [NB, bs, KV, D]
@@ -763,7 +766,7 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
             k_view = k_pool[tables.long()].reshape(b, -1, *k_pool.shape[2:])
             v_view = v_pool[tables.long()].reshape(b, -1, *v_pool.shape[2:])
             o = decode_attention(q, k_view, v_view, kv_len)
-        x = _layer_out(lp, x, o, cfg, mesh)
+        x = _layer_out(lp, x, o, cfg, mesh, token_mask=routed)
     logits = _lm_head(params, x[:, 0], cfg, mesh)
     cache["len"].add_(1)                     # pos is this tensor: read above
     return logits, cache
@@ -791,7 +794,8 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
     inv_freq = llama.inv_freq_for(cfg, device)
     pos = offset + torch.arange(c, device=device)              # [C]
     row = tables[slot].long()                                   # [nb]
-    live = (pos < length) & (pos >= share_len)
+    valid = pos < length
+    live = valid & (pos >= share_len)
     blk = torch.where(live, row[(pos // bs).clamp(max=row.shape[0] - 1)],
                       torch.zeros_like(pos))
     off = pos % bs
@@ -815,7 +819,7 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
             v_view = v_pool[row].reshape(1, -1, *v_pool.shape[2:])
         # row i (absolute position offset+i) attends kv rows <= offset+i
         o = _xla_attention(q, k_view, v_view, causal=True, q_offset=offset)
-        x = _layer_out(lp, x, o, cfg, mesh)
+        x = _layer_out(lp, x, o, cfg, mesh, token_mask=valid[None, :])
     last_row = min(max(length - offset - 1, 0), c - 1)
     return x[:, last_row], cache
 
@@ -876,6 +880,6 @@ def paged_verify_step(params, tokens, cfg: llama.LlamaConfig, cache, tables,
             k_view = k_pool[tab].reshape(b, -1, *k_pool.shape[2:])
             v_view = v_pool[tab].reshape(b, -1, *v_pool.shape[2:])
         o = _xla_attention(q, k_view, v_view, causal=True, q_offset=start)
-        x = _layer_out(lp, x, o, cfg, mesh)
+        x = _layer_out(lp, x, o, cfg, mesh, token_mask=valid)
     logits = _lm_head(params, x.reshape(b * s, -1), cfg, mesh)
     return logits.reshape(b, s, -1), cache

@@ -150,19 +150,23 @@ class LLMModel(Model):
         model*.safetensors [+ tokenizer.json]). Text in/text out when a
         tokenizer is present; token ids otherwise. Weights load straight
         onto the serving device; with ``mesh``, each rank loads its own
-        shard when ``load()`` starts it (the sharded load)."""
+        shard when ``load()`` starts it (the sharded load). MoE serves
+        dropless (``moe_capacity_factor=0.0``): capacity buffers are a
+        training regulariser, and served, the same prompt must decode
+        the same at any batch size."""
         from kubeflow_tpu_torch.device import resolve_device
         from kubeflow_tpu_torch.models import hf_llama
         from kubeflow_tpu_torch.serving.tokenizer import load_tokenizer
 
         if mesh is not None:
-            cfg = hf_llama.load_config(model_dir, dtype=dtype)
+            cfg = hf_llama.load_config(model_dir, dtype=dtype,
+                                       moe_capacity_factor=0.0)
             params = hf_llama.CheckpointParams(model_dir, dtype)
             dev = None
         else:
             dev = resolve_device(device)
-            cfg, params = hf_llama.load_pretrained(model_dir, dtype=dtype,
-                                                   device=dev)
+            cfg, params = hf_llama.load_pretrained(
+                model_dir, dtype=dtype, device=dev, moe_capacity_factor=0.0)
         tok = load_tokenizer(model_dir)
         kw.setdefault("max_seq", min(cfg.max_seq, 1024))
         return cls(name, params, cfg, tokenizer=tok, device=dev, mesh=mesh,

@@ -3,7 +3,12 @@ widths (random bf16 weights from a seeded CUDA generator), eight live
 slots at ``--context`` tokens, one ``paged_decode_step`` at a time.
 
     python -m kubeflow_tpu_torch.tools.decode_profile [--steps N] [--context T]
-        [--quant kv:int8,w:int8]
+        [--quant kv:int8,w:int8] [--moe]
+
+``--moe`` (in either mode) takes ``chip_smoke.py``'s phase 5m model
+instead: Mixtral-8x7B's published widths cut to 16 of 32 layers, served
+dropless (``tools/moe_quality.mixtral_8x7b``); the step then reads every
+expert's weights.
 
 ``--quant`` profiles the quantized decode step: ``kv:`` the pool dtype
 (none | int8 | fp8_e4m3), ``w:`` the weight dtype (none | int8); either
@@ -91,6 +96,14 @@ def _steps(params, cfg, cache, tables, kernel, context, n):
     for _ in range(n):
         cache["len"].fill_(context)
         paged_decode_step(params, tok, cfg, cache, tables, kernel=kernel)
+
+
+def weight_bytes(params) -> int:
+    """Bytes of a parameter tree: what a decode step that reads every
+    weight moves at the least."""
+    if isinstance(params, dict):
+        return sum(weight_bytes(v) for v in params.values())
+    return params.numel() * params.element_size()
 
 
 def parse_quant(spec: str) -> QuantConfig:
@@ -360,11 +373,20 @@ def staging_probe() -> dict:
     return out
 
 
+def model_config(args) -> llama.LlamaConfig:
+    """llama3_8b, or with ``--moe`` phase 5m's Mixtral cut."""
+    if args.moe:
+        from kubeflow_tpu_torch.tools.moe_quality import mixtral_8x7b
+
+        return mixtral_8x7b()
+    return llama.llama3_8b()
+
+
 def graph_main(args, card: str) -> int:
     """``--graph`` (module docstring)."""
     from kubeflow_tpu_torch.serving.llm import LLMEngine
 
-    cfg = llama.llama3_8b()
+    cfg = model_config(args)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     if args.quant.weight_dtype == "int8":
@@ -373,6 +395,7 @@ def graph_main(args, card: str) -> int:
               decode_chunk=8, device="cuda", quant=args.quant)
     out = {"card": card, "batch": BATCH, "context": args.context,
            "dispatches": args.dispatches, "quant": args.quant.tag(),
+           "moe": args.moe, "weight_bytes": weight_bytes(params),
            "decode_chunk": kw["decode_chunk"], "engines": {}}
     max_tokens = kw["decode_chunk"] * (args.dispatches + 6)
     for name in ("eager", "graph"):
@@ -422,6 +445,8 @@ def main(argv=None) -> int:
                          "captured CUDA graph")
     ap.add_argument("--dispatches", type=int, default=6,
                     help="--graph: dispatches timed per engine")
+    ap.add_argument("--moe", action="store_true",
+                    help="Mixtral-8x7B's widths, 16 layers, dropless")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile needs a CUDA GPU")
@@ -431,7 +456,7 @@ def main(argv=None) -> int:
         check=True).stdout.strip().splitlines()[0]
     if args.graph:
         return graph_main(args, card)
-    cfg = llama.llama3_8b()
+    cfg = model_config(args)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     if args.quant.weight_dtype == "int8":
@@ -458,7 +483,8 @@ def main(argv=None) -> int:
         itemsize=pk.cache["k"].element_size(), block_size=pk.block_size,
         quantized=quantized)
     out = {"card": card, "batch": BATCH, "context": args.context,
-           "steps": args.steps, "quant": args.quant.tag(),
+           "steps": args.steps, "quant": args.quant.tag(), "moe": args.moe,
+           "weight_bytes": weight_bytes(params),
            "paged_kernel_bound_ms": bound_ms, "paths": []}
     for kernel in ("paged", "gather", "paged"):
         r = measure(params, cfg, pk.cache, tables, kernel, args.context,

@@ -3,7 +3,11 @@
 trains it -- remat="dots", attn_impl="pallas", adafactor, global batch
 32 x 2048, grad_accum 16 -- one ``Trainer.train_step`` at a time.
 
-    python -m kubeflow_tpu_torch.tools.train_profile [--graph]
+    python -m kubeflow_tpu_torch.tools.train_profile [--graph] [--moe]
+
+``--moe`` takes ``chip_smoke.py``'s phase 7m model instead
+(``model_config``): ``llama_1b`` with 8 experts (top-2, capacity 1.25),
+cut to 8 of its 16 layers.
 
 Runs one warm-up step, times two steps on the host clock (ending in a
 synchronize), then profiles one more under ``torch.profiler`` and prints:
@@ -53,6 +57,7 @@ from kubeflow_tpu_torch.training import (
 )
 
 BATCH, SEQ, GRAD_ACCUM = 32, 2048, 16      # chip_smoke.py's training cell
+MOE_LAYERS = 8                 # phase 7m's cut: 8 of llama_1b's 16 layers
 TIMED_STEPS = 2
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
@@ -160,15 +165,26 @@ def report(name: str, r: dict) -> None:
         print(f"    {ms!r:>24} ms  {kernel}", flush=True)
 
 
+def model_config(moe: bool = False) -> llama.LlamaConfig:
+    """Phase 7's llama_1b, or with ``moe`` phase 7m's: 8 experts at the
+    defaults (top-2, capacity 1.25), 8 layers."""
+    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    if moe:
+        cfg = llama.llama_moe_8x(cfg, n_layers=MOE_LAYERS)
+    return cfg
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graph", action="store_true",
                     help="also precompile the step and profile its replay")
+    ap.add_argument("--moe", action="store_true",
+                    help="llama_1b with 8 experts, 8 layers (phase 7m)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("train_profile needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    cfg = model_config(args.moe)
     trainer = Trainer(
         lambda g: llama.init_params(g, cfg, device="cuda"),
         lm_loss_fn(llama.forward, cfg),
@@ -186,7 +202,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     out = {"card": card, "batch": BATCH, "seq": SEQ,
-           "grad_accum": GRAD_ACCUM, "eager": step_readings(cfg, step)}
+           "grad_accum": GRAD_ACCUM, "moe": args.moe,
+           "eager": step_readings(cfg, step)}
     report(f"{card}, eager", out["eager"])
     if args.graph:
         torch.cuda.synchronize()

@@ -22,7 +22,9 @@ it accumulates gradients and applies optimizer steps. ``StepGraph``
 snapshots every state tensor before it and writes the snapshot back
 after it, so capturing leaves the parameters, the optimizer state, the
 accumulators and the counts bitwise as they were (the capture itself
-launches nothing).
+launches nothing). The snapshot lies in host memory: on the card it
+would double the state (the parameters and their gradient accumulators)
+beside the warm-up's activations and the graph's pool.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ class StepGraph:
                  finish: Callable[[], None], state: Callable[[], dict],
                  grad_accum: int, counters: Sequence,
                  device: torch.device):
-        snapshot = {k: t.detach().clone() for k, t in state().items()}
+        snapshot = {k: t.detach().to("cpu", copy=True)
+                    for k, t in state().items()}
 
         @torch.no_grad()
         def restore() -> None:

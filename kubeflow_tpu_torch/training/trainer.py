@@ -30,8 +30,6 @@ from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
 from kubeflow_tpu_torch.training.step_graph import StepGraph
 
-MOE_SLICE = ("MoE losses (n_experts > 0) are a later slice of the PyTorch "
-             "port (ROADMAP queue 1: MoE)")
 AOT_SLICE = ("lowering the training step without arrays, for the "
              "shape-level memory and FLOP accounting of parallel/aot.py, "
              "is a later slice of the PyTorch port (ROADMAP queue 1 item "
@@ -296,20 +294,29 @@ class Trainer:
 
 def lm_loss_fn(forward, cfg):
     """Next-token LM loss for a model ``forward(params, tokens, cfg)``.
+    MoE configs (``n_experts > 0``) call ``forward(..., return_aux=True)``,
+    add the summed MoE penalties to the loss and report them as the
+    ``moe_aux`` metric.
 
     Batch: {"tokens": [B, S+1] integer, "mask": optional [B, S+1]}.
     """
-    if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(MOE_SLICE)
+    moe = bool(getattr(cfg, "n_experts", 0))
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-        logits = forward(params, inputs, cfg)
+        if moe:
+            logits, fwd_aux = forward(params, inputs, cfg, return_aux=True)
+        else:
+            logits = forward(params, inputs, cfg)
         mask = batch.get("mask")
         mask = mask[:, 1:] if mask is not None else None
         loss, aux = softmax_cross_entropy(
             logits, targets, mask, z_loss=getattr(cfg, "z_loss", 0.0))
-        return loss, {"tokens": aux["total_weight"]}
+        metrics = {"tokens": aux["total_weight"]}
+        if moe:
+            loss = loss + fwd_aux["moe_aux"]
+            metrics["moe_aux"] = fwd_aux["moe_aux"].detach()
+        return loss, metrics
 
     return loss_fn

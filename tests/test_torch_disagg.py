@@ -420,6 +420,22 @@ def test_release_frame_drops_injected_handoff(tiny, tier_pair):
     assert eng.paged.reclaimable_blocks == eng.paged.num_blocks - 1
 
 
+def test_receiver_close_ends_its_accept_thread():
+    """``close`` wakes the accept thread blocked in ``accept()`` (closing
+    the socket alone leaves it blocked, and through the sink it would
+    keep the decode engine and its weights alive): the thread ends and
+    the port refuses connections."""
+    rcv = t_disagg.KVReceiver(lambda hid, payload: (True, ""),
+                              lambda hid: None)
+    thread, addr = rcv._accept_thread, rcv.addr
+    assert thread.is_alive()
+    rcv.close()
+    thread.join(timeout=5.0)
+    assert not thread.is_alive()
+    with pytest.raises(OSError):
+        socket.create_connection(addr, timeout=1.0).close()
+
+
 def test_decode_death_falls_back_to_local_generation(tier_pair, jax_greedy):
     """Decode replica dead at send time: the prefill replica serves the
     request locally and counts the failure."""

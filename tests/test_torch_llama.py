@@ -99,18 +99,26 @@ def test_prefill_ragged_lengths_matches_jax(tiny):
 
 
 def test_moe_and_int8_raise_naming_the_slice(tiny):
-    """MoE raises, naming its slice. int8 weight trees, which raised until
-    the quantized-serving slice, are served now: prefill over the JAX
-    package's int8 tree (tied and untied heads) matches its quantized
-    prefill, logits and cache."""
+    """MoE, which raised until the MoE slice, runs on one card now and
+    raises only under a tensor mesh, naming ROADMAP queue 1 item 8.7 (its
+    parity cases are in tests/test_torch_moe.py). int8 weight trees,
+    which raised until the quantized-serving slice, are served now:
+    prefill over the JAX package's int8 tree (tied and untied heads)
+    matches its quantized prefill, logits and cache."""
+    import types
+
     from kubeflow_tpu.serving.quant import quantize_weights
 
     jcfg, jp, tcfg, tp = tiny
     moe = dataclasses.replace(tcfg, n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.forward(tp, torch.zeros((1, 4), dtype=torch.long), moe)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+    mp = tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu")
+    logits = tl.forward(mp, torch.zeros((1, 4), dtype=torch.long), moe)
+    assert logits.shape == (1, 4, moe.vocab_size)
+    assert torch.isfinite(logits).all()
+    mesh = types.SimpleNamespace(tp=2, rank=0)
+    with pytest.raises(NotImplementedError, match="MoE.*item 8.7"):
+        tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu",
+                       mesh=mesh)
     untied = dataclasses.replace(jcfg, tie_embeddings=False)
     for jc, (jw, tc, _) in ((jcfg, (jp, tcfg, tp)),
                             (untied, _pair(untied, seed=2))):

@@ -390,8 +390,14 @@ def test_unported_training_paths_raise_naming_their_slice():
         t_loop.fit(trainer, [], max_steps=1, checkpoint_dir="/tmp/x")
     with pytest.raises(ValueError, match="precompile needs init_state"):
         trainer.precompile({})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        t_trainer.lm_loss_fn(tl.forward, tl.llama_tiny(n_experts=4))
+    # MoE losses are ported (tests/test_torch_moe.py): the loss function
+    # builds, and a step adds moe_aux to the loss and the metrics
+    moe_cfg = tl.llama_tiny(n_experts=4, dtype=torch.float32)
+    moe_params = tl.init_params(torch.Generator().manual_seed(0), moe_cfg,
+                                device="cpu")
+    loss, metrics = t_trainer.lm_loss_fn(tl.forward, moe_cfg)(
+        moe_params, {"tokens": torch.zeros((1, 5), dtype=torch.long)})
+    assert torch.isfinite(loss) and metrics["moe_aux"].item() > 0
     with pytest.raises(ValueError, match="train_step needs init_state"):
         trainer.train_step({"tokens": np.zeros((2, 5), np.int32)})
     with pytest.raises(ValueError, match="unknown optimizer"):
