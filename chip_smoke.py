@@ -223,8 +223,48 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              bytes, the step, tokens/s, MFU (active top-k FLOPs) and peak
              memory.
 
+8. training pod and resume — (a) the port's pod entry, ``python -m
+             kubeflow_tpu_torch.rendezvous.worker_check``, as a subprocess
+             on the card under the env the controller stamps
+             (KFT_TRAIN_STEPS=6, KFT_CHECKPOINT_EVERY=2, KFT_DEPOT a
+             temporary directory, KFT_PHASES_PATH, KFT_METRICS_PATH,
+             KFT_HEARTBEAT_FILE): the reference's llama_tiny f32 trainer,
+             restored, then precompile()d (captured), then fit. One
+             uninterrupted run (profiled over step 1); a victim paced by
+             KFT_STEP_SLEEP, SIGKILLed once step 2's checkpoint
+             directory exists; a restart with the same env. Checks the
+             restart's resumed_from_step >= 2 and restore_done, the depot
+             counters (compiles and serialize_failures 1: a CUDA graph
+             cannot leave its process) and outcome "compiled", every
+             stamp the reference writes, and the losses of every step
+             after the resume bitwise the uninterrupted run's. (b)
+             llama_1b in phase 7's configuration fed by a TokenDataset
+             (two shards of 1<<22 tokens, ids < 32768, from a numpy
+             stream seeded 0, written by write_token_shards), three
+             trainers one at a time: A init_state, precompile, fit to
+             step 4 with checkpoint_every 2 (losses, grad norms and final
+             parameters kept on the host); B the same into a fresh
+             directory, stopped at step 2; C init_state, precompile
+             FIRST, then fit on B's directory, which restores step 2
+             into the captured tensors, to step 4. C's losses, grad
+             norms and final parameters must be bitwise A's, the restore
+             must leave every state tensor at its address, C's step
+             graphs must replay, and the flash launches of each fit
+             must be per micro batch 2 x n_layers forward, n_layers dQ
+             and dK/dV. Logs the checkpoint bytes, the blocking seconds
+             of save (the device-to-host copy) beside the replayed
+             step's, the background write's seconds and GB/s, restore
+             seconds, peak memory and free disk before and after; the
+             scratch directory is removed at the end. (c) A serving
+             replica under KFT_DEPOT: LLMModel.load() on llama_tiny f32
+             (head_dim 64) captures the decode program as without the
+             depot, reports depot_outcome "compiled" with compiles and
+             serialize_failures 1 in stats()["depot"], never touches the
+             depot directory, and serves the same greedy tokens as a
+             replica loaded without it, both through replays.
+
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
-7, 7m.
+7, 7m, 8.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -369,6 +409,12 @@ GRAPH_FILL_TOKENS = 8 * (GRAPH_DISPATCHES + 6)
 # 0.06-0.16 from the sound code
 MOE_RMS_MAX = 0.083
 MOE_RMS_FAULT = 0.4958
+# phase 8 (a): the training pod's steps (the reference's configuration),
+# the victim's pacing (seconds slept after each step, so the kill lands
+# between checkpoints), and each pod run's time limit
+POD_STEPS = 6
+POD_STEP_SLEEP_S = 0.5
+POD_TIMEOUT_S = 300
 # phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
 # (kubeflow_tpu/serving/quant.py:96-101)
 MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
@@ -2501,20 +2547,25 @@ def kernel_vs_plain(torch, llama, params, cfg, batch) -> None:
                          "plain attention")
 
 
-def train_run(torch, trainer, cfg, steps, precompile) -> dict:
-    """``steps`` steps of ``trainer`` through ``fit`` from batch 0, after
-    ``precompile(batch 0)`` when asked: per step the host seconds (each
-    ending in a synchronize), loss and grad norm; peak memory; the flash
-    launches the steps made (the counts set to 0 just before ``fit``)."""
+def train_run(torch, trainer, cfg, steps, precompile, batches=None,
+              tag=None, **fit_kw) -> dict:
+    """Train ``trainer`` through ``fit`` up to step ``steps`` over
+    ``batches`` (a ``start_step -> iterator`` callable; default
+    synthetic_lm_batches), after ``precompile(first batch)`` when asked;
+    ``fit_kw`` go to ``fit`` (its checkpoint arguments). Per step the
+    host seconds (each ending in a synchronize), loss and grad norm; peak
+    memory; the flash launches the steps made (the counts set to 0 just
+    before ``fit``); ``fit``'s ``resumed_from``."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.training import synthetic_lm_batches
     from kubeflow_tpu_torch.training.loop import fit
 
-    def batches(start):
-        return synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
-                                    start_step=start)
+    if batches is None:
+        def batches(start):
+            return synthetic_lm_batches(cfg.vocab_size, TRAIN_BATCH,
+                                        TRAIN_SEQ, start_step=start)
 
-    tag = "replayed" if precompile else "eager"
+    tag = tag or ("replayed" if precompile else "eager")
     out: dict = {"marks": [], "losses": [], "grad_norms": [],
                  "moe_aux": []}
     if precompile:
@@ -2547,12 +2598,16 @@ def train_run(torch, trainer, cfg, steps, precompile) -> dict:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     out["marks"].append(time.perf_counter())
-    fit(trainer, batches, max_steps=steps, on_step=on_step)
+    res = fit(trainer, batches, max_steps=steps, on_step=on_step, **fit_kw)
+    torch.cuda.synchronize()
+    out["fit_s"] = time.perf_counter() - out["marks"][0]
+    out["resumed_from"] = res.resumed_from
     out["launches"] = {k.__name__: k.launches for k in kernels}
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved()
     times = [b - a for a, b in zip(out["marks"], out["marks"][1:])]
-    out["step_s"] = statistics.median(times[1:])
+    out["times"] = times
+    out["step_s"] = statistics.median(times[1:] or times)
     out["tok_s"] = TRAIN_BATCH * TRAIN_SEQ / out["step_s"]
     out["mfu"] = out["tok_s"] * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
     log(f"training, {tag}: step {out['step_s']!r} s (timed steps "
@@ -2727,6 +2782,333 @@ def moe_training(torch) -> dict:
             "pool_bytes": run["pool_bytes"]}
 
 
+def free_disk(path) -> int:
+    import shutil
+
+    return shutil.disk_usage(path).free
+
+
+def pod_env(tmp: Path, tag: str, **extra) -> dict:
+    """The env the controller stamps on a one-worker training pod (its
+    checkpoint, depot, phase, metrics and heartbeat paths under
+    ``tmp``), with the repository on PYTHONPATH; the pod runs on the
+    card (no KFT_FORCE_PLATFORM)."""
+    import os
+
+    d = tmp / tag
+    d.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_")}
+    env.update({
+        "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep
+        + env.get("PYTHONPATH", ""),
+        "KFT_TRAIN_STEPS": str(POD_STEPS), "KFT_CHECKPOINT_EVERY": "2",
+        "KFT_CHECKPOINT_DIR": str(d / "ckpt"), "KFT_DEPOT": str(tmp / "depot"),
+        "KFT_PHASES_PATH": str(d / "phases"),
+        "KFT_METRICS_PATH": str(d / "metrics.jsonl"),
+        "KFT_HEARTBEAT_FILE": str(d / "heartbeat"), **extra})
+    return env
+
+
+def pod_losses(tmp: Path, tag: str) -> dict:
+    """step -> loss from the pod's metrics file (the last record of each
+    step: a restart's records follow the killed run's)."""
+    out = {}
+    for line in (tmp / tag / "metrics.jsonl").read_text().splitlines():
+        rec = json.loads(line)
+        if "loss" in rec:
+            out[rec["step"]] = rec["loss"]
+    return out
+
+
+def pod_phase(torch, tmp: Path) -> dict:
+    """Phase 8 (a): the port's training pod on the card, three runs of
+    ``python -m kubeflow_tpu_torch.rendezvous.worker_check`` (module
+    docstring)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "kubeflow_tpu_torch.rendezvous.worker_check"]
+    t0 = time.perf_counter()
+    ref = subprocess.run(cmd, env=pod_env(
+        tmp, "ref", KFT_PROFILE_DIR=str(tmp / "ref" / "profile"),
+        KFT_PROFILE_STEPS="1:2"), capture_output=True, text=True,
+        timeout=POD_TIMEOUT_S)
+    log(f"phase 8a: uninterrupted pod rc {ref.returncode} "
+        f"({time.perf_counter() - t0:.1f} s): {ref.stdout.strip()!r}")
+    if ref.returncode != 0:
+        raise SystemExit(f"phase 8a: the pod failed:\n{ref.stderr[-4000:]}")
+
+    ckpt = tmp / "victim" / "ckpt"
+    victim = subprocess.Popen(cmd, env=pod_env(
+        tmp, "victim", KFT_STEP_SLEEP=str(POD_STEP_SLEEP_S)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    deadline = time.time() + POD_TIMEOUT_S
+    while not (ckpt / "2").is_dir():
+        if victim.poll() is not None or time.time() > deadline:
+            victim.kill()
+            raise SystemExit("phase 8a: the victim pod ended or stalled "
+                             f"before step 2's checkpoint:\n"
+                             f"{victim.communicate()[1][-4000:]}")
+        time.sleep(0.02)
+    victim.send_signal(signal.SIGKILL)
+    victim.communicate(timeout=60)
+    killed_at = max(pod_losses(tmp, "victim"))
+    log(f"phase 8a: victim SIGKILLed after step {killed_at} (rc "
+        f"{victim.returncode}), checkpoints {sorted(p.name for p in ckpt.iterdir())}")
+
+    t0 = time.perf_counter()
+    restart = subprocess.run(cmd, env=pod_env(
+        tmp, "victim", KFT_STEP_SLEEP=str(POD_STEP_SLEEP_S)),
+        capture_output=True, text=True, timeout=POD_TIMEOUT_S)
+    log(f"phase 8a: restarted pod rc {restart.returncode} "
+        f"({time.perf_counter() - t0:.1f} s): {restart.stdout.strip()!r}")
+    if restart.returncode != 0:
+        raise SystemExit(f"phase 8a: the restart failed:\n"
+                         f"{restart.stderr[-4000:]}")
+    phases = json.loads((tmp / "victim" / "phases.0").read_text())
+    ref_phases = json.loads((tmp / "ref" / "phases.0").read_text())
+    depot = json.loads((tmp / "victim" / "phases.depot.0").read_text())
+    resumed = int(phases.get("resumed_from_step", -1))
+    stamps = ("proc_start", "imports_done", "rendezvous_done",
+              "state_init_done", "depot_hit", "compile_done",
+              "first_step_done")
+    missing = ([k for k in stamps + ("resumed_from_step", "restore_done")
+                if k not in phases]
+               + [f"ref:{k}" for k in stamps + (
+                   "profile_dir", "profile_start", "profile_done")
+                  if k not in ref_phases])
+    want, got = pod_losses(tmp, "ref"), pod_losses(tmp, "victim")
+    after = {s: (got.get(s), want.get(s))
+             for s in range(resumed + 1, POD_STEPS + 1)}
+    log(f"phase 8a: resumed_from_step {resumed}, depot {depot}, losses "
+        f"after the resume (restart, uninterrupted) {after!r}; stamps "
+        f"{sorted(phases)}; restart phases (s from proc_start) "
+        f"{ {k: round(v - phases['proc_start'], 3) for k, v in phases.items() if k.endswith('_done')} }; "
+        f"missing {missing}")
+    if not 2 <= resumed <= killed_at or missing \
+            or depot != {"compiles": 1, "serialize_failures": 1} \
+            or "depot=compiled" not in restart.stdout \
+            or f"resumed_from={resumed}" not in restart.stdout \
+            or any(a != b or a is None for a, b in after.values()):
+        raise SystemExit("phase 8a: the pod did not resume step-exact "
+                         "through its captured step")
+    return {"resumed_from": resumed, "depot": depot,
+            "losses_after_resume": after}
+
+
+def depot_serving(torch, tmp: Path) -> dict:
+    """Phase 8 (c): a serving replica under KFT_DEPOT on the card
+    (module docstring)."""
+    import dataclasses
+    import os
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import (
+        InferRequest, InferTensor, LLMModel,
+    )
+
+    cfg = dataclasses.replace(llama.llama_tiny(dtype=torch.float32), dim=256,
+                              mlp_dim=512)
+    params = llama.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+    prompt = [5, 6, 7, 8, 9, 10, 11, 12]
+    runs = {}
+    for tag, depot in (("plain", None), ("depot", tmp / "serving-depot")):
+        if depot is not None:
+            os.environ["KFT_DEPOT"] = str(depot)
+        try:
+            model = LLMModel("tiny", params, cfg, max_batch=4, max_seq=128,
+                             prefill_buckets=(16,), device="cuda")
+            model.load()
+        finally:
+            os.environ.pop("KFT_DEPOT", None)
+        try:
+            res = model.predict(InferRequest("tiny", [InferTensor(
+                "ids", [1, len(prompt)], "INT32", prompt)],
+                parameters={"max_tokens": 24, "temperature": 0.0}))
+            st = model.stats()
+        finally:
+            model.unload()
+        runs[tag] = {"tokens": res.as_numpy("tokens")[0].tolist(),
+                     "outcome": st["depot_outcome"],
+                     "depot": st.get("depot"),
+                     "replays": st["decode_graph"]["replays_total"]}
+    log(f"phase 8c: a replica loaded under KFT_DEPOT and one without: "
+        f"{runs!r}; the depot directory exists: "
+        f"{(tmp / 'serving-depot').exists()}")
+    plain, dep = runs["plain"], runs["depot"]
+    if dep["outcome"] != "compiled" or plain["outcome"] != "no_depot" \
+            or dep["depot"] != {"compiles": 1, "serialize_failures": 1} \
+            or plain["depot"] is not None or dep["tokens"] != plain["tokens"] \
+            or not (dep["replays"] and plain["replays"]) \
+            or (tmp / "serving-depot").exists():
+        raise SystemExit("phase 8c: a replica under KFT_DEPOT did not load, "
+                         "capture and serve as one without it")
+    del params
+    free_card(torch)
+    return runs
+
+
+def resume_phase(torch) -> dict:
+    """Phase 8: the training pod on the card (a) and llama_1b at full
+    width resumed into already-captured step graphs (b); module
+    docstring."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.training import (
+        Trainer, TrainerConfig, TokenDataset, lm_loss_fn, loop,
+        write_token_shards,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="kft-phase8-"))
+    disk0 = free_disk(tmp)
+    log(f"phase 8: {torch.cuda.memory_allocated()} B allocated at its "
+        f"start; scratch {tmp}, {disk0} B free")
+    try:
+        pod = pod_phase(torch, tmp)
+
+        # (b) the corpus: two shards of 1<<22 tokens, ids < 32768, seed 0
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        write_token_shards(str(tmp / "corpus"), (
+            rng.integers(0, 32768, 1 << 20, dtype=np.int32)
+            for _ in range(8)), shard_tokens=1 << 22, vocab_size=32768)
+        ds = TokenDataset(str(tmp / "corpus"), TRAIN_SEQ, seed=0)
+        log(f"phase 8b: corpus of {ds.n_windows} windows of "
+            f"{TRAIN_SEQ + 1} tokens in "
+            f"{sorted(p.name for p in (tmp / 'corpus').iterdir())} "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+        def batches(start):
+            return ds.batches(TRAIN_BATCH, start_step=start)
+
+        cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+        config = TrainerConfig(learning_rate=3e-4, warmup_steps=10,
+                               total_steps=1000, grad_accum=TRAIN_ACCUM,
+                               optimizer="adafactor")
+
+        def make_trainer():
+            trainer = Trainer(
+                lambda g: llama.init_params(g, cfg, device="cuda"),
+                lm_loss_fn(llama.forward, cfg), config, device="cuda")
+            trainer.init_state(torch.Generator(device="cuda").manual_seed(0))
+            return trainer
+
+        # fit's checkpoint managers and restores, recorded for the log
+        managers, restores = [], []
+        real_mgr, real_restore = loop.CheckpointManager, loop.restore_latest
+
+        class Recorded(real_mgr):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                managers.append(self)
+
+        def timed_restore(trainer, mgr):
+            t0 = time.perf_counter()
+            step = real_restore(trainer, mgr)
+            torch.cuda.synchronize()
+            restores.append(time.perf_counter() - t0)
+            return step
+
+        loop.CheckpointManager, loop.restore_latest = Recorded, timed_restore
+        try:
+            a = make_trainer()
+            run_a = train_run(torch, a, cfg, 4, precompile=True,
+                              batches=batches, tag="8b A",
+                              checkpoint_dir=str(tmp / "a"),
+                              checkpoint_every=2)
+            final_a = {n: t.detach().cpu() for n, t in _leaves(a.params)}
+            mgr_a = managers[-1]
+            ckpt_bytes = mgr_a.write_bytes[-1]
+            del a
+            free_card(torch)
+            shutil.rmtree(tmp / "a")
+
+            b = make_trainer()
+            run_b = train_run(torch, b, cfg, 2, precompile=True,
+                              batches=batches, tag="8b B",
+                              checkpoint_dir=str(tmp / "b"),
+                              checkpoint_every=2)
+            del b
+            free_card(torch)
+
+            c = make_trainer()
+            c.precompile(next(batches(0)))
+            before = {k: t.data_ptr() for k, t in c._state_tensors().items()}
+            run_c = train_run(torch, c, cfg, 4, precompile=False,
+                              batches=batches, tag="8b C (restored)",
+                              checkpoint_dir=str(tmp / "b"),
+                              checkpoint_every=2)
+            after = {k: t.data_ptr() for k, t in c._state_tensors().items()}
+            replays = c.step_graph.replays
+            differ = [n for n, t in _leaves(c.params)
+                      if not torch.equal(t.detach().cpu(), final_a[n])]
+            del c
+            free_card(torch)
+        finally:
+            loop.CheckpointManager, loop.restore_latest = real_mgr, \
+                real_restore
+        micro = TRAIN_ACCUM
+        per_step = {"flash_attention_fwd": 2 * cfg.n_layers * micro,
+                    "flash_attention_dq": cfg.n_layers * micro,
+                    "flash_attention_dkv": cfg.n_layers * micro}
+        want = {run: {k: n * v for k, v in per_step.items()}
+                for run, n in (("a", 4), ("b", 2), ("c", 2))}
+        launches = {"a": run_a["launches"], "b": run_b["launches"],
+                    "c": run_c["launches"]}
+        moved = sorted(k for k in before if before[k] != after.get(k))
+        log(f"phase 8b: A losses {run_a['losses']!r} grad norms "
+            f"{run_a['grad_norms']!r}; C (restored from B's step 2 into "
+            f"its captured graphs, resumed_from {run_c['resumed_from']}) "
+            f"losses {run_c['losses']!r} grad norms "
+            f"{run_c['grad_norms']!r}; parameters differing from A: "
+            f"{differ}; state tensors moved by the restore: {moved}; C's "
+            f"replays {replays}; flash launches {launches} (expected "
+            f"{want})")
+        if run_c["resumed_from"] != 2 or replays != 2 or moved or differ \
+                or run_c["losses"] != run_a["losses"][2:] \
+                or run_c["grad_norms"] != run_a["grad_norms"][2:] \
+                or launches != want:
+            raise SystemExit("phase 8b: the restored, replayed run is not "
+                             "bitwise the uninterrupted one")
+        served = depot_serving(torch, tmp)
+        saves = [s for m in managers for s in m.save_seconds]
+        writes = [(w, n) for m in managers
+                  for w, n in zip(m.write_seconds, m.write_bytes)]
+        out = {
+            "launches": {k: sum(launches[r][k] for r in launches)
+                         for k in per_step},
+            "ckpt_bytes": ckpt_bytes, "save_s": saves,
+            "write_s": [w for w, _ in writes],
+            "write_gb_s": [n / w / 1e9 for w, n in writes],
+            "restore_s": restores, "step_s": run_a["step_s"],
+            "step_times_a": run_a["times"],
+            "peak_bytes": max(r["peak_bytes"] for r in (run_a, run_b, run_c)),
+            "peak_reserved_bytes": max(r["peak_reserved_bytes"]
+                                       for r in (run_a, run_b, run_c)),
+            "pod": pod, "served": served,
+        }
+        log(f"phase 8b: checkpoint {ckpt_bytes} B; save (blocking "
+            f"device-to-host copy) {saves!r} s against the replayed step "
+            f"{run_a['step_s']!r} s (A's step times {run_a['times']!r}, "
+            f"saves after steps 2 and 4); background write {out['write_s']!r} "
+            f"s, {out['write_gb_s']!r} GB/s; restore {restores!r} s; peak "
+            f"memory {out['peak_bytes']} B allocated, "
+            f"{out['peak_reserved_bytes']} B reserved ({nvidia_smi_line()})")
+    finally:
+        disk1 = free_disk(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"phase 8: free disk {disk0} B before, {disk1} B at the end "
+            f"(before removing {tmp}), {free_disk(tmp.parent)} B after")
+    log(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
@@ -2793,6 +3175,7 @@ def main() -> int:
     flash_t = flash_timing(torch)
     trained = training(torch)
     moe_trained = moe_training(torch)
+    resumed = resume_phase(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -2841,9 +3224,11 @@ def main() -> int:
             "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
             "replaces": f"kubeflow_tpu/ops/pallas_attention.py:{line}",
             "launches": (trained["launches"][name]
-                         + moe_trained["launches"][name]),
+                         + moe_trained["launches"][name]
+                         + resumed["launches"][name]),
             "launches_by_phase": {"7": trained["launches"][name],
-                                  "7m": moe_trained["launches"][name]},
+                                  "7m": moe_trained["launches"][name],
+                                  "8": resumed["launches"][name]},
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

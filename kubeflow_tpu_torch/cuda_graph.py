@@ -36,10 +36,6 @@ import torch
 # second runs warm
 WARMUP_RUNS = 2
 
-DEPOT_STORE = ("the executable depot's cross-process store is a later slice "
-               "of the PyTorch port (ROADMAP queue 1 item 6.4): a CUDA graph "
-               "cannot be serialized to another process")
-
 
 class PinnedStaging:
     """A static ``[numel]`` tensor of ``dtype`` on ``device`` (``staged``)

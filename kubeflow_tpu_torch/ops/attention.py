@@ -27,7 +27,9 @@ def _xla_attention(q, k, v, *, causal: bool, q_offset=0, bias=None):
     """Einsum attention: softmax in float32, mask value -1e30, output in
     q's dtype. ``q_offset`` is a Python int / 0-d tensor (every row shares
     one offset: prefill, chunked prefill) or a [B] tensor (per-slot
-    offsets)."""
+    offsets). A Python int offset is added on the device as a scalar: no
+    host tensor is copied, so a CUDA graph can capture this path (the
+    training step with ``attn_impl="xla"``)."""
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
     groups = h // kvh
@@ -39,8 +41,11 @@ def _xla_attention(q, k, v, *, causal: bool, q_offset=0, bias=None):
     if bias is not None:
         logits = logits + bias
     if causal:
-        off = torch.as_tensor(q_offset, device=q.device).reshape(-1)
-        q_pos = torch.arange(sq, device=q.device)[None, :] + off[:, None]
+        q_pos = torch.arange(sq, device=q.device)[None, :]
+        if isinstance(q_offset, torch.Tensor):
+            q_pos = q_pos + q_offset.to(q.device).reshape(-1)[:, None]
+        else:
+            q_pos = q_pos + int(q_offset)
         kv_pos = torch.arange(skv, device=q.device)
         mask = q_pos[:, :, None] >= kv_pos[None, None, :]  # [B|1, Sq, Skv]
         logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)

@@ -1,6 +1,7 @@
 """Parallelism of the PyTorch port (counterpart of
 ``kubeflow_tpu.parallel``): the tensor-parallel mesh and the
-logical-axis sharding rules. Other axes are a later slice."""
+logical-axis sharding rules; ``parallel.depot`` holds the executable
+depot's env contract. Other axes are a later slice."""
 
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_ORDER, TensorMesh, mesh_from_topology_env, parse_topology_env,

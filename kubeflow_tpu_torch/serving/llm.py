@@ -54,10 +54,15 @@ where JAX would run that program (an all-greedy batch and a full
 request in the batch, a chunk trimmed by the scheduler). Verify
 dispatches stay eager.
 
+Under an executable depot (``KFT_DEPOT``) ``precompile`` captures as
+without one: a CUDA graph cannot be serialized to another process, so the
+outcome is the reference's for a program it cannot serialize,
+``"compiled"``, counted (``parallel/depot.local_capture``).
+
 Not in this slice (each raises or is absent, never quietly different):
-the executable depot's cross-process store and capture of the prefill
-tier's chunked-prefill program or under a mesh (``precompile`` raises
-``GRAPH_SLICE``), meshes over axes other than ``tensor``, and
+capture of the prefill tier's chunked-prefill program or under a mesh
+(``precompile`` raises ``GRAPH_SLICE``), meshes over axes other than
+``tensor``, and
 disaggregated serving under a tensor mesh (a rank's pool holds only its
 KV heads: hold, export and inject raise ``DISAGG_SLICE``).
 """
@@ -74,7 +79,6 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.cuda_graph import DEPOT_STORE
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
 from kubeflow_tpu_torch.obs import trace as obs_trace
@@ -82,6 +86,7 @@ from kubeflow_tpu_torch.obs.histogram import Histogram, log_buckets
 from kubeflow_tpu_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_quant,
 )
+from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.mesh import tensor_parallel
 from kubeflow_tpu_torch.parallel.sharding import (
     shard_tree, validate_divisibility,
@@ -120,7 +125,6 @@ GRAPH_SLICE = {
              "port (ROADMAP queue 1 item 6.3)"),
     "prefill": ("capture of the prefill tier's chunked-prefill program is a "
                 "later slice of the PyTorch port (ROADMAP queue 1 item 6.2)"),
-    "depot": DEPOT_STORE,
 }
 
 # downgrade reasons already logged this process: counted per engine
@@ -667,16 +671,17 @@ class LLMEngine:
         the warm-up's writes land in the scratch block 0 alone
         (serving/decode_graph.DecodeGraph). From then on every dispatch
         of an all-greedy batch over a full chunk replays it. Returns
-        "no_depot" (JAX's outcome without a depot), also kept as
-        ``self.depot_outcome``; ``stats`` and ``wait_s`` are the depot's
-        and unused.
+        "no_depot" (JAX's outcome without a depot) or, with a ``depot``,
+        "compiled" with ``stats`` counting the capture and its
+        serialize failure (``parallel/depot.local_capture``: the graph
+        never leaves this process), also kept as
+        ``self.depot_outcome``; ``wait_s`` is unused (no publish to wait
+        for).
 
-        Raises NotImplementedError naming the later slice for a
-        ``depot``, for ``tier="prefill"`` and under a mesh (``GRAPH_SLICE``),
-        ValueError on a CPU engine (there is no graph and no stand-in),
-        and RuntimeError when the engine is not idle."""
-        if depot is not None:
-            raise NotImplementedError(GRAPH_SLICE["depot"])
+        Raises NotImplementedError naming the later slice for
+        ``tier="prefill"`` and under a mesh (``GRAPH_SLICE``), ValueError
+        on a CPU engine (there is no graph and no stand-in), and
+        RuntimeError when the engine is not idle."""
         if tier == "prefill":
             raise NotImplementedError(GRAPH_SLICE["prefill"])
         if self.mesh is not None:
@@ -700,7 +705,7 @@ class LLMEngine:
                 self.cache,
                 (paged_decode_attention, paged_decode_attention_quant),
                 self.device)
-        self.depot_outcome = "no_depot"
+        self.depot_outcome = local_capture(depot, stats)
         return self.depot_outcome
 
     def validate_prompt(self, prompt: Sequence[int],

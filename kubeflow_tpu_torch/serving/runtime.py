@@ -39,10 +39,16 @@ initializer step and exits. The env contract is the JAX runtime's:
   KFT_KV_BIND       decode tier: host:port of the paged-KV migration
                      listener (default 127.0.0.1:0; the bound address is
                      printed and rides stats()["disagg"]["kv_addr"])
+  KFT_DEPOT         the executable depot: on a card LLMModel.load()
+                     captures as without it and reports the reference's
+                     outcome for a program it cannot serialize,
+                     "compiled", with its counters in stats()["depot"]
+                     (a CUDA graph never leaves its process); where
+                     nothing is captured it changes nothing
 
-KFT_DEPOT, KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong to later
-slices of the port: when one is set the runtime raises, naming the slice,
-instead of ignoring it.
+KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong to later slices of
+the port: when one is set the runtime raises, naming the slice, instead
+of ignoring it.
 """
 
 from __future__ import annotations
@@ -64,9 +70,6 @@ from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
 
 LATER_SLICES = {
-    "KFT_DEPOT": ("the executable depot's cross-process store (a CUDA "
-                  "graph cannot be serialized to another process; ROADMAP "
-                  "queue 1 item 6.4)"),
     "KFT_MODELS_CONFIG_DIR": "multi-model serving (model puller)",
     "KFT_V2_SOCKET_BIND": "the binary V2 socket data plane",
 }

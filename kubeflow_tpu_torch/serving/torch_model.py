@@ -18,13 +18,19 @@ On a card, ``load()`` captures the engine's steady-state decode program
 as a CUDA graph (``LLMEngine.precompile``), where the JAX model
 precompiles through its depot: without a mesh and not on a prefill
 tier, whose steady-state program is chunked prefill. A capture that
-fails fails the load. The executable depot's store, capture under a
-mesh or of the prefill tier's program, and meshes over other axes
-belong to later slices.
+fails fails the load. With ``KFT_DEPOT`` set, as the JAX model does,
+``load()`` names the depot (``parallel/depot.depot_from_env``) and hands
+it to that capture, which stays local (a CUDA graph cannot be serialized
+to another process): ``stats()`` reports ``depot_outcome`` "compiled"
+and the counters under ``depot``. Where the port does not capture (the
+CPU, a mesh, the prefill tier), ``KFT_DEPOT`` changes nothing. Capture
+under a mesh or of the prefill tier's program, and meshes over other
+axes, belong to later slices.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Optional, Sequence
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import DeviceLike
+from kubeflow_tpu_torch.parallel.depot import DepotStats, depot_from_env
 from kubeflow_tpu_torch.serving.llm import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serving.model import Model
 from kubeflow_tpu_torch.serving.protocol import InferRequest, InferResponse
@@ -138,6 +145,7 @@ class LLMModel(Model):
         # engine build and decode-program capture seconds (stats())
         self.load_seconds: Optional[float] = None
         self.precompile_seconds: Optional[float] = None
+        self._depot_stats: Optional[DepotStats] = None
         self._wake = threading.Condition()
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
@@ -188,7 +196,12 @@ class LLMModel(Model):
         # the capture happens here, before any request can wait on it
         if (self.engine.device.type == "cuda" and self.mesh is None
                 and self.tier != "prefill"):
-            self.engine.precompile(tier=self.tier)
+            depot = None
+            if os.environ.get("KFT_DEPOT"):
+                self._depot_stats = DepotStats()
+                depot = depot_from_env(stats=self._depot_stats)
+            self.engine.precompile(depot=depot, stats=self._depot_stats,
+                                   tier=self.tier)
             self.precompile_seconds = round(time.perf_counter() - t1, 3)
         self._shutdown = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -294,10 +307,13 @@ class LLMModel(Model):
         if self.load_seconds is not None:
             # engine build vs decode-program capture (the JAX model's
             # replica-add decomposition); "none" where nothing was
-            # captured, "no_depot" after a capture
+            # captured, "no_depot" after a capture, "compiled" after one
+            # under KFT_DEPOT (with the depot's counters)
             out["load_seconds"] = self.load_seconds
             out["precompile_seconds"] = self.precompile_seconds
             out["depot_outcome"] = eng.depot_outcome or "none"
+            if self._depot_stats is not None:
+                out["depot"] = self._depot_stats.snapshot()
         if eng.decode_graph is not None:
             g = eng.decode_graph
             out["decode_graph"] = {"capture_seconds": g.capture_seconds,

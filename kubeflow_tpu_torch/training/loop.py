@@ -1,29 +1,32 @@
 """High-level training loop (counterpart of
-``kubeflow_tpu.training.loop``): metrics export, heartbeats and the
-profiler toggle around ``Trainer.train_step``.
+``kubeflow_tpu.training.loop``): checkpoint auto-resume, metrics export,
+heartbeats and the profiler toggle around ``Trainer.train_step``.
+
+Every run is restore-latest -> train -> periodic save: a restarted job
+resumes where it left off, step-exact (``restore_latest`` writes the
+saved state into the trainer's own tensors, so a step already captured
+as CUDA graphs trains the restored state at its next replay).
 
 ``KFT_PROFILE_DIR`` / ``KFT_PROFILE_STEPS`` drive ``torch.profiler`` (CPU
 and, on a card, CUDA activity) where the JAX loop drives
 ``jax.profiler``; the window's trace lands in the directory as a Chrome
-trace. Checkpoint save and restore (``checkpoint_dir``,
-``already_resumed``) are a later slice of the port and raise.
+trace.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import time
 from typing import Any, Callable, Iterable, Optional
 
 import torch
 
+from kubeflow_tpu_torch.training import optim
+from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.training.metrics import MetricsWriter
 from kubeflow_tpu_torch.training.trainer import Trainer
-
-CHECKPOINT_SLICE = ("checkpoint save/restore is a later slice of the "
-                    "PyTorch port (ROADMAP queue 1 item 8: "
-                    "training/checkpoint.py)")
 
 
 @dataclasses.dataclass
@@ -161,6 +164,50 @@ def profile_from_env(env=None) -> tuple[Optional[str],
     return profile_dir, steps
 
 
+def _train_state(trainer: Trainer) -> dict:
+    return {"params": trainer.params, "opt_state": trainer.opt_state}
+
+
+def restore_latest(trainer: Trainer, mgr: CheckpointManager):
+    """Restore the newest checkpoint of ``mgr`` into ``trainer`` and
+    return its step, or None when there is none. Shared by ``fit`` and
+    by a worker that restores before it captures its step.
+
+    The saved parameters and optimizer state (its device-side counts
+    included, which drive the device-side schedule) are COPIED into the
+    trainer's existing tensors, never bound in their place: a trainer
+    that was ``precompile``d holds graphs over those addresses, and a
+    rebinding restore would leave every later replay training the stale
+    state with no error. So restore-then-precompile and
+    precompile-then-restore give the same steps. The gradient
+    accumulators and the step's sums are zeroed at every step and are
+    not saved."""
+    if trainer.params is None:
+        raise ValueError("restore_latest needs init_state() first")
+    latest = mgr.latest_step()
+    if latest is None:
+        return None
+    _, state = mgr.restore(latest)
+    saved = optim.named_leaves(state)
+    live = optim.named_leaves(_train_state(trainer))
+    if saved.keys() != live.keys():
+        raise ValueError(
+            f"checkpoint step {latest} holds leaves "
+            f"{sorted(saved.keys() ^ live.keys())} the trainer does not, or "
+            "the other way round")
+    for name, dst in live.items():
+        src = saved[name]
+        if src.shape != dst.shape or src.dtype != dst.dtype:
+            raise ValueError(
+                f"checkpoint step {latest}: {name} is {tuple(src.shape)} "
+                f"{src.dtype}, the trainer's {tuple(dst.shape)} {dst.dtype}")
+    with torch.no_grad():
+        for name, dst in live.items():
+            dst.copy_(saved[name])
+    trainer.step = latest
+    return latest
+
+
 def _start_profiler(device: torch.device):
     from torch.profiler import ProfilerActivity, profile
 
@@ -191,6 +238,8 @@ def fit(
     generator: Optional[torch.Generator] = None,
     max_steps: int,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 100,
+    checkpoint_mirror: Optional[str] = None,
     metrics: Optional[MetricsWriter] = None,
     metrics_every: int = 10,
     heartbeat: Optional[Heartbeat] = None,
@@ -199,19 +248,30 @@ def fit(
     on_step: Optional[Callable[[int, dict], None]] = None,
     already_resumed: Optional[int] = None,
 ) -> FitResult:
-    """Run ``trainer`` up to ``max_steps``.
+    """Run ``trainer`` up to ``max_steps`` with auto-resume.
 
-    ``batches`` is a callable ``(start_step) -> iterator`` or a plain
-    iterable. The state is initialised from ``generator`` unless the
-    caller already did. A trainer whose step was ``precompile``d replays
-    its captured graphs at every step (``Trainer.train_step``); the
-    profiler window then sees the kernels the replays run. Heartbeats and
-    the profiler window follow the pod env (KFT_HEARTBEAT_FILE,
-    KFT_PROFILE_DIR, KFT_PROFILE_STEPS) where the arguments leave them
-    unset.
+    The state is initialised from ``generator`` unless the caller already
+    did. If ``checkpoint_dir`` holds a checkpoint, it is restored
+    (``restore_latest``) and training continues from the saved step;
+    every ``checkpoint_every`` steps and at the end the state is saved
+    there (and replicated to ``checkpoint_mirror`` or
+    KFT_CHECKPOINT_MIRROR). Data resumes deterministically: ``batches``
+    is a callable ``(start_step) -> iterator`` (preferred: a
+    step-indexed dataset seeks), or a plain iterable whose first
+    ``resumed_from`` batches are skipped.
+
+    ``already_resumed`` says the caller restored the checkpoint itself
+    (a worker that restores before it captures its step): fit skips its
+    own restore but still performs the resume handshake, an immediate
+    heartbeat at the takeover step.
+
+    A trainer whose step was ``precompile``d replays its captured graphs
+    at every step (``Trainer.train_step``); the profiler window then
+    sees the kernels the replays run. Heartbeats and the profiler window
+    follow the pod env (KFT_HEARTBEAT_FILE, KFT_PROFILE_DIR,
+    KFT_PROFILE_STEPS) where the arguments leave them unset. A mirror
+    that fails is counted as ``ckpt_mirror_errors`` in the metrics.
     """
-    if checkpoint_dir or already_resumed is not None:
-        raise NotImplementedError(CHECKPOINT_SLICE)
     own_heartbeat = heartbeat is None \
         and bool(os.environ.get("KFT_HEARTBEAT_FILE"))
     if own_heartbeat:
@@ -224,8 +284,24 @@ def fit(
 
     if trainer.params is None:
         trainer.init_state(generator)
+    resumed_from = already_resumed
+    mgr = None
+    if checkpoint_dir:
+        mgr = CheckpointManager(
+            checkpoint_dir,
+            mirror=checkpoint_mirror
+            or os.environ.get("KFT_CHECKPOINT_MIRROR") or None)
+        if already_resumed is None:
+            resumed_from = restore_latest(trainer, mgr)
+    if resumed_from is not None and heartbeat is not None:
+        # resume handshake: the takeover step, before the first
+        # post-resume step completes
+        heartbeat.beat(resumed_from)
+
     if callable(batches):
         batches = batches(trainer.step)
+    elif resumed_from:
+        batches = itertools.islice(iter(batches), resumed_from, None)
 
     prof = None
     profile_info: Optional[dict] = None
@@ -245,20 +321,32 @@ def fit(
 
             last = {k: float(v) for k, v in m.items()
                     if hasattr(v, "__float__")}
+            if mgr is not None and mgr.mirror_errors:
+                last["ckpt_mirror_errors"] = float(mgr.mirror_errors)
             if metrics is not None and trainer.step % metrics_every == 0:
                 metrics.write(trainer.step, **last)
             if heartbeat is not None:
                 heartbeat.beat(trainer.step)
+            if mgr is not None and trainer.step % checkpoint_every == 0:
+                mgr.save(trainer.step, _train_state(trainer))
             if on_step is not None:
                 on_step(trainer.step, last)
+        if mgr is not None:
+            # the final save, unless this step is already on disk (the
+            # in-loop save took it, or a resumed run trained 0 steps)
+            if mgr.latest_step() != trainer.step:
+                mgr.save(trainer.step, _train_state(trainer), force=True)
+            mgr.wait()
     finally:
         if prof is not None:
             _stop_profiler(prof, profile_info, trainer.device)
         if own_heartbeat:
             heartbeat.close()
+        if mgr is not None:
+            mgr.close()         # a pending write finishes either way
     if metrics is not None and last:
         metrics.write(trainer.step, **last)
-    return FitResult(final_step=trainer.step, resumed_from=None,
+    return FitResult(final_step=trainer.step, resumed_from=resumed_from,
                      last_metrics=last,
                      profile=(profile_info
                               if profile_info and "t_stop" in profile_info

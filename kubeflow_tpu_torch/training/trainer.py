@@ -22,10 +22,10 @@ from typing import Any, Callable, Mapping, Optional
 
 import torch
 
-from kubeflow_tpu_torch.cuda_graph import DEPOT_STORE
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops import flash_attention
 from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
+from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
 from kubeflow_tpu_torch.training.step_graph import StepGraph
@@ -260,9 +260,12 @@ class Trainer:
         for those shapes). From then on ``train_step`` replays them, and
         refuses a batch of other shapes. The warm-up trains, and is
         undone: the state is left bitwise as it was. Returns "no_depot"
-        (JAX's outcome without a depot), also kept as
-        ``self.depot_outcome``; ``stats`` and ``wait_s`` are the depot's
-        and unused. The capture's seconds, pool bytes and replays are on
+        (JAX's outcome without a depot) or, with a ``depot``, "compiled"
+        with ``stats`` counting the capture and its serialize failure
+        (``parallel/depot.local_capture``: the graphs never leave this
+        process), also kept as ``self.depot_outcome``; ``wait_s`` is
+        unused (no publish to wait for). The capture's seconds, pool
+        bytes and replays are on
         ``self.step_graph``. No autograd graph that reaches the
         parameters may be alive when it runs (a tensor computed from them
         with gradients recorded, such as a kept loss): it holds their
@@ -270,12 +273,9 @@ class Trainer:
         the capture cannot depend on that stream.
 
         Raises ValueError before ``init_state`` (JAX's check) and on a
-        CPU trainer (there is no graph and no stand-in), and
-        NotImplementedError naming the later slice for a ``depot``."""
+        CPU trainer (there is no graph and no stand-in)."""
         if self.params is None:
             raise ValueError("precompile needs init_state() first")
-        if depot is not None:
-            raise NotImplementedError(DEPOT_STORE)
         if self.device.type != "cuda":
             raise ValueError(f"precompile captures the training step as "
                              f"CUDA graphs; this trainer runs on "
@@ -285,7 +285,7 @@ class Trainer:
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
             self.config.grad_accum, _COUNTERS, self.device)
-        self.depot_outcome = "no_depot"
+        self.depot_outcome = local_capture(depot, stats)
         return self.depot_outcome
 
     def lower_step(self, *args, **kwargs):

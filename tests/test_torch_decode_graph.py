@@ -220,9 +220,17 @@ def test_precompile_contract_on_the_cpu(tiny):
 
 @pytest.mark.parametrize("case", ["depot", "prefill", "mesh"])
 def test_precompile_raises_naming_its_slice(tiny, case):
-    """A depot, the prefill tier's program and a tensor mesh are later
-    slices: NotImplementedError naming each, before anything is staged.
-    The mesh engine is rank 1's (its own shard, no ranks spawned)."""
+    """The prefill tier's program and a tensor mesh are later slices:
+    NotImplementedError naming each, before anything is staged. The mesh
+    engine is rank 1's (its own shard, no ranks spawned). A depot is no
+    longer a later slice: a CPU engine given one raises the CPU's
+    ValueError as without it, counting nothing, and on a card the
+    capture stays local with the reference's outcome for a program it
+    cannot serialize (``parallel/depot.local_capture``: "compiled",
+    ``compiles`` and ``serialize_failures`` 1 each)."""
+    from kubeflow_tpu_torch.parallel.depot import (
+        DepotStats, depot_from_env, local_capture,
+    )
     from kubeflow_tpu_torch.serving.llm import GRAPH_SLICE
 
     _, _, tcfg, tp = tiny
@@ -232,8 +240,19 @@ def test_precompile_raises_naming_its_slice(tiny, case):
         mesh.rank = 1
     eng = LLMEngine(tp, tcfg, device="cpu" if mesh is None else None,
                     max_seq=64, prefill_buckets=(8,), mesh=mesh)
-    kw = {"depot": dict(depot=object()), "prefill": dict(tier="prefill"),
-          "mesh": {}}[case]
+    if case == "depot":
+        assert "depot" not in GRAPH_SLICE
+        stats = DepotStats()
+        depot = depot_from_env({"KFT_DEPOT": "/nonexistent/depot"})
+        with pytest.raises(ValueError, match="CUDA graph"):
+            eng.precompile(depot=depot, stats=stats)
+        assert stats.snapshot() == {} and eng.depot_outcome is None
+        assert local_capture(depot, stats) == "compiled"
+        assert stats.snapshot() == {"compiles": 1, "serialize_failures": 1}
+        assert local_capture(None, stats) == "no_depot"
+        assert eng.decode_graph is None
+        return
+    kw = {"prefill": dict(tier="prefill"), "mesh": {}}[case]
     with pytest.raises(NotImplementedError) as err:
         eng.precompile(**kw)
     assert str(err.value) == GRAPH_SLICE[case]

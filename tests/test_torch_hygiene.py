@@ -54,6 +54,12 @@ def test_no_jax_or_reference_imports_in_source():
 
 def test_importing_every_port_module_loads_no_jax():
     mods = [m for _, m in _port_modules()] + ["chip_smoke"]
+    assert {"kubeflow_tpu_torch.rendezvous",
+            "kubeflow_tpu_torch.rendezvous.bootstrap",
+            "kubeflow_tpu_torch.rendezvous.worker_check",
+            "kubeflow_tpu_torch.training.dataset",
+            "kubeflow_tpu_torch.training.checkpoint",
+            "kubeflow_tpu_torch.parallel.depot"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -70,9 +76,12 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-def test_entry_points_raise_without_gpu_unless_cpu_asked(no_cuda, tmp_path):
+def test_entry_points_raise_without_gpu_unless_cpu_asked(
+        no_cuda, tmp_path, monkeypatch):
+    from kubeflow_tpu_torch import training
     from kubeflow_tpu_torch.device import resolve_device
     from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.rendezvous import bootstrap, worker_check
     from kubeflow_tpu_torch.serving.llm import LLMEngine, SamplingParams
     from kubeflow_tpu_torch.serving.runtime import build_model_from_env
     from kubeflow_tpu_torch.serving.torch_model import LLMModel
@@ -91,6 +100,23 @@ def test_entry_points_raise_without_gpu_unless_cpu_asked(no_cuda, tmp_path):
         LLMModel("m", params, cfg, **kw).load()
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model_from_env({"KFT_MODEL_DIR": str(tmp_path)})
+    # the training pod: its bootstrap, its entry point and its trainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bootstrap.initialize({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        training.Trainer(lambda g: llama.init_params(g, cfg, device="cpu"),
+                         training.lm_loss_fn(llama.forward, cfg),
+                         training.TrainerConfig())
+    for key in ("KFT_FORCE_PLATFORM", "KFT_TRAIN_STEPS", "KFT_PHASES_PATH",
+                "KFT_METRICS_PATH", "KFT_MESH", "KFT_NUM_PROCESSES",
+                "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        worker_check.main()
+    world, dev = bootstrap.initialize({"KFT_FORCE_PLATFORM": "cpu"})
+    assert dev.type == "cpu" and world.num_processes == 1
+    monkeypatch.setenv("KFT_FORCE_PLATFORM", "cpu")
+    assert worker_check.main() == 0
     # asking for the CPU is the one way to run there
     eng = LLMEngine(params, cfg, device="cpu", **kw)
     assert eng.device.type == "cpu" and eng.cache["k"].device.type == "cpu"

@@ -463,9 +463,34 @@ def test_runtime_raises_for_later_slices(tmp_path, key):
     """KFT_MESH: the tensor axis is served now (tests/test_torch_tp.py);
     a mesh over another axis is the later slice that raises. KFT_TIER:
     disaggregated serving is served now (tests/test_torch_disagg.py);
-    a tier under a tensor mesh is the later slice that raises."""
+    a tier under a tensor mesh is the later slice that raises.
+    KFT_DEPOT no longer raises: the depot is a fast path that never
+    fails a load (the reference's rule), and on the CPU, where nothing
+    is captured, it changes nothing: the runtime loads and serves, the
+    depot is never touched and the outcome stays "none"."""
     from kubeflow_tpu_torch.serving.runtime import build_model_from_env
 
+    if key == "KFT_DEPOT":
+        from kubeflow_tpu_torch.serving import InferRequest, InferTensor
+
+        depot = tmp_path / "depot"
+        model = build_model_from_env({
+            "KFT_MODEL_NAME": "tiny", "KFT_DTYPE": "float32",
+            "KFT_MODEL_DIR": _fixture_checkpoint(tmp_path),
+            "KFT_MAX_SEQ": "64", "KFT_FORCE_PLATFORM": "cpu",
+            "KFT_DEPOT": str(depot)})
+        model.load()
+        try:
+            out = model.predict(InferRequest(
+                "tiny", [InferTensor("text", [1], "BYTES", ["hello"])],
+                parameters={"max_tokens": 3}))
+            assert int(out.as_numpy("lengths")[0]) == 3
+            st = model.stats()
+            assert st["depot_outcome"] == "none" and "depot" not in st
+        finally:
+            model.unload()
+        assert not depot.exists()
+        return
     env = {"KFT_MODEL_DIR": str(tmp_path), "KFT_FORCE_PLATFORM": "cpu",
            key: "data=2,tensor=2" if key == "KFT_MESH" else "x"}
     if key == "KFT_TIER":

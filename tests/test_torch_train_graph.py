@@ -173,15 +173,22 @@ def test_jax_precompiled_steps_match_the_static_body():
 
 def test_precompile_contract_on_the_cpu():
     """JAX's check before ``init_state``; a CPU trainer has no graph (and
-    no stand-in); a depot and ``lower_step`` name their later slices;
-    an eager trainer takes batches of any shape."""
+    no stand-in), with a depot as without one (a depot is no longer a
+    later slice: on a card the capture stays local and its outcome is
+    "compiled", tests/test_torch_decode_graph.py); ``lower_step`` names
+    its later slice; an eager trainer takes batches of any shape."""
+    from kubeflow_tpu_torch.parallel.depot import DepotStats, depot_from_env
+
     tr, cfg = _trainer("adamw", 2, dtype=torch.float32)
     batch = {"tokens": np.zeros((4, 9), np.int32)}
     with pytest.raises(ValueError, match="precompile needs init_state"):
         tr.precompile(batch)
     tr.init_state(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6.4"):
-        tr.precompile(batch, depot=object())
+    stats = DepotStats()
+    with pytest.raises(ValueError, match="CUDA graphs"):
+        tr.precompile(batch, depot=depot_from_env({"KFT_DEPOT": "/d"}),
+                      stats=stats)
+    assert stats.snapshot() == {} and tr.depot_outcome is None
     with pytest.raises(ValueError, match="CUDA graphs"):
         tr.precompile(batch)
     with pytest.raises(NotImplementedError, match="queue 1 item 8.11"):

@@ -384,10 +384,17 @@ def test_profile_from_env_malformed_is_off():
         ("/x", (2, 4))
 
 
-def test_unported_training_paths_raise_naming_their_slice():
+def test_unported_training_paths_raise_naming_their_slice(tmp_path):
     trainer, cfg = _tiny_trainer()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        t_loop.fit(trainer, [], max_steps=1, checkpoint_dir="/tmp/x")
+    # checkpoints are ported (tests/test_torch_checkpoint.py): a fit over
+    # no batches saves its step 0, and the next fit resumes from it
+    saver, _ = _tiny_trainer()
+    r = t_loop.fit(saver, [], max_steps=1, checkpoint_dir=str(tmp_path))
+    assert r.final_step == 0 and r.resumed_from is None
+    assert sorted(os.listdir(tmp_path)) == ["0"]
+    again, _ = _tiny_trainer()
+    assert t_loop.fit(again, [], max_steps=1,
+                      checkpoint_dir=str(tmp_path)).resumed_from == 0
     with pytest.raises(ValueError, match="precompile needs init_state"):
         trainer.precompile({})
     # MoE losses are ported (tests/test_torch_moe.py): the loss function
