@@ -263,8 +263,44 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              depot directory, and serves the same greedy tokens as a
              replica loaded without it, both through replays.
 
+9. training across processes — (a) the phase 8 pod as a two-process
+             world (KFT_NUM_PROCESSES=2, a free localhost port), once
+             with KFT_MESH=data=2 and once with the default (fsdp=2),
+             side by side: an uninterrupted world, a victim paced by
+             KFT_STEP_SLEEP and SIGKILLed (both processes) once step 2's
+             checkpoint exists, and a restart. Checks the restart's
+             resumed_from_step >= 2 and its losses after the resume
+             bitwise the uninterrupted world's, and logs the backend each
+             world chose and why. (b) llama_1b in phase 7's
+             configuration (remat dots, attn_impl pallas, adafactor,
+             global batch 32 x 2048 in 16 micro batches of 2 rows) over
+             two processes (tools/world_train), each feeding its own 16
+             rows (ragged loss masks whose density differs by rank) in
+             8 micro batches, as data=2 and as fsdp=2 in one world: per
+             layout an eager run of 3 steps, then a fresh trainer
+             precompile()d and replayed 3 steps; every rank's replayed
+             losses, grad norms and parameters must be bitwise its eager
+             run's, both ranks' metrics equal, and the flash launches per
+             rank 8 micro batches x (2 x 16 forward, 16 dQ, 16 dK/dV) a
+             step. After the world exits, a one-process trainer from the
+             same seed (grad_accum 16) replays 3 steps on the
+             concatenated batches; the world's losses and grad norms must
+             be within WORLD_LOSS_RTOL / WORLD_NORM_RTOL of it (limits
+             between the sound reading and planted faults). Logs per
+             rank the step's seconds, its host-staged collectives
+             (device-to-host, gloo, host-to-device seconds and bytes) and
+             peak memory, the memory still allocated after the steps,
+             and each layout's state kept per rank (Trainer.state_bytes:
+             the whole parameters and gradients under both layouts,
+             fsdp keeping its part of the optimizer state). Checks after
+             every run that state_bytes counts every tensor the trainer
+             reaches and all but WORLD_UNCOUNTED_MAX of the memory the
+             run added, and that an fsdp rank keeps less than a data
+             rank. Two cards or more give each rank its own card and
+             NCCL; one card, gloo.
+
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
-7, 7m, 8.
+7, 7m, 8, 9.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -415,6 +451,32 @@ MOE_RMS_FAULT = 0.4958
 POD_STEPS = 6
 POD_STEP_SLEEP_S = 0.5
 POD_TIMEOUT_S = 300
+# phase 9: two training processes, each with half the global batch in
+# phase 7's micro batches (so WORLD_ACCUM a rank, TRAIN_ACCUM in all).
+# Phase 9 (b)'s limits on the largest relative difference of the world's
+# losses and grad norms (3 steps, every rank) from the one-process
+# trainer on the concatenated batches. Both sides run the same micro
+# batches through the same kernels; they differ in the order of the f32
+# sums (per rank, then across ranks; under fsdp the norm's squares per
+# part). Read on one H100, two ranks over gloo: sound 8.74e-8 (loss, one
+# f32 ulp of 10.9) and 2.56e-6 (grad norm, fsdp); planted faults (data):
+# rank 1's gradients dropped 6.73e-6 / 0.360, micro batches averaged
+# without token weights 1.84e-4 / 0.0844. Each limit is the geometric
+# mean of the sound reading and the nearest fault (see PERF.md)
+WORLD = 2
+WORLD_ACCUM = TRAIN_ACCUM // WORLD
+WORLD_LOSS_RTOL = 7.7e-7
+WORLD_NORM_RTOL = 4.6e-4
+# phase 9 (b): after a rank's steps, the device memory the run added
+# (allocated after the steps less allocated before its trainer was made)
+# may exceed what Trainer.state_bytes counts by at most this much:
+# buffers the libraries keep, not the trainer. Read on one H100, two
+# ranks over gloo: 64 MiB after a process's first eager run and 128 MiB
+# after its first capture (a cuBLAS workspace for each new stream that
+# ran a GEMM, it seems), 0-64 MiB after later runs. The smallest buffer
+# of the step that must not stay, a parameter part under fsdp=2, is
+# 1.64 GB.
+WORLD_UNCOUNTED_MAX = 256 << 20
 # phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
 # (kubeflow_tpu/serving/quant.py:96-101)
 MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
@@ -3109,6 +3171,335 @@ def resume_phase(torch) -> dict:
     return out
 
 
+def world_devices(torch, n: int) -> list:
+    """One card a rank where the machine has ``n``; else every rank on
+    card 0 (the ranks then talk over gloo: NCCL refuses two ranks on one
+    card)."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{r}" for r in range(n)]
+    return ["cuda:0"] * n
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct localhost ports that were free a moment ago (all
+    held open together while they are chosen)."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def world_pod_start(tmp: Path, tag: str, layout: str, port: int,
+                    **extra) -> list:
+    """The two processes of one training pod world (a JAXJob's env for
+    KFT_NUM_PROCESSES=2, its coordinator at localhost:``port``,
+    KFT_MESH=``layout`` when set), each with its own heartbeat file; the
+    metrics file and the checkpoints are the coordinator's. Python's
+    faulthandler is on, so a process that hangs dumps its threads' stacks
+    when ``world_pod_wait`` aborts it."""
+    cmd = [sys.executable, "-X", "faulthandler", "-m",
+           "kubeflow_tpu_torch.rendezvous.worker_check"]
+    procs = []
+    for rank in range(WORLD):
+        env = pod_env(tmp, tag, **extra)
+        env.update(KFT_COORDINATOR=f"127.0.0.1:{port}",
+                   KFT_NUM_PROCESSES=str(WORLD), KFT_PROCESS_ID=str(rank),
+                   KFT_HEARTBEAT_FILE=str(tmp / tag / f"heartbeat.{rank}"))
+        if layout:
+            env["KFT_MESH"] = layout
+        procs.append(subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def world_pod_wait(procs: list, what: str) -> list:
+    """Every process's stdout once all have ended with rc 0; a process
+    still running after POD_TIMEOUT_S is aborted (its stacks are in the
+    error)."""
+    import signal
+
+    deadline = time.time() + POD_TIMEOUT_S
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(
+                timeout=max(deadline - time.time(), 1)))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                if q.poll() is None:
+                    q.send_signal(signal.SIGABRT)
+            errs = [q.communicate(timeout=60)[1][-6000:] for q in procs]
+            raise SystemExit(f"phase 9a: {what} hung; stacks:\n"
+                             + "\n---\n".join(errs))
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise SystemExit(f"phase 9a: {what} rank {rank} rc "
+                             f"{p.returncode}:\n{err[-4000:]}")
+    return [out for out, _ in outs]
+
+
+def world_pod(torch, tmp: Path) -> dict:
+    """Phase 9 (a): the reference pod's training over two processes,
+    under KFT_MESH=data=2 and the default (fsdp=2), killed after its
+    step-2 checkpoint and restarted (module docstring). The two layouts,
+    and each one's uninterrupted world and victim, run side by side."""
+    import signal
+
+    layouts = {"data": "data=2", "fsdp": ""}
+    ports = iter(free_ports(3 * len(layouts)))
+    t0 = time.perf_counter()
+    refs = {k: world_pod_start(tmp, f"world-{k}-ref", v, next(ports))
+            for k, v in layouts.items()}
+    victims = {k: world_pod_start(tmp, f"world-{k}-victim", v, next(ports),
+                                  KFT_STEP_SLEEP=str(POD_STEP_SLEEP_S))
+               for k, v in layouts.items()}
+    deadline = time.time() + POD_TIMEOUT_S
+    killed = {}
+    while len(killed) < len(victims):
+        for k, procs in victims.items():
+            ckpt = tmp / f"world-{k}-victim" / "ckpt"
+            if k not in killed and (ckpt / "2").is_dir():
+                for p in procs:
+                    p.send_signal(signal.SIGKILL)
+                for p in procs:
+                    p.communicate(timeout=60)
+                killed[k] = max(pod_losses(tmp, f"world-{k}-victim"))
+            elif k not in killed and (any(p.poll() is not None
+                                          for p in procs)
+                                      or time.time() > deadline):
+                for p in procs:
+                    p.kill()
+                raise SystemExit(
+                    f"phase 9a: the {k} victim ended or stalled before step "
+                    f"2's checkpoint:\n{procs[0].communicate()[1][-4000:]}")
+        time.sleep(0.02)
+    log(f"phase 9a: victims SIGKILLed after steps {killed}")
+    outs = {k: world_pod_wait(p, f"{k} uninterrupted") for k, p in refs.items()}
+    log(f"phase 9a: uninterrupted worlds ({time.perf_counter() - t0:.1f} s): "
+        f"{ {k: [o.strip() for o in v] for k, v in outs.items()} }")
+    t1 = time.perf_counter()
+    restarts = {k: world_pod_start(tmp, f"world-{k}-victim", v, next(ports),
+                                   KFT_STEP_SLEEP=str(POD_STEP_SLEEP_S))
+                for k, v in layouts.items()}
+    outs = {k: world_pod_wait(p, f"{k} restart")
+            for k, p in restarts.items()}
+    out = {"wall_s": time.perf_counter() - t0}
+    for k in layouts:
+        phases = json.loads((tmp / f"world-{k}-victim" / "phases.0")
+                            .read_text())
+        resumed = int(phases.get("resumed_from_step", -1))
+        want = pod_losses(tmp, f"world-{k}-ref")
+        got = pod_losses(tmp, f"world-{k}-victim")
+        after = {s: (got.get(s), want.get(s))
+                 for s in range(resumed + 1, POD_STEPS + 1)}
+        backend = re.search(r"mesh=(\{[^}]*\}), backend=(\w+) \(([^)]*)\)",
+                            outs[k][0])
+        log(f"phase 9a {k}: restart ({time.perf_counter() - t1:.1f} s) "
+            f"resumed from step {resumed} (killed after {killed[k]}); mesh "
+            f"{backend and backend.group(1)}, backend "
+            f"{backend and backend.group(2)} ({backend and backend.group(3)});"
+            f" losses after the resume (restart, uninterrupted) {after!r}")
+        if not 2 <= resumed <= killed[k] or backend is None \
+                or any(a != b or a is None for a, b in after.values()) \
+                or not all(f"resumed_from={resumed}" in o for o in outs[k]):
+            raise SystemExit(f"phase 9a: the {k} world did not resume "
+                             "step-exact")
+        out[k] = {"resumed_from": resumed, "backend": backend.group(2),
+                  "losses_after_resume": after}
+    log(f"phase 9a: {out['wall_s']:.1f} s")
+    return out
+
+
+def world_readings(world: list, ref: dict) -> dict:
+    """Largest relative difference of the world's losses and grad norms
+    (every rank) from the one-process trainer's, over the steps."""
+    out = {"loss": 0.0, "grad_norm": 0.0, "tokens_equal": True}
+    for rank in world:
+        for m, r in zip(rank, ref["metrics"]):
+            for k in ("loss", "grad_norm"):
+                out[k] = max(out[k], abs(m[k] - r[k]) / abs(r[k]))
+            out["tokens_equal"] &= m["tokens"] == r["tokens"]
+    return out
+
+
+def world_reference(torch, job) -> dict:
+    """The one-process trainer (phase 7's, grad_accum 16) from the same
+    seed on the concatenation of both ranks' rows, replayed."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    one = dataclasses.replace(
+        job, trainer={**job.trainer, "grad_accum": TRAIN_ACCUM})
+    trainer = wt.make_trainer(one, torch.device("cuda"))
+    trainer.precompile(wt.global_batch(job, WORLD, 0))
+    metrics = []
+    for step in range(job.steps):
+        m = trainer.train_step(wt.global_batch(job, WORLD, step))
+        metrics.append({k: float(v) for k, v in m.items()})
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"metrics": metrics}
+
+
+def world_training(torch, runs=("eager", "replayed")) -> dict:
+    """Phase 9 (b): llama_1b at full width in phase 7's configuration
+    over two processes, as data=2 and as fsdp=2 in one world (module
+    docstring)."""
+    import tempfile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    job = wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=WORLD_ACCUM,
+                           optimizer="adafactor"),
+                 local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
+                 steps=TRAIN_STEPS, mask=True, runs=tuple(runs))
+    layouts = {"data": (WORLD, 1), "fsdp": (1, WORLD)}
+    devices = world_devices(torch, WORLD)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9b: llama_1b, remat=dots, attn_impl=pallas, adafactor, "
+        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ} with ragged masks, "
+        f"{WORLD} processes on {devices}, each {TRAIN_BATCH // WORLD} rows "
+        f"in {WORLD_ACCUM} micro batches; runs {runs}; "
+        f"{torch.cuda.memory_allocated()} B allocated in this process")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9-") as rundir:
+        results = wt.run(wt.plans_rank, ([
+            (d, f, wt.train_rank, (job,)) for d, f in layouts.values()],),
+            1, WORLD, devices, rundir)
+    world_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ref = world_reference(torch, job)
+    ref_s = time.perf_counter() - t1
+    out = {"world_s": world_s, "reference_s": ref_s, "launches": {},
+           "ref_metrics": ref["metrics"]}
+    want_launch = {"flash_attention_fwd": 2 * cfg.n_layers,
+                   "flash_attention_dq": cfg.n_layers,
+                   "flash_attention_dkv": cfg.n_layers}
+    want_launch = {k: v * WORLD_ACCUM * TRAIN_STEPS
+                   for k, v in want_launch.items()}
+    failed = []
+    for i, (name, _) in enumerate(layouts.items()):
+        ranks = [r[i] for r in results]
+        b = ranks[0]["backend"]
+        log(f"phase 9b {name}: backend {b['backend']} ({b['reason']}); "
+            f"finish body {ranks[0].get('finish_mode')}")
+        for r, res in enumerate(ranks):
+            for run, steps in res["runs"].items():
+                per = steps["collectives"]
+                log(f"phase 9b {name} rank {r} {run}: step s "
+                    f"{steps['seconds']!r}; collectives per step "
+                    f"{per!r}; peak {steps.get('peak_allocated')} B "
+                    f"allocated, {steps.get('peak_reserved')} B reserved; "
+                    f"after the steps {steps.get('allocated_after')} B "
+                    f"allocated ({steps.get('allocated_base')} B before the "
+                    f"trainer); state kept {steps['state_bytes']} "
+                    f"(reachable {steps['held_bytes']} B); flash launches "
+                    f"{steps['launches']}; losses "
+                    f"{[m['loss'] for m in steps['metrics']]!r} grad norms "
+                    f"{[m['grad_norm'] for m in steps['metrics']]!r}")
+                if steps["launches"] != want_launch:
+                    failed.append(f"{name} rank {r} {run}: flash launches "
+                                  f"{steps['launches']}, expected "
+                                  f"{want_launch}")
+        main = "replayed" if "replayed" in runs else "eager"
+        world = [res["runs"][main]["metrics"] for res in ranks]
+        read = world_readings(world, ref)
+        log(f"phase 9b {name}: {main} world against the one-process "
+            f"trainer on the concatenated batches: loss {read['loss']!r} "
+            f"(limit {WORLD_LOSS_RTOL}), grad norm {read['grad_norm']!r} "
+            f"(limit {WORLD_NORM_RTOL}) relative; tokens equal "
+            f"{read['tokens_equal']}; reference losses "
+            f"{[m['loss'] for m in ref['metrics']]!r}")
+        out[name] = {"readings": read, "backend": b,
+                     "finish_mode": ranks[0].get("finish_mode"),
+                     "ranks": [{run: {k: s.get(k) for k in (
+                         "seconds", "collectives", "peak_allocated",
+                         "peak_reserved", "allocated_base", "allocated_after",
+                         "state_bytes")}
+                         for run, s in res["runs"].items()}
+                         for res in ranks]}
+        if "replayed" in runs:
+            bitwise = all(res["differ"] == [] and [
+                (m["loss"], m["grad_norm"])
+                for m in res["runs"]["replayed"]["metrics"]] == [
+                (m["loss"], m["grad_norm"])
+                for m in res["runs"]["eager"]["metrics"]] for res in ranks)
+            log(f"phase 9b {name}: replayed bitwise the eager run on every "
+                f"rank: {bitwise} (parameters differing: "
+                f"{[res['differ'] for res in ranks]})")
+            if not bitwise:
+                failed.append(f"{name}: the replayed world step is not "
+                              "bitwise the eager one")
+            out["launches"][name] = {
+                k: sum(res["runs"]["replayed"]["launches"][k]
+                       for res in ranks) for k in want_launch}
+        if world[0] != world[1] or not read["tokens_equal"] \
+                or read["loss"] > WORLD_LOSS_RTOL \
+                or read["grad_norm"] > WORLD_NORM_RTOL:
+            failed.append(f"{name}: the world's steps are not the "
+                          "one-process trainer's on the global batch")
+    first = runs[0]
+    for i, name in enumerate(layouts):
+        for r, res in enumerate(results):
+            for run, s in res[i]["runs"].items():
+                total, after = s["state_bytes"]["total"], s["allocated_after"]
+                added = after - s["allocated_base"]
+                if s["held_bytes"] != total or after < total \
+                        or added - total > WORLD_UNCOUNTED_MAX:
+                    failed.append(
+                        f"{name} rank {r} {run}: state_bytes {total} B, "
+                        f"reachable {s['held_bytes']} B, allocated {after} "
+                        f"B, {added} B of it added by the run")
+    kept = {k: out[k]["ranks"][0][first]["state_bytes"] for k in layouts}
+    after = {k: [rank[first]["allocated_after"]
+                 - rank[first]["allocated_base"] for rank in out[k]["ranks"]]
+             for k in layouts}
+    out["state_share"] = kept["fsdp"]["total"] / kept["data"]["total"]
+    out["opt_state_share"] = (kept["fsdp"]["opt_state"]
+                              / kept["data"]["opt_state"])
+    log(f"phase 9b: state kept per rank, data {kept['data']} against fsdp "
+        f"{kept['fsdp']}: fsdp/data {out['state_share']!r} in all, "
+        f"{out['opt_state_share']!r} of the optimizer state; allocated "
+        f"by the {first} run, per rank, data {after['data']} B, fsdp "
+        f"{after['fsdp']} B; world {world_s:.1f} s, reference "
+        f"{ref_s:.1f} s ({nvidia_smi_line()})")
+    if not kept["fsdp"]["total"] < kept["data"]["total"] \
+            or not kept["fsdp"]["opt_state"] < kept["data"]["opt_state"]:
+        failed.append("an fsdp rank keeps as much as a data rank or more")
+    if failed:
+        raise SystemExit(f"phase 9b: {failed}")
+    return out
+
+
+def world_phase(torch) -> dict:
+    """Phase 9: training across processes (module docstring)."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="kft-phase9-"))
+    try:
+        pod = world_pod(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = world_training(torch)
+    out["pod"] = pod
+    log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
@@ -3176,6 +3567,7 @@ def main() -> int:
     trained = training(torch)
     moe_trained = moe_training(torch)
     resumed = resume_phase(torch)
+    world = world_phase(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -3225,10 +3617,13 @@ def main() -> int:
             "replaces": f"kubeflow_tpu/ops/pallas_attention.py:{line}",
             "launches": (trained["launches"][name]
                          + moe_trained["launches"][name]
-                         + resumed["launches"][name]),
+                         + resumed["launches"][name]
+                         + sum(w[name] for w in world["launches"].values())),
             "launches_by_phase": {"7": trained["launches"][name],
                                   "7m": moe_trained["launches"][name],
-                                  "8": resumed["launches"][name]},
+                                  "8": resumed["launches"][name],
+                                  "9": sum(w[name] for w in
+                                           world["launches"].values())},
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -50,6 +50,10 @@ class PinnedStaging:
         self._copied: list = [None] * len(self._host)
         self._turn = 0
 
+    def buffers(self) -> list:
+        """Every tensor it keeps: ``staged`` and the host buffers."""
+        return [self.staged, *self._host]
+
     def stage(self, fill: Callable[[torch.Tensor], None]) -> None:
         """``fill(host)`` writes this stage's inputs into a host buffer,
         which is then copied into ``staged`` in one copy, queued on the
@@ -129,14 +133,17 @@ class Captured:
 def capture(parts: Sequence[Callable[[], None]],
             tensors: Callable[[], dict], counters: Sequence,
             device: torch.device, what: str,
-            restore: Optional[Callable[[], None]] = None) -> Captured:
+            restore: Optional[Callable[[], None]] = None,
+            eager: Sequence[int] = ()) -> Captured:
     """Capture each of ``parts`` as its own CUDA graph, in order, all in
     one memory pool, so they must be replayed in that order and never
     two at once. First ``WARMUP_RUNS`` eager runs of all the parts in
     order, on a side stream, then ``restore()`` (when given: it undoes
     what the warm-up wrote, on the current stream), then the captures,
-    which launch nothing. ``tensors``, ``counters`` and ``what`` as
-    ``CapturedGraph``'s."""
+    which launch nothing. The parts at the indices ``eager`` are warmed
+    up with the others and not captured (their graph is None): the
+    owner runs them eagerly between the replays. ``tensors``,
+    ``counters`` and ``what`` as ``CapturedGraph``'s."""
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, got {device}")
     t0 = time.perf_counter()
@@ -153,9 +160,13 @@ def capture(parts: Sequence[Callable[[], None]],
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(device)
     graphs: list = []
-    for run in parts:
-        graphs.append(CapturedGraph(
-            run, tensors, counters, device, what,
-            pool=graphs[0].graph.pool() if graphs else None))
+    pool = None
+    for i, run in enumerate(parts):
+        if i in eager:
+            graphs.append(None)
+            continue
+        graphs.append(CapturedGraph(run, tensors, counters, device, what,
+                                    pool=pool))
+        pool = pool or graphs[-1].graph.pool()
     return Captured(graphs, time.perf_counter() - t0,
                     torch.cuda.memory_reserved(device) - reserved)

@@ -23,14 +23,25 @@ each rank computes on, and the process groups they talk over.
   against 0.8 ms.
 - No fallback: an NCCL failure raises and is never retried on gloo.
 
-Only the ``tensor`` axis is ported. ``mesh_from_topology_env`` parses the
-JAX package's ``KFT_MESH``/``KFT_DCN`` contract and raises for any other
-axis set above 1.
+``mesh_from_topology_env`` parses the JAX package's ``KFT_MESH``/``KFT_DCN``
+contract for serving, where only the ``tensor`` axis is ported, and
+raises for any other axis set above 1.
+
+``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
+``build_mesh`` over the batch axes: ``data`` x ``fsdp`` processes, one
+device each (``rendezvous/bootstrap.py`` starts them and chooses the
+backend), with one process group per axis. Under ``data`` every rank
+holds the whole train state and the gradients are all-reduced; under
+``fsdp`` each rank holds its shard of the parameters and the optimizer
+state (``parallel/sharding.fsdp_*``), all-gathers the parameters before
+its micro batches and reduce-scatters the gradients after them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import shutil
 import tempfile
@@ -42,7 +53,8 @@ import torch
 AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
-                  "item 8); only the tensor axis is ported")
+                  "item 8.7); only the tensor axis is ported for serving, "
+                  "and the data and fsdp axes for training")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
 # mesh is given another: a first command may build the CUDA kernels
@@ -303,3 +315,327 @@ def _rank_entry(mesh: TensorMesh, rank: int, target, args: tuple) -> None:
         target(mesh, *args)
     finally:
         mesh.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The training world: the batch axes over processes
+# ---------------------------------------------------------------------------
+
+# gloo's collectives run on host tensors in pieces of at most this many
+# bytes (one call over a multi-GB tensor would hold as much again in
+# gloo's own buffers), spread over GLOO_LANES groups of the same ranks,
+# one thread each: one gloo group moves ~1.1 GB/s between two processes
+# on one host, four ~3 GB/s (an all-reduce of 800 MB on 8 cores)
+GLOO_PIECE_BYTES = 1 << 26
+GLOO_LANES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """The backend of a world's model collectives, and why it was chosen
+    (``rendezvous.bootstrap.choose_backend``)."""
+    name: str
+    reason: str
+
+
+def resolve_world_axes(num_processes: int, data: int = 1,
+                       fsdp: int = -1) -> tuple[int, int]:
+    """``MeshConfig.resolved``'s rule over the batch axes, one device a
+    process: at most one axis is -1 and absorbs what the other leaves
+    (unset, every process goes on ``fsdp``); the sizes must multiply to
+    ``num_processes``. Raises ValueError with the JAX package's
+    messages."""
+    sizes = {"data": data, "fsdp": fsdp}
+    wild = [k for k, v in sizes.items() if v == -1]
+    if len(wild) > 1:
+        raise ValueError(f"at most one -1 axis allowed, got {wild}")
+    fixed = math.prod(v for v in sizes.values() if v != -1)
+    if wild:
+        if num_processes % fixed != 0:
+            raise ValueError(
+                f"cannot infer {wild[0]}: {num_processes} devices/slice not "
+                f"divisible by fixed product {fixed}")
+        sizes[wild[0]] = num_processes // fixed
+    elif fixed != num_processes:
+        raise ValueError(
+            f"mesh product {fixed} != devices per slice {num_processes}")
+    return sizes["data"], sizes["fsdp"]
+
+
+class WorldMesh:
+    """``data`` x ``fsdp`` training processes, one device each (module
+    docstring). Rank ``r`` sits at ``(r // fsdp, r % fsdp)``: ``data``
+    is the outer axis, as in the JAX package's ``AXIS_ORDER``, so the
+    rank is also this process's place in the batch (the JAX batch
+    sharding ``("data", "fsdp")``).
+
+    Built after ``torch.distributed``'s default group exists (gloo,
+    ``rendezvous.bootstrap.join_world``); every rank builds it with the
+    same sizes. The model's collectives run over groups of ``backend``:
+    NCCL on device tensors, or gloo, where a CUDA tensor goes through a
+    pinned host copy (one staging buffer, grown to the largest call) in
+    pieces of ``GLOO_PIECE_BYTES`` spread over ``GLOO_LANES`` groups.
+    Per axis a group: ``world`` (every rank), ``data`` (the ranks
+    holding the same shard) and ``fsdp`` (the ranks sharing one
+    replica); an axis of size 1 makes no call.
+
+    ``timings`` sums, per rank, the seconds and bytes of the host-staged
+    collectives: the device-to-host copies, the gloo calls and the
+    host-to-device copies (NCCL's are queued on the stream and are not
+    timed here)."""
+
+    def __init__(self, data: int, fsdp: int, rank: int, device,
+                 backend: Backend):
+        if data < 1 or fsdp < 1:
+            raise ValueError(f"data={data} fsdp={fsdp}: sizes must be >= 1")
+        self.data, self.fsdp = int(data), int(fsdp)
+        self.size = self.data * self.fsdp
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a world of {self.size}")
+        self.rank = int(rank)
+        self.data_index, self.fsdp_index = divmod(self.rank, self.fsdp)
+        self.device = torch.device(device)
+        self.backend = backend
+        self._groups: dict = {}
+        self._staging: Optional[torch.Tensor] = None
+        self.timings = {"d2h_s": 0.0, "gloo_s": 0.0, "h2d_s": 0.0,
+                        "d2h_bytes": 0, "h2d_bytes": 0, "calls": 0}
+        if self.size > 1:
+            self._make_groups()
+
+    @classmethod
+    def from_layout(cls, layout: Mapping[str, int], rank: int, device,
+                    backend: Backend) -> "WorldMesh":
+        """From ``rendezvous.bootstrap.world_layout``'s axis sizes: the
+        DCN part of an axis multiplies into it (one device a process, so
+        the slices are processes too)."""
+        return cls(layout.get("data", 1) * layout.get("dcn_data", 1),
+                   layout.get("fsdp", 1) * layout.get("dcn_fsdp", 1),
+                   rank, device, backend)
+
+    # ------------------------------------------------------------ identity
+
+    @property
+    def shape(self) -> dict:
+        """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them."""
+        return {"data": self.data, "fsdp": self.fsdp}
+
+    def axis_size(self, axis: str) -> int:
+        return {"world": self.size, "data": self.data,
+                "fsdp": self.fsdp}[axis]
+
+    def axis_index(self, axis: str) -> int:
+        return {"world": self.rank, "data": self.data_index,
+                "fsdp": self.fsdp_index}[axis]
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def via_host(self) -> bool:
+        return self.backend.name == "gloo" and self.device.type == "cuda"
+
+    def describe(self) -> dict:
+        return {"data": self.data, "fsdp": self.fsdp, "rank": self.rank,
+                "device": str(self.device), "backend": self.backend.name,
+                "reason": self.backend.reason}
+
+    def _make_groups(self) -> None:
+        """Per axis the groups of this rank: one over NCCL, GLOO_LANES
+        over gloo. Every process takes part in creating every group, in
+        the same order."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() != self.size:
+            raise RuntimeError(
+                f"a world of data={self.data} x fsdp={self.fsdp} needs the "
+                f"default process group over {self.size} processes "
+                "(rendezvous.bootstrap.initialize or join_world first)")
+        be = self.backend.name
+        lanes = GLOO_LANES if be == "gloo" else 1
+
+        def groups(ranks=None) -> list:
+            return [dist.new_group(ranks, backend=be) for _ in range(lanes)]
+
+        self._groups["world"] = groups()
+        for j in range(self.fsdp if self.data > 1 else 0):
+            g = groups([i * self.fsdp + j for i in range(self.data)])
+            if j == self.fsdp_index:
+                self._groups["data"] = g
+        for i in range(self.data if self.fsdp > 1 else 0):
+            g = groups([i * self.fsdp + j for j in range(self.fsdp)])
+            if i == self.data_index:
+                self._groups["fsdp"] = g
+
+    # ------------------------------------------------------------- control
+
+    def barrier(self) -> None:
+        """Every rank of the world reaches this call (the default group)."""
+        import torch.distributed as dist
+
+        if self.size > 1:
+            dist.barrier()
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """The coordinator's ``obj`` on every rank (the default group)."""
+        import torch.distributed as dist
+
+        if self.size == 1:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    # --------------------------------------------------------- collectives
+
+    def _host(self, numel: int, dtype: torch.dtype) -> torch.Tensor:
+        """A pinned host tensor of ``numel`` elements (the staging buffer,
+        grown when too small)."""
+        nbytes = numel * dtype.itemsize
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = None
+            self._staging = torch.empty((nbytes,), dtype=torch.uint8,
+                                        pin_memory=True)
+        return self._staging[:nbytes].view(dtype)
+
+    def _to_host(self, host: torch.Tensor, x: torch.Tensor) -> None:
+        import time
+
+        torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        host.copy_(x.reshape(-1))
+        self.timings["d2h_s"] += time.perf_counter() - t0
+        self.timings["d2h_bytes"] += host.numel() * host.itemsize
+
+    def _from_host(self, x: torch.Tensor, host: torch.Tensor) -> None:
+        import time
+
+        t0 = time.perf_counter()
+        x.view(-1).copy_(host)
+        torch.cuda.current_stream(self.device).synchronize()
+        self.timings["h2d_s"] += time.perf_counter() - t0
+        self.timings["h2d_bytes"] += host.numel() * host.itemsize
+
+    def _ranges(self, numel: int, itemsize: int) -> list:
+        n = max(GLOO_PIECE_BYTES // itemsize, 1)
+        return [(i, min(i + n, numel)) for i in range(0, numel, n)]
+
+    def _gloo(self, axis: str, calls: list) -> None:
+        """Run ``calls`` (each ``call(group)``, one gloo collective on one
+        piece) over the axis's lanes: lane i takes calls i, i + lanes, ...
+        in order, on its own thread when there is more than one call."""
+        import threading
+        import time
+
+        lanes = self._groups[axis]
+        t0 = time.perf_counter()
+        if len(calls) == 1:
+            calls[0](lanes[0])
+        else:
+            errors: list = []
+
+            def lane(i: int) -> None:
+                try:
+                    for call in calls[i::len(lanes)]:
+                        call(lanes[i])
+                except BaseException as e:      # raised below
+                    errors.append(e)
+
+            threads = [threading.Thread(target=lane, args=(i,))
+                       for i in range(min(len(lanes), len(calls)))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise errors[0]
+        self.timings["gloo_s"] += time.perf_counter() - t0
+        self.timings["calls"] += 1
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "world"
+                   ) -> torch.Tensor:
+        """Sum ``x`` (contiguous) over ``axis``, in place; returns ``x``.
+        Every rank of the axis gets the same bytes."""
+        import torch.distributed as dist
+
+        if self.axis_size(axis) == 1:
+            return x
+        if self.backend.name == "nccl":
+            dist.all_reduce(x, group=self._groups[axis][0])
+            return x
+        host = x.view(-1)
+        if self.via_host:
+            host = self._host(x.numel(), x.dtype)
+            self._to_host(host, x)
+        self._all_reduce_host(host, axis)
+        if self.via_host:
+            self._from_host(x, host)
+        return x
+
+    def _all_reduce_host(self, host: torch.Tensor, axis: str) -> None:
+        import torch.distributed as dist
+
+        self._gloo(axis, [
+            lambda g, a=a, b=b: dist.all_reduce(host[a:b], group=g)
+            for a, b in self._ranges(host.numel(), host.itemsize)])
+
+    def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor,
+                       axis: str = "fsdp") -> torch.Tensor:
+        """``out`` [k] = this rank's k-element part of ``x`` [n * k] (n the
+        axis size, parts in axis order) summed over ``axis``. Under gloo
+        this is an all-reduce of ``x`` (clobbering it on the CPU) and a
+        copy of the rank's part."""
+        import torch.distributed as dist
+
+        n, k = self.axis_size(axis), out.numel()
+        if x.numel() != n * k:
+            raise ValueError(f"reduce_scatter of {x.numel()} elements into "
+                             f"{n} parts of {k}")
+        idx = self.axis_index(axis)
+        if n == 1:
+            return out.copy_(x.view(out.shape))
+        if self.backend.name == "nccl":
+            dist.reduce_scatter_tensor(out, x, group=self._groups[axis][0])
+            return out
+        host = x.view(-1)
+        if self.via_host:
+            host = self._host(x.numel(), x.dtype)
+            self._to_host(host, x)
+        self._all_reduce_host(host, axis)
+        part = host[idx * k:(idx + 1) * k]
+        if self.via_host:
+            self._from_host(out, part)
+        else:
+            out.view(-1).copy_(part)
+        return out
+
+    def all_gather(self, out: torch.Tensor, x: torch.Tensor,
+                   axis: str = "fsdp") -> torch.Tensor:
+        """``out`` [n * k] = every rank's ``x`` [k] of ``axis``,
+        concatenated in axis order."""
+        import torch.distributed as dist
+
+        n, k = self.axis_size(axis), x.numel()
+        if out.numel() != n * k:
+            raise ValueError(f"all_gather of {n} parts of {k} into "
+                             f"{out.numel()} elements")
+        if n == 1:
+            return out.copy_(x.view(out.shape))
+        if self.backend.name == "nccl":
+            dist.all_gather_into_tensor(out, x, group=self._groups[axis][0])
+            return out
+        if self.via_host:
+            host = self._host((n + 1) * k, x.dtype)
+            src, dst = host[:k], host[k:]
+            self._to_host(src, x)
+        else:
+            src, dst = x.reshape(-1), out.view(-1)
+        rows = dst.view(n, k)
+        self._gloo(axis, [
+            lambda g, a=a, b=b: dist.all_gather(
+                [rows[r, a:b] for r in range(n)], src[a:b], group=g)
+            for a, b in self._ranges(k, x.itemsize)])
+        if self.via_host:
+            self._from_host(out, dst)
+        return out

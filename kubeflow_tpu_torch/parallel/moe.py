@@ -39,6 +39,10 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 MOE_MESH = ("MoE layers (n_experts > 0) under a tensor mesh: the expert "
             "axis and expert sharding are ROADMAP queue 1 item 8.7 "
             "(parallel/)")
+MOE_WORLD = ("MoE layers (n_experts > 0) trained over a world of processes: "
+             "the router's load-balance statistics are the global batch's "
+             "in the JAX package, and the expert axis and expert sharding "
+             "are ROADMAP queue 1 item 8.7 (parallel/)")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,9 +4,17 @@
 Model code names each parameter dim with a *logical* axis ("heads",
 "vocab", ...) and one rule table maps logical names to mesh axes, as in
 the JAX package. There XLA places a sharded array; here each rank holds
-its own shard as a plain tensor, and ``shard_tree`` cuts a full tree into
-one rank's shard. Only the ``tensor`` axis exists in the port's mesh:
-a rule naming another axis (``fsdp``, ``data``) leaves the dim whole.
+its own shard as a plain tensor. Two cuts exist:
+
+- ``tensor`` (serving, ``parallel.mesh.TensorMesh``): ``shard_tree`` cuts
+  a full tree into one rank's shard; a rule naming another axis leaves
+  the dim whole.
+- ``fsdp`` (training, ``parallel.mesh.WorldMesh``): ZeRO-3, each
+  parameter cut on the dim its rule puts on ``fsdp`` (``embed`` under
+  ``DEFAULT_RULES``) into equal contiguous parts in rank order
+  (``fsdp_dim``, ``fsdp_shard``); ``fsdp_unshard`` puts the parts back
+  together. ``data`` holds no parameter dim: the state is whole on each
+  of its ranks.
 """
 
 from __future__ import annotations
@@ -36,17 +44,19 @@ DEFAULT_RULES: dict[str, object] = {
 }
 
 
-def pspec(names: Sequence[Optional[str]]) -> tuple:
-    """Logical axis names -> the mesh axes of each dim under
-    ``DEFAULT_RULES`` (a tuple standing in for ``PartitionSpec``)."""
+def pspec(names: Sequence[Optional[str]], rules=None) -> tuple:
+    """Logical axis names -> the mesh axes of each dim under ``rules``
+    (default ``DEFAULT_RULES``; a tuple standing in for
+    ``PartitionSpec``)."""
+    rules = rules if rules is not None else DEFAULT_RULES
     out = []
     for name in names:
         if name is None:
             out.append(None)
         else:
-            if name not in DEFAULT_RULES:
+            if name not in rules:
                 raise KeyError(f"no sharding rule for logical axis {name!r}")
-            out.append(DEFAULT_RULES[name])
+            out.append(rules[name])
     return tuple(out)
 
 
@@ -66,13 +76,14 @@ def _walk(logical, other, path=""):
         yield path, logical, other
 
 
-def validate_divisibility(mesh, logical_tree, shapes_tree) -> None:
+def validate_divisibility(mesh, logical_tree, shapes_tree,
+                          rules=None) -> None:
     """Every sharded dim divides evenly over the mesh axes it maps to;
     raises with the JAX package's message otherwise. ``mesh.shape`` gives
     the axis sizes (absent axes count 1)."""
     sizes = dict(mesh.shape)
     for path, names, shape in _walk(logical_tree, shapes_tree):
-        for dim, part in zip(tuple(shape), pspec(names)):
+        for dim, part in zip(tuple(shape), pspec(names, rules)):
             axes = _mesh_axes(part)
             total = 1
             for a in axes:
@@ -116,3 +127,36 @@ def shard_tree(tree, axes, rank: int, tp: int):
         return {k: shard_tree(v, axes[k], rank, tp)
                 for k, v in tree.items()}
     return shard_tensor(tree, axes, rank, tp)
+
+
+def placed_on(names: Sequence[Optional[str]], axis: str,
+              rules=None) -> list[int]:
+    """The dims of a parameter with logical axes ``names`` that ``rules``
+    put on mesh axis ``axis``."""
+    return [i for i, part in enumerate(pspec(names, rules))
+            if axis in _mesh_axes(part)]
+
+
+def fsdp_dim(names: Sequence[Optional[str]], rules=None) -> Optional[int]:
+    """The dim of a parameter with logical axes ``names`` that ``rules``
+    put on ``fsdp``, or None. Raises when two dims are."""
+    dims = placed_on(names, "fsdp", rules)
+    if len(dims) > 1:
+        raise ValueError(f"logical axes {tuple(names)}: dims {dims} are all "
+                         "on fsdp; a parameter is cut on one")
+    return dims[0] if dims else None
+
+
+def fsdp_shard(x: torch.Tensor, dim: int, index: int,
+               n: int) -> torch.Tensor:
+    """Part ``index`` of ``n`` equal contiguous parts of ``x`` along
+    ``dim``, as a contiguous tensor of its own."""
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {x.shape[dim]} not divisible by fsdp={n}")
+    part = x.narrow(dim, index * (x.shape[dim] // n), x.shape[dim] // n)
+    return part.clone(memory_format=torch.contiguous_format)
+
+
+def fsdp_unshard(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+    """The full tensor of its ``fsdp_shard`` parts, in rank order."""
+    return torch.cat(list(parts), dim=dim)

@@ -13,15 +13,23 @@ The controller stamps one of two contracts on every worker pod
 ``world_from_env`` reads the first and, where it is absent, the second.
 ``initialize`` picks the device (``KFT_FORCE_PLATFORM`` through
 ``device.platform_device``; on cards one card per process,
-``cuda:{process_id % device_count}``) and, for more than one process,
-calls ``torch.distributed.init_process_group`` at
-``tcp://{coordinator}``: NCCL on cards, gloo on the CPU.
+``cuda:{process_id % device_count}``; without a card and without
+``KFT_FORCE_PLATFORM=cpu`` it raises) and, for more than one process,
+joins the world (``join_world``): a gloo default group at
+``tcp://{coordinator}``, over which the ranks exchange where they run,
+and from that the backend of the model's collectives
+(``choose_backend``): NCCL when every rank has a card of its own, gloo
+when ranks share a card or run on the CPU (NCCL refuses two ranks on
+one device). The choice and its reason are logged and kept on
+``WorldInfo.backend``. It is made from where the processes are, never
+from what fails: an NCCL error raises and is not retried on gloo.
 
 The world's layout: each process is one device, and a ``KFT_MESH`` whose
 ``data`` x ``fsdp`` product (times ``KFT_DCN``'s) is the number of
-processes is accepted as that layout. Any other axis above 1 raises
-``parallel.mesh.PARALLEL_SLICE``: only the tensor axis is ported, and
-that one serves, it does not train.
+processes is accepted as that layout (``parallel.mesh.WorldMesh``
+trains over it). Any other axis above 1 raises
+``parallel.mesh.PARALLEL_SLICE``: the tensor axis serves, it does not
+train, and the other axes are not ported.
 
 ``KFT_COMPILE_CACHE`` has no counterpart here: the JAX worker points
 XLA's persistent compile cache at it, and the port compiles no XLA
@@ -32,15 +40,19 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import logging
 import os
+import socket
 from typing import Mapping, Optional
 
 import torch
 
 from kubeflow_tpu_torch.device import platform_device, resolve_device
 from kubeflow_tpu_torch.parallel.mesh import (
-    PARALLEL_SLICE, parse_topology_env,
+    PARALLEL_SLICE, Backend, parse_topology_env, resolve_world_axes,
 )
+
+log = logging.getLogger(__name__)
 
 # the world's axes: one device a process, so their product is the
 # number of processes (fsdp absorbs the rest when it is not given)
@@ -53,6 +65,8 @@ class WorldInfo:
     num_processes: int
     process_id: int
     job_name: str = ""
+    # the model collectives' backend, once ``initialize`` joined a world
+    backend: Optional[Backend] = None
 
     @property
     def is_coordinator(self) -> bool:
@@ -111,9 +125,10 @@ def world_from_env(env: Optional[Mapping[str, str]] = None) -> WorldInfo:
 
 def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
     """``KFT_MESH`` / ``KFT_DCN`` -> the world's axis sizes
-    (``WORLD_AXES``), one device a process. Unset, the world is
-    ``fsdp=num_processes``, as the JAX mesh's default puts every device
-    on fsdp. Raises NotImplementedError (``PARALLEL_SLICE``) for any
+    (``WORLD_AXES``), one device a process. ``data`` and ``fsdp`` follow
+    ``MeshConfig.resolved``'s rule (``parallel.mesh.resolve_world_axes``):
+    unset, ``fsdp`` takes every process the others leave, as the JAX
+    mesh's default puts every device on fsdp. Raises NotImplementedError (``PARALLEL_SLICE``) for any
     other axis above 1 and ValueError when the sizes do not multiply to
     the number of processes."""
     sizes = parse_topology_env(env)
@@ -125,15 +140,14 @@ def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
             f"KFT_DCN={env.get('KFT_DCN', '')!r}: a training world over "
             f"{sorted(other)} {PARALLEL_SLICE}")
     layout = {k: sizes.get(k, 1) for k in WORLD_AXES}
-    if sizes.get("fsdp", -1) == -1:
-        rest = 1
-        for k in WORLD_AXES:
-            if k != "fsdp":
-                rest *= layout[k]
-        if rest <= 0 or num_processes % rest:
+    data, fsdp = sizes.get("data", 1), sizes.get("fsdp", -1)
+    if -1 in (data, fsdp):
+        slices = layout["dcn_data"] * layout["dcn_fsdp"]
+        if slices <= 0 or num_processes % slices:
             raise ValueError(f"mesh {sizes} does not divide "
                              f"{num_processes} processes")
-        layout["fsdp"] = num_processes // rest
+        layout["data"], layout["fsdp"] = resolve_world_axes(
+            num_processes // slices, data, fsdp)
     total = 1
     for v in layout.values():
         total *= v
@@ -156,13 +170,62 @@ def process_device(world: WorldInfo,
         f"cuda:{world.process_id % torch.cuda.device_count()}")
 
 
+def card_identity(device: torch.device) -> str:
+    """Where this process computes: ``cpu``, or the host and the card's
+    UUID (two ranks whose identities are equal share a card)."""
+    if device.type != "cuda":
+        return "cpu"
+    props = torch.cuda.get_device_properties(device)
+    return f"{socket.gethostname()}/{props.uuid}"
+
+
+def choose_backend(identities: list) -> Backend:
+    """The backend of the model's collectives from every rank's
+    ``card_identity``: NCCL when each rank has a card of its own, gloo
+    when two ranks share one or the ranks run on the CPU. A world that
+    mixes the CPU and cards raises."""
+    cpu = sum(i == "cpu" for i in identities)
+    n = len(identities)
+    if cpu == n:
+        return Backend("gloo", f"the {n} ranks run on the CPU")
+    if cpu:
+        raise ValueError(f"{cpu} of {n} ranks run on the CPU and the rest "
+                         "on cards; a world runs on one or the other")
+    shared = n - len(set(identities))
+    if shared:
+        return Backend("gloo", f"{n} ranks on {n - shared} card(s): NCCL "
+                               "refuses two ranks on one card")
+    return Backend("nccl", f"each of the {n} ranks has a card of its own")
+
+
+def join_world(init_method: str, rank: int, size: int,
+               device: torch.device, timeout_s: float = 300.0) -> Backend:
+    """Create the world's default process group (gloo, at
+    ``init_method``: ``tcp://host:port`` or ``file://path``), exchange
+    every rank's ``card_identity`` over it, and return the backend the
+    model's collectives take (``choose_backend``), logged with its
+    reason. A CPU rank computes on one thread: idle OpenMP workers in
+    every rank crowd out gloo's own threads."""
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    torch.distributed.init_process_group(
+        "gloo", init_method=init_method, world_size=size, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout_s))
+    identities = [None] * size
+    torch.distributed.all_gather_object(identities, card_identity(device))
+    backend = choose_backend(identities)
+    log.info("rank %d/%d: %s collectives (%s)", rank, size, backend.name,
+             backend.reason)
+    return backend
+
+
 def initialize(env: Optional[Mapping[str, str]] = None,
                timeout_s: float = 300.0):
     """The world from the env, its device, and for more than one process
-    ``torch.distributed.init_process_group`` at ``tcp://{coordinator}``
-    (NCCL on cards, gloo on the CPU) within ``timeout_s``. Returns
-    ``(world, device)``; the layout (``world_layout``) is checked before
-    any process group starts."""
+    the world joined at ``tcp://{coordinator}`` within ``timeout_s``
+    (``join_world``; the backend chosen lands on ``world.backend``).
+    Returns ``(world, device)``; the layout (``world_layout``) is
+    checked before any process group starts."""
     env = load_downward_env(env=env if env is not None else os.environ)
     world = world_from_env(env)
     world_layout(env, world.num_processes)
@@ -170,12 +233,24 @@ def initialize(env: Optional[Mapping[str, str]] = None,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if world.num_processes > 1:
-        torch.distributed.init_process_group(
-            backend="nccl" if device.type == "cuda" else "gloo",
-            init_method=f"tcp://{world.coordinator}",
-            world_size=world.num_processes, rank=world.process_id,
-            timeout=datetime.timedelta(seconds=timeout_s))
+        world.backend = join_world(
+            f"tcp://{world.coordinator}", world.process_id,
+            world.num_processes, device, timeout_s)
     return world, device
+
+
+def world_mesh(world: WorldInfo, device: torch.device,
+               env: Optional[Mapping[str, str]] = None):
+    """The ``parallel.mesh.WorldMesh`` of an initialized world of more
+    than one process, laid out by ``KFT_MESH`` / ``KFT_DCN``
+    (``world_layout``), or None for one process."""
+    from kubeflow_tpu_torch.parallel.mesh import WorldMesh
+
+    if world.num_processes == 1:
+        return None
+    env = load_downward_env(env=env if env is not None else os.environ)
+    return WorldMesh.from_layout(world_layout(env, world.num_processes),
+                                 world.process_id, device, world.backend)
 
 
 def wait_for_workers(world: WorldInfo) -> None:

@@ -22,8 +22,16 @@ reference's ``main``:
    stays local and its outcome is "compiled" (``parallel/depot.py``). On
    the CPU (``KFT_FORCE_PLATFORM=cpu``) there is no graph: the step runs
    eagerly and the outcome is reported as ``"eager"``, never as a
-   capture. Training over more than one process is not ported (ROADMAP
-   queue 1 item 8.7) and raises.
+   capture. Over more than one process the trainer trains over the
+   world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data`` and
+   ``fsdp``, by default every process on ``fsdp``), each process feeding
+   its own rows of the global batch, as the reference's pods do; the
+   coordinator writes the metrics and the checkpoints, and every
+   process restores its own part from them.
+
+The world check and the training run over the backend the world chose
+(``bootstrap.choose_backend``), which the last line names with its
+reason.
 """
 
 from __future__ import annotations
@@ -31,9 +39,6 @@ from __future__ import annotations
 import os
 import sys
 
-MULTI_PROCESS_SLICE = ("KFT_TRAIN_STEPS over more than one process "
-                       "(the data/fsdp axes) is a later slice of the "
-                       "PyTorch port (ROADMAP queue 1 item 8.7)")
 # the outcome reported where no step is captured (the CPU)
 EAGER = "eager"
 
@@ -87,45 +92,48 @@ def _phase(phases: dict, name: str, extra: dict | None = None,
         pass
 
 
-def world_check(world, device) -> float:
+def world_check(world, device, mesh=None) -> float:
     """All-reduce a ``[1, 4]`` tensor of ``process_id`` over the world
-    and check the total against ``4 * sum(range(N))``."""
+    (``mesh``'s backend) and check the total against
+    ``4 * sum(range(N))``."""
     import torch
 
     local = torch.full((1, 4), float(world.process_id),
                        dtype=torch.float32, device=device)
-    if world.num_processes > 1:
-        torch.distributed.all_reduce(local)
+    if mesh is not None:
+        mesh.all_reduce(local, "world")
     total = float(local.sum().item())
     expect = 4 * sum(range(world.num_processes))
     assert abs(total - expect) < 1e-5, f"all-reduce {total} != {expect}"
     return total
 
 
-def train(world, device, steps: int, phases: dict, metrics_path):
-    """The ``KFT_TRAIN_STEPS`` mode (module docstring, step 3). Returns
-    ``(fit result, depot outcome)``."""
+def train(world, device, steps: int, phases: dict, metrics_path,
+          mesh=None):
+    """The ``KFT_TRAIN_STEPS`` mode (module docstring, step 3), over
+    ``mesh`` (a ``parallel.mesh.WorldMesh``) for more than one process.
+    Returns ``(fit result, depot outcome)``."""
     import torch
 
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.parallel.depot import DepotStats, depot_from_env
     from kubeflow_tpu_torch.training import (
-        CheckpointManager, MetricsWriter, Trainer, TrainerConfig, fit,
+        MetricsWriter, Trainer, TrainerConfig, checkpoint_manager, fit,
         lm_loss_fn, restore_latest, synthetic_lm_batches,
     )
 
-    if world.num_processes > 1:
-        raise NotImplementedError(MULTI_PROCESS_SLICE)
     cfg = llama.llama_tiny(dtype=torch.float32)
     trainer = Trainer(
         lambda g: llama.init_params(g, cfg, device=device),
         lm_loss_fn(llama.forward, cfg),
         TrainerConfig(learning_rate=1e-3, warmup_steps=2,
                       total_steps=max(steps, 3)),
-        device=device)
+        device=device, mesh=mesh,
+        param_axes=llama.param_logical_axes(cfg))
     global_batch = max(2 * world.num_processes, 4)
 
     def batches(start):
+        # this process's rows: the stream is seeded by its process index
         return synthetic_lm_batches(cfg.vocab_size, global_batch, 16,
                                     start_step=start)
 
@@ -142,9 +150,9 @@ def train(world, device, steps: int, phases: dict, metrics_path):
     ckpt_dir = os.environ.get("KFT_CHECKPOINT_DIR")
     resumed = None
     if ckpt_dir:
-        mgr = CheckpointManager(
-            ckpt_dir,
-            mirror=os.environ.get("KFT_CHECKPOINT_MIRROR") or None)
+        mgr = checkpoint_manager(
+            trainer, ckpt_dir,
+            os.environ.get("KFT_CHECKPOINT_MIRROR") or None)
         resumed = restore_latest(trainer, mgr)
         mgr.close()
         if resumed is not None:
@@ -189,14 +197,17 @@ def main() -> int:
     _phase(phases, "proc_start")
     import torch
 
-    from kubeflow_tpu_torch.rendezvous.bootstrap import initialize
+    from kubeflow_tpu_torch.rendezvous.bootstrap import (
+        initialize, world_mesh,
+    )
     from kubeflow_tpu_torch.training.metrics import MetricsWriter
 
     _phase(phases, "imports_done")
     world, device = initialize()
+    mesh = world_mesh(world, device)
     _phase(phases, "rendezvous_done")
     try:
-        total = world_check(world, device)
+        total = world_check(world, device, mesh)
         metrics_path = os.environ.get("KFT_METRICS_PATH")
         if metrics_path:
             MetricsWriter(metrics_path).write(
@@ -204,15 +215,23 @@ def main() -> int:
         steps = int(os.environ.get("KFT_TRAIN_STEPS", "0"))
         if steps:
             result, outcome = train(world, device, steps, phases,
-                                    metrics_path)
+                                    metrics_path, mesh)
             incarnation = os.environ.get("KFT_WORKER_INCARNATION", "0")
             print(f"worker {world.process_id}: trained to step "
                   f"{result.final_step} (resumed_from={result.resumed_from}, "
                   f"depot={outcome}, incarnation={incarnation})")
+        backend = (f", mesh={mesh.shape}, backend={mesh.backend.name} "
+                   f"({mesh.backend.reason})" if mesh is not None else "")
         print(f"worker {world.process_id}/{world.num_processes}: world ok, "
-              f"devices={world.num_processes}, collective={total}")
+              f"devices={world.num_processes}, collective={total}{backend}")
     finally:
         if torch.distributed.is_initialized():
+            # a captured step's graphs hold the NCCL communicators'
+            # kernels: free them (they sit in reference cycles) before
+            # the communicators are torn down
+            import gc
+
+            gc.collect()
             torch.distributed.destroy_process_group()
     return 0
 

@@ -1,5 +1,5 @@
-"""Training on one card (counterpart of ``kubeflow_tpu.training``): the
-trainer and its captured step, the synthetic and file-backed token
+"""Training on one card or over a world of processes (counterpart of
+``kubeflow_tpu.training``): the trainer and its captured step, the synthetic and file-backed token
 streams, checkpoints with step-exact resume, and the ``fit`` loop."""
 
 from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
@@ -7,7 +7,9 @@ from kubeflow_tpu_torch.training.data import synthetic_lm_batches, to_device
 from kubeflow_tpu_torch.training.dataset import (
     TokenDataset, write_token_shards,
 )
-from kubeflow_tpu_torch.training.loop import fit, restore_latest
+from kubeflow_tpu_torch.training.loop import (
+    checkpoint_manager, fit, restore_latest,
+)
 from kubeflow_tpu_torch.training.metrics import (
     MetricsWriter, objective_from_metrics, read_metrics,
 )

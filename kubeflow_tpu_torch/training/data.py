@@ -94,6 +94,10 @@ class BatchBuffers:
             out[k] = buf[off:off + n].view(dtype).view(shape)
         return out
 
+    def buffers(self) -> list:
+        """Every tensor it keeps (``PinnedStaging.buffers``)."""
+        return self._staging.buffers()
+
     def matches(self, batch: dict) -> bool:
         """Whether ``batch`` has this buffer's keys, shapes and dtypes."""
         return batch.keys() == self.spec.keys() and all(

@@ -7,6 +7,15 @@ resumes where it left off, step-exact (``restore_latest`` writes the
 saved state into the trainer's own tensors, so a step already captured
 as CUDA graphs trains the restored state at its next replay).
 
+Over a world (a trainer with a ``WorldMesh``) every rank runs ``fit``:
+the coordinator alone writes the metrics and the checkpoints, the whole
+state in the one-process format (``Trainer.checkpoint_state``), so a
+checkpoint written by N processes restores into any number, 1 included;
+every rank restores its own part from it, at the step the coordinator
+reads, and the ranks pass a barrier at each save. Only the coordinator's
+manager has the mirror (``checkpoint_manager``): it alone copies steps
+to the mirror and fetches them back, so no two processes write one path.
+
 ``KFT_PROFILE_DIR`` / ``KFT_PROFILE_STEPS`` drive ``torch.profiler`` (CPU
 and, on a card, CUDA activity) where the JAX loop drives
 ``jax.profiler``; the window's trace lands in the directory as a Chrome
@@ -23,7 +32,6 @@ from typing import Any, Callable, Iterable, Optional
 
 import torch
 
-from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
 from kubeflow_tpu_torch.training.metrics import MetricsWriter
 from kubeflow_tpu_torch.training.trainer import Trainer
@@ -164,48 +172,62 @@ def profile_from_env(env=None) -> tuple[Optional[str],
     return profile_dir, steps
 
 
-def _train_state(trainer: Trainer) -> dict:
-    return {"params": trainer.params, "opt_state": trainer.opt_state}
+def _is_coordinator(trainer: Trainer) -> bool:
+    return trainer.mesh is None or trainer.mesh.is_coordinator
+
+
+def checkpoint_manager(trainer: Trainer, directory: str,
+                       mirror: Optional[str] = None) -> CheckpointManager:
+    """The ``CheckpointManager`` of ``directory`` for this process: with
+    ``mirror`` on the coordinator, without it on the other ranks of a
+    world (module docstring)."""
+    return CheckpointManager(
+        directory, mirror=mirror if _is_coordinator(trainer) else None)
 
 
 def restore_latest(trainer: Trainer, mgr: CheckpointManager):
     """Restore the newest checkpoint of ``mgr`` into ``trainer`` and
     return its step, or None when there is none. Shared by ``fit`` and
-    by a worker that restores before it captures its step.
+    by a worker that restores before it captures its step. Over a world
+    every rank calls it; the step is the coordinator's newest, and the
+    coordinator reads it first (fetching it from its mirror where its
+    manager has one and must), then the others, after a barrier.
 
     The saved parameters and optimizer state (its device-side counts
     included, which drive the device-side schedule) are COPIED into the
-    trainer's existing tensors, never bound in their place: a trainer
-    that was ``precompile``d holds graphs over those addresses, and a
-    rebinding restore would leave every later replay training the stale
-    state with no error. So restore-then-precompile and
-    precompile-then-restore give the same steps. The gradient
-    accumulators and the step's sums are zeroed at every step and are
-    not saved."""
+    trainer's existing tensors (``Trainer.load_state``), never bound in
+    their place: a trainer that was ``precompile``d holds graphs over
+    those addresses, and a rebinding restore would leave every later
+    replay training the stale state with no error. So
+    restore-then-precompile and precompile-then-restore give the same
+    steps. The gradient accumulators and the step's sums are zeroed at
+    every step and are not saved."""
     if trainer.params is None:
         raise ValueError("restore_latest needs init_state() first")
     latest = mgr.latest_step()
+    if trainer.mesh is not None:
+        latest = trainer.mesh.broadcast_object(latest)
     if latest is None:
         return None
-    _, state = mgr.restore(latest)
-    saved = optim.named_leaves(state)
-    live = optim.named_leaves(_train_state(trainer))
-    if saved.keys() != live.keys():
-        raise ValueError(
-            f"checkpoint step {latest} holds leaves "
-            f"{sorted(saved.keys() ^ live.keys())} the trainer does not, or "
-            "the other way round")
-    for name, dst in live.items():
-        src = saved[name]
-        if src.shape != dst.shape or src.dtype != dst.dtype:
-            raise ValueError(
-                f"checkpoint step {latest}: {name} is {tuple(src.shape)} "
-                f"{src.dtype}, the trainer's {tuple(dst.shape)} {dst.dtype}")
-    with torch.no_grad():
-        for name, dst in live.items():
-            dst.copy_(saved[name])
-    trainer.step = latest
+    first = _is_coordinator(trainer)
+    if first:
+        _, state = mgr.restore(latest)
+    if trainer.mesh is not None:
+        trainer.mesh.barrier()
+    if not first:
+        _, state = mgr.restore(latest)
+    trainer.load_state(state, latest)
     return latest
+
+
+def _save(trainer: Trainer, mgr: CheckpointManager, force: bool = False):
+    """Every rank: the whole state (gathered under fsdp), written by the
+    coordinator; then the world's barrier."""
+    state = trainer.checkpoint_state()
+    if _is_coordinator(trainer):
+        mgr.save(trainer.step, state, force=force)
+    if trainer.mesh is not None:
+        trainer.mesh.barrier()
 
 
 def _start_profiler(device: torch.device):
@@ -271,6 +293,10 @@ def fit(
     follow the pod env (KFT_HEARTBEAT_FILE, KFT_PROFILE_DIR,
     KFT_PROFILE_STEPS) where the arguments leave them unset. A mirror
     that fails is counted as ``ckpt_mirror_errors`` in the metrics.
+
+    Over a world every rank calls ``fit`` with the same arguments and
+    its own rows; ``metrics`` are written by the coordinator only, and
+    so are the checkpoints (module docstring).
     """
     own_heartbeat = heartbeat is None \
         and bool(os.environ.get("KFT_HEARTBEAT_FILE"))
@@ -284,13 +310,15 @@ def fit(
 
     if trainer.params is None:
         trainer.init_state(generator)
+    if not _is_coordinator(trainer):
+        metrics = None
     resumed_from = already_resumed
     mgr = None
     if checkpoint_dir:
-        mgr = CheckpointManager(
-            checkpoint_dir,
-            mirror=checkpoint_mirror
-            or os.environ.get("KFT_CHECKPOINT_MIRROR") or None)
+        mgr = checkpoint_manager(
+            trainer, checkpoint_dir,
+            checkpoint_mirror or os.environ.get("KFT_CHECKPOINT_MIRROR")
+            or None)
         if already_resumed is None:
             resumed_from = restore_latest(trainer, mgr)
     if resumed_from is not None and heartbeat is not None:
@@ -328,15 +356,20 @@ def fit(
             if heartbeat is not None:
                 heartbeat.beat(trainer.step)
             if mgr is not None and trainer.step % checkpoint_every == 0:
-                mgr.save(trainer.step, _train_state(trainer))
+                _save(trainer, mgr)
             if on_step is not None:
                 on_step(trainer.step, last)
         if mgr is not None:
             # the final save, unless this step is already on disk (the
             # in-loop save took it, or a resumed run trained 0 steps)
-            if mgr.latest_step() != trainer.step:
-                mgr.save(trainer.step, _train_state(trainer), force=True)
+            latest = mgr.latest_step()
+            if trainer.mesh is not None:
+                latest = trainer.mesh.broadcast_object(latest)
+            if latest != trainer.step:
+                _save(trainer, mgr, force=True)
             mgr.wait()
+            if trainer.mesh is not None:
+                trainer.mesh.barrier()      # the write is on disk
     finally:
         if prof is not None:
             _stop_profiler(prof, profile_info, trainer.device)

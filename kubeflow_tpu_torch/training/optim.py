@@ -15,6 +15,14 @@ the learning rate, the bias corrections and the decay are computed from
 them on the device in float32 (as optax's ``jnp`` arithmetic does), so
 no update reads the host and a replay never sees a frozen count.
 
+Under ``fsdp`` (``training/trainer.py`` with a ``parallel.mesh.WorldMesh``)
+each rank updates its own part of every parameter, and ``Shards`` says
+how the parts were cut: a transformation given one reduces over the
+group wherever optax reduces over a whole leaf (the global norm, the
+factored second moments' means along a cut dim, the block rms of the
+update and of the parameter), so every rank applies its part of the
+unsharded update. Without ``Shards`` nothing changes.
+
 ``torch.optim`` is not used: ``torch.optim.Adafactor`` has no
 ``min_dim_size_to_factor`` and no ``multiply_by_parameter_scale``, and
 ``torch.optim.AdamW`` takes its learning rate from a scheduler object
@@ -26,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -74,6 +82,52 @@ def _count(params) -> torch.Tensor:
 class GradientTransformation:
     init: Callable[[dict], Any]
     update: Callable[[dict, Any, dict], tuple[dict, Any]]
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafCut:
+    """One parameter held as a rank's part: the whole parameter's shape,
+    and the dim cut over the group (None: the rank holds it whole)."""
+    full_shape: tuple
+    dim: Optional[int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """How the parameters an optimizer sees are cut over a group of
+    ranks: ``cuts`` is a tree of ``LeafCut`` with the parameters' keys,
+    and ``psum(t)`` sums ``t`` over the group in place and returns it
+    (every rank gets the same bytes)."""
+    cuts: Any
+    psum: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _cuts(shards: Optional[Shards], tree):
+    """``shards``' cuts, or a tree of None (nothing cut) like ``tree``."""
+    return shards.cuts if shards is not None \
+        else tree_map(lambda _: None, tree)
+
+
+def _is_cut(cut: Optional[LeafCut]) -> bool:
+    return cut is not None and cut.dim is not None
+
+
+def _leaf_mean(x: torch.Tensor, cut: Optional[LeafCut],
+               shards: Optional[Shards]) -> torch.Tensor:
+    """The mean of every element of the whole leaf that ``x`` is part of."""
+    if not _is_cut(cut):
+        return torch.mean(x)
+    return shards.psum(torch.sum(x)) / math.prod(cut.full_shape)
+
+
+def _dim_mean(x: torch.Tensor, dim: int, cut_dim: bool, full: int,
+              shards: Optional[Shards], keepdim: bool = False
+              ) -> torch.Tensor:
+    """``x.mean(dim)`` of the whole leaf, when ``dim`` is the cut one of
+    ``full`` elements (``cut_dim``): summed over the group first."""
+    if not cut_dim:
+        return x.mean(dim, keepdim=keepdim)
+    return shards.psum(x.sum(dim, keepdim=keepdim)) / full
 
 
 # ---------------------------------------------------------------------------
@@ -165,16 +219,25 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf (a 0-d tensor)."""
-    return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(tree)))
+def global_norm(tree, shards: Optional[Shards] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (a 0-d tensor); with
+    ``shards``, of the whole leaves that ``tree`` holds parts of (the cut
+    leaves' squares summed over the group, the whole ones once)."""
+    if shards is None:
+        return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(tree)))
+    squares = [(torch.sum(x * x), _is_cut(c)) for x, c in
+               zip(tree_leaves(tree), tree_leaves(shards.cuts))]
+    total = shards.psum(sum(q for q, cut in squares if cut))
+    return torch.sqrt(total + sum(q for q, cut in squares if not cut))
 
 
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+def clip_by_global_norm(max_norm: float,
+                        shards: Optional[Shards] = None
+                        ) -> GradientTransformation:
     """optax's form: ``where(norm < max, g, g / norm * max)`` (no epsilon,
     unlike ``torch.nn.utils.clip_grad_norm_``)."""
     def update(updates, state, params=None):
-        norm = global_norm(updates)
+        norm = global_norm(updates, shards)
         keep = norm < max_norm
         return tree_map(lambda t: torch.where(keep, t, t / norm * max_norm),
                         updates), state
@@ -247,61 +310,78 @@ def adafactor_decay(count: torch.Tensor,
 
 
 def _scale_by_factored_rms(min_dim_size_to_factor: int, decay_rate: float,
-                           eps: float) -> GradientTransformation:
+                           eps: float, shards: Optional[Shards] = None
+                           ) -> GradientTransformation:
+    """The factored second moments. Which dims factor is decided on the
+    whole leaf's shape; a rank's moments are those of its part, and a
+    mean along the cut dim is summed over the group (so a moment that
+    lost the cut dim is whole, and equal, on every rank)."""
+    def shape_of(p, cut):
+        return tuple(cut.full_shape) if cut is not None else tuple(p.shape)
+
     def init(params):
-        def leaf(p):
-            dims = _factored_dims(tuple(p.shape), min_dim_size_to_factor)
+        def leaf(p, cut):
+            dims = _factored_dims(shape_of(p, cut), min_dim_size_to_factor)
             if dims is None:
                 return {"v": torch.zeros_like(p)}
             d1, d0 = dims
             return {"v_row": p.new_zeros(p.shape[:d0] + p.shape[d0 + 1:]),
                     "v_col": p.new_zeros(p.shape[:d1] + p.shape[d1 + 1:])}
-        return {"count": _count(params), "v": tree_map(leaf, params)}
+        return {"count": _count(params),
+                "v": tree_map(leaf, params, _cuts(shards, params))}
 
     def update(updates, state, params):
         decay = adafactor_decay(state["count"], decay_rate)
 
-        def leaf(g, v):
+        def leaf(g, v, cut):
             g_sqr = g * g + eps
-            dims = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+            full = shape_of(g, cut)
+            dims = _factored_dims(full, min_dim_size_to_factor)
             if dims is None:
                 new_v = v["v"].copy_(decay * v["v"] + (1.0 - decay) * g_sqr)
                 return g * new_v.rsqrt()
             d1, d0 = dims
+            s = cut.dim if cut is not None else None
             v_row = v["v_row"].copy_(
-                decay * v["v_row"] + (1.0 - decay) * g_sqr.mean(d0))
+                decay * v["v_row"] + (1.0 - decay)
+                * _dim_mean(g_sqr, d0, s == d0, full[d0], shards))
             v_col = v["v_col"].copy_(
-                decay * v["v_col"] + (1.0 - decay) * g_sqr.mean(d1))
+                decay * v["v_col"] + (1.0 - decay)
+                * _dim_mean(g_sqr, d1, s == d1, full[d1], shards))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = v_row.mean(reduced_d1, keepdim=True)
+            row_col_mean = _dim_mean(v_row, reduced_d1, s == d1, full[d1],
+                                     shards, keepdim=True)
             row_factor = (v_row / row_col_mean).rsqrt()
             col_factor = v_col.rsqrt()
             return g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
 
-        out = tree_map(leaf, updates, state["v"])
+        out = tree_map(leaf, updates, state["v"], _cuts(shards, updates))
         state["count"].add_(1)
         return out, state
 
     return GradientTransformation(init, update)
 
 
-def _clip_by_block_rms(threshold: float) -> GradientTransformation:
+def _clip_by_block_rms(threshold: float, shards: Optional[Shards] = None
+                       ) -> GradientTransformation:
     def update(updates, state, params=None):
-        def clip(u):
-            rms = torch.sqrt(torch.mean(u * u))
+        def clip(u, cut):
+            rms = torch.sqrt(_leaf_mean(u * u, cut, shards))
             return u / torch.clamp_min(rms / threshold, 1.0)
-        return tree_map(clip, updates), state
+        return tree_map(clip, updates, _cuts(shards, updates)), state
 
     return GradientTransformation(lambda params: (), update)
 
 
-def _scale_by_param_block_rms(min_scale: float = 1e-3):
+def _scale_by_param_block_rms(min_scale: float = 1e-3,
+                              shards: Optional[Shards] = None):
     def update(updates, state, params):
-        def scale(u, p):
-            rms = torch.sqrt(torch.mean(p * p))
+        def scale(u, p, cut):
+            rms = torch.sqrt(_leaf_mean(p * p, cut, shards))
             return u * torch.where(rms <= min_scale,
                                    torch.full_like(rms, min_scale), rms)
-        return tree_map(scale, updates, params), state
+        return tree_map(scale, updates, params,
+                        _cuts(shards, updates)), state
 
     return GradientTransformation(lambda params: (), update)
 
@@ -310,18 +390,22 @@ def adafactor(learning_rate: DeviceSchedule,
               min_dim_size_to_factor: int = 128,
               decay_rate: float = 0.8, clipping_threshold: float = 1.0,
               multiply_by_parameter_scale: bool = True,
-              eps: float = 1e-30) -> GradientTransformation:
+              eps: float = 1e-30,
+              shards: Optional[Shards] = None) -> GradientTransformation:
     """optax.adafactor with its defaults: factored second moments over
     each leaf's two largest dims (when the smaller of them is at least
     ``min_dim_size_to_factor``), update clipping by block rms,
     ``lr(count)``, scaling by the parameter's rms (at least 1e-3), then a
-    sign flip. No momentum and no weight decay, as optax's defaults."""
-    txs = [_scale_by_factored_rms(min_dim_size_to_factor, decay_rate, eps)]
+    sign flip. No momentum and no weight decay, as optax's defaults.
+    ``shards``: the parameters are parts cut over a group (module
+    docstring)."""
+    txs = [_scale_by_factored_rms(min_dim_size_to_factor, decay_rate, eps,
+                                  shards)]
     if clipping_threshold is not None:
-        txs.append(_clip_by_block_rms(clipping_threshold))
+        txs.append(_clip_by_block_rms(clipping_threshold, shards))
     txs.append(_scale_by_schedule(learning_rate, 1.0))
     if multiply_by_parameter_scale:
-        txs.append(_scale_by_param_block_rms())
+        txs.append(_scale_by_param_block_rms(shards=shards))
     txs.append(GradientTransformation(
         lambda params: (),
         lambda updates, state, params=None: (

@@ -12,7 +12,11 @@ and zeroes the accumulators. ``StepGraph`` captures each body as its own
 graph, in one memory pool (``cuda_graph.capture``), and replays (a)
 ``grad_accum`` times and then (b) once a step: ``grad_accum + 1`` graph
 launches where the eager step makes tens of thousands of kernel
-launches. Two graphs rather than one whole-step graph: each holds one
+launches. Over a world whose collectives run over gloo, (b) is not
+captured: a gloo collective runs on the host, which no graph can hold,
+so (b) runs eagerly after the replays of (a) (``finish_mode`` "eager";
+"graph" otherwise: NCCL's collectives sit inside graph (b)). Two graphs
+rather than one whole-step graph: each holds one
 micro batch's work (a capture of the whole step would unroll
 ``grad_accum`` micro batches into one graph), and the pool holds one
 micro batch's activations, which the replays of (a) reuse.
@@ -45,6 +49,9 @@ class StepGraph:
     addresses. ``counters``: the kernel wrappers whose ``.launches`` a
     replay adds to.
 
+    ``capture_finish`` False leaves (b) eager (module docstring);
+    ``finish_mode`` says which ("graph" or "eager").
+
     ``capture_seconds``, ``pool_bytes`` (device memory the two captures
     reserved) and ``launches`` (kernel launches of one replayed step, per
     counter) describe the capture; ``replays`` counts replayed steps."""
@@ -52,7 +59,7 @@ class StepGraph:
     def __init__(self, micro: Callable[[], None],
                  finish: Callable[[], None], state: Callable[[], dict],
                  grad_accum: int, counters: Sequence,
-                 device: torch.device):
+                 device: torch.device, capture_finish: bool = True):
         snapshot = {k: t.detach().to("cpu", copy=True)
                     for k, t in state().items()}
 
@@ -63,20 +70,28 @@ class StepGraph:
                 now[k].copy_(t)
 
         captured = capture([micro, finish], state, counters, device,
-                           "the train state's tensors", restore=restore)
+                           "the train state's tensors", restore=restore,
+                           eager=() if capture_finish else (1,))
         self.micro_graph, self.finish_graph = captured.graphs
+        self.finish = finish
+        self.finish_mode = "graph" if capture_finish else "eager"
         self.capture_seconds = captured.capture_seconds
         self.pool_bytes = captured.pool_bytes
         self.grad_accum = grad_accum
+        # the finish body launches no kernel of the counters
         self.launches = {
-            name: grad_accum * n + self.finish_graph.launches[name]
+            name: grad_accum * n + (self.finish_graph.launches[name]
+                                    if capture_finish else 0)
             for name, n in self.micro_graph.launches.items()}
         self.replays = 0
 
     def replay(self) -> None:
         """One training step on the current stream: (a) ``grad_accum``
-        times, then (b)."""
+        times, then (b), replayed or run."""
         for _ in range(self.grad_accum):
             self.micro_graph.replay()
-        self.finish_graph.replay()
+        if self.finish_graph is not None:
+            self.finish_graph.replay()
+        else:
+            self.finish()
         self.replays += 1

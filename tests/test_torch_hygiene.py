@@ -59,7 +59,17 @@ def test_importing_every_port_module_loads_no_jax():
             "kubeflow_tpu_torch.rendezvous.worker_check",
             "kubeflow_tpu_torch.training.dataset",
             "kubeflow_tpu_torch.training.checkpoint",
-            "kubeflow_tpu_torch.parallel.depot"} <= set(mods)
+            "kubeflow_tpu_torch.parallel.depot",
+            "kubeflow_tpu_torch.parallel.mesh",
+            "kubeflow_tpu_torch.parallel.sharding",
+            "kubeflow_tpu_torch.training.trainer",
+            "kubeflow_tpu_torch.training.optim",
+            "kubeflow_tpu_torch.training.step_graph",
+            "kubeflow_tpu_torch.training.loop",
+            "kubeflow_tpu_torch.tools.world_train",
+            "kubeflow_tpu_torch.training",
+            "kubeflow_tpu_torch.training.data",
+            "kubeflow_tpu_torch.cuda_graph"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

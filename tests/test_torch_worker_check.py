@@ -7,7 +7,11 @@ starts on ``LocalProcessCluster`` (one and two processes over gloo).
 With ``KFT_TRAIN_STEPS`` and ``KFT_CHECKPOINT_*`` a pod SIGKILLed after
 its step-2 checkpoint and started again resumes, and its losses from the
 resume on are bitwise those of an uninterrupted pod (both eager on the
-CPU, one thread each). Every subprocess has its own timeout."""
+CPU, one thread each). Two processes with ``KFT_TRAIN_STEPS`` train over
+the world (``KFT_MESH=data=2``, or the default fsdp) with the losses of
+the JAX ``Trainer`` on the same global batches (1e-5 relative: float32
+sums over the two processes' partial sums in another order than
+XLA's). Every subprocess has its own timeout."""
 
 import http.server
 import json
@@ -240,16 +244,110 @@ def test_pytorchjob_world(tmp_path):
         cluster.shutdown()
 
 
-def test_two_process_training_raises_naming_its_item(client, tmp_path):
+POD_STEPS = 3
+
+
+def _jax_pod_losses(data: int, fsdp: int) -> list:
+    """The reference pod's training (``worker_check``: llama_tiny f32,
+    adamw, lr 1e-3, warmup 2, global batch max(2N, 4) x 16) in the JAX
+    ``Trainer`` over ``data`` x ``fsdp`` host devices, from the port
+    pod's own initial parameters, fed the global batches: every process's
+    rows of ``synthetic_lm_batches`` (seeded by ``[0, step, process]``)
+    concatenated. Its losses, step by step."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu.models import llama as jl
+    from kubeflow_tpu.parallel import MeshConfig, build_mesh
+    from kubeflow_tpu.training import data as j_data
+    from kubeflow_tpu.training import trainer as j_trainer
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.training import optim
+
+    n = data * fsdp
+    host = optim.tree_map(lambda t: t.numpy(), tl.init_params(
+        torch.Generator().manual_seed(0),
+        tl.llama_tiny(dtype=torch.float32), device="cpu"))
+    jcfg = jl.llama_tiny(dtype=jnp.float32)
+    mesh = build_mesh(MeshConfig(data=data, fsdp=fsdp),
+                      devices=jax.devices()[:n])
+    jt = j_trainer.Trainer(
+        mesh=mesh, init_params_fn=lambda rng: jax.tree_util.tree_map(
+            jnp.asarray, host),
+        params_logical_axes=jl.param_logical_axes(jcfg),
+        loss_fn=j_trainer.lm_loss_fn(jl.forward, jcfg),
+        config=j_trainer.TrainerConfig(learning_rate=1e-3, warmup_steps=2,
+                                       total_steps=max(POD_STEPS, 3)))
+    jt.init_state(jax.random.key(0))
+    local = max(2 * n, 4) // n
+    losses = []
+    for step in range(POD_STEPS):
+        rows = [np.random.default_rng([0, step, p]).integers(
+            0, jcfg.vocab_size, (local, 17), dtype=np.int32)
+            for p in range(n)]
+        m = jt.train_step(j_data.put_batch(
+            mesh, {"tokens": np.concatenate(rows)}))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def _assert_pod_trained_like_jax(tmp_path, logs, data, fsdp):
+    recs = read_metrics(str(tmp_path / "metrics.jsonl"))
+    got = {r["step"]: r["loss"] for r in recs if "loss" in r}
+    assert sorted(got) == list(range(1, POD_STEPS + 1)), (recs, logs)
+    # the coordinator alone writes the training metrics: one record a
+    # step, and the final one
+    assert sum("loss" in r for r in recs) == POD_STEPS + 1, recs
+    want = _jax_pod_losses(data, fsdp)
+    import numpy as np
+
+    np.testing.assert_allclose([got[s] for s in range(1, POD_STEPS + 1)],
+                               want, rtol=1e-5)
+
+
+def test_two_process_jaxjob_trains_like_the_jax_trainer(client, tmp_path):
+    """A 2-process JAXJob pod with ``KFT_MESH=data=2`` and
+    ``KFT_TRAIN_STEPS``: both processes train over the world, each
+    feeding its own rows, and the coordinator's losses are the JAX
+    ``Trainer``'s on MeshConfig(data=2) fed the same global batches."""
     client.create_jax_job("torch-train2", workers=2, command=WORKER_CMD,
                           mesh={"data": 2},
-                          env=_env(tmp_path, KFT_TRAIN_STEPS="2"),
+                          env=_env(tmp_path,
+                                   KFT_TRAIN_STEPS=str(POD_STEPS)),
                           run_policy=RunPolicy(backoff_limit=0))
     done = client.wait_for_job_conditions("torch-train2",
                                           timeout=POD_TIMEOUT)
-    log = client.get_job_logs("torch-train2", index=0)
-    assert done.status.condition() == ConditionType.FAILED, log
-    assert "NotImplementedError" in log and "queue 1 item 8.7" in log
+    logs = [client.get_job_logs("torch-train2", index=i) for i in range(2)]
+    assert done.status.condition() == ConditionType.SUCCEEDED, logs
+    for i, log in enumerate(logs):
+        assert f"worker {i}: trained to step {POD_STEPS}" in log, log
+        assert "mesh={'data': 2, 'fsdp': 1}, backend=gloo" in log, log
+    _assert_pod_trained_like_jax(tmp_path, logs, 2, 1)
+
+
+def test_two_process_pytorchjob_trains_like_the_jax_trainer(tmp_path):
+    """The same under a PyTorchJob's env (a Master and one Worker;
+    ``MASTER_ADDR`` / ``WORLD_SIZE`` / ``RANK``) and no ``KFT_MESH``: the
+    world's default puts both processes on fsdp, as the JAX mesh's
+    default does, and the losses are the JAX ``Trainer``'s on
+    MeshConfig(fsdp=2)."""
+    cluster = LocalProcessCluster(log_dir=str(tmp_path / "pods"))
+    client = TrainingClient(JobController(cluster))
+    try:
+        client.create_job(pytorch_job(
+            "torch-pt-train", workers=1, command=WORKER_CMD,
+            env=_env(tmp_path, KFT_TRAIN_STEPS=str(POD_STEPS))))
+        done = client.wait_for_job_conditions("torch-pt-train",
+                                              timeout=POD_TIMEOUT)
+        logs = [client.get_job_logs("torch-pt-train", replica_type=rt)
+                for rt in ("Master", "Worker")]
+        assert done.status.condition() == ConditionType.SUCCEEDED, logs
+        assert "mesh={'data': 1, 'fsdp': 2}, backend=gloo" in logs[0], logs
+    finally:
+        cluster.shutdown()
+    _assert_pod_trained_like_jax(tmp_path, logs, 1, 2)
 
 
 def _pod(tmp_path, tag, extra):
