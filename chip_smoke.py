@@ -271,33 +271,55 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              checkpoint exists, and a restart. Checks the restart's
              resumed_from_step >= 2 and its losses after the resume
              bitwise the uninterrupted world's, and logs the backend each
-             world chose and why. (b) llama_1b in phase 7's
-             configuration (remat dots, attn_impl pallas, adafactor,
-             global batch 32 x 2048 in 16 micro batches of 2 rows) over
-             two processes (tools/world_train), each feeding its own 16
-             rows (ragged loss masks whose density differs by rank) in
-             8 micro batches, as data=2 and as fsdp=2 in one world: per
-             layout an eager run of 3 steps, then a fresh trainer
-             precompile()d and replayed 3 steps; every rank's replayed
-             losses, grad norms and parameters must be bitwise its eager
-             run's, both ranks' metrics equal, and the flash launches per
-             rank 8 micro batches x (2 x 16 forward, 16 dQ, 16 dK/dV) a
-             step. After the world exits, a one-process trainer from the
-             same seed (grad_accum 16) replays 3 steps on the
-             concatenated batches; the world's losses and grad norms must
-             be within WORLD_LOSS_RTOL / WORLD_NORM_RTOL of it (limits
+             world chose and why (the default world's fsdp is ZeRO-3). (b)
+             llama_1b in phase 7's configuration (remat dots, attn_impl
+             pallas, adafactor, global batch 32 x 2048 in 16 micro
+             batches of 2 rows) over two processes (tools/world_train),
+             each feeding its own 16 rows (ragged loss masks whose
+             density differs by rank) in 8 micro batches, as data=2 and
+             as fsdp=2 (ZeRO-3: each layer gathered inside the micro
+             bodies and its gradients reduce-scattered) in one world.
+             data=2: an eager run of 3 steps, then a fresh trainer
+             precompile()d and replayed 3 steps, every rank's replayed
+             losses, grad norms and parameters bitwise its eager run's.
+             fsdp=2: one run of WORLD_FSDP_STEPS steps after precompile(),
+             which under gloo captures neither body (micro_mode and
+             finish_mode "eager": a gloo collective cannot sit in a
+             graph), so the run's steps are eager. Per layout both
+             ranks' metrics equal, and the flash launches per rank 8
+             micro batches x (2 x 16 forward, 16 dQ, 16 dK/dV) a step.
+             After the world exits, a one-process trainer from the same
+             seed (grad_accum 16) replays 3 steps on the concatenated
+             batches; each layout's losses and grad norms must be within
+             WORLD_LOSS_RTOL / WORLD_NORM_RTOL of its steps (limits
              between the sound reading and planted faults). Logs per
              rank the step's seconds, its host-staged collectives
-             (device-to-host, gloo, host-to-device seconds and bytes) and
-             peak memory, the memory still allocated after the steps,
-             and each layout's state kept per rank (Trainer.state_bytes:
-             the whole parameters and gradients under both layouts,
-             fsdp keeping its part of the optimizer state). Checks after
-             every run that state_bytes counts every tensor the trainer
-             reaches and all but WORLD_UNCOUNTED_MAX of the memory the
-             run added, and that an fsdp rank keeps less than a data
-             rank. Two cards or more give each rank its own card and
-             NCCL; one card, gloo.
+             (device-to-host, gloo, host-to-device seconds and bytes),
+             fsdp's per-layer gathers and reduce-scatters (count, bytes,
+             seconds), peak memory, the memory still allocated after the
+             steps, and each layout's state kept per rank
+             (Trainer.state_bytes). Checks after every run that
+             state_bytes counts every tensor the trainer reaches and all
+             but WORLD_UNCOUNTED_MAX of the memory the run added, that
+             an fsdp rank keeps half a data rank's parameters and
+             gradients and at most WORLD_STATE_SHARE_MAX of its state.
+             Two cards or more give each rank its own card and NCCL; one
+             card, gloo. (c) llama3_8b at its published widths (32
+             layers, 8.03 B parameters, random weights from seed 0),
+             remat dots, attn_impl pallas, adamw, fsdp=4 with one card a
+             rank over NCCL, each rank 2 micro batches of 2 x 2048 a
+             step: an eager run of 3 steps, then a fresh trainer
+             precompile()d (both bodies captured with their NCCL
+             collectives) and replayed 3 steps, each run's last step
+             traced (device busy, NCCL busy, idle share). Checks every
+             rank's replayed losses, grad norms and parameter parts
+             bitwise its eager run's and rank 0's, finite losses, the
+             flash launches, and that a rank keeps exactly its quarter
+             of the parameters, gradients and adamw moments (32.1 GB).
+             Logs the step, tokens/s a card, MFU, peak memory, the eager
+             steps' per-layer gathers and reduce-scatters. Runs only on
+             a machine with four cards or more, and says it was skipped
+             otherwise.
 
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
 7, 7m, 8, 9.
@@ -477,6 +499,21 @@ WORLD_NORM_RTOL = 4.6e-4
 # of the step that must not stay, a parameter part under fsdp=2, is
 # 1.64 GB.
 WORLD_UNCOUNTED_MAX = 256 << 20
+# phase 9 (b): fsdp=2 is ZeRO-3, so a rank keeps half the parameters and
+# gradients of a data=2 rank: the batch and the outputs, whole on both,
+# and adafactor's whole factored moments put the share a little above
+# 0.50 (0.5001 reckoned for llama_1b). Its micro bodies gather and
+# reduce-scatter every layer over gloo, eagerly (~4-6 s a micro batch
+# reckoned, PERF.md), so its one run ("replayed": precompile, which
+# captures nothing under gloo, then steps) takes WORLD_FSDP_STEPS steps
+# of the reference's TRAIN_STEPS
+WORLD_STATE_SHARE_MAX = 0.51
+WORLD_FSDP_STEPS = 2
+# phase 9 (c): llama3_8b under fsdp=4, one card a rank over NCCL; a rank
+# ZERO3_ACCUM micro batches of ZERO3_ROWS rows a step (the collectives of
+# a micro batch move ~69 GB a rank whatever its rows, PERF.md)
+ZERO3_WORLD = 4
+ZERO3_ROWS, ZERO3_ACCUM, ZERO3_STEPS = 2, 2, 3
 # phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
 # (kubeflow_tpu/serving/quant.py:96-101)
 MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
@@ -3349,10 +3386,11 @@ def world_reference(torch, job) -> dict:
     return {"metrics": metrics}
 
 
-def world_training(torch, runs=("eager", "replayed")) -> dict:
+def world_training(torch) -> dict:
     """Phase 9 (b): llama_1b at full width in phase 7's configuration
     over two processes, as data=2 and as fsdp=2 in one world (module
     docstring)."""
+    import dataclasses
     import tempfile
 
     from kubeflow_tpu_torch.models import llama
@@ -3363,20 +3401,27 @@ def world_training(torch, runs=("eager", "replayed")) -> dict:
                            total_steps=1000, grad_accum=WORLD_ACCUM,
                            optimizer="adafactor"),
                  local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
-                 steps=TRAIN_STEPS, mask=True, runs=tuple(runs))
-    layouts = {"data": (WORLD, 1), "fsdp": (1, WORLD)}
+                 steps=TRAIN_STEPS, mask=True, runs=("eager", "replayed"))
+    # (data, fsdp, the layout's job): fsdp's micro bodies gather and
+    # reduce-scatter every layer over gloo, eagerly, so its one run takes
+    # WORLD_FSDP_STEPS steps
+    layouts = {"data": (WORLD, 1, job),
+               "fsdp": (1, WORLD, dataclasses.replace(
+                   job, steps=WORLD_FSDP_STEPS, runs=("replayed",)))}
     devices = world_devices(torch, WORLD)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 9b: llama_1b, remat=dots, attn_impl=pallas, adafactor, "
         f"global batch {TRAIN_BATCH} x {TRAIN_SEQ} with ragged masks, "
         f"{WORLD} processes on {devices}, each {TRAIN_BATCH // WORLD} rows "
-        f"in {WORLD_ACCUM} micro batches; runs {runs}; "
-        f"{torch.cuda.memory_allocated()} B allocated in this process")
+        f"in {WORLD_ACCUM} micro batches; data=2 runs {job.runs} of "
+        f"{job.steps} steps, fsdp=2 (ZeRO-3) runs ('replayed',) of "
+        f"{WORLD_FSDP_STEPS}; {torch.cuda.memory_allocated()} B allocated "
+        f"in this process")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="kft-phase9-") as rundir:
         results = wt.run(wt.plans_rank, ([
-            (d, f, wt.train_rank, (job,)) for d, f in layouts.values()],),
+            (d, f, wt.train_rank, (j,)) for d, f, j in layouts.values()],),
             1, WORLD, devices, rundir)
     world_s = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -3384,26 +3429,29 @@ def world_training(torch, runs=("eager", "replayed")) -> dict:
     ref_s = time.perf_counter() - t1
     out = {"world_s": world_s, "reference_s": ref_s, "launches": {},
            "ref_metrics": ref["metrics"]}
-    want_launch = {"flash_attention_fwd": 2 * cfg.n_layers,
-                   "flash_attention_dq": cfg.n_layers,
-                   "flash_attention_dkv": cfg.n_layers}
-    want_launch = {k: v * WORLD_ACCUM * TRAIN_STEPS
-                   for k, v in want_launch.items()}
+    per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_dq": cfg.n_layers,
+                 "flash_attention_dkv": cfg.n_layers}
     failed = []
-    for i, (name, _) in enumerate(layouts.items()):
+    for i, (name, (_, _, lj)) in enumerate(layouts.items()):
         ranks = [r[i] for r in results]
+        want_launch = {k: v * WORLD_ACCUM * lj.steps
+                       for k, v in per_micro.items()}
         b = ranks[0]["backend"]
         log(f"phase 9b {name}: backend {b['backend']} ({b['reason']}); "
-            f"finish body {ranks[0].get('finish_mode')}")
+            f"micro body {ranks[0].get('micro_mode')}, finish body "
+            f"{ranks[0].get('finish_mode')}")
         for r, res in enumerate(ranks):
             for run, steps in res["runs"].items():
-                per = steps["collectives"]
                 log(f"phase 9b {name} rank {r} {run}: step s "
                     f"{steps['seconds']!r}; collectives per step "
-                    f"{per!r}; peak {steps.get('peak_allocated')} B "
-                    f"allocated, {steps.get('peak_reserved')} B reserved; "
-                    f"after the steps {steps.get('allocated_after')} B "
-                    f"allocated ({steps.get('allocated_base')} B before the "
+                    f"{steps['collectives']!r}; per-layer gathers and "
+                    f"reduce-scatters per step "
+                    f"{steps['layer_collectives']!r}; peak "
+                    f"{steps.get('peak_allocated')} B allocated, "
+                    f"{steps.get('peak_reserved')} B reserved; after the "
+                    f"steps {steps.get('allocated_after')} B allocated "
+                    f"({steps.get('allocated_base')} B before the "
                     f"trainer); state kept {steps['state_bytes']} "
                     f"(reachable {steps['held_bytes']} B); flash launches "
                     f"{steps['launches']}; losses "
@@ -3413,24 +3461,24 @@ def world_training(torch, runs=("eager", "replayed")) -> dict:
                     failed.append(f"{name} rank {r} {run}: flash launches "
                                   f"{steps['launches']}, expected "
                                   f"{want_launch}")
-        main = "replayed" if "replayed" in runs else "eager"
-        world = [res["runs"][main]["metrics"] for res in ranks]
+        world = [res["runs"]["replayed"]["metrics"] for res in ranks]
         read = world_readings(world, ref)
-        log(f"phase 9b {name}: {main} world against the one-process "
-            f"trainer on the concatenated batches: loss {read['loss']!r} "
-            f"(limit {WORLD_LOSS_RTOL}), grad norm {read['grad_norm']!r} "
-            f"(limit {WORLD_NORM_RTOL}) relative; tokens equal "
-            f"{read['tokens_equal']}; reference losses "
+        log(f"phase 9b {name}: replayed world against the one-process "
+            f"trainer on the concatenated batches ({lj.steps} steps): loss "
+            f"{read['loss']!r} (limit {WORLD_LOSS_RTOL}), grad norm "
+            f"{read['grad_norm']!r} (limit {WORLD_NORM_RTOL}) relative; "
+            f"tokens equal {read['tokens_equal']}; reference losses "
             f"{[m['loss'] for m in ref['metrics']]!r}")
         out[name] = {"readings": read, "backend": b,
+                     "micro_mode": ranks[0].get("micro_mode"),
                      "finish_mode": ranks[0].get("finish_mode"),
                      "ranks": [{run: {k: s.get(k) for k in (
-                         "seconds", "collectives", "peak_allocated",
-                         "peak_reserved", "allocated_base", "allocated_after",
-                         "state_bytes")}
+                         "seconds", "collectives", "layer_collectives",
+                         "peak_allocated", "peak_reserved", "allocated_base",
+                         "allocated_after", "state_bytes")}
                          for run, s in res["runs"].items()}
                          for res in ranks]}
-        if "replayed" in runs:
+        if "eager" in lj.runs:
             bitwise = all(res["differ"] == [] and [
                 (m["loss"], m["grad_norm"])
                 for m in res["runs"]["replayed"]["metrics"]] == [
@@ -3442,18 +3490,16 @@ def world_training(torch, runs=("eager", "replayed")) -> dict:
             if not bitwise:
                 failed.append(f"{name}: the replayed world step is not "
                               "bitwise the eager one")
-            out["launches"][name] = {
-                k: sum(res["runs"]["replayed"]["launches"][k]
-                       for res in ranks) for k in want_launch}
+        out["launches"][name] = {
+            k: sum(res["runs"]["replayed"]["launches"][k] for res in ranks)
+            for k in want_launch}
         if world[0] != world[1] or not read["tokens_equal"] \
                 or read["loss"] > WORLD_LOSS_RTOL \
                 or read["grad_norm"] > WORLD_NORM_RTOL:
             failed.append(f"{name}: the world's steps are not the "
                           "one-process trainer's on the global batch")
-    first = runs[0]
-    for i, name in enumerate(layouts):
-        for r, res in enumerate(results):
-            for run, s in res[i]["runs"].items():
+        for r, res in enumerate(ranks):
+            for run, s in res["runs"].items():
                 total, after = s["state_bytes"]["total"], s["allocated_after"]
                 added = after - s["allocated_base"]
                 if s["held_bytes"] != total or after < total \
@@ -3462,24 +3508,147 @@ def world_training(torch, runs=("eager", "replayed")) -> dict:
                         f"{name} rank {r} {run}: state_bytes {total} B, "
                         f"reachable {s['held_bytes']} B, allocated {after} "
                         f"B, {added} B of it added by the run")
-    kept = {k: out[k]["ranks"][0][first]["state_bytes"] for k in layouts}
-    after = {k: [rank[first]["allocated_after"]
-                 - rank[first]["allocated_base"] for rank in out[k]["ranks"]]
-             for k in layouts}
+    if out["fsdp"]["micro_mode"] != "eager" \
+            or out["data"]["micro_mode"] != "graph":
+        failed.append("under gloo, fsdp's micro bodies must run eagerly "
+                      "and data's replay")
+    kept = {k: out[k]["ranks"][0]["replayed"]["state_bytes"]
+            for k in layouts}
+    after = {k: [rank["replayed"]["allocated_after"]
+                 - rank["replayed"]["allocated_base"]
+                 for rank in out[k]["ranks"]] for k in layouts}
     out["state_share"] = kept["fsdp"]["total"] / kept["data"]["total"]
-    out["opt_state_share"] = (kept["fsdp"]["opt_state"]
-                              / kept["data"]["opt_state"])
+    out["kind_shares"] = {k: kept["fsdp"][k] / kept["data"][k]
+                          for k in ("params", "grads", "opt_state")}
     log(f"phase 9b: state kept per rank, data {kept['data']} against fsdp "
-        f"{kept['fsdp']}: fsdp/data {out['state_share']!r} in all, "
-        f"{out['opt_state_share']!r} of the optimizer state; allocated "
-        f"by the {first} run, per rank, data {after['data']} B, fsdp "
-        f"{after['fsdp']} B; world {world_s:.1f} s, reference "
+        f"{kept['fsdp']}: fsdp/data {out['state_share']!r} in all (limit "
+        f"{WORLD_STATE_SHARE_MAX}), by kind {out['kind_shares']!r}; "
+        f"allocated by the replayed run, per rank, data {after['data']} B, "
+        f"fsdp {after['fsdp']} B; world {world_s:.1f} s, reference "
         f"{ref_s:.1f} s ({nvidia_smi_line()})")
-    if not kept["fsdp"]["total"] < kept["data"]["total"] \
-            or not kept["fsdp"]["opt_state"] < kept["data"]["opt_state"]:
-        failed.append("an fsdp rank keeps as much as a data rank or more")
+    if out["state_share"] > WORLD_STATE_SHARE_MAX \
+            or 2 * kept["fsdp"]["params"] != kept["data"]["params"] \
+            or 2 * kept["fsdp"]["grads"] != kept["data"]["grads"]:
+        failed.append("an fsdp rank does not keep half of a data rank's "
+                      "parameters and gradients")
     if failed:
         raise SystemExit(f"phase 9b: {failed}")
+    return out
+
+
+def zero3_phase(torch) -> dict:
+    """Phase 9 (c): llama3_8b at its published widths under fsdp=4, one
+    card a rank over NCCL, eager then replayed (module docstring).
+    Skipped, and said so, on a machine with fewer than ZERO3_WORLD
+    cards."""
+    import math
+    import tempfile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    n = torch.cuda.device_count()
+    if n < ZERO3_WORLD:
+        log(f"phase 9c: skipped: llama3_8b under fsdp={ZERO3_WORLD} needs "
+            f"{ZERO3_WORLD} cards, one a rank; this machine has {n}")
+        return {"skipped": f"{n} card(s)",
+                "launches": dict.fromkeys(("flash_attention_fwd",
+                                           "flash_attention_dq",
+                                           "flash_attention_dkv"), 0)}
+    cfg = llama.llama3_8b(remat="dots", attn_impl="pallas")
+    job = wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=ZERO3_ACCUM,
+                           optimizer="adamw"),
+                 local_batch=ZERO3_ROWS * ZERO3_ACCUM, seq=TRAIN_SEQ,
+                 steps=ZERO3_STEPS, runs=("eager", "replayed"),
+                 profile=True)
+    devices = [f"cuda:{r}" for r in range(ZERO3_WORLD)]
+    log(f"phase 9c: llama3_8b (32 layers, untied, random weights from "
+        f"seed 0), remat=dots, attn_impl=pallas, adamw, fsdp={ZERO3_WORLD} "
+        f"on {devices}; a rank {ZERO3_ACCUM} micro batches of {ZERO3_ROWS} "
+        f"x {TRAIN_SEQ}; runs {job.runs} of {ZERO3_STEPS} steps")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9c-") as rundir:
+        ranks = wt.run(wt.train_rank, (job,), 1, ZERO3_WORLD, devices,
+                       rundir)
+    wall_s = time.perf_counter() - t0
+    per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_dq": cfg.n_layers,
+                 "flash_attention_dkv": cfg.n_layers}
+    want_launch = {k: v * ZERO3_ACCUM * ZERO3_STEPS
+                   for k, v in per_micro.items()}
+    tokens = ZERO3_ROWS * ZERO3_ACCUM * TRAIN_SEQ
+    # a rank's f32 parts of the parameters, their gradients and adamw's
+    # two moments (16 B a parameter, over the ranks), and its two 0-d
+    # int32 counts
+    shapes = llama.param_shapes(cfg)
+    n_params = sum(math.prod(s) for s in (*shapes.pop("layers").values(),
+                                          *shapes.values()))
+    want_kept = 16 * n_params // ZERO3_WORLD + 2 * 4
+    failed = []
+    out = {"wall_s": wall_s, "ranks": [], "n_params": n_params,
+           "kept_bytes": want_kept}
+    for r, res in enumerate(ranks):
+        rep, eag = res["runs"]["replayed"], res["runs"]["eager"]
+        step_s = statistics.median(rep["seconds"][1:] or rep["seconds"])
+        tok_s = tokens / step_s
+        mfu = tok_s * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
+        metrics = [(m["loss"], m["grad_norm"]) for m in rep["metrics"]]
+        bitwise = res["differ"] == [] and metrics == [
+            (m["loss"], m["grad_norm"]) for m in eag["metrics"]]
+        kept = rep["state_bytes"]
+        log(f"phase 9c rank {r}: backend {res['backend']['backend']}, micro "
+            f"body {res.get('micro_mode')}, finish body "
+            f"{res.get('finish_mode')}, capture "
+            f"{res.get('capture_seconds')!r} s, graph pool "
+            f"{res.get('pool_bytes')} B; eager step s "
+            f"{eag['seconds']!r}, replayed step s {rep['seconds']!r} "
+            f"({tok_s!r} tok/s a card, MFU {mfu!r} against 989 TFLOP/s); "
+            f"kept {kept} (reachable {rep['held_bytes']} B); peak "
+            f"{rep.get('peak_allocated')} B allocated, "
+            f"{rep.get('peak_reserved')} B reserved; eager per-layer "
+            f"collectives per step {eag['layer_collectives']!r}; traced "
+            f"last step: eager {eag.get('profile')!r}, replayed "
+            f"{rep.get('profile')!r}; flash launches (replayed) "
+            f"{rep['launches']}; losses {[m[0] for m in metrics]!r} grad "
+            f"norms {[m[1] for m in metrics]!r}; replayed bitwise eager "
+            f"{bitwise} (parameters differing {res['differ']})")
+        out["ranks"].append({"step_s": step_s, "tok_s_per_card": tok_s,
+                             "mfu": mfu, "state_bytes": kept,
+                             "peak_allocated": rep.get("peak_allocated"),
+                             "peak_reserved": rep.get("peak_reserved"),
+                             "pool_bytes": res.get("pool_bytes"),
+                             "eager_seconds": eag["seconds"],
+                             "replayed_seconds": rep["seconds"],
+                             "layer_collectives":
+                                 eag["layer_collectives"],
+                             "profile": {"eager": eag.get("profile"),
+                                         "replayed": rep.get("profile")},
+                             "bitwise": bitwise})
+        if not bitwise:
+            failed.append(f"rank {r}: the replayed steps are not bitwise "
+                          "the eager ones")
+        if res["backend"]["backend"] != "nccl" \
+                or res.get("micro_mode") != "graph" \
+                or res.get("finish_mode") != "graph":
+            failed.append(f"rank {r}: not both bodies captured over NCCL")
+        if rep["held_bytes"] != kept["total"]:
+            failed.append(f"rank {r}: state_bytes {kept['total']} B, "
+                          f"reachable {rep['held_bytes']} B")
+        if rep["launches"] != want_launch or eag["launches"] != want_launch:
+            failed.append(f"rank {r}: flash launches {rep['launches']} / "
+                          f"{eag['launches']}, expected {want_launch}")
+        if not all(math.isfinite(m[0]) for m in metrics) \
+                or metrics != [(m["loss"], m["grad_norm"]) for m in
+                               ranks[0]["runs"]["replayed"]["metrics"]]:
+            failed.append(f"rank {r}: losses not finite or not rank 0's")
+        if kept["params"] + kept["grads"] + kept["opt_state"] != want_kept:
+            failed.append(f"rank {r}: keeps {kept}, expected {want_kept} B "
+                          "of parameters, gradients and adamw moments")
+    out["launches"] = {k: ZERO3_WORLD * want_launch[k] for k in want_launch}
+    log(f"phase 9c: {wall_s:.1f} s ({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9c: {failed}")
     return out
 
 
@@ -3496,6 +3665,7 @@ def world_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out = world_training(torch)
     out["pod"] = pod
+    out["zero3"] = zero3_phase(torch)
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3618,12 +3788,14 @@ def main() -> int:
             "launches": (trained["launches"][name]
                          + moe_trained["launches"][name]
                          + resumed["launches"][name]
-                         + sum(w[name] for w in world["launches"].values())),
+                         + sum(w[name] for w in world["launches"].values())
+                         + world["zero3"]["launches"][name]),
             "launches_by_phase": {"7": trained["launches"][name],
                                   "7m": moe_trained["launches"][name],
                                   "8": resumed["launches"][name],
                                   "9": sum(w[name] for w in
-                                           world["launches"].values())},
+                                           world["launches"].values()),
+                                  "9c": world["zero3"]["launches"][name]},
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

@@ -54,6 +54,7 @@ from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 from kubeflow_tpu_torch.parallel import moe
+from kubeflow_tpu_torch.parallel.fsdp import FsdpParams
 from kubeflow_tpu_torch.parallel.sharding import shard_slices
 
 
@@ -472,30 +473,50 @@ def _remat_wrap(fn, cfg: LlamaConfig):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
+def _weights(params):
+    """(the weights outside the layers, ``i`` -> layer ``i``'s weights):
+    the layer loop's accessor. A tree's layers come from one unbind per
+    stacked weight, not an index per layer: the backward of unbind
+    stacks the layers' gradients once, where indexing would add a
+    zero-filled full [L, ...] gradient into the leaf per layer. A
+    rank's ``parallel.fsdp.FsdpParams`` gathers the rest once and each
+    layer when it is asked for."""
+    if isinstance(params, FsdpParams):
+        return params.gather(None), params.gather
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    return params, lambda i: {k: v[i] for k, v in layers.items()}
+
+
 def forward(params, tokens, cfg: LlamaConfig, positions=None,
             return_aux: bool = False):
     """Full-sequence forward. tokens: [B, S] integer -> logits [B, S, V]
     float32. With ``return_aux``, (logits, {"moe_aux": the MoE penalties
     summed over the layers, float32 0-d; 0 for dense configs}): the
-    training loss adds it."""
-    device = params["embed"].device
+    training loss adds it.
+
+    ``params`` is a tree, or under ``fsdp`` a rank's
+    ``parallel.fsdp.FsdpParams``: the embedding, the final norm and the
+    head are gathered once (the tied embedding serves the lookup and the
+    head, and autograd sums both gradients before its reduce-scatter),
+    and each layer's weights inside its block, so that remat "full" and
+    "dots" gather them again when the backward recomputes the block
+    rather than keep them. Under remat "none" the gathered weights are
+    saved for the backward like any activation, and live until it."""
+    top, layer = _weights(params)
+    device = top["embed"].device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
     inv_freq = inv_freq_for(cfg, device)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(top, tokens, cfg)
     block = _remat_wrap(
-        lambda x, lp: _block(x, lp, inv_freq, positions, cfg), cfg)
-    # one unbind per stacked weight, not an index per layer: the backward
-    # of unbind stacks the layers' gradients once, where indexing would
-    # add a zero-filled full [L, ...] gradient into the leaf per layer
-    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+        lambda x, i: _block(x, layer(i), inv_freq, positions, cfg), cfg)
     auxes = []
     for i in range(cfg.n_layers):
-        x, aux = block(x, {k: v[i] for k, v in layers.items()})
+        x, aux = block(x, i)
         auxes.append(aux)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(x, top["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", x,
-                          lm_head_weight(params, cfg)).float()
+                          lm_head_weight(top, cfg)).float()
     if not return_aux:
         return logits
     total = (torch.stack(auxes).sum() if cfg.n_experts

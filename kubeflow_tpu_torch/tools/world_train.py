@@ -1,8 +1,10 @@
 """Train a seeded llama over a world of spawned processes
 (``parallel.mesh.WorldMesh``), rank by rank, and bring back what each
 rank saw: the per-step metrics of the global batch, the step's wall
-time and its host-staged collectives, memory, the state each rank keeps
-(``Trainer.state_bytes``, checked against ``held_bytes``) and, where
+time, its host-staged collectives and, under ``fsdp``, its per-layer
+gathers and reduce-scatters, memory, the state each rank keeps
+(``Trainer.state_bytes``, checked against the bytes of the tensors the
+trainer reaches, ``reachable_tensors``) and, where
 asked, the whole parameters.
 
     from kubeflow_tpu_torch.tools import world_train
@@ -32,6 +34,7 @@ with a fresh trainer from the same parameters: "eager" steps, or
 losses, grad norms and parameters must be bitwise the eager run's on
 every rank), ``fit_rank`` (``fit`` with checkpoints: uninterrupted, and
 stopped at ``resume_at`` then resumed by a fresh trainer),
+``restore_rank`` (a checkpoint restored into this world's layout),
 ``optimizer_rank`` (the optimizer on fsdp parts against the unsharded
 update of the whole tree) and ``plans_rank`` (several of them, each on
 its own layout of the same processes).
@@ -58,7 +61,8 @@ class Job:
     ``trainer`` the ``TrainerConfig`` fields; ``params`` a nested dict of
     numpy arrays to start from (default: ``llama.init_params`` from a
     generator on the rank's device seeded ``param_seed``); ``runs`` the
-    runs of ``train_rank``, in order."""
+    runs of ``train_rank``, in order; ``profile``: on a card, each run's
+    last step is traced (``torch.profiler``) for its device time."""
     config: llama.LlamaConfig
     trainer: dict
     local_batch: int
@@ -70,6 +74,7 @@ class Job:
     params: Optional[dict] = None
     runs: tuple = ("eager",)
     keep_params: bool = False
+    profile: bool = False
 
 
 def batch_for(job: Job, step: int, rank: int) -> dict:
@@ -122,50 +127,98 @@ def _host_tree(tree) -> dict:
 
 def _steps(job: Job, trainer, rank: int, mesh) -> dict:
     """``job.steps`` steps on the rank's rows: per step the metrics, the
-    wall seconds (ending in a synchronize) and the host-staged
-    collectives' timings (``WorldMesh.timings``, this step's share)."""
+    wall seconds (ending in a synchronize), the host-staged collectives'
+    timings (``WorldMesh.timings``, this step's share) and, under
+    ``fsdp``, the per-layer gathers' and reduce-scatters' counts, bytes
+    and seconds (``FsdpParams.timings``, this step's share: none while a
+    captured micro body replays); with ``job.profile`` on a card, the
+    last step's device readings (``_device_readings``)."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.fsdp import FsdpParams
 
     kernels = (fa.flash_attention_fwd, fa.flash_attention_dq,
                fa.flash_attention_dkv)
     for k in kernels:
         k.launches = 0
-    out: dict = {"metrics": [], "seconds": [], "collectives": []}
+    out: dict = {"metrics": [], "seconds": [], "collectives": [],
+                 "layer_collectives": []}
+    layered = trainer.params.timings \
+        if isinstance(trainer.params, FsdpParams) else None
     dev = trainer.device
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for step in range(job.steps):
         batch = batch_for(job, step, rank)
         before = dict(mesh.timings) if mesh is not None else {}
+        before_layers = dict(layered or {})
+        prof = None
+        if job.profile and dev.type == "cuda" and step == job.steps - 1:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
         _sync(dev)
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
         _sync(dev)
         out["seconds"].append(time.perf_counter() - t0)
+        if prof is not None:
+            prof.stop()
+            out["profile"] = _device_readings(prof, out["seconds"][-1])
         out["metrics"].append({k: float(v) for k, v in m.items()})
         if mesh is not None:
             out["collectives"].append({k: mesh.timings[k] - before[k]
                                        for k in before})
+        if layered is not None:
+            out["layer_collectives"].append(
+                {k: layered[k] - before_layers[k] for k in layered})
     out["launches"] = {k.__name__: k.launches for k in kernels}
     if dev.type == "cuda":
         out["peak_allocated"] = torch.cuda.max_memory_allocated(dev)
         out["peak_reserved"] = torch.cuda.max_memory_reserved(dev)
         out["allocated_after"] = torch.cuda.memory_allocated(dev)
     out["state_bytes"] = trainer.state_bytes()
-    out["held_bytes"] = held_bytes(trainer, dev)
+    held = reachable_tensors(trainer, dev)
+    out["held_bytes"] = _storage_bytes(held)
+    out["held_shapes"] = sorted({tuple(t.shape) for t in held})
     return out
 
 
-def held_bytes(root, device: torch.device) -> int:
-    """Bytes of the distinct storages on ``device`` of every tensor
-    reachable from ``root``: through containers, instances' attributes,
-    bound methods, closures and each tensor's ``.grad`` (not through
-    modules, classes or a function's globals). After a step, what a
-    trainer keeps, against which ``Trainer.state_bytes`` is checked."""
+def _device_readings(prof, wall_s: float) -> dict:
+    """A traced step's device time: busy (some kernel running), of it the
+    NCCL kernels' busy time (the collectives), the rest's, and the idle
+    share of the step's wall time."""
+    from kubeflow_tpu_torch.tools.train_profile import busy_us
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    other = [e for e in kernels if "nccl" not in e.name.lower()]
+    busy = busy_us(kernels) / 1e3
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy,
+            "nccl_busy_ms": busy_us(nccl) / 1e3,
+            "other_busy_ms": busy_us(other) / 1e3,
+            "nccl_kernels": len(nccl), "kernels": len(kernels),
+            "idle_share": 1.0 - busy / (wall_s * 1e3)}
+
+
+def _storage_bytes(tensors: list) -> int:
+    """Bytes of the distinct storages of ``tensors``."""
+    return sum({t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+                for t in tensors}.values())
+
+
+def reachable_tensors(root, device: torch.device) -> list:
+    """Every tensor on ``device`` reachable from ``root``: through
+    containers, instances' attributes, bound methods, closures and each
+    tensor's ``.grad`` (not through modules, classes or a function's
+    globals). After a step, what a trainer keeps, against which
+    ``Trainer.state_bytes`` is checked."""
     import gc
     import types
 
-    seen, storages, stack = set(), {}, [root]
+    seen, found, stack = set(), [], [root]
     while stack:
         x = stack.pop()
         if id(x) in seen:
@@ -173,8 +226,7 @@ def held_bytes(root, device: torch.device) -> int:
         seen.add(id(x))
         if isinstance(x, torch.Tensor):
             if x.device == device:
-                s = x.untyped_storage()
-                storages[s.data_ptr()] = s.nbytes()
+                found.append(x)
             if x.is_leaf and x.grad is not None:
                 stack.append(x.grad)
             continue
@@ -185,17 +237,19 @@ def held_bytes(root, device: torch.device) -> int:
             stack.extend(x.__defaults__ or ())
             continue
         stack.extend(gc.get_referents(x))
-    return sum(storages.values())
+    return found
 
 
 def train_rank(mesh: WorldMesh, job: Job) -> dict:
     """``job.runs`` on this rank (module docstring). Returns
     ``{"runs": {name: _steps' result, with "allocated_base", the device
     memory allocated before the run's trainer was made}, "backend",
-    "finish_mode",
-    "capture_seconds", "differ" (the parameters whose replayed bytes
-    differ from the eager run's), "params" (with ``keep_params``: the
-    whole parameters after the last run, on the host)}``."""
+    "micro_mode", "finish_mode", "capture_seconds", "pool_bytes",
+    "differ" (the parameters whose replayed bytes differ from the eager
+    run's, compared as this rank keeps them: under ``fsdp`` its parts),
+    "params" (with
+    ``keep_params``: the whole parameters after the last run, on the
+    host, gathered under ``fsdp``)}``."""
     import gc
 
     out: dict = {"runs": {}, "backend": mesh.describe(), "differ": None}
@@ -208,7 +262,9 @@ def train_rank(mesh: WorldMesh, job: Job) -> dict:
         if name == "replayed":
             trainer.precompile(batch_for(job, 0, mesh.rank))
             out["finish_mode"] = trainer.step_graph.finish_mode
+            out["micro_mode"] = trainer.step_graph.micro_mode
             out["capture_seconds"] = trainer.step_graph.capture_seconds
+            out["pool_bytes"] = trainer.step_graph.pool_bytes
         elif name != "eager":
             raise ValueError(f"unknown run {name!r}")
         out["runs"][name] = _steps(job, trainer, mesh.rank, mesh)
@@ -216,15 +272,16 @@ def train_rank(mesh: WorldMesh, job: Job) -> dict:
         if name == "replayed" and trainer.step_graph.replays != job.steps:
             raise RuntimeError("the replayed run did not replay its steps")
         if name == "eager" and "replayed" in job.runs:
-            eager_params = _host_tree(trainer.params)
+            eager_params = _host_tree(trainer.local_params)
         elif name == "replayed" and eager_params is not None:
             out["differ"] = [
-                k for k, t in optim.named_leaves(trainer.params).items()
+                k for k, t in optim.named_leaves(trainer.local_params).items()
                 if not torch.equal(t.detach().cpu(),
                                    optim.named_leaves(eager_params)[k])]
         if job.keep_params:
             out["params"] = optim.tree_map(
-                lambda t: t.detach().cpu().numpy(), trainer.params)
+                lambda t: t.detach().cpu().numpy(),
+                trainer.checkpoint_state()["params"])
         del trainer
         gc.collect()
         if mesh.device.type == "cuda":
@@ -269,6 +326,21 @@ def fit_rank(mesh: WorldMesh, job: Job, ckpt_root: str,
                 k: t.detach().cpu() for k, t in
                 optim.named_leaves(state).items()}
     return out
+
+
+def restore_rank(mesh: WorldMesh, job: Job, ckpt_dir: str) -> dict:
+    """A fresh trainer over this world restores the newest checkpoint in
+    ``ckpt_dir`` (``restore_latest``); returns its step and the whole
+    state it then holds (``Trainer.checkpoint_state``) on the host."""
+    from kubeflow_tpu_torch.training import CheckpointManager, restore_latest
+
+    trainer = make_trainer(job, mesh.device, mesh)
+    mgr = CheckpointManager(ckpt_dir)
+    step = restore_latest(trainer, mgr)
+    mgr.close()
+    state = optim.named_leaves(trainer.checkpoint_state())
+    return {"step": step,
+            "state": {k: t.detach().cpu() for k, t in state.items()}}
 
 
 def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,

@@ -361,7 +361,10 @@ def fit(
                 on_step(trainer.step, last)
         if mgr is not None:
             # the final save, unless this step is already on disk (the
-            # in-loop save took it, or a resumed run trained 0 steps)
+            # in-loop save took it, or a resumed run trained 0 steps);
+            # the in-loop save's write may still be running, and a step
+            # counts once its write has ended
+            mgr.wait()
             latest = mgr.latest_step()
             if trainer.mesh is not None:
                 latest = trainer.mesh.broadcast_object(latest)

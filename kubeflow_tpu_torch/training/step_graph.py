@@ -12,10 +12,16 @@ and zeroes the accumulators. ``StepGraph`` captures each body as its own
 graph, in one memory pool (``cuda_graph.capture``), and replays (a)
 ``grad_accum`` times and then (b) once a step: ``grad_accum + 1`` graph
 launches where the eager step makes tens of thousands of kernel
-launches. Over a world whose collectives run over gloo, (b) is not
-captured: a gloo collective runs on the host, which no graph can hold,
-so (b) runs eagerly after the replays of (a) (``finish_mode`` "eager";
-"graph" otherwise: NCCL's collectives sit inside graph (b)). Two graphs
+launches. Over a world whose collectives run over gloo, a body that
+holds a collective is not captured: a gloo collective runs on the host,
+which no graph can hold, so it runs eagerly in its turn. (b) always
+holds one (``finish_mode`` "eager"; "graph" otherwise: NCCL's
+collectives sit inside graph (b)); (a) holds them under ``fsdp``, whose
+micro body gathers each layer's weights and reduce-scatters its
+gradients (``micro_mode`` "eager" under gloo; "graph" under ``data``,
+whose micro body has none, and under NCCL). With neither body captured
+there is no warm-up and no capture: the step runs as ``train_step``
+runs it without ``precompile``. Two graphs
 rather than one whole-step graph: each holds one
 micro batch's work (a capture of the whole step would unroll
 ``grad_accum`` micro batches into one graph), and the pool holds one
@@ -49,17 +55,31 @@ class StepGraph:
     addresses. ``counters``: the kernel wrappers whose ``.launches`` a
     replay adds to.
 
-    ``capture_finish`` False leaves (b) eager (module docstring);
-    ``finish_mode`` says which ("graph" or "eager").
+    ``capture_micro`` / ``capture_finish`` False leave (a) / (b) eager
+    (module docstring); ``micro_mode`` and ``finish_mode`` say which
+    ("graph" or "eager").
 
-    ``capture_seconds``, ``pool_bytes`` (device memory the two captures
-    reserved) and ``launches`` (kernel launches of one replayed step, per
-    counter) describe the capture; ``replays`` counts replayed steps."""
+    ``capture_seconds``, ``pool_bytes`` (device memory the captures
+    reserved) and ``launches`` (kernel launches the graphs of one
+    replayed step make, per counter; an eager body's launches count
+    themselves as it runs) describe the capture; ``replays`` counts
+    replayed steps."""
 
     def __init__(self, micro: Callable[[], None],
                  finish: Callable[[], None], state: Callable[[], dict],
                  grad_accum: int, counters: Sequence,
-                 device: torch.device, capture_finish: bool = True):
+                 device: torch.device, capture_micro: bool = True,
+                 capture_finish: bool = True):
+        self.micro, self.finish = micro, finish
+        self.micro_mode = "graph" if capture_micro else "eager"
+        self.finish_mode = "graph" if capture_finish else "eager"
+        self.grad_accum = grad_accum
+        self.micro_graph = self.finish_graph = None
+        self.capture_seconds, self.pool_bytes = 0.0, 0
+        self.launches = {c.__name__: 0 for c in counters}
+        self.replays = 0
+        if not (capture_micro or capture_finish):
+            return
         snapshot = {k: t.detach().to("cpu", copy=True)
                     for k, t in state().items()}
 
@@ -69,27 +89,28 @@ class StepGraph:
             for k, t in snapshot.items():
                 now[k].copy_(t)
 
+        eager = [i for i, c in enumerate((capture_micro, capture_finish))
+                 if not c]
         captured = capture([micro, finish], state, counters, device,
                            "the train state's tensors", restore=restore,
-                           eager=() if capture_finish else (1,))
+                           eager=eager)
         self.micro_graph, self.finish_graph = captured.graphs
-        self.finish = finish
-        self.finish_mode = "graph" if capture_finish else "eager"
         self.capture_seconds = captured.capture_seconds
         self.pool_bytes = captured.pool_bytes
-        self.grad_accum = grad_accum
-        # the finish body launches no kernel of the counters
-        self.launches = {
-            name: grad_accum * n + (self.finish_graph.launches[name]
-                                    if capture_finish else 0)
-            for name, n in self.micro_graph.launches.items()}
-        self.replays = 0
+        for graph, times in ((self.micro_graph, grad_accum),
+                             (self.finish_graph, 1)):
+            if graph is not None:
+                for name, n in graph.launches.items():
+                    self.launches[name] += times * n
 
     def replay(self) -> None:
         """One training step on the current stream: (a) ``grad_accum``
-        times, then (b), replayed or run."""
+        times, then (b), each replayed or run."""
         for _ in range(self.grad_accum):
-            self.micro_graph.replay()
+            if self.micro_graph is not None:
+                self.micro_graph.replay()
+            else:
+                self.micro()
         if self.finish_graph is not None:
             self.finish_graph.replay()
         else:

@@ -18,26 +18,26 @@ and runs its micro bodies on them, weighting every micro batch's loss
 and gradients by its token count. The finish body sums the weighted
 gradients, losses and weights over the world before it divides, so the
 loss and the gradients are the global batch's token means however the
-masks differ between ranks, as the JAX step's are. Under ``data`` the
-gradients are all-reduced and every rank runs the whole optimizer.
-Under ``fsdp`` (the JAX package's ``embed`` -> ``fsdp`` rule) the
-gradients are reduce-scattered into each rank's part, the optimizer
-updates the part and keeps only its part of the optimizer state
-(``optim.Shards``: every reduction over a whole leaf is summed over the
-group), and the parts are all-gathered back into the whole parameters.
-The whole parameters and their gradient accumulators stay on every rank
-from step to step, as under ``data``: the micro bodies, captured as
-CUDA graphs, read and write them at fixed addresses. So ``fsdp`` keeps
-1/fsdp of the optimizer state a rank (ZeRO-2's memory, not ZeRO-3's);
-the cut parameters and gradients are buffers of the finish body alone.
-``TrainerConfig.rules`` (logical axis -> mesh axes) places the
-parameters over a world; on one card there is nothing to place.
+masks differ between ranks, as the JAX step's are. Under ``data`` every
+rank keeps the whole state, the gradients are all-reduced and every rank
+runs the whole optimizer. Under ``fsdp`` (the JAX package's ``embed`` ->
+``fsdp`` rule, ZeRO-3) a rank keeps, from step to step, only its part of
+every parameter, of every gradient accumulator and of the optimizer
+state (``parallel.fsdp.FsdpParams``): ``self.params`` is the rank's
+``FsdpParams``, which the loss function's model gathers layer by layer
+inside the micro body (``models/llama.forward``), each layer's gradients
+reduce-scattered into the rank's gradient part as the backward leaves
+it. The finish body all-reduces the gradient parts over ``data`` and
+runs the optimizer on the parts (``optim.Shards``: every reduction over
+a whole leaf is summed over the group). ``TrainerConfig.rules``
+(logical axis -> mesh axes) places the parameters over a world; on one
+card there is nothing to place.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
+import logging
 from typing import Any, Callable, Mapping, Optional
 
 import torch
@@ -47,10 +47,13 @@ from kubeflow_tpu_torch.ops import flash_attention
 from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
+from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
 from kubeflow_tpu_torch.parallel.moe import MOE_WORLD
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
 from kubeflow_tpu_torch.training.step_graph import StepGraph
+
+logger = logging.getLogger(__name__)
 
 AOT_SLICE = ("lowering the training step without arrays, for the "
              "shape-level memory and FLOP accounting of parallel/aot.py, "
@@ -105,66 +108,6 @@ def make_optimizer(cfg: TrainerConfig, shards: Optional[optim.Shards] = None
                     weight_decay=cfg.weight_decay))
 
 
-class _FsdpParts:
-    """The ``fsdp`` cut of the parameters (module docstring): where each
-    rank's part of every leaf lies in the finish body's flat buffers.
-
-    Every parameter is cut on its ``fsdp`` dim ``s`` into ``n`` parts;
-    with ``pre`` and ``post`` the products of the dims before and after
-    ``s`` and ``k`` the part's length on it, a rank's part of a leaf is
-    ``[pre, k, post]``. A part buffer (``numel`` elements) holds a rank's
-    parts of every leaf back to back, in leaf order; a gathered buffer
-    (``n * numel``) holds every rank's part buffer in rank order, which
-    is the layout a reduce-scatter reads and an all-gather writes.
-    ``pack`` writes whole tensors into a gathered buffer and ``unpack``
-    reads them out of one: one strided copy a leaf."""
-
-    def __init__(self, params, cuts, n: int, index: int):
-        self.n, self.index = n, index
-        self.leaves = []
-        off = 0
-        for p, cut in zip(optim.tree_leaves(params),
-                          optim.tree_leaves(cuts)):
-            s, shape = cut.dim, tuple(p.shape)
-            k = shape[s] // n
-            pre, post = math.prod(shape[:s]), math.prod(shape[s + 1:])
-            self.leaves.append((off, pre, k, post,
-                                shape[:s] + (k,) + shape[s + 1:]))
-            off += pre * k * post
-        self.numel = off
-
-    def views(self, flat, like):
-        """A tree like ``like`` of the parts in the part buffer ``flat``."""
-        it = iter([flat[o:o + pre * k * post].view(shape)
-                   for o, pre, k, post, shape in self.leaves])
-        return optim.tree_map(lambda _: next(it), like)
-
-    def take(self, flat, whole: list) -> None:
-        """``flat`` <- this rank's part of the whole tensors ``whole``."""
-        for (o, pre, k, post, _), t in zip(self.leaves, whole):
-            flat[o:o + pre * k * post].view(pre, k, post).copy_(
-                t.view(pre, self.n, k, post)[:, self.index])
-
-    def _rows(self, gathered, leaf):
-        o, pre, k, post, _ = leaf
-        return gathered.view(self.n, self.numel)[
-            :, o:o + pre * k * post].view(self.n, pre, k, post)
-
-    def pack(self, gathered, whole: list) -> None:
-        """``gathered`` <- the whole tensors ``whole`` (leaf order), cut."""
-        for leaf, t in zip(self.leaves, whole):
-            _, pre, k, post, _ = leaf
-            self._rows(gathered, leaf).copy_(
-                t.view(pre, self.n, k, post).transpose(0, 1))
-
-    def unpack(self, gathered, whole: list) -> None:
-        """The whole tensors ``whole`` (leaf order) <- ``gathered``."""
-        for leaf, t in zip(self.leaves, whole):
-            _, pre, k, post, _ = leaf
-            t.view(pre, self.n, k, post).copy_(
-                self._rows(gathered, leaf).transpose(0, 1))
-
-
 def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state) -> dict:
     """{optimizer state leaf: the dim it is cut on over fsdp, or None}:
     each leaf's shape against the same leaf of the state the unsharded
@@ -198,10 +141,14 @@ class Trainer:
     ``config.rules``. Each rank calls every method the others call, in
     the same order, and feeds ``train_step`` its own rows of the global
     batch (``config.grad_accum`` micro batches of them). MoE parameters
-    (an ``expert`` axis) raise ``parallel.moe.MOE_WORLD``.
+    (an ``expert`` axis) raise ``parallel.moe.MOE_WORLD``. Under
+    ``fsdp`` the loss function is given the rank's
+    ``parallel.fsdp.FsdpParams`` and gathers the weights it uses
+    (``models/llama.forward`` does).
 
     Every state tensor is written in place, step after step: the
-    parameters and their ``.grad``, the optimizer state (its counts are
+    parameters and their gradient accumulators (``.grad``; under
+    ``fsdp`` the rank's parts), the optimizer state (its counts are
     0-d device tensors), the sums over micro batches, the staged batch
     (``data.BatchBuffers``) and the outputs. So the step a CUDA graph
     captured (``precompile``) reads and writes them at every replay.
@@ -233,7 +180,6 @@ class Trainer:
         self.step = 0
         self.step_graph: Optional[StepGraph] = None
         self.depot_outcome: Optional[str] = None
-        self._fsdp: Optional[_FsdpParts] = None
 
     def init_state(self, generator: Optional[torch.Generator] = None):
         """Parameters from ``init_params_fn(generator)`` (a generator on
@@ -242,8 +188,10 @@ class Trainer:
         ``.grad`` (the gradient accumulator); fresh optimizer state.
         Over a world every rank draws the same parameters; their dims
         must divide over the mesh axes they are placed on
-        (``sharding.validate_divisibility``, the JAX message), and under
-        ``fsdp`` each rank keeps its part of the optimizer state."""
+        (``sharding.validate_divisibility``, the JAX message). Under
+        ``fsdp`` each rank keeps its parts of them, of their gradients
+        and of the optimizer state (``FsdpParams``), and the whole tree
+        drawn is freed."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         params = self.init_params_fn(generator)
@@ -252,27 +200,25 @@ class Trainer:
                 self.mesh, self.param_axes,
                 optim.tree_map(lambda p: tuple(p.shape), params),
                 self.config.rules)
-        self.params = optim.tree_map(
-            lambda p: p.detach().to(self.device).requires_grad_(True),
-            params)
-        self._fsdp = self._shards = None
-        if self.mesh is None:
-            for p in optim.tree_leaves(self.params):
-                p.grad = torch.zeros_like(p)
-        else:
-            self._init_world()
+            self._check_world(params)
+        self._shards = None
         self._opt_cut_dims: dict = {}
-        if self._fsdp is None:
-            self.opt_state = self.optimizer.init(self.params)
+        if self.mesh is not None and self.mesh.fsdp > 1:
+            self.params = FsdpParams(
+                optim.tree_map(lambda p: p.detach().to(self.device), params),
+                self.param_axes, self.config.rules, self.mesh)
+            del params          # the whole tree, before the optimizer state
+            self._init_fsdp()
         else:
-            # the optimizer's state is made for this rank's parts
-            dtype = optim.tree_leaves(self.params)[0].dtype
-            parts = self._fsdp.views(
-                torch.zeros((self._fsdp.numel,), dtype=dtype,
-                            device=self.device), self.params)
-            self.opt_state = self.optimizer.init(parts)
-            self._opt_cut_dims = _state_cut_dims(
-                self.config, parts, self._shards.cuts, self.opt_state)
+            self.params = optim.tree_map(
+                lambda p: p.detach().to(self.device).requires_grad_(True),
+                params)
+            if self.mesh is None:
+                for p in optim.tree_leaves(self.params):
+                    p.grad = torch.zeros_like(p)
+            else:
+                self._init_data()
+            self.opt_state = self.optimizer.init(self.params)
         self.step = 0
         zero = lambda: torch.zeros((), dtype=torch.float32,
                                    device=self.device)
@@ -287,15 +233,24 @@ class Trainer:
         self.step_graph = None
         return self.params
 
-    def _init_world(self) -> None:
-        """The gradient accumulators as views of one flat buffer (one
-        collective a step), and under ``fsdp`` the cut of the parameters
-        and the optimizer that updates a rank's parts."""
-        leaves = optim.tree_leaves(self.params)
-        dtypes = {p.dtype for p in leaves}
+    def _check_world(self, params) -> None:
+        """What a world needs of the parameters: one dtype, and no dim
+        placed on ``data`` when that axis is over 1."""
+        dtypes = {p.dtype for p in optim.tree_leaves(params)}
         if len(dtypes) != 1:
             raise ValueError(f"a trainer over a world needs one parameter "
                              f"dtype, got {sorted(map(str, dtypes))}")
+        for names in _axes_leaves(self.param_axes):
+            if self.mesh.data > 1 and sharding.placed_on(
+                    names, "data", self.config.rules):
+                raise NotImplementedError(
+                    f"logical axes {tuple(names)}: a parameter cut over "
+                    "data is not ported")
+
+    def _init_data(self) -> None:
+        """Under ``data`` alone: the gradient accumulators as views of
+        one flat buffer (one all-reduce a step)."""
+        leaves = optim.tree_leaves(self.params)
         self._flat_grad = torch.zeros((sum(p.numel() for p in leaves),),
                                       dtype=leaves[0].dtype,
                                       device=self.device)
@@ -303,30 +258,35 @@ class Trainer:
         for p in leaves:
             p.grad = self._flat_grad[off:off + p.numel()].view(p.shape)
             off += p.numel()
-        rules = self.config.rules
 
-        def check(p, names):
-            if self.mesh.data > 1 and sharding.placed_on(names, "data",
-                                                         rules):
-                raise NotImplementedError(
-                    f"logical axes {tuple(names)}: a parameter cut over "
-                    "data is not ported")
-            return sharding.fsdp_dim(names, rules)
-
-        dims = optim.tree_map(check, self.params, self.param_axes)
-        if self.mesh.fsdp == 1:
-            return
-        whole = [n for n, d in optim.named_leaves(dims).items() if d is None]
-        if whole:
-            raise ValueError(f"under fsdp every parameter is cut on its "
-                             f"fsdp dim; {whole} have none")
-        cuts = optim.tree_map(lambda p, d: optim.LeafCut(tuple(p.shape), d),
-                              self.params, dims)
-        self._fsdp = _FsdpParts(self.params, cuts, self.mesh.fsdp,
-                                self.mesh.fsdp_index)
+    def _init_fsdp(self) -> None:
+        """Under ``fsdp``, once ``self.params`` holds the rank's parts
+        (``FsdpParams``): the optimizer that updates the parts, and its
+        state, made for them."""
+        self._flat_grad = self.params.grad
+        cuts = optim.tree_map(lambda s, d: optim.LeafCut(s, d),
+                              self.params.shapes, self.params.dims)
         self._shards = optim.Shards(
             cuts, lambda t: self.mesh.all_reduce(t, "fsdp"))
         self.optimizer = make_optimizer(self.config, self._shards)
+        self.opt_state = self.optimizer.init(self.params.parts)
+        self._opt_cut_dims = _state_cut_dims(
+            self.config, self.params.parts, cuts, self.opt_state)
+
+    @property
+    def local_params(self):
+        """The parameters as this rank keeps them: the whole tree, or
+        under ``fsdp`` the tree of its parts (views of
+        ``FsdpParams.flat``); the tree the optimizer updates."""
+        if isinstance(self.params, FsdpParams):
+            return self.params.parts
+        return self.params
+
+    def _grads(self):
+        """The gradient accumulators, a tree like ``local_params``."""
+        if isinstance(self.params, FsdpParams):
+            return self.params.grads
+        return optim.tree_map(lambda p: p.grad, self.params)
 
     def _stage(self, batch) -> None:
         """Copy ``batch`` into the static batch, made for its key set,
@@ -395,17 +355,14 @@ class Trainer:
             else:
                 loss_sum, denom, metric_sums = self._reduce_sums()
                 accum *= self.mesh.size
-            if self._fsdp is not None:
-                gnorm = self._fsdp_update(denom)
-            else:
-                if self.mesh is not None:
-                    self.mesh.all_reduce(self._flat_grad, "data")
-                grads = optim.tree_map(lambda p: p.grad.div_(denom),
-                                       self.params)
-                gnorm = optim.global_norm(grads)
-                updates, _ = self.optimizer.update(grads, self.opt_state,
-                                                   self.params)
-                optim.apply_updates(self.params, updates)
+            if self.mesh is not None:
+                self.mesh.all_reduce(self._flat_grad, "data")
+            params = self.local_params
+            grads = optim.tree_map(lambda g: g.div_(denom), self._grads())
+            gnorm = optim.global_norm(grads, self._shards)
+            updates, _ = self.optimizer.update(grads, self.opt_state,
+                                               params)
+            optim.apply_updates(params, updates)
             out = {k: v if k in counts else v / accum
                    for k, v in metric_sums.items()}
             out.update(loss=loss_sum / denom, grad_norm=gnorm)
@@ -413,8 +370,8 @@ class Trainer:
                 if k not in self._outputs:
                     self._outputs[k] = torch.zeros_like(v)
                 self._outputs[k].copy_(v)
-            for p in optim.tree_leaves(self.params):
-                p.grad.zero_()
+            for g in optim.tree_leaves(grads):
+                g.zero_()
             for v in (*sums.values(), *self._metric_sums.values()):
                 v.zero_()
             self._micro.zero_()
@@ -431,47 +388,27 @@ class Trainer:
                        for i, k in enumerate(keys)}
         return vec[0], torch.clamp_min(vec[1], 1e-8), metric_sums
 
-    def _fsdp_update(self, denom: torch.Tensor) -> torch.Tensor:
-        """The optimizer under ``fsdp``: the whole gradients packed and
-        reduce-scattered into this rank's part, summed over ``data`` and
-        divided by ``denom``; their global norm (returned); this rank's
-        part of the parameters updated; the parts all-gathered back into
-        the whole parameters. The three flat buffers live in this call
-        alone (in the graph's pool when it is captured)."""
-        fs, mesh = self._fsdp, self.mesh
-        leaves = optim.tree_leaves(self.params)
-        gathered = torch.empty((fs.n * fs.numel,), dtype=leaves[0].dtype,
-                               device=self.device)
-        fs.pack(gathered, [p.grad for p in leaves])
-        grad_flat = torch.empty((fs.numel,), dtype=leaves[0].dtype,
-                                device=self.device)
-        mesh.reduce_scatter(grad_flat, gathered, "fsdp")
-        mesh.all_reduce(grad_flat, "data")
-        grads = fs.views(grad_flat.div_(denom), self.params)
-        gnorm = optim.global_norm(grads, self._shards)
-        flat = torch.empty_like(grad_flat)
-        fs.take(flat, leaves)
-        parts = fs.views(flat, self.params)
-        updates, _ = self.optimizer.update(grads, self.opt_state, parts)
-        optim.apply_updates(parts, updates)
-        mesh.all_gather(gathered, flat, "fsdp")
-        fs.unpack(gathered, leaves)
-        return gnorm
-
     def _state_tensors(self) -> dict:
-        """Every tensor the step bodies keep across steps, by name."""
-        out = {f"param/{k}": p
-               for k, p in optim.named_leaves(self.params).items()}
-        out.update({f"grad/{k}": p.grad
-                    for k, p in optim.named_leaves(self.params).items()})
+        """Every tensor the step bodies keep across steps, by name: over a
+        world the flat gradient buffer (whose views the accumulators
+        are) and under ``fsdp`` the flat parameter part buffer, in place
+        of their views."""
+        if isinstance(self.params, FsdpParams):
+            out = {"param/flat": self.params.flat.detach()}
+        else:
+            out = {f"param/{k}": p
+                   for k, p in optim.named_leaves(self.params).items()}
+        if self.mesh is None:
+            out.update({f"grad/{k}": g
+                        for k, g in optim.named_leaves(self._grads()).items()})
+        else:
+            out["grad/flat"] = self._flat_grad
         out.update({f"opt/{k}": t
                     for k, t in optim.named_leaves(self.opt_state).items()})
         out.update({f"sum/{k}": t for k, t in self._sums.items()})
         out.update({f"metric/{k}": t for k, t in self._metric_sums.items()})
         out.update({f"out/{k}": t for k, t in self._outputs.items()})
         out["micro"] = self._micro
-        if self.mesh is not None:
-            out["flat_grad"] = self._flat_grad
         if self._batch is not None:
             out.update({f"batch/{k}": t
                         for k, t in self._batch.tensors.items()})
@@ -480,9 +417,10 @@ class Trainer:
     def state_bytes(self) -> dict:
         """Bytes of every tensor this rank keeps from step to step
         (``_state_tensors``, each storage counted once), by kind:
-        ``params`` and ``grads`` (the whole parameters and their
-        accumulators, on every rank under ``data`` and ``fsdp`` alike),
-        ``opt_state`` (a rank's part under ``fsdp``) and ``other`` (the
+        ``params``, ``grads`` and ``opt_state`` (whole on one card and
+        under ``data``; under ``fsdp=n`` the rank's parts, 1/n of the
+        parameters and gradients, and of every optimizer leaf that has
+        the cut dim) and ``other`` (the
         staged batch with its host buffers where they lie on the trainer's
         device, the sums and the outputs); ``total``, their sum."""
         kinds = {"param": "params", "grad": "grads", "opt": "opt_state"}
@@ -505,59 +443,69 @@ class Trainer:
 
     def checkpoint_state(self) -> dict:
         """The whole train state ``{"params", "opt_state"}`` as one
-        process holds it, which ``training.checkpoint`` saves: over a
-        world under ``fsdp`` the optimizer state's parts are gathered
-        (every rank calls this; the whole parameters are on each
-        rank)."""
-        if self._fsdp is None:
+        process holds it, which ``training.checkpoint`` saves. Under
+        ``fsdp`` every rank calls this: each leaf's parts are gathered
+        into host memory, one leaf (and for a stacked leaf, one piece of
+        layers) at a time, so the device never holds the whole state
+        (``parallel.fsdp.gather_to_host``)."""
+        if not isinstance(self.params, FsdpParams):
             return {"params": self.params, "opt_state": self.opt_state}
-        named = optim.named_leaves(self.opt_state)
-        whole = {}
-        for name, t in named.items():
-            dim = self._opt_cut_dims[name]
-            if dim is None:
-                whole[name] = t
-                continue
-            n = self.mesh.fsdp
-            parts = torch.empty((n * t.numel(),), dtype=t.dtype,
-                                device=t.device)
-            self.mesh.all_gather(parts, t.contiguous().view(-1), "fsdp")
-            whole[name] = sharding.fsdp_unshard(
-                parts.view(n, *t.shape).unbind(0), dim)
-        it = iter(whole[name] for name in named)
-        return {"params": self.params,
-                "opt_state": _rebuild(self.opt_state, it)}
+        dims = self._cut_dims()
+        live = self._live()
+        it = iter(gather_to_host(t, dims[k], self.mesh)
+                  for k, t in live.items())
+        return _rebuild({"params": self.local_params,
+                         "opt_state": self.opt_state}, it)
+
+    def _live(self) -> dict:
+        """The state ``checkpoint_state`` saves as this rank holds it,
+        by ``optim.named_leaves`` name."""
+        return optim.named_leaves({"params": self.local_params,
+                                   "opt_state": self.opt_state})
+
+    def _cut_dims(self) -> dict:
+        """{``_live`` name: the dim its leaf is cut on over ``fsdp``, or
+        None (held whole)}."""
+        dims = {f"opt_state/{k}": d for k, d in self._opt_cut_dims.items()}
+        if isinstance(self.params, FsdpParams):
+            dims.update({f"params/{k}": d for k, d in
+                         optim.named_leaves(self.params.dims).items()})
+        return dims
 
     def load_state(self, state: dict, step: int) -> None:
         """COPY ``state`` (a whole train state, as ``checkpoint_state``
         gives it, on any device) into this trainer's tensors, each rank
-        its own part, and set the step. The tensors keep their addresses:
-        a captured step trains the loaded state at its next replay."""
+        its own part, and set the step. Every leaf is checked before any
+        is copied. The tensors keep their addresses: a captured step
+        trains the loaded state at its next replay."""
         saved = optim.named_leaves(state)
-        live = optim.named_leaves({"params": self.params,
-                                   "opt_state": self.opt_state})
+        live = self._live()
         if saved.keys() != live.keys():
             raise ValueError(
                 f"checkpoint step {step} holds leaves "
                 f"{sorted(saved.keys() ^ live.keys())} the trainer does "
                 "not, or the other way round")
-        parts = {}
+        dims = self._cut_dims()
+        n = self.mesh.fsdp if self.mesh is not None else 1
         for name, dst in live.items():
-            src = saved[name]
-            dim = self._opt_cut_dims.get(name[len("opt_state/"):]) \
-                if name.startswith("opt_state/") else None
-            if dim is not None:
-                src = sharding.fsdp_shard(src, dim, self.mesh.fsdp_index,
-                                          self.mesh.fsdp)
-            if src.shape != dst.shape or src.dtype != dst.dtype:
+            shape = list(saved[name].shape)
+            if dims.get(name) is not None:
+                shape[dims[name]] //= n
+            if tuple(shape) != tuple(dst.shape) \
+                    or saved[name].dtype != dst.dtype:
                 raise ValueError(
                     f"checkpoint step {step}: {name} is "
-                    f"{tuple(src.shape)} {src.dtype}, the trainer's "
-                    f"{tuple(dst.shape)} {dst.dtype}")
-            parts[name] = src
+                    f"{tuple(saved[name].shape)} {saved[name].dtype}, the "
+                    f"trainer's {tuple(dst.shape)} {dst.dtype}"
+                    + (f" (a part of {n})" if dims.get(name) is not None
+                       else ""))
         with torch.no_grad():
             for name, dst in live.items():
-                dst.copy_(parts[name])
+                src = saved[name]
+                if dims.get(name) is not None:
+                    src = sharding.fsdp_shard(src, dims[name],
+                                              self.mesh.fsdp_index, n)
+                dst.copy_(src)
         self.step = step
 
     # ------------------------------------------------------------- steps
@@ -604,10 +552,13 @@ class Trainer:
         gradient accumulator nodes on the stream they were made on, and
         the capture cannot depend on that stream.
 
-        Over a world the micro body is captured on every rank, and the
-        finish body with its collectives when they run over NCCL; gloo's
-        cannot be captured, and the finish body then runs eagerly after
-        the replays (``step_graph.finish_mode``).
+        Over a world a body is captured with its collectives when they
+        run over NCCL. gloo's cannot be captured: the finish body then
+        runs eagerly after the replays (``step_graph.finish_mode``), and
+        under ``fsdp``, whose micro body gathers and reduce-scatters each
+        layer, so does the micro body (``step_graph.micro_mode``; with
+        neither captured, the step runs as it runs without
+        ``precompile``). The log says what was captured.
 
         Raises ValueError before ``init_state`` (JAX's check) and on a
         CPU trainer (there is no graph and no stand-in)."""
@@ -619,11 +570,18 @@ class Trainer:
                              f"{self.device}")
         self.step_graph = None
         self._stage(batch)
+        nccl = self.mesh is None or self.mesh.backend.name == "nccl"
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
             self.config.grad_accum, _COUNTERS, self.device,
-            capture_finish=(self.mesh is None
-                            or self.mesh.backend.name == "nccl"))
+            capture_micro=nccl or not isinstance(self.params, FsdpParams),
+            capture_finish=nccl)
+        graph = self.step_graph
+        logger.info("precompile: micro body %s, finish body %s%s",
+                  graph.micro_mode, graph.finish_mode,
+                  "" if self.mesh is None else
+                  f" ({self.mesh.backend.name}, data={self.mesh.data}, "
+                  f"fsdp={self.mesh.fsdp})")
         self.depot_outcome = local_capture(depot, stats)
         return self.depot_outcome
 

@@ -196,10 +196,10 @@ def test_four_process_data_and_fsdp_matches_the_jax_trainer(tmp_path):
 def test_fsdp_rank_keeps_half_the_optimizer_state(two_ranks):
     """What a rank keeps from step to step, counted by
     ``Trainer.state_bytes``, which must be every tensor the trainer
-    still reaches after its steps (``world_train.held_bytes``). An fsdp
-    rank keeps the whole parameters and gradient accumulators, as a data
-    rank does (its captured micro bodies read them), and half the
-    optimizer state (adamw's two 0-d int32 counts aside, which every
+    still reaches after its steps (``world_train.reachable_tensors``). An
+    fsdp rank keeps half the parameters and half the gradient accumulators
+    (ZeRO-3: its parts; the micro bodies gather each layer), and half
+    the optimizer state (adamw's two 0-d int32 counts aside, which every
     rank holds whole; adafactor's factored moments that lose the cut dim
     are whole on each rank, so there about half): less in all."""
     _, results = two_ranks
@@ -212,13 +212,13 @@ def test_fsdp_rank_keeps_half_the_optimizer_state(two_ranks):
              for i in range(len(CASES))}
     data, fsdp = sizes["data-adamw-accum1"], sizes["fsdp-adamw-accum2"]
     counts = 2 * 4
-    assert fsdp["params"] == data["params"] > 0
-    assert fsdp["grads"] == data["grads"] == data["params"]
+    assert 2 * fsdp["params"] == data["params"] > 0
+    assert 2 * fsdp["grads"] == data["grads"] == data["params"]
     assert 2 * (fsdp["opt_state"] - counts) == data["opt_state"] - counts
     assert fsdp["total"] - fsdp["other"] < data["total"] - data["other"]
     data, fsdp = sizes["data-adafactor-accum2"], sizes["fsdp-adafactor-accum1"]
-    assert fsdp["params"] == data["params"]
-    assert fsdp["grads"] == data["grads"]
+    assert 2 * fsdp["params"] == data["params"]
+    assert 2 * fsdp["grads"] == data["grads"]
     assert 0.5 < fsdp["opt_state"] / data["opt_state"] < 0.55
 
 
