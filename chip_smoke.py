@@ -264,9 +264,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              replica loaded without it, both through replays.
 
 9. training across processes — (a) the phase 8 pod as a two-process
-             world (KFT_NUM_PROCESSES=2, a free localhost port), once
-             with KFT_MESH=data=2 and once with the default (fsdp=2),
-             side by side: an uninterrupted world, a victim paced by
+             world (KFT_NUM_PROCESSES=2, a free localhost port), with
+             KFT_MESH=data=2, with the default (fsdp=2) and with
+             KFT_MESH=tensor=2 (both processes feed the same rows), side
+             by side: an uninterrupted world, a victim paced by
              KFT_STEP_SLEEP and SIGKILLed (both processes) once step 2's
              checkpoint exists, and a restart. Checks the restart's
              resumed_from_step >= 2 and its losses after the resume
@@ -320,9 +321,43 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              steps' per-layer gathers and reduce-scatters. Runs only on
              a machine with four cards or more, and says it was skipped
              otherwise.
+             (t) llama_1b in phase 7's configuration under tensor=2
+             (Megatron's cuts: each rank its half of the heads, the MLP
+             and the vocab, joined by all-reduces in the forward after
+             each row-parallel product and in the backward before each
+             column-parallel one, the logits all-gathered): two ranks on
+             one card over gloo, each feeding the same 32 rows (phase
+             9b's global batch, its two places merged) in 16 micro
+             batches, TENSOR_STEPS steps after precompile(), which under
+             gloo captures neither body (a tensor all-reduce sits in
+             every block). Checks both ranks' metrics equal, the losses
+             and grad norms against phase 9b's one-process reference on
+             the same rows within TENSOR_LOSS_RTOL / TENSOR_NORM_RTOL
+             (limits between the sound reading and planted faults), the
+             flash launches per rank 16 micro batches x (2 x 16 forward
+             on the rank's 8 query and 4 KV heads, 16 dQ, 16 dK/dV) a
+             step, and that a rank keeps exactly its slices: half of
+             every cut leaf and the whole norms, of the parameters and
+             of the gradients. Logs per rank the step's seconds, its
+             tensor collectives (count, bytes, seconds) and peak memory.
+             (d) llama3_8b at its published widths under fsdp=2 x
+             tensor=2, one card a rank over NCCL, remat dots, adamw,
+             phase 9c's global batch (each place in the batch axes 4
+             micro batches of 2 x 2048): 3 eager steps, then a fresh
+             trainer precompile()d (both bodies captured with their
+             gathers, reduce-scatters and tensor all-reduces) and
+             replayed 3 steps, each run's last step traced. Checks every
+             rank's replay bitwise its eager run, tensor peers' metrics
+             equal, the flash launches (16 query, 4 KV heads a rank),
+             and that a rank keeps exactly its share of the parameters,
+             gradients and adamw moments (a quarter of every leaf cut
+             on both axes, half of the norms). Logs the step, tokens/s
+             a card, MFU, NCCL busy share beside phase 9c's. Runs only
+             on a machine with four cards or more, and says it was
+             skipped otherwise.
 
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
-7, 7m, 8, 9.
+7, 7m, 8, 9 (a, b, t, c, d).
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -503,10 +538,11 @@ WORLD_UNCOUNTED_MAX = 256 << 20
 # gradients of a data=2 rank: the batch and the outputs, whole on both,
 # and adafactor's whole factored moments put the share a little above
 # 0.50 (0.5001 reckoned for llama_1b). Its micro bodies gather and
-# reduce-scatter every layer over gloo, eagerly (~4-6 s a micro batch
-# reckoned, PERF.md), so its one run ("replayed": precompile, which
-# captures nothing under gloo, then steps) takes WORLD_FSDP_STEPS steps
-# of the reference's TRAIN_STEPS
+# reduce-scatter every layer over gloo, eagerly (~54 s a step on one
+# H100, PERF.md), so its one run ("replayed": precompile, which captures
+# nothing under gloo, then steps) takes WORLD_FSDP_STEPS steps of the
+# reference's TRAIN_STEPS: two, so that the second holds the optimizer's
+# update on the parts to the reference
 WORLD_STATE_SHARE_MAX = 0.51
 WORLD_FSDP_STEPS = 2
 # phase 9 (c): llama3_8b under fsdp=4, one card a rank over NCCL; a rank
@@ -514,6 +550,32 @@ WORLD_FSDP_STEPS = 2
 # a micro batch move ~69 GB a rank whatever its rows, PERF.md)
 ZERO3_WORLD = 4
 ZERO3_ROWS, ZERO3_ACCUM, ZERO3_STEPS = 2, 2, 3
+# phase 9 (t): llama_1b under tensor=2, two ranks on one card over gloo,
+# each feeding the same 32 rows (the rows of phase 9b's two places, so
+# phase 9b's one-process reference serves) in TRAIN_ACCUM micro batches,
+# TENSOR_STEPS of the reference's TRAIN_STEPS steps (every block's
+# products all-reduced over gloo, eagerly). Limits on the largest
+# relative difference of the losses and grad norms from the reference:
+# the row-parallel products' partial sums are rounded to bf16 and added
+# across the ranks in bf16, where one GEMM accumulates in f32 and rounds
+# once. Read on one H100 (700 W): sound 6.30e-6 (loss) and 1.06e-4 (grad
+# norm) over 2 steps; planted faults, one step each: the logits'
+# vocab halves gathered in the wrong order 1.53e-4 / 8.3e-5, the
+# embedding's mask dropped 9.61e-4 / 0.188, the row-parallel
+# all-reduce dropped 5.69e-4 / NaN, a tensor peer's tokens counted
+# twice (the sums reduced over the world) 3.8e-6 / 0.500 and `tokens`
+# doubled, the copy's backward all-reduce dropped 3.8e-6 / 0.669 with
+# the ranks' metrics unequal. Each limit is the geometric mean of the
+# sound reading and the nearest fault it sees (see PERF.md)
+TENSOR_WORLD = 2
+TENSOR_STEPS = 2
+TENSOR_LOSS_RTOL = 3.1e-5
+TENSOR_NORM_RTOL = 4.5e-3
+# phase 9 (d): llama3_8b under fsdp=2 x tensor=2, one card a rank over
+# NCCL; each of the two places in the batch axes TENSOR3_ACCUM micro
+# batches of ZERO3_ROWS rows a step: phase 9c's global batch of 16 rows
+TENSOR3_FSDP = TENSOR3_TENSOR = 2
+TENSOR3_ACCUM = 4
 # phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
 # (kubeflow_tpu/serving/quant.py:96-101)
 MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
@@ -3283,12 +3345,13 @@ def world_pod_wait(procs: list, what: str) -> list:
 
 def world_pod(torch, tmp: Path) -> dict:
     """Phase 9 (a): the reference pod's training over two processes,
-    under KFT_MESH=data=2 and the default (fsdp=2), killed after its
-    step-2 checkpoint and restarted (module docstring). The two layouts,
-    and each one's uninterrupted world and victim, run side by side."""
+    under KFT_MESH=data=2, the default (fsdp=2) and KFT_MESH=tensor=2,
+    killed after its step-2 checkpoint and restarted (module docstring).
+    The layouts, and each one's uninterrupted world and victim, run side
+    by side."""
     import signal
 
-    layouts = {"data": "data=2", "fsdp": ""}
+    layouts = {"data": "data=2", "fsdp": "", "tensor": "tensor=2"}
     ports = iter(free_ports(3 * len(layouts)))
     t0 = time.perf_counter()
     refs = {k: world_pod_start(tmp, f"world-{k}-ref", v, next(ports))
@@ -3356,11 +3419,15 @@ def world_pod(torch, tmp: Path) -> dict:
 def world_readings(world: list, ref: dict) -> dict:
     """Largest relative difference of the world's losses and grad norms
     (every rank) from the one-process trainer's, over the steps."""
+    import math
+
     out = {"loss": 0.0, "grad_norm": 0.0, "tokens_equal": True}
     for rank in world:
         for m, r in zip(rank, ref["metrics"]):
             for k in ("loss", "grad_norm"):
-                out[k] = max(out[k], abs(m[k] - r[k]) / abs(r[k]))
+                d = abs(m[k] - r[k]) / abs(r[k])
+                # a NaN reads as infinitely far, never as 0
+                out[k] = max(out[k], d if math.isfinite(d) else math.inf)
             out["tokens_equal"] &= m["tokens"] == r["tokens"]
     return out
 
@@ -3386,6 +3453,21 @@ def world_reference(torch, job) -> dict:
     return {"metrics": metrics}
 
 
+def world_job():
+    """Phase 9 (b)'s job: llama_1b in phase 7's configuration, each of
+    WORLD places in the batch axes TRAIN_BATCH / WORLD rows with ragged
+    masks in WORLD_ACCUM micro batches."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    return wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                            total_steps=1000, grad_accum=WORLD_ACCUM,
+                            optimizer="adafactor"),
+                  local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
+                  steps=TRAIN_STEPS, mask=True, runs=("eager", "replayed"))
+
+
 def world_training(torch) -> dict:
     """Phase 9 (b): llama_1b at full width in phase 7's configuration
     over two processes, as data=2 and as fsdp=2 in one world (module
@@ -3393,15 +3475,10 @@ def world_training(torch) -> dict:
     import dataclasses
     import tempfile
 
-    from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.tools import world_train as wt
 
-    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
-    job = wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
-                           total_steps=1000, grad_accum=WORLD_ACCUM,
-                           optimizer="adafactor"),
-                 local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
-                 steps=TRAIN_STEPS, mask=True, runs=("eager", "replayed"))
+    job = world_job()
+    cfg = job.config
     # (data, fsdp, the layout's job): fsdp's micro bodies gather and
     # reduce-scatter every layer over gloo, eagerly, so its one run takes
     # WORLD_FSDP_STEPS steps
@@ -3652,6 +3729,249 @@ def zero3_phase(torch) -> dict:
     return out
 
 
+def kept_share(cfg, cuts: dict) -> dict:
+    """Parameters a rank keeps of each leaf of ``cfg``'s tree, whose
+    logical axes ``cuts`` (axis -> parts) divide: the exact count, the
+    whole count and their ratio."""
+    import math
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel import sharding
+
+    shapes, axes = llama.param_shapes(cfg), llama.param_logical_axes(cfg)
+    pairs = [(shapes["layers"][k], axes["layers"][k])
+             for k in shapes["layers"]]
+    pairs += [(shapes[k], axes[k]) for k in shapes if k != "layers"]
+    whole = kept = 0
+    for shape, names in pairs:
+        n = math.prod(shape)
+        whole += n
+        for axis, parts in cuts.items():
+            if sharding.axis_dim(names, axis) is not None:
+                n //= parts
+        kept += n
+    return {"kept": kept, "whole": whole, "share": kept / whole}
+
+
+def tensor_training(torch, ref_metrics: list) -> dict:
+    """Phase 9 (t): llama_1b at full width in phase 7's configuration
+    under tensor=2, two ranks on one card over gloo (module docstring)."""
+    import dataclasses
+    import tempfile
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    base = world_job()
+    cfg = base.config
+    job = dataclasses.replace(
+        base, trainer={**base.trainer, "grad_accum": TRAIN_ACCUM},
+        steps=TENSOR_STEPS, runs=("replayed",), merge_places=WORLD)
+    devices = ["cuda:0"] * TENSOR_WORLD
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9t: llama_1b, remat=dots, attn_impl=pallas, adafactor, "
+        f"tensor={TENSOR_WORLD} on {devices} (gloo), both ranks the same "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} rows (phase 9b's global batch) in "
+        f"{TRAIN_ACCUM} micro batches, {TENSOR_STEPS} steps after "
+        f"precompile()")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9t-") as rundir:
+        ranks = wt.run(wt.train_rank, (job,), 1, 1, devices, rundir,
+                       tensor=TENSOR_WORLD)
+    wall_s = time.perf_counter() - t0
+    per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_dq": cfg.n_layers,
+                 "flash_attention_dkv": cfg.n_layers}
+    want_launch = {k: v * TRAIN_ACCUM * TENSOR_STEPS
+                   for k, v in per_micro.items()}
+    share = kept_share(cfg, {"tensor": TENSOR_WORLD})
+    want_kept = 4 * share["kept"]
+    failed = []
+    out = {"wall_s": wall_s, "ranks": [], "kept_params": share}
+    for r, res in enumerate(ranks):
+        run = res["runs"]["replayed"]
+        tensor_calls = [{k: c[k] for k in ("tensor_calls", "tensor_bytes",
+                                           "tensor_s", "gloo_s")}
+                        for c in run["collectives"]]
+        log(f"phase 9t rank {r}: backend {res['backend']['backend']} "
+            f"({res['backend']['reason']}); micro body "
+            f"{res.get('micro_mode')}, finish body {res.get('finish_mode')}"
+            f"; step s {run['seconds']!r}; tensor collectives per step "
+            f"{tensor_calls!r}; all collectives per step "
+            f"{run['collectives']!r}; peak {run.get('peak_allocated')} B "
+            f"allocated, {run.get('peak_reserved')} B reserved; state kept "
+            f"{run['state_bytes']} (reachable {run['held_bytes']} B); flash "
+            f"launches {run['launches']}; losses "
+            f"{[m['loss'] for m in run['metrics']]!r} grad norms "
+            f"{[m['grad_norm'] for m in run['metrics']]!r}")
+        out["ranks"].append({k: run.get(k) for k in (
+            "seconds", "collectives", "peak_allocated", "peak_reserved",
+            "state_bytes", "launches")})
+        if run["launches"] != want_launch:
+            failed.append(f"rank {r}: flash launches {run['launches']}, "
+                          f"expected {want_launch}")
+        kept = run["state_bytes"]
+        if kept["params"] != want_kept or kept["grads"] != want_kept \
+                or run["held_bytes"] != kept["total"]:
+            failed.append(f"rank {r}: keeps {kept} (reachable "
+                          f"{run['held_bytes']} B), expected {want_kept} B "
+                          "of parameters and of gradients")
+        if res.get("micro_mode") != "eager" \
+                or res.get("finish_mode") != "eager":
+            failed.append(f"rank {r}: under gloo both bodies run eagerly")
+    world = [res["runs"]["replayed"]["metrics"] for res in ranks]
+    read = world_readings(world, {"metrics": ref_metrics[:TENSOR_STEPS]})
+    out.update(readings=read, launches={
+        k: sum(res["runs"]["replayed"]["launches"][k] for res in ranks)
+        for k in want_launch})
+    log(f"phase 9t: tensor=2 against the one-process trainer on the same "
+        f"rows (phase 9b's reference, {TENSOR_STEPS} steps): loss "
+        f"{read['loss']!r} (limit {TENSOR_LOSS_RTOL}), grad norm "
+        f"{read['grad_norm']!r} (limit {TENSOR_NORM_RTOL}) relative; "
+        f"tokens equal {read['tokens_equal']}; ranks' metrics equal "
+        f"{world[0] == world[1]}; a rank keeps {share['kept']} of "
+        f"{share['whole']} parameters ({share['share']!r}); {wall_s:.1f} s "
+        f"({nvidia_smi_line()})")
+    if world[0] != world[1] or not read["tokens_equal"] \
+            or read["loss"] > TENSOR_LOSS_RTOL \
+            or read["grad_norm"] > TENSOR_NORM_RTOL:
+        failed.append("the tensor=2 steps are not the one-process "
+                      "trainer's on the same rows")
+    if failed:
+        raise SystemExit(f"phase 9t: {failed}")
+    return out
+
+
+def tensor_zero3_phase(torch, zero3: dict) -> dict:
+    """Phase 9 (d): llama3_8b at its published widths under fsdp=2 x
+    tensor=2, one card a rank over NCCL, eager then replayed (module
+    docstring), beside phase 9c. Skipped, and said so, on a machine with
+    fewer than four cards."""
+    import math
+    import tempfile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    n_ranks = TENSOR3_FSDP * TENSOR3_TENSOR
+    n = torch.cuda.device_count()
+    if n < n_ranks:
+        log(f"phase 9d: skipped: llama3_8b under fsdp={TENSOR3_FSDP} x "
+            f"tensor={TENSOR3_TENSOR} needs {n_ranks} cards, one a rank; "
+            f"this machine has {n}")
+        return {"skipped": f"{n} card(s)",
+                "launches": dict.fromkeys(("flash_attention_fwd",
+                                           "flash_attention_dq",
+                                           "flash_attention_dkv"), 0)}
+    cfg = llama.llama3_8b(remat="dots", attn_impl="pallas")
+    job = wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=TENSOR3_ACCUM,
+                           optimizer="adamw"),
+                 local_batch=ZERO3_ROWS * TENSOR3_ACCUM, seq=TRAIN_SEQ,
+                 steps=ZERO3_STEPS, runs=("eager", "replayed"),
+                 profile=True)
+    devices = [f"cuda:{r}" for r in range(n_ranks)]
+    log(f"phase 9d: llama3_8b (32 layers, untied, random weights from "
+        f"seed 0), remat=dots, attn_impl=pallas, adamw, fsdp={TENSOR3_FSDP}"
+        f" x tensor={TENSOR3_TENSOR} on {devices}; each place in the batch "
+        f"axes {TENSOR3_ACCUM} micro batches of {ZERO3_ROWS} x {TRAIN_SEQ} "
+        f"(heads a rank: {cfg.n_heads // TENSOR3_TENSOR} query, "
+        f"{cfg.n_kv_heads // TENSOR3_TENSOR} KV); runs {job.runs} of "
+        f"{ZERO3_STEPS} steps")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9d-") as rundir:
+        ranks = wt.run(wt.train_rank, (job,), 1, TENSOR3_FSDP, devices,
+                       rundir, tensor=TENSOR3_TENSOR)
+    wall_s = time.perf_counter() - t0
+    per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_dq": cfg.n_layers,
+                 "flash_attention_dkv": cfg.n_layers}
+    want_launch = {k: v * TENSOR3_ACCUM * ZERO3_STEPS
+                   for k, v in per_micro.items()}
+    # a card's share of the global batch's tokens a step
+    tokens = ZERO3_ROWS * TENSOR3_ACCUM * TRAIN_SEQ * TENSOR3_FSDP / n_ranks
+    share = kept_share(cfg, {"fsdp": TENSOR3_FSDP,
+                             "tensor": TENSOR3_TENSOR})
+    # f32 parameters, gradients and adamw's two moments (16 B a kept
+    # parameter), and adamw's two 0-d int32 counts
+    want_kept = 16 * share["kept"] + 2 * 4
+    failed = []
+    out = {"wall_s": wall_s, "ranks": [], "kept_params": share,
+           "kept_bytes": want_kept}
+    for r, res in enumerate(ranks):
+        rep, eag = res["runs"]["replayed"], res["runs"]["eager"]
+        step_s = statistics.median(rep["seconds"][1:] or rep["seconds"])
+        tok_s = tokens / step_s
+        mfu = tok_s * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
+        metrics = [(m["loss"], m["grad_norm"]) for m in rep["metrics"]]
+        bitwise = res["differ"] == [] and metrics == [
+            (m["loss"], m["grad_norm"]) for m in eag["metrics"]]
+        kept = rep["state_bytes"]
+        prof = rep.get("profile") or {}
+        nccl_share = prof.get("nccl_busy_ms", 0.0) / prof.get("wall_ms", 1)
+        log(f"phase 9d rank {r}: backend {res['backend']['backend']}, micro "
+            f"body {res.get('micro_mode')}, finish body "
+            f"{res.get('finish_mode')}, capture "
+            f"{res.get('capture_seconds')!r} s, graph pool "
+            f"{res.get('pool_bytes')} B; eager step s {eag['seconds']!r}, "
+            f"replayed step s {rep['seconds']!r} ({tok_s!r} tok/s a card, "
+            f"MFU {mfu!r} against 989 TFLOP/s, NCCL busy {nccl_share!r} of "
+            f"the traced step); kept {kept} (reachable "
+            f"{rep['held_bytes']} B); peak {rep.get('peak_allocated')} B "
+            f"allocated, {rep.get('peak_reserved')} B reserved; eager "
+            f"collectives per step {eag['collectives']!r}, per-layer "
+            f"{eag['layer_collectives']!r}; traced last step: eager "
+            f"{eag.get('profile')!r}, replayed {rep.get('profile')!r}; flash "
+            f"launches (replayed) {rep['launches']}; losses "
+            f"{[m[0] for m in metrics]!r} grad norms "
+            f"{[m[1] for m in metrics]!r}; replayed bitwise eager {bitwise} "
+            f"(parameters differing {res['differ']})")
+        out["ranks"].append({"step_s": step_s, "tok_s_per_card": tok_s,
+                             "mfu": mfu, "nccl_share": nccl_share,
+                             "state_bytes": kept,
+                             "peak_allocated": rep.get("peak_allocated"),
+                             "peak_reserved": rep.get("peak_reserved"),
+                             "pool_bytes": res.get("pool_bytes"),
+                             "eager_seconds": eag["seconds"],
+                             "replayed_seconds": rep["seconds"],
+                             "collectives": eag["collectives"],
+                             "profile": {"eager": eag.get("profile"),
+                                         "replayed": rep.get("profile")},
+                             "bitwise": bitwise})
+        if not bitwise:
+            failed.append(f"rank {r}: the replayed steps are not bitwise "
+                          "the eager ones")
+        if res["backend"]["backend"] != "nccl" \
+                or res.get("micro_mode") != "graph" \
+                or res.get("finish_mode") != "graph":
+            failed.append(f"rank {r}: not both bodies captured over NCCL")
+        if rep["held_bytes"] != kept["total"]:
+            failed.append(f"rank {r}: state_bytes {kept['total']} B, "
+                          f"reachable {rep['held_bytes']} B")
+        if rep["launches"] != want_launch or eag["launches"] != want_launch:
+            failed.append(f"rank {r}: flash launches {rep['launches']} / "
+                          f"{eag['launches']}, expected {want_launch}")
+        peer = ranks[r - r % TENSOR3_TENSOR]["runs"]["replayed"]["metrics"]
+        if not all(math.isfinite(m[0]) for m in metrics) \
+                or rep["metrics"] != peer:
+            failed.append(f"rank {r}: losses not finite or not its tensor "
+                          "peer's")
+        if kept["params"] + kept["grads"] + kept["opt_state"] != want_kept:
+            failed.append(f"rank {r}: keeps {kept}, expected {want_kept} B "
+                          "of parameters, gradients and adamw moments")
+    out["launches"] = {k: n_ranks * want_launch[k] for k in want_launch}
+    if "ranks" in zero3:
+        log(f"phase 9d beside 9c (fsdp={ZERO3_WORLD}): tok/s a card "
+            f"{[x['tok_s_per_card'] for x in out['ranks']]!r} against "
+            f"{[x['tok_s_per_card'] for x in zero3['ranks']]!r}, MFU "
+            f"{[x['mfu'] for x in out['ranks']]!r} against "
+            f"{[x['mfu'] for x in zero3['ranks']]!r}")
+    log(f"phase 9d: {wall_s:.1f} s ({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9d: {failed}")
+    return out
+
+
 def world_phase(torch) -> dict:
     """Phase 9: training across processes (module docstring)."""
     import shutil
@@ -3665,7 +3985,9 @@ def world_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out = world_training(torch)
     out["pod"] = pod
+    out["tensor"] = tensor_training(torch, out["ref_metrics"])
     out["zero3"] = zero3_phase(torch)
+    out["tensor_zero3"] = tensor_zero3_phase(torch, out["zero3"])
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -3789,13 +4111,18 @@ def main() -> int:
                          + moe_trained["launches"][name]
                          + resumed["launches"][name]
                          + sum(w[name] for w in world["launches"].values())
-                         + world["zero3"]["launches"][name]),
+                         + world["tensor"]["launches"][name]
+                         + world["zero3"]["launches"][name]
+                         + world["tensor_zero3"]["launches"][name]),
             "launches_by_phase": {"7": trained["launches"][name],
                                   "7m": moe_trained["launches"][name],
                                   "8": resumed["launches"][name],
                                   "9": sum(w[name] for w in
                                            world["launches"].values()),
-                                  "9c": world["zero3"]["launches"][name]},
+                                  "9t": world["tensor"]["launches"][name],
+                                  "9c": world["zero3"]["launches"][name],
+                                  "9d": world["tensor_zero3"]["launches"][
+                                      name]},
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

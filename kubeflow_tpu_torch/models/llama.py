@@ -28,6 +28,17 @@ masked lookup of the rank's vocab rows plus an all-reduce, and the LM
 head the rank's vocab columns of the logits, all-gathered. Norms are
 replicated. MoE under a mesh raises (``parallel.moe.MOE_MESH``).
 
+In training the same cuts run over a ``parallel.mesh.WorldMesh``'s
+``tensor`` axis, through the autograd-aware collectives of
+``parallel/tensor.py``: ``forward`` takes the world from the parameters
+it is given (a rank's ``parallel.tensor.TensorParams``, or its
+``parallel.fsdp.FsdpParams`` over a world with a ``tensor`` axis) and
+hands it to ``_block`` and the head (``tp``): ``copy`` before the
+column-parallel products and the head, ``reduce`` after the row-parallel
+ones, the embedding a masked lookup plus ``reduce``, and the logits
+all-gathered along vocab before the loss. Each rank runs attention on
+its own heads.
+
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
 (``torch.utils.checkpoint``), and "dots" saves only the weight products
@@ -53,7 +64,7 @@ from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.ops.attention import attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
-from kubeflow_tpu_torch.parallel import moe
+from kubeflow_tpu_torch.parallel import moe, tensor
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams
 from kubeflow_tpu_torch.parallel.sharding import shard_slices
 
@@ -310,9 +321,7 @@ def embed_tokens(params, tokens, cfg: LlamaConfig, mesh=None):
     if mesh is not None:
         n = (params["embed_q"] if "embed_q" in params
              else params["embed"]).shape[0]
-        local = tokens - mesh.rank * n
-        hit = (local >= 0) & (local < n)
-        tokens = torch.where(hit, local, 0)
+        tokens, hit = tensor.local_tokens(tokens, mesh.rank, n)
     if "embed_q" in params:
         rows = params["embed_q"][tokens].to(cfg.dtype)
         rows = rows * params["embed_s"][tokens].to(cfg.dtype)[..., None]
@@ -436,18 +445,20 @@ def head_logits(params, x, cfg: LlamaConfig, mesh=None):
         torch.einsum("...d,dv->...v", x, lm_head_weight(params, cfg)), mesh)
 
 
-def _block(x, lp, inv_freq, positions, cfg: LlamaConfig):
+def _block(x, lp, inv_freq, positions, cfg: LlamaConfig, tp=None):
     """One transformer block on x [B, S, D] in the compute dtype ->
-    (x, the layer's MoE aux: 0.0 for a dense layer)."""
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    (x, the layer's MoE aux: 0.0 for a dense layer). ``tp``: the
+    training world whose ``tensor`` axis cuts ``lp`` (module
+    docstring), or None."""
+    h = tensor.copy(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q, k, v = qkv_proj(lp, h, cfg)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    x = x + out_proj(lp, o, cfg)
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    x = x + tensor.reduce(out_proj(lp, o, cfg), tp)
+    h = tensor.copy(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
     delta, aux = _ffn(h, lp, cfg)
-    return x + delta, aux
+    return x + tensor.reduce(delta, tp), aux
 
 
 def _save_weight_products(ctx, op, *args, **kwargs):
@@ -474,17 +485,22 @@ def _remat_wrap(fn, cfg: LlamaConfig):
 
 
 def _weights(params):
-    """(the weights outside the layers, ``i`` -> layer ``i``'s weights):
-    the layer loop's accessor. A tree's layers come from one unbind per
-    stacked weight, not an index per layer: the backward of unbind
-    stacks the layers' gradients once, where indexing would add a
-    zero-filled full [L, ...] gradient into the leaf per layer. A
-    rank's ``parallel.fsdp.FsdpParams`` gathers the rest once and each
-    layer when it is asked for."""
+    """(the weights outside the layers, ``i`` -> layer ``i``'s weights,
+    the world whose ``tensor`` axis cuts them or None): the layer loop's
+    accessor. A tree's layers come from one unbind per stacked weight,
+    not an index per layer: the backward of unbind stacks the layers'
+    gradients once, where indexing would add a zero-filled full
+    [L, ...] gradient into the leaf per layer. A rank's
+    ``parallel.fsdp.FsdpParams`` gathers the rest once and each layer
+    when it is asked for; a ``parallel.tensor.TensorParams`` holds the
+    rank's slices."""
     if isinstance(params, FsdpParams):
-        return params.gather(None), params.gather
+        return params.gather(None), params.gather, params.tensor
+    tp = None
+    if isinstance(params, tensor.TensorParams):
+        params, tp = params.tree, params.mesh
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
-    return params, lambda i: {k: v[i] for k, v in layers.items()}
+    return params, lambda i: {k: v[i] for k, v in layers.items()}, tp
 
 
 def forward(params, tokens, cfg: LlamaConfig, positions=None,
@@ -501,22 +517,30 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None,
     and each layer's weights inside its block, so that remat "full" and
     "dots" gather them again when the backward recomputes the block
     rather than keep them. Under remat "none" the gathered weights are
-    saved for the backward like any activation, and live until it."""
-    top, layer = _weights(params)
+    saved for the backward like any activation, and live until it.
+
+    Under a world's ``tensor`` axis (``params`` a
+    ``parallel.tensor.TensorParams``, or ``FsdpParams`` over such a
+    world) every rank gets the whole logits of its rows (module
+    docstring); the block's forward collectives run again when remat
+    recomputes it. MoE raises ``parallel.moe.MOE_MESH`` there."""
+    top, layer, tp = _weights(params)
+    check_moe_mesh(cfg, tp)
     device = top["embed"].device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
     inv_freq = inv_freq_for(cfg, device)
-    x = embed_tokens(top, tokens, cfg)
+    x = (embed_tokens(top, tokens, cfg) if tp is None else
+         tensor.vocab_lookup(top["embed"], tokens, tp, cfg.dtype))
     block = _remat_wrap(
-        lambda x, i: _block(x, layer(i), inv_freq, positions, cfg), cfg)
+        lambda x, i: _block(x, layer(i), inv_freq, positions, cfg, tp), cfg)
     auxes = []
     for i in range(cfg.n_layers):
         x, aux = block(x, i)
         auxes.append(aux)
-    x = rms_norm(x, top["final_norm"], cfg.norm_eps)
-    logits = torch.einsum("bsd,dv->bsv", x,
-                          lm_head_weight(top, cfg)).float()
+    x = tensor.copy(rms_norm(x, top["final_norm"], cfg.norm_eps), tp)
+    logits = tensor.gather_vocab(
+        torch.einsum("bsd,dv->bsv", x, lm_head_weight(top, cfg)), tp).float()
     if not return_aux:
         return logits
     total = (torch.stack(auxes).sum() if cfg.n_experts

@@ -3,8 +3,8 @@
 parameter and of every gradient accumulator, and gathers each layer's
 whole weights just before the layer runs.
 
-Every parameter is cut on its ``fsdp`` dim (``sharding.fsdp_dim``) into
-``n`` equal contiguous parts in rank order, as ``sharding.fsdp_shard``
+Every parameter is cut on its ``fsdp`` dim (``sharding.axis_dim``) into
+``n`` equal contiguous parts in rank order, as ``sharding.axis_shard``
 cuts it. The parameters fall into units: one a layer (layer ``i``'s slice
 of every leaf under ``params["layers"]``, whose first logical axis is
 ``layers``) and one of the rest (the embedding, the final norm, an untied
@@ -31,6 +31,14 @@ record their backward, and never gets a ``.grad``. Called inside a
 checkpointed block (``models/llama.forward`` under remat "full" or
 "dots"), the gather runs again when the backward recomputes the block,
 so the whole weights are not kept between the passes.
+
+Over a world with a ``tensor`` axis (``fsdp`` x ``tensor``) the tree a
+rank's ``FsdpParams`` is built from is its ``tensor`` slice
+(``sharding.tensor_part``): each slice is cut on ``embed`` over the
+rank's ``fsdp`` group (the ranks of its ``tensor`` index), so a gathered
+unit is the rank's slice of a layer, and ``tensor`` names the world for
+the model's collectives (``parallel/tensor.py``). ``gather_to_host``
+rebuilds whole leaves across both axes.
 
 ``PlainGroup`` stands in for the group on one process, for the tests: its
 all-gather concatenates the ranks' parts (``torch.cat``) and its
@@ -143,6 +151,9 @@ class FsdpParams:
     (module docstring). Every leaf must be cut on some dim, a layer leaf
     on a dim other than its ``layers`` one.
 
+    ``tensor`` is ``group`` when it has a ``tensor`` axis over 1 (then
+    ``params`` is the rank's tensor slice of the tree), else None.
+
     ``timings`` counts the gathers and reduce-scatters (``gathers`` /
     ``scatters``), the bytes of the whole units they move (``*_bytes``)
     and their host seconds (``*_s``: the whole collective where it is
@@ -152,6 +163,7 @@ class FsdpParams:
     def __init__(self, params: dict, axes: dict, rules, group):
         self.group = group
         self.n, self.index = group.fsdp, group.fsdp_index
+        self.tensor = group if getattr(group, "tensor", 1) > 1 else None
         named = dict(_items(params))
         names = dict(_items(axes))
         first = next(iter(named.values()))
@@ -159,7 +171,7 @@ class FsdpParams:
         layers, rest, dims = [], [], {}
         self.n_layers = None
         for path, t in named.items():
-            dim = sharding.fsdp_dim(names[path], rules)
+            dim = sharding.axis_dim(names[path], "fsdp", rules)
             dims[path] = dim
             if dim is None:
                 continue
@@ -190,7 +202,7 @@ class FsdpParams:
         with torch.no_grad():
             for (path, t), part in zip(named.items(),
                                        dict(_items(self.parts)).values()):
-                part.copy_(sharding.fsdp_shard(t, dims[path], self.index,
+                part.copy_(sharding.axis_shard(t, dims[path], self.index,
                                                self.n))
         self.flat.requires_grad_(True)
         self.timings = {"gathers": 0, "gather_bytes": 0, "gather_s": 0.0,
@@ -272,30 +284,43 @@ class FsdpParams:
         self.grad[off:off + numel].add_(out)
 
 
-def gather_to_host(part: torch.Tensor, dim: Optional[int], group,
+def gather_to_host(part: torch.Tensor, dims, group,
                    piece_bytes: int = 1 << 28) -> torch.Tensor:
-    """The whole tensor whose ``fsdp`` part (cut on ``dim``) this rank
-    holds, gathered over ``group`` into host memory; ``dim`` None: the
-    rank holds it whole (a copy). Cut on a dim after the leading one, it
-    is gathered in pieces of leading rows whose whole takes at most
-    ``piece_bytes`` (a row at least), so the device holds one piece at a
-    time; cut on the leading dim, at once."""
-    if dim is None:
+    """The whole tensor of which this rank holds ``part``, gathered over
+    ``group`` into host memory. ``dims``: ``{axis: the dim cut over it}``
+    for ``fsdp`` and ``tensor`` (None or empty: the rank holds it whole,
+    and gets a copy). A leaf cut on both axes is gathered over the
+    ``replica`` group, whose ranks' parts come in ``(fsdp, tensor)``
+    order. Cut on dims after the leading one, it is gathered in pieces
+    of leading rows whose whole takes at most ``piece_bytes`` (a row at
+    least), so the device holds one piece at a time; cut on the leading
+    dim, at once."""
+    sizes = {"fsdp": group.fsdp, "tensor": getattr(group, "tensor", 1)}
+    cut = {a: d for a, d in (dims or {}).items() if sizes[a] > 1}
+    if not cut:
         return part.detach().to("cpu", copy=True)
-    n = group.fsdp
+    axes = tuple(sorted(cut))
+    name = axes[0] if len(axes) == 1 else "replica"
+    n = math.prod(sizes[a] for a in axes)
     shape = list(part.shape)
-    shape[dim] *= n
+    for a, d in cut.items():
+        shape[d] *= sizes[a]
     out = torch.empty(shape, dtype=part.dtype, device="cpu")
-    rows = part.shape[0] if dim == 0 else max(
+    lead = 0 in cut.values()
+    rows = part.shape[0] if lead else max(
         1, piece_bytes // max(part[0].numel() * part.itemsize * n, 1))
     for a in range(0, part.shape[0], rows):
         piece = part.detach()[a:a + rows].contiguous()
         got = torch.empty((n * piece.numel(),), dtype=part.dtype,
                           device=part.device)
-        group.all_gather(got, piece.view(-1), "fsdp")
-        whole = sharding.fsdp_unshard(got.view(n, *piece.shape).unbind(0),
-                                      dim)
-        (out if dim == 0 else out[a:a + rows]).copy_(whole)
+        group.all_gather(got, piece.view(-1), name)
+        parts = list(got.view(n, *piece.shape).unbind(0))
+        # the innermost axis first: its parts lie next to each other
+        for ax in reversed(axes):
+            k = sizes[ax]
+            parts = [sharding.fsdp_unshard(parts[i:i + k], cut[ax])
+                     for i in range(0, len(parts), k)]
+        (out if lead else out[a:a + rows]).copy_(parts[0])
     return out
 
 

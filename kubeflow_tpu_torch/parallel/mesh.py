@@ -28,13 +28,17 @@ contract for serving, where only the ``tensor`` axis is ported, and
 raises for any other axis set above 1.
 
 ``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
-``build_mesh`` over the batch axes: ``data`` x ``fsdp`` processes, one
-device each (``rendezvous/bootstrap.py`` starts them and chooses the
-backend), with one process group per axis. Under ``data`` every rank
-holds the whole train state and the gradients are all-reduced; under
-``fsdp`` each rank holds its shard of the parameters and the optimizer
-state (``parallel/sharding.fsdp_*``), all-gathers the parameters before
-its micro batches and reduce-scatters the gradients after them.
+``build_mesh``: ``data`` x ``fsdp`` x ``tensor`` processes, one device
+each (``rendezvous/bootstrap.py`` starts them and chooses the backend),
+with process groups per axis and per pair of axes. Under ``data`` every
+rank holds the whole train state and the gradients are all-reduced;
+under ``fsdp`` each rank holds its shard of the parameters and the
+optimizer state (``parallel/fsdp.py``), gathers each layer's weights
+before it runs and reduce-scatters its gradients after it; under
+``tensor`` each rank holds its Megatron cut of every ``heads`` /
+``kv_heads`` / ``mlp`` / ``vocab`` leaf and the ranks of the axis,
+which feed the same rows, join their products through autograd-aware
+collectives (``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -53,8 +57,8 @@ import torch
 AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
-                  "item 8.7); only the tensor axis is ported for serving, "
-                  "and the data and fsdp axes for training")
+                  "item 8.7); the tensor axis is ported for serving, and "
+                  "the data, fsdp and tensor axes for training")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
 # mesh is given another: a first command may build the CUDA kernels
@@ -325,8 +329,12 @@ def _rank_entry(mesh: TensorMesh, rank: int, target, args: tuple) -> None:
 # bytes (one call over a multi-GB tensor would hold as much again in
 # gloo's own buffers), spread over GLOO_LANES groups of the same ranks,
 # one thread each: one gloo group moves ~1.1 GB/s between two processes
-# on one host, four ~3 GB/s (an all-reduce of 800 MB on 8 cores)
+# on one host, four ~3 GB/s (an all-reduce of 800 MB on 8 cores). A
+# tensor of fewer than GLOO_LANES full pieces is cut into one piece a
+# lane, none under GLOO_MIN_PIECE_BYTES, so that a 16.8 MB activation
+# uses every lane too
 GLOO_PIECE_BYTES = 1 << 26
+GLOO_MIN_PIECE_BYTES = 1 << 20
 GLOO_LANES = 4
 
 
@@ -339,13 +347,17 @@ class Backend:
 
 
 def resolve_world_axes(num_processes: int, data: int = 1,
-                       fsdp: int = -1) -> tuple[int, int]:
-    """``MeshConfig.resolved``'s rule over the batch axes, one device a
-    process: at most one axis is -1 and absorbs what the other leaves
-    (unset, every process goes on ``fsdp``); the sizes must multiply to
-    ``num_processes``. Raises ValueError with the JAX package's
-    messages."""
-    sizes = {"data": data, "fsdp": fsdp}
+                       fsdp: int = -1, tensor: int = 1) -> tuple[int, int]:
+    """``MeshConfig.resolved``'s rule over the world's axes, one device a
+    process: at most one batch axis is -1 and absorbs what the others
+    leave (unset, every process the ``tensor`` axis leaves goes on
+    ``fsdp``); ``tensor`` is fixed; the sizes must multiply to
+    ``num_processes``. Returns ``(data, fsdp)``. Raises ValueError with
+    the JAX package's messages."""
+    if tensor < 1:
+        raise ValueError(f"tensor={tensor}: the tensor axis is fixed; only "
+                         "data or fsdp may be -1")
+    sizes = {"data": data, "fsdp": fsdp, "tensor": tensor}
     wild = [k for k, v in sizes.items() if v == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one -1 axis allowed, got {wild}")
@@ -362,44 +374,81 @@ def resolve_world_axes(num_processes: int, data: int = 1,
     return sizes["data"], sizes["fsdp"]
 
 
+# the world's groups: each holds the ranks that differ only on its axes
+GROUP_AXES = {"world": ("data", "fsdp", "tensor"), "data": ("data",),
+              "fsdp": ("fsdp",), "tensor": ("tensor",),
+              # the ranks holding different rows (tensor peers feed the
+              # same rows)
+              "batch": ("data", "fsdp"),
+              # the ranks holding the parts of one replica of the state
+              "replica": ("fsdp", "tensor")}
+
+
+def group_of(axes) -> str:
+    """The name of the group over ``axes`` (a collection of axis names,
+    or a group's name)."""
+    if isinstance(axes, str):
+        return axes
+    want = {a for a in axes}
+    for name, over in GROUP_AXES.items():
+        if set(over) == want:
+            return name
+    raise ValueError(f"no group over the axes {sorted(want)}")
+
+
 class WorldMesh:
-    """``data`` x ``fsdp`` training processes, one device each (module
-    docstring). Rank ``r`` sits at ``(r // fsdp, r % fsdp)``: ``data``
-    is the outer axis, as in the JAX package's ``AXIS_ORDER``, so the
-    rank is also this process's place in the batch (the JAX batch
-    sharding ``("data", "fsdp")``).
+    """``data`` x ``fsdp`` x ``tensor`` training processes, one device
+    each (module docstring). Rank ``r`` sits at ``(d, f, t)`` with
+    ``r = (d * fsdp + f) * tensor + t``: ``data`` outermost and
+    ``tensor`` innermost, as in the JAX package's ``AXIS_ORDER``, so
+    tensor peers are neighbouring ranks (and cards), and a rank's place
+    in the batch (the JAX batch sharding ``("data", "fsdp")``) is
+    ``d * fsdp + f`` (``axis_index("batch")``).
 
     Built after ``torch.distributed``'s default group exists (gloo,
     ``rendezvous.bootstrap.join_world``); every rank builds it with the
     same sizes. The model's collectives run over groups of ``backend``:
     NCCL on device tensors, or gloo, where a CUDA tensor goes through a
     pinned host copy (one staging buffer, grown to the largest call) in
-    pieces of ``GLOO_PIECE_BYTES`` spread over ``GLOO_LANES`` groups.
-    Per axis a group: ``world`` (every rank), ``data`` (the ranks
-    holding the same shard) and ``fsdp`` (the ranks sharing one
-    replica); an axis of size 1 makes no call.
+    pieces of at most ``GLOO_PIECE_BYTES`` spread over ``GLOO_LANES``
+    groups.
+    The groups (``GROUP_AXES``): ``world``, one per axis (``data``: the
+    ranks holding the same shard; ``fsdp``: the ranks sharing one
+    replica's tensor slice; ``tensor``: the ranks feeding the same rows),
+    ``batch`` (``data`` x ``fsdp``) and ``replica`` (``fsdp`` x
+    ``tensor``: the ranks over which a leaf cut on both axes is summed).
+    Groups of one rank make no call; groups of the same ranks are one.
 
     ``timings`` sums, per rank, the seconds and bytes of the host-staged
     collectives: the device-to-host copies, the gloo calls and the
     host-to-device copies (NCCL's are queued on the stream and are not
-    timed here)."""
+    timed here); and the ``tensor`` axis's collectives, wherever they
+    run: their calls, bytes and host seconds (``tensor_*``; under NCCL
+    the enqueue only)."""
 
     def __init__(self, data: int, fsdp: int, rank: int, device,
-                 backend: Backend):
-        if data < 1 or fsdp < 1:
-            raise ValueError(f"data={data} fsdp={fsdp}: sizes must be >= 1")
-        self.data, self.fsdp = int(data), int(fsdp)
-        self.size = self.data * self.fsdp
+                 backend: Backend, tensor: int = 1):
+        if data < 1 or fsdp < 1 or tensor < 1:
+            raise ValueError(f"data={data} fsdp={fsdp} tensor={tensor}: "
+                             "sizes must be >= 1")
+        self.data, self.fsdp, self.tensor = int(data), int(fsdp), int(tensor)
+        self.size = self.data * self.fsdp * self.tensor
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a world of {self.size}")
         self.rank = int(rank)
-        self.data_index, self.fsdp_index = divmod(self.rank, self.fsdp)
+        self.data_index, self.fsdp_index, self.tensor_index = \
+            self._coords(self.rank)
         self.device = torch.device(device)
         self.backend = backend
         self._groups: dict = {}
+        self._members: dict = {}
         self._staging: Optional[torch.Tensor] = None
         self.timings = {"d2h_s": 0.0, "gloo_s": 0.0, "h2d_s": 0.0,
-                        "d2h_bytes": 0, "h2d_bytes": 0, "calls": 0}
+                        "d2h_bytes": 0, "h2d_bytes": 0, "calls": 0,
+                        "tensor_calls": 0, "tensor_bytes": 0,
+                        "tensor_s": 0.0}
+        for name in GROUP_AXES:
+            self._members[name] = self._ranks_of(name, self.rank)
         if self.size > 1:
             self._make_groups()
 
@@ -411,22 +460,41 @@ class WorldMesh:
         the slices are processes too)."""
         return cls(layout.get("data", 1) * layout.get("dcn_data", 1),
                    layout.get("fsdp", 1) * layout.get("dcn_fsdp", 1),
-                   rank, device, backend)
+                   rank, device, backend, tensor=layout.get("tensor", 1))
 
     # ------------------------------------------------------------ identity
 
+    def _coords(self, rank: int) -> tuple:
+        d, rest = divmod(rank, self.fsdp * self.tensor)
+        f, t = divmod(rest, self.tensor)
+        return d, f, t
+
+    def _ranks_of(self, name: str, rank: int) -> tuple:
+        """The ranks of group ``name`` that ``rank`` belongs to, in rank
+        order (they differ from it only on the group's axes)."""
+        over = GROUP_AXES[name]
+        mine = dict(zip(("data", "fsdp", "tensor"), self._coords(rank)))
+        return tuple(r for r in range(self.size) if all(
+            c == mine[a] for a, c in zip(("data", "fsdp", "tensor"),
+                                         self._coords(r)) if a not in over))
+
     @property
     def shape(self) -> dict:
-        """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them."""
-        return {"data": self.data, "fsdp": self.fsdp}
+        """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them (the
+        batch axes always; ``tensor`` where it is over 1)."""
+        out = {"data": self.data, "fsdp": self.fsdp}
+        if self.tensor > 1:
+            out["tensor"] = self.tensor
+        return out
 
-    def axis_size(self, axis: str) -> int:
-        return {"world": self.size, "data": self.data,
-                "fsdp": self.fsdp}[axis]
+    def axis_size(self, axis) -> int:
+        """The number of ranks in this rank's group over ``axis`` (an
+        axis, a group's name, or a collection of axes)."""
+        return len(self._members[group_of(axis)])
 
-    def axis_index(self, axis: str) -> int:
-        return {"world": self.rank, "data": self.data_index,
-                "fsdp": self.fsdp_index}[axis]
+    def axis_index(self, axis) -> int:
+        """This rank's place in its group over ``axis``."""
+        return self._members[group_of(axis)].index(self.rank)
 
     @property
     def is_coordinator(self) -> bool:
@@ -437,36 +505,35 @@ class WorldMesh:
         return self.backend.name == "gloo" and self.device.type == "cuda"
 
     def describe(self) -> dict:
-        return {"data": self.data, "fsdp": self.fsdp, "rank": self.rank,
-                "device": str(self.device), "backend": self.backend.name,
-                "reason": self.backend.reason}
+        return {"data": self.data, "fsdp": self.fsdp, "tensor": self.tensor,
+                "rank": self.rank, "device": str(self.device),
+                "backend": self.backend.name, "reason": self.backend.reason}
 
     def _make_groups(self) -> None:
-        """Per axis the groups of this rank: one over NCCL, GLOO_LANES
-        over gloo. Every process takes part in creating every group, in
+        """Per group of more than one rank, this rank's: one process
+        group over NCCL, GLOO_LANES over gloo; groups of the same ranks
+        share them. Every process takes part in creating every group, in
         the same order."""
         import torch.distributed as dist
 
         if not dist.is_initialized() or dist.get_world_size() != self.size:
             raise RuntimeError(
-                f"a world of data={self.data} x fsdp={self.fsdp} needs the "
-                f"default process group over {self.size} processes "
-                "(rendezvous.bootstrap.initialize or join_world first)")
+                f"a world of data={self.data} x fsdp={self.fsdp} x "
+                f"tensor={self.tensor} needs the default process group "
+                f"over {self.size} processes (rendezvous.bootstrap."
+                "initialize or join_world first)")
         be = self.backend.name
         lanes = GLOO_LANES if be == "gloo" else 1
-
-        def groups(ranks=None) -> list:
-            return [dist.new_group(ranks, backend=be) for _ in range(lanes)]
-
-        self._groups["world"] = groups()
-        for j in range(self.fsdp if self.data > 1 else 0):
-            g = groups([i * self.fsdp + j for i in range(self.data)])
-            if j == self.fsdp_index:
-                self._groups["data"] = g
-        for i in range(self.data if self.fsdp > 1 else 0):
-            g = groups([i * self.fsdp + j for j in range(self.fsdp)])
-            if i == self.data_index:
-                self._groups["fsdp"] = g
+        made: dict = {}
+        for name in GROUP_AXES:
+            parts = sorted({self._ranks_of(name, r) for r in range(self.size)})
+            if len(parts[0]) == 1:
+                continue
+            for ranks in parts:
+                if ranks not in made:
+                    made[ranks] = [dist.new_group(list(ranks), backend=be)
+                                   for _ in range(lanes)]
+            self._groups[name] = made[self._members[name]]
 
     # ------------------------------------------------------------- control
 
@@ -517,8 +584,15 @@ class WorldMesh:
         self.timings["h2d_s"] += time.perf_counter() - t0
         self.timings["h2d_bytes"] += host.numel() * host.itemsize
 
-    def _ranges(self, numel: int, itemsize: int) -> list:
-        n = max(GLOO_PIECE_BYTES // itemsize, 1)
+    @staticmethod
+    def _ranges(numel: int, itemsize: int, lanes: int) -> list:
+        """The pieces ``(start, stop)`` of a gloo call over ``numel``
+        elements: at most GLOO_PIECE_BYTES each, and as many as
+        ``lanes`` where that takes pieces of GLOO_MIN_PIECE_BYTES or
+        more."""
+        n = min(max(-(-numel // lanes), GLOO_MIN_PIECE_BYTES // itemsize),
+                GLOO_PIECE_BYTES // itemsize)
+        n = max(n, 1)
         return [(i, min(i + n, numel)) for i in range(0, numel, n)]
 
     def _gloo(self, axis: str, calls: list) -> None:
@@ -528,7 +602,7 @@ class WorldMesh:
         import threading
         import time
 
-        lanes = self._groups[axis]
+        lanes = self._groups[group_of(axis)]
         t0 = time.perf_counter()
         if len(calls) == 1:
             calls[0](lanes[0])
@@ -553,17 +627,36 @@ class WorldMesh:
         self.timings["gloo_s"] += time.perf_counter() - t0
         self.timings["calls"] += 1
 
-    def all_reduce(self, x: torch.Tensor, axis: str = "world"
-                   ) -> torch.Tensor:
-        """Sum ``x`` (contiguous) over ``axis``, in place; returns ``x``.
-        Every rank of the axis gets the same bytes."""
+    def _tensor_timed(self, axis, x: torch.Tensor, call) -> None:
+        """``call()``, counted in ``timings``' ``tensor_*`` when ``axis``
+        is the tensor axis (``x``: the collective's input)."""
+        import time
+
+        if group_of(axis) != "tensor":
+            call()
+            return
+        if self.via_host:
+            torch.cuda.current_stream(self.device).synchronize()
+        t0 = time.perf_counter()
+        call()
+        self.timings["tensor_s"] += time.perf_counter() - t0
+        self.timings["tensor_calls"] += 1
+        self.timings["tensor_bytes"] += x.numel() * x.itemsize
+
+    def all_reduce(self, x: torch.Tensor, axis="world") -> torch.Tensor:
+        """Sum ``x`` (contiguous) over ``axis`` (an axis or a group's
+        name, ``GROUP_AXES``), in place; returns ``x``. Every rank of the
+        axis gets the same bytes."""
+        if self.axis_size(axis) > 1:
+            self._tensor_timed(axis, x, lambda: self._all_reduce(x, axis))
+        return x
+
+    def _all_reduce(self, x: torch.Tensor, axis) -> None:
         import torch.distributed as dist
 
-        if self.axis_size(axis) == 1:
-            return x
         if self.backend.name == "nccl":
-            dist.all_reduce(x, group=self._groups[axis][0])
-            return x
+            dist.all_reduce(x, group=self._groups[group_of(axis)][0])
+            return
         host = x.view(-1)
         if self.via_host:
             host = self._host(x.numel(), x.dtype)
@@ -571,14 +664,14 @@ class WorldMesh:
         self._all_reduce_host(host, axis)
         if self.via_host:
             self._from_host(x, host)
-        return x
 
     def _all_reduce_host(self, host: torch.Tensor, axis: str) -> None:
         import torch.distributed as dist
 
         self._gloo(axis, [
             lambda g, a=a, b=b: dist.all_reduce(host[a:b], group=g)
-            for a, b in self._ranges(host.numel(), host.itemsize)])
+            for a, b in self._ranges(host.numel(), host.itemsize,
+                                     len(self._groups[group_of(axis)]))])
 
     def reduce_scatter(self, out: torch.Tensor, x: torch.Tensor,
                        axis: str = "fsdp") -> torch.Tensor:
@@ -596,7 +689,8 @@ class WorldMesh:
         if n == 1:
             return out.copy_(x.view(out.shape))
         if self.backend.name == "nccl":
-            dist.reduce_scatter_tensor(out, x, group=self._groups[axis][0])
+            dist.reduce_scatter_tensor(out, x,
+                                       group=self._groups[group_of(axis)][0])
             return out
         host = x.view(-1)
         if self.via_host:
@@ -611,20 +705,26 @@ class WorldMesh:
         return out
 
     def all_gather(self, out: torch.Tensor, x: torch.Tensor,
-                   axis: str = "fsdp") -> torch.Tensor:
+                   axis="fsdp") -> torch.Tensor:
         """``out`` [n * k] = every rank's ``x`` [k] of ``axis``,
         concatenated in axis order."""
-        import torch.distributed as dist
-
         n, k = self.axis_size(axis), x.numel()
         if out.numel() != n * k:
             raise ValueError(f"all_gather of {n} parts of {k} into "
                              f"{out.numel()} elements")
         if n == 1:
             return out.copy_(x.view(out.shape))
+        self._tensor_timed(axis, out, lambda: self._all_gather(out, x, axis))
+        return out
+
+    def _all_gather(self, out: torch.Tensor, x: torch.Tensor, axis) -> None:
+        import torch.distributed as dist
+
+        n, k = self.axis_size(axis), x.numel()
         if self.backend.name == "nccl":
-            dist.all_gather_into_tensor(out, x, group=self._groups[axis][0])
-            return out
+            dist.all_gather_into_tensor(out, x,
+                                        group=self._groups[group_of(axis)][0])
+            return
         if self.via_host:
             host = self._host((n + 1) * k, x.dtype)
             src, dst = host[:k], host[k:]
@@ -635,7 +735,7 @@ class WorldMesh:
         self._gloo(axis, [
             lambda g, a=a, b=b: dist.all_gather(
                 [rows[r, a:b] for r in range(n)], src[a:b], group=g)
-            for a, b in self._ranges(k, x.itemsize)])
+            for a, b in self._ranges(k, x.itemsize,
+                                     len(self._groups[group_of(axis)]))])
         if self.via_host:
             self._from_host(out, dst)
-        return out

@@ -9,12 +9,16 @@ its own shard as a plain tensor. Two cuts exist:
 - ``tensor`` (serving, ``parallel.mesh.TensorMesh``): ``shard_tree`` cuts
   a full tree into one rank's shard; a rule naming another axis leaves
   the dim whole.
-- ``fsdp`` (training, ``parallel.mesh.WorldMesh``): ZeRO-3, each
-  parameter cut on the dim its rule puts on ``fsdp`` (``embed`` under
-  ``DEFAULT_RULES``) into equal contiguous parts in rank order
-  (``fsdp_dim``, ``fsdp_shard``); ``fsdp_unshard`` puts the parts back
-  together. ``data`` holds no parameter dim: the state is whole on each
-  of its ranks.
+- training (``parallel.mesh.WorldMesh``): each parameter cut on the dim
+  its rule puts on an axis (``axis_dim``) into equal contiguous parts in
+  rank order (``axis_shard``). Under ``tensor`` a rank keeps its slice
+  of every ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab`` dim
+  (``tensor_part``, by the rules the trainer is given: the slices
+  ``shard_tree`` cuts under ``DEFAULT_RULES``); under ``fsdp`` (ZeRO-3)
+  each parameter, or each rank's tensor slice of it, is cut on its
+  ``embed`` dim (``axis_dim``, ``axis_shard`` over ``fsdp``);
+  ``fsdp_unshard`` puts the parts back together. ``data`` holds no parameter dim: the state
+  is whole on each of its ranks.
 """
 
 from __future__ import annotations
@@ -137,26 +141,38 @@ def placed_on(names: Sequence[Optional[str]], axis: str,
             if axis in _mesh_axes(part)]
 
 
-def fsdp_dim(names: Sequence[Optional[str]], rules=None) -> Optional[int]:
+def axis_dim(names: Sequence[Optional[str]], axis: str,
+             rules=None) -> Optional[int]:
     """The dim of a parameter with logical axes ``names`` that ``rules``
-    put on ``fsdp``, or None. Raises when two dims are."""
-    dims = placed_on(names, "fsdp", rules)
+    put on mesh axis ``axis``, or None. Raises when two dims are."""
+    dims = placed_on(names, axis, rules)
     if len(dims) > 1:
         raise ValueError(f"logical axes {tuple(names)}: dims {dims} are all "
-                         "on fsdp; a parameter is cut on one")
+                         f"on {axis}; a parameter is cut on one")
     return dims[0] if dims else None
 
 
-def fsdp_shard(x: torch.Tensor, dim: int, index: int,
-               n: int) -> torch.Tensor:
+def axis_shard(x: torch.Tensor, dim: int, index: int, n: int,
+               axis: str = "fsdp") -> torch.Tensor:
     """Part ``index`` of ``n`` equal contiguous parts of ``x`` along
     ``dim``, as a contiguous tensor of its own."""
     if x.shape[dim] % n:
-        raise ValueError(f"dim {x.shape[dim]} not divisible by fsdp={n}")
+        raise ValueError(f"dim {x.shape[dim]} not divisible by {axis}={n}")
     part = x.narrow(dim, index * (x.shape[dim] // n), x.shape[dim] // n)
     return part.clone(memory_format=torch.contiguous_format)
 
 
 def fsdp_unshard(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
-    """The full tensor of its ``fsdp_shard`` parts, in rank order."""
+    """The full tensor of its ``axis_shard`` parts, in rank order."""
     return torch.cat(list(parts), dim=dim)
+
+
+def tensor_part(tree, axes, index: int, n: int, rules=None):
+    """A new tree of rank ``index``'s ``tensor`` slices of ``tree``'s
+    leaves (of ``n``; ``axes``: the logical-axis tree), each a tensor of
+    its own; a leaf with no dim on ``tensor`` is kept as it is."""
+    if isinstance(tree, dict):
+        return {k: tensor_part(v, axes[k], index, n, rules)
+                for k, v in tree.items()}
+    dim = axis_dim(axes, "tensor", rules)
+    return tree if dim is None else axis_shard(tree, dim, index, n, "tensor")

@@ -23,9 +23,10 @@ reference's ``main``:
    the CPU (``KFT_FORCE_PLATFORM=cpu``) there is no graph: the step runs
    eagerly and the outcome is reported as ``"eager"``, never as a
    capture. Over more than one process the trainer trains over the
-   world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data`` and
-   ``fsdp``, by default every process on ``fsdp``), each process feeding
-   its own rows of the global batch, as the reference's pods do; the
+   world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data``,
+   ``fsdp`` and ``tensor``, by default every process on ``fsdp``), each
+   place in the batch axes feeding its own rows of the global batch, as
+   the reference's pods do (tensor peers feed the same rows); the
    coordinator writes the metrics and the checkpoints, and every
    process restores its own part from them.
 
@@ -131,11 +132,14 @@ def train(world, device, steps: int, phases: dict, metrics_path,
         device=device, mesh=mesh,
         param_axes=llama.param_logical_axes(cfg))
     global_batch = max(2 * world.num_processes, 4)
+    # this process's rows: the stream is seeded by its place in the
+    # batch axes (its process index where the world has no tensor axis)
+    shard = ((mesh.axis_index("batch"), mesh.axis_size("batch"))
+             if mesh is not None else None)
 
     def batches(start):
-        # this process's rows: the stream is seeded by its process index
         return synthetic_lm_batches(cfg.vocab_size, global_batch, 16,
-                                    start_step=start)
+                                    start_step=start, shard=shard)
 
     dstats = DepotStats()
     depot = depot_from_env(stats=dstats)

@@ -1,8 +1,9 @@
 """Train a seeded llama over a world of spawned processes
 (``parallel.mesh.WorldMesh``), rank by rank, and bring back what each
 rank saw: the per-step metrics of the global batch, the step's wall
-time, its host-staged collectives and, under ``fsdp``, its per-layer
-gathers and reduce-scatters, memory, the state each rank keeps
+time, its host-staged collectives and its ``tensor`` collectives
+(``WorldMesh.timings``), under ``fsdp`` its per-layer gathers and
+reduce-scatters, memory, the state each rank keeps
 (``Trainer.state_bytes``, checked against the bytes of the tensors the
 trainer reaches, ``reachable_tensors``) and, where
 asked, the whole parameters.
@@ -11,6 +12,8 @@ asked, the whole parameters.
     results = world_train.run(world_train.Job(cfg, {...}, local_batch=2,
                               seq=16, steps=3), data=2, fsdp=1,
                               devices=["cpu"] * 2, rundir=tmp)
+    # data=1, fsdp=2, tensor=2: four ranks, tensor peers r and r + 1
+    world_train.run(..., 1, 2, ["cpu"] * 4, tmp, tensor=2)
 
 ``run`` spawns one process a rank (the ``spawn`` start method), each
 joining a gloo default group through a file in ``rundir``
@@ -20,13 +23,15 @@ bodies below with the job. A rank's result is written to
 ``rundir/rank{r}.pt`` and returned in rank order; a rank that raises
 makes ``run`` raise.
 
-Each rank feeds its own rows: ``batch_for(job, step, rank)``, the
-synthetic token stream's draw (``training.data.synthetic_lm_batches``,
-seeded by ``[data_seed, step, rank]``) and, with ``mask``, a loss mask
-drawn after it whose density varies by row and by rank, so the ranks'
-token counts differ. ``global_batch(job, world, step)`` is the
-concatenation of every rank's rows, the batch a one-process trainer (or
-the JAX trainer) takes for the same step.
+Each rank feeds the rows of its place in the batch axes
+(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; tensor peers share
+it): ``batch_for(job, step, index)``, the synthetic token stream's draw
+(``training.data.synthetic_lm_batches``, seeded by ``[data_seed, step,
+index]``) and, with ``mask``, a loss mask drawn after it whose density
+varies by row and by index, so the token counts differ between the
+places. ``global_batch(job, n, step)`` is the concatenation of the rows
+of the ``n`` places, the batch a one-process trainer (or the JAX
+trainer) takes for the same step.
 
 The rank bodies: ``train_rank`` (``Job.runs`` one after another, each
 with a fresh trainer from the same parameters: "eager" steps, or
@@ -35,9 +40,9 @@ losses, grad norms and parameters must be bitwise the eager run's on
 every rank), ``fit_rank`` (``fit`` with checkpoints: uninterrupted, and
 stopped at ``resume_at`` then resumed by a fresh trainer),
 ``restore_rank`` (a checkpoint restored into this world's layout),
-``optimizer_rank`` (the optimizer on fsdp parts against the unsharded
-update of the whole tree) and ``plans_rank`` (several of them, each on
-its own layout of the same processes).
+``optimizer_rank`` (the optimizer on fsdp (and tensor) parts against
+the unsharded update of the whole tree) and ``plans_rank`` (several of
+them, each on its own layout of the same processes).
 """
 
 from __future__ import annotations
@@ -62,7 +67,11 @@ class Job:
     numpy arrays to start from (default: ``llama.init_params`` from a
     generator on the rank's device seeded ``param_seed``); ``runs`` the
     runs of ``train_rank``, in order; ``profile``: on a card, each run's
-    last step is traced (``torch.profiler``) for its device time."""
+    last step is traced (``torch.profiler``) for its device time;
+    ``merge_places``: place ``i`` of the batch axes feeds the rows of
+    places ``i * k .. i * k + k - 1`` of the stream, concatenated (``k``
+    the field), so a world with ``k`` times fewer places trains on the
+    same global batch."""
     config: llama.LlamaConfig
     trainer: dict
     local_batch: int
@@ -75,10 +84,14 @@ class Job:
     runs: tuple = ("eager",)
     keep_params: bool = False
     profile: bool = False
+    # each place in the batch axes feeds the rows of this many places of
+    # the stream (``rows_for``)
+    merge_places: int = 1
 
 
 def batch_for(job: Job, step: int, rank: int) -> dict:
-    """Rank ``rank``'s rows of step ``step`` (module docstring)."""
+    """The rows of step ``step`` at place ``rank`` of the batch axes
+    (module docstring)."""
     rng = np.random.default_rng([job.data_seed, step, rank])
     out = {"tokens": rng.integers(0, job.config.vocab_size,
                                   (job.local_batch, job.seq + 1),
@@ -91,8 +104,19 @@ def batch_for(job: Job, step: int, rank: int) -> dict:
     return out
 
 
+def rows_for(job: Job, step: int, index: int) -> dict:
+    """The rows place ``index`` of the batch axes feeds at step ``step``
+    (``Job.merge_places`` draws of ``batch_for``, concatenated)."""
+    k = job.merge_places
+    if k == 1:
+        return batch_for(job, step, index)
+    parts = [batch_for(job, step, index * k + j) for j in range(k)]
+    return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+
+
 def global_batch(job: Job, world: int, step: int) -> dict:
-    """Every rank's rows of step ``step``, concatenated in rank order."""
+    """The rows of step ``step`` of the ``world`` places of the batch
+    axes, concatenated in their order."""
     parts = [batch_for(job, step, r) for r in range(world)]
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
@@ -126,9 +150,10 @@ def _host_tree(tree) -> dict:
 
 
 def _steps(job: Job, trainer, rank: int, mesh) -> dict:
-    """``job.steps`` steps on the rank's rows: per step the metrics, the
-    wall seconds (ending in a synchronize), the host-staged collectives'
-    timings (``WorldMesh.timings``, this step's share) and, under
+    """``job.steps`` steps on the rows of place ``rank`` of the batch
+    axes: per step the metrics, the wall seconds (ending in a
+    synchronize), the host-staged and ``tensor`` collectives' timings
+    (``WorldMesh.timings``, this step's share) and, under
     ``fsdp``, the per-layer gathers' and reduce-scatters' counts, bytes
     and seconds (``FsdpParams.timings``, this step's share: none while a
     captured micro body replays); with ``job.profile`` on a card, the
@@ -148,7 +173,7 @@ def _steps(job: Job, trainer, rank: int, mesh) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for step in range(job.steps):
-        batch = batch_for(job, step, rank)
+        batch = rows_for(job, step, rank)
         before = dict(mesh.timings) if mesh is not None else {}
         before_layers = dict(layered or {})
         prof = None
@@ -260,14 +285,15 @@ def train_rank(mesh: WorldMesh, job: Job) -> dict:
                 if mesh.device.type == "cuda" else 0)
         trainer = make_trainer(job, mesh.device, mesh)
         if name == "replayed":
-            trainer.precompile(batch_for(job, 0, mesh.rank))
+            trainer.precompile(rows_for(job, 0, mesh.axis_index("batch")))
             out["finish_mode"] = trainer.step_graph.finish_mode
             out["micro_mode"] = trainer.step_graph.micro_mode
             out["capture_seconds"] = trainer.step_graph.capture_seconds
             out["pool_bytes"] = trainer.step_graph.pool_bytes
         elif name != "eager":
             raise ValueError(f"unknown run {name!r}")
-        out["runs"][name] = _steps(job, trainer, mesh.rank, mesh)
+        out["runs"][name] = _steps(job, trainer, mesh.axis_index("batch"),
+                                   mesh)
         out["runs"][name]["allocated_base"] = base
         if name == "replayed" and trainer.step_graph.replays != job.steps:
             raise RuntimeError("the replayed run did not replay its steps")
@@ -305,7 +331,7 @@ def fit_rank(mesh: WorldMesh, job: Job, ckpt_root: str,
     def batches(start):
         step = start
         while True:
-            yield batch_for(job, step, mesh.rank)
+            yield rows_for(job, step, mesh.axis_index("batch"))
             step += 1
 
     for run, stop, ckpt in (("a", job.steps, "a"), ("b", resume_at, "b"),
@@ -344,13 +370,16 @@ def restore_rank(mesh: WorldMesh, job: Job, ckpt_dir: str) -> dict:
 
 
 def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,
-                   optimizer: str, steps: int, seed: int = 0) -> dict:
+                   optimizer: str, steps: int, seed: int = 0,
+                   tensor_dims: Optional[dict] = None) -> dict:
     """``steps`` updates of ``optimizer`` (``make_optimizer``'s, warmup
-    2) on each rank's fsdp parts of a seeded tree (leaf ``k`` of shape
-    ``shapes[k]`` cut on ``dims[k]``, gradients drawn anew each step),
-    against the unsharded update of the whole tree on the same rank.
-    Returns per leaf the largest absolute difference between the rank's
-    part and its slice of the whole result."""
+    2) on each rank's parts of a seeded tree (leaf ``k`` of shape
+    ``shapes[k]`` cut on ``dims[k]`` over fsdp and, where the world has
+    a ``tensor`` axis, on ``tensor_dims[k]`` over it; None: not cut),
+    gradients drawn anew each step, against the unsharded update of the
+    whole tree on the same rank. Returns per leaf the largest absolute
+    difference between the rank's part and its slice of the whole
+    result."""
     from kubeflow_tpu_torch.parallel import sharding
     from kubeflow_tpu_torch.training import TrainerConfig, make_optimizer
 
@@ -358,41 +387,49 @@ def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,
     rng = np.random.default_rng(seed)
     whole = {k: torch.tensor(rng.standard_normal(s).astype(np.float32))
              for k, s in shapes.items()}
-    n, i = mesh.fsdp, mesh.fsdp_index
-    parts = {k: sharding.fsdp_shard(t, dims[k], i, n)
-             for k, t in whole.items()}
-    cuts = {k: optim.LeafCut(tuple(s), dims[k]) for k, s in shapes.items()}
+    tensor_dims = tensor_dims or {}
+    cuts = {k: optim.LeafCut(tuple(s), dims.get(k), tensor_dims.get(k))
+            for k, s in shapes.items()}
+
+    def part(k, t):
+        for axis, d in (("fsdp", dims.get(k)), ("tensor", tensor_dims.get(k))):
+            if d is not None and mesh.axis_size(axis) > 1:
+                t = sharding.axis_shard(t, d, mesh.axis_index(axis),
+                                        mesh.axis_size(axis), axis)
+        return t
+
+    parts = {k: part(k, t) for k, t in whole.items()}
     tx_whole = make_optimizer(cfg)
-    tx_parts = make_optimizer(cfg, optim.Shards(
-        cuts, lambda t: mesh.all_reduce(t, "fsdp")))
+    tx_parts = make_optimizer(cfg, optim.Shards(cuts, mesh.all_reduce))
     s_whole, s_parts = tx_whole.init(whole), tx_parts.init(parts)
     for _ in range(steps):
         g = {k: torch.tensor(rng.standard_normal(s).astype(np.float32))
              for k, s in shapes.items()}
         up, _ = tx_whole.update(g, s_whole, whole)
         optim.apply_updates(whole, up)
-        g_parts = {k: sharding.fsdp_shard(t, dims[k], i, n)
-                   for k, t in g.items()}
+        g_parts = {k: part(k, t) for k, t in g.items()}
         up, _ = tx_parts.update(g_parts, s_parts, parts)
         optim.apply_updates(parts, up)
-    return {k: float((parts[k] - sharding.fsdp_shard(
-        whole[k], dims[k], i, n)).abs().max()) for k in shapes}
+    return {k: float((parts[k] - part(k, whole[k])).abs().max())
+            for k in shapes}
 
 
 def plans_rank(mesh: WorldMesh, plans: Sequence[tuple]) -> list:
-    """Several bodies over one world, each ``(data, fsdp, body, args)``
-    on a mesh of those sizes over the same processes (new groups, the
-    same backend); their results in order."""
+    """Several bodies over one world, each ``(data, fsdp[, tensor], body,
+    args)`` on a mesh of those sizes over the same processes (new
+    groups, the same backend); their results in order."""
     out = []
-    for data, fsdp, body, args in plans:
-        m = mesh if (data, fsdp) == (mesh.data, mesh.fsdp) else WorldMesh(
-            data, fsdp, mesh.rank, mesh.device, mesh.backend)
+    for *sizes, body, args in plans:
+        data, fsdp, tensor = (*sizes, 1)[:3]
+        m = mesh if (data, fsdp, tensor) == (
+            mesh.data, mesh.fsdp, mesh.tensor) else WorldMesh(
+            data, fsdp, mesh.rank, mesh.device, mesh.backend, tensor=tensor)
         out.append(body(m, *args))
     return out
 
 
 def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
-               rundir: str, body, args: tuple) -> None:
+               rundir: str, body, args: tuple, tensor: int = 1) -> None:
     from kubeflow_tpu_torch.rendezvous.bootstrap import join_world
 
     device = torch.device(devices[rank])
@@ -400,7 +437,7 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
         torch.cuda.set_device(device)
     backend = join_world("file://" + os.path.join(rundir, "rendezvous"),
                          rank, len(devices), device)
-    mesh = WorldMesh(data, fsdp, rank, device, backend)
+    mesh = WorldMesh(data, fsdp, rank, device, backend, tensor=tensor)
     try:
         result = body(mesh, *args)
         torch.save(result, os.path.join(rundir, f"rank{rank}.pt"))
@@ -412,19 +449,19 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
 
 
 def run(body, args: tuple, data: int, fsdp: int, devices: Sequence[str],
-        rundir: str) -> list:
-    """Spawn ``data * fsdp`` ranks, rank ``r`` on ``devices[r]``, each
-    running ``body(mesh, *args)``; their results in rank order
-    (module docstring). ``rundir`` must be empty of an earlier world's
-    rendezvous file."""
+        rundir: str, tensor: int = 1) -> list:
+    """Spawn ``data * fsdp * tensor`` ranks, rank ``r`` on
+    ``devices[r]``, each running ``body(mesh, *args)``; their results in
+    rank order (module docstring). ``rundir`` must be empty of an
+    earlier world's rendezvous file."""
     import torch.multiprocessing as mp
 
-    n = data * fsdp
+    n = data * fsdp * tensor
     if len(devices) != n:
-        raise ValueError(f"data={data} x fsdp={fsdp} needs {n} devices, "
-                         f"got {list(devices)}")
+        raise ValueError(f"data={data} x fsdp={fsdp} x tensor={tensor} "
+                         f"needs {n} devices, got {list(devices)}")
     os.makedirs(rundir, exist_ok=True)
     mp.spawn(_rank_main, args=(list(devices), data, fsdp, rundir, body,
-                               args), nprocs=n, join=True)
+                               args, tensor), nprocs=n, join=True)
     return [torch.load(os.path.join(rundir, f"rank{r}.pt"),
                        weights_only=False) for r in range(n)]

@@ -5,7 +5,9 @@ synthetic LM token stream, the host -> device placement of a batch
 ``synthetic_lm_batches`` draws each step's tokens from the same numpy
 generator, seeded by ``[seed, step, process_index]``, as the JAX package,
 so both packages see identical tokens. The process index and count come
-from ``torch.distributed`` when it is initialised, else 0 and 1.
+from ``torch.distributed`` when it is initialised, else 0 and 1; a
+world with a ``tensor`` axis passes its place in the batch axes instead
+(``shard``), so that tensor peers draw the same rows.
 """
 
 from __future__ import annotations
@@ -30,16 +32,20 @@ def _process_index_and_count() -> tuple[int, int]:
 
 
 def synthetic_lm_batches(vocab_size: int, global_batch: int, seq_len: int,
-                         seed: int = 0,
-                         start_step: int = 0) -> Iterator[dict]:
+                         seed: int = 0, start_step: int = 0,
+                         shard: tuple[int, int] | None = None
+                         ) -> Iterator[dict]:
     """Infinite synthetic token batches: {"tokens": [B, S+1] int32} numpy
     arrays on the host.
 
     Step-indexed: batch ``i`` is a pure function of ``(seed, i, process)``,
     so a resumed job can seek with ``start_step``. Multi-process aware:
-    yields only this process's ``global_batch / world_size`` rows.
+    yields only this process's ``global_batch / world_size`` rows, or
+    with ``shard=(index, count)`` the rows of place ``index`` of
+    ``count`` (``global_batch / count`` rows).
     """
-    index, count = _process_index_and_count()
+    index, count = shard if shard is not None \
+        else _process_index_and_count()
     local = global_batch // count
     step = start_step
     while True:

@@ -15,13 +15,18 @@ the learning rate, the bias corrections and the decay are computed from
 them on the device in float32 (as optax's ``jnp`` arithmetic does), so
 no update reads the host and a replay never sees a frozen count.
 
-Under ``fsdp`` (``training/trainer.py`` with a ``parallel.mesh.WorldMesh``)
-each rank updates its own part of every parameter, and ``Shards`` says
-how the parts were cut: a transformation given one reduces over the
-group wherever optax reduces over a whole leaf (the global norm, the
-factored second moments' means along a cut dim, the block rms of the
-update and of the parameter), so every rank applies its part of the
-unsharded update. Without ``Shards`` nothing changes.
+Under ``fsdp`` and ``tensor`` (``training/trainer.py`` with a
+``parallel.mesh.WorldMesh``) each rank updates its own part of every
+parameter, and ``Shards`` says how the parts were cut: a leaf may be cut
+on one dim over ``fsdp`` and another over ``tensor``. A transformation
+given one reduces over the ranks that hold the other parts of the
+reduced dims wherever optax reduces over a whole leaf (the global norm
+and the block rms of the update and of the parameter: over every axis
+that cuts the leaf; the factored second moments' mean along a dim: over
+the axis that cuts that dim), so every rank applies its part of the
+unsharded update. A leaf no axis cuts (the norms under ``tensor``) is
+whole, and alike, on every rank that holds it, and counts once. Without
+``Shards`` nothing changes.
 
 ``torch.optim`` is not used: ``torch.optim.Adafactor`` has no
 ``min_dim_size_to_factor`` and no ``multiply_by_parameter_scale``, and
@@ -87,19 +92,36 @@ class GradientTransformation:
 @dataclasses.dataclass(frozen=True)
 class LeafCut:
     """One parameter held as a rank's part: the whole parameter's shape,
-    and the dim cut over the group (None: the rank holds it whole)."""
+    the dim cut over ``fsdp`` (the group's one axis, where a group has
+    one) and the dim cut over ``tensor`` (None: not cut over it)."""
     full_shape: tuple
-    dim: Optional[int]
+    dim: Optional[int] = None
+    tensor_dim: Optional[int] = None
+
+    @property
+    def axes(self) -> tuple:
+        """The axes that cut the leaf, in ``(fsdp, tensor)`` order."""
+        return tuple(a for a, d in (("fsdp", self.dim),
+                                    ("tensor", self.tensor_dim))
+                     if d is not None)
+
+    def axis_of(self, dim: int) -> Optional[str]:
+        """The axis that cuts ``dim``, or None."""
+        for axis, d in (("fsdp", self.dim), ("tensor", self.tensor_dim)):
+            if d is not None and d == dim:
+                return axis
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
 class Shards:
-    """How the parameters an optimizer sees are cut over a group of
-    ranks: ``cuts`` is a tree of ``LeafCut`` with the parameters' keys,
-    and ``psum(t)`` sums ``t`` over the group in place and returns it
-    (every rank gets the same bytes)."""
+    """How the parameters an optimizer sees are cut over groups of ranks:
+    ``cuts`` is a tree of ``LeafCut`` with the parameters' keys, and
+    ``psum(t, axes)`` sums ``t`` in place over the ranks that differ on
+    ``axes`` (a tuple of ``fsdp`` and ``tensor``) and returns it (every
+    rank gets the same bytes)."""
     cuts: Any
-    psum: Callable[[torch.Tensor], torch.Tensor]
+    psum: Callable[[torch.Tensor, tuple], torch.Tensor]
 
 
 def _cuts(shards: Optional[Shards], tree):
@@ -108,26 +130,26 @@ def _cuts(shards: Optional[Shards], tree):
         else tree_map(lambda _: None, tree)
 
 
-def _is_cut(cut: Optional[LeafCut]) -> bool:
-    return cut is not None and cut.dim is not None
+def _cut_axes(cut: Optional[LeafCut]) -> tuple:
+    return cut.axes if cut is not None else ()
 
 
 def _leaf_mean(x: torch.Tensor, cut: Optional[LeafCut],
                shards: Optional[Shards]) -> torch.Tensor:
     """The mean of every element of the whole leaf that ``x`` is part of."""
-    if not _is_cut(cut):
+    if not _cut_axes(cut):
         return torch.mean(x)
-    return shards.psum(torch.sum(x)) / math.prod(cut.full_shape)
+    return shards.psum(torch.sum(x), cut.axes) / math.prod(cut.full_shape)
 
 
-def _dim_mean(x: torch.Tensor, dim: int, cut_dim: bool, full: int,
+def _dim_mean(x: torch.Tensor, dim: int, axis: Optional[str], full: int,
               shards: Optional[Shards], keepdim: bool = False
               ) -> torch.Tensor:
-    """``x.mean(dim)`` of the whole leaf, when ``dim`` is the cut one of
-    ``full`` elements (``cut_dim``): summed over the group first."""
-    if not cut_dim:
+    """``x.mean(dim)`` of the whole leaf, when ``dim`` of ``full``
+    elements is cut over ``axis``: summed over that axis first."""
+    if axis is None:
         return x.mean(dim, keepdim=keepdim)
-    return shards.psum(x.sum(dim, keepdim=keepdim)) / full
+    return shards.psum(x.sum(dim, keepdim=keepdim), (axis,)) / full
 
 
 # ---------------------------------------------------------------------------
@@ -225,10 +247,12 @@ def global_norm(tree, shards: Optional[Shards] = None) -> torch.Tensor:
     leaves' squares summed over the group, the whole ones once)."""
     if shards is None:
         return torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(tree)))
-    squares = [(torch.sum(x * x), _is_cut(c)) for x, c in
+    squares = [(torch.sum(x * x), _cut_axes(c)) for x, c in
                zip(tree_leaves(tree), tree_leaves(shards.cuts))]
-    total = shards.psum(sum(q for q, cut in squares if cut))
-    return torch.sqrt(total + sum(q for q, cut in squares if not cut))
+    cuts = sorted({axes for _, axes in squares if axes})
+    total = sum(shards.psum(sum(q for q, a in squares if a == axes), axes)
+                for axes in cuts)
+    return torch.sqrt(total + sum(q for q, axes in squares if not axes))
 
 
 def clip_by_global_norm(max_norm: float,
@@ -341,15 +365,15 @@ def _scale_by_factored_rms(min_dim_size_to_factor: int, decay_rate: float,
                 new_v = v["v"].copy_(decay * v["v"] + (1.0 - decay) * g_sqr)
                 return g * new_v.rsqrt()
             d1, d0 = dims
-            s = cut.dim if cut is not None else None
+            ax = cut.axis_of if cut is not None else (lambda d: None)
             v_row = v["v_row"].copy_(
                 decay * v["v_row"] + (1.0 - decay)
-                * _dim_mean(g_sqr, d0, s == d0, full[d0], shards))
+                * _dim_mean(g_sqr, d0, ax(d0), full[d0], shards))
             v_col = v["v_col"].copy_(
                 decay * v["v_col"] + (1.0 - decay)
-                * _dim_mean(g_sqr, d1, s == d1, full[d1], shards))
+                * _dim_mean(g_sqr, d1, ax(d1), full[d1], shards))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = _dim_mean(v_row, reduced_d1, s == d1, full[d1],
+            row_col_mean = _dim_mean(v_row, reduced_d1, ax(d1), full[d1],
                                      shards, keepdim=True)
             row_factor = (v_row / row_col_mean).rsqrt()
             col_factor = v_col.rsqrt()

@@ -18,8 +18,9 @@ which no graph can hold, so it runs eagerly in its turn. (b) always
 holds one (``finish_mode`` "eager"; "graph" otherwise: NCCL's
 collectives sit inside graph (b)); (a) holds them under ``fsdp``, whose
 micro body gathers each layer's weights and reduce-scatters its
-gradients (``micro_mode`` "eager" under gloo; "graph" under ``data``,
-whose micro body has none, and under NCCL). With neither body captured
+gradients, and under ``tensor``, whose micro body all-reduces every
+block's products (``micro_mode`` "eager" under gloo; "graph" under
+``data`` alone, whose micro body has none, and under NCCL). With neither body captured
 there is no warm-up and no capture: the step runs as ``train_step``
 runs it without ``precompile``. Two graphs
 rather than one whole-step graph: each holds one

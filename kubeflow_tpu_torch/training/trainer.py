@@ -29,9 +29,18 @@ inside the micro body (``models/llama.forward``), each layer's gradients
 reduce-scattered into the rank's gradient part as the backward leaves
 it. The finish body all-reduces the gradient parts over ``data`` and
 runs the optimizer on the parts (``optim.Shards``: every reduction over
-a whole leaf is summed over the group). ``TrainerConfig.rules``
-(logical axis -> mesh axes) places the parameters over a world; on one
-card there is nothing to place.
+a whole leaf is summed over the group). Under ``tensor`` (Megatron's
+column and row cuts) the ranks of the axis feed the SAME rows, and each
+keeps its slice of every ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab``
+leaf (``sharding.tensor_part``), which the model joins through the
+collectives of ``parallel/tensor.py``; its loss is the whole loss of
+those rows, so the sums are reduced over the ranks that hold different
+rows (the ``batch`` group, ``data`` x ``fsdp``), the gradients are
+never summed over ``tensor``, and the optimizer's whole-leaf reductions
+are summed over the axes that cut each leaf. Under ``fsdp`` x
+``tensor`` a rank's ``FsdpParams`` holds its tensor slice cut on
+``embed``. ``TrainerConfig.rules`` (logical axis -> mesh axes) places
+the parameters over a world; on one card there is nothing to place.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
 from kubeflow_tpu_torch.parallel.moe import MOE_WORLD
+from kubeflow_tpu_torch.parallel.tensor import TensorParams
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
 from kubeflow_tpu_torch.training.step_graph import StepGraph
@@ -108,20 +118,35 @@ def make_optimizer(cfg: TrainerConfig, shards: Optional[optim.Shards] = None
                     weight_decay=cfg.weight_decay))
 
 
-def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state) -> dict:
-    """{optimizer state leaf: the dim it is cut on over fsdp, or None}:
-    each leaf's shape against the same leaf of the state the unsharded
-    optimizer makes for the whole parameters (on the meta device: no
-    memory), which differs on the cut dim alone."""
-    whole = optim.tree_map(
-        lambda p, c: torch.empty(c.full_shape, dtype=p.dtype, device="meta"),
-        parts, cuts)
-    full = optim.named_leaves(make_optimizer(config).init(whole))
+def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state,
+                    tensor: int) -> dict:
+    """{optimizer state leaf: {axis: the dim it is cut on over it}}: each
+    leaf's shape against the same leaf of the state the optimizer makes
+    for the whole parameters, and for their slices over ``tensor`` ranks
+    (on the meta device: no memory; both decide what factors on the
+    whole shapes, as the rank's optimizer does), which differ on the cut
+    dims alone."""
+    def meta(n):
+        def leaf(p, c):
+            shape = list(c.full_shape)
+            if c.tensor_dim is not None:
+                shape[c.tensor_dim] //= n
+            return torch.empty(shape, dtype=p.dtype, device="meta")
+        return optim.tree_map(leaf, parts, cuts)
+
+    tx = make_optimizer(config, optim.Shards(cuts, lambda *a: None))
+    full = optim.named_leaves(tx.init(meta(1)))
+    sliced = optim.named_leaves(tx.init(meta(tensor)))
     out = {}
     for name, t in optim.named_leaves(opt_state).items():
-        diff = [i for i, (a, b) in enumerate(zip(full[name].shape, t.shape))
-                if a != b]
-        out[name] = diff[0] if diff else None
+        dims = {}
+        for axis, a, b in (("tensor", full[name], sliced[name]),
+                           ("fsdp", sliced[name], t)):
+            diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                    if x != y]
+            if diff:
+                dims[axis] = diff[0]
+        out[name] = dims
     return out
 
 
@@ -140,11 +165,13 @@ class Trainer:
     parameters' logical axes (``llama.param_logical_axes``), placed by
     ``config.rules``. Each rank calls every method the others call, in
     the same order, and feeds ``train_step`` its own rows of the global
-    batch (``config.grad_accum`` micro batches of them). MoE parameters
-    (an ``expert`` axis) raise ``parallel.moe.MOE_WORLD``. Under
-    ``fsdp`` the loss function is given the rank's
-    ``parallel.fsdp.FsdpParams`` and gathers the weights it uses
-    (``models/llama.forward`` does).
+    batch (``config.grad_accum`` micro batches of them; tensor peers the
+    same rows: those of their place in the batch axes,
+    ``mesh.axis_index("batch")``). MoE parameters (an ``expert`` axis)
+    raise ``parallel.moe.MOE_WORLD``. Under ``fsdp`` the loss function
+    is given the rank's ``parallel.fsdp.FsdpParams`` and gathers the
+    weights it uses (``models/llama.forward`` does); under ``tensor``
+    alone a ``parallel.tensor.TensorParams`` of the rank's slices.
 
     Every state tensor is written in place, step after step: the
     parameters and their gradient accumulators (``.grad``; under
@@ -189,36 +216,51 @@ class Trainer:
         Over a world every rank draws the same parameters; their dims
         must divide over the mesh axes they are placed on
         (``sharding.validate_divisibility``, the JAX message). Under
-        ``fsdp`` each rank keeps its parts of them, of their gradients
-        and of the optimizer state (``FsdpParams``), and the whole tree
-        drawn is freed."""
+        ``tensor`` each rank keeps its slices of them; under ``fsdp`` its
+        parts of them (of its slices), of their gradients and of the
+        optimizer state (``FsdpParams``). The whole tree drawn is freed
+        before the optimizer state is made."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         params = self.init_params_fn(generator)
-        if self.mesh is not None:
-            sharding.validate_divisibility(
-                self.mesh, self.param_axes,
-                optim.tree_map(lambda p: tuple(p.shape), params),
-                self.config.rules)
-            self._check_world(params)
         self._shards = None
         self._opt_cut_dims: dict = {}
+        self._loss_params = None
+        if self.mesh is not None:
+            shapes = optim.tree_map(lambda p: tuple(p.shape), params)
+            sharding.validate_divisibility(self.mesh, self.param_axes,
+                                           shapes, self.config.rules)
+            self._check_world(params)
+            cuts = self._leaf_cuts(shapes)
+            if self.mesh.tensor > 1:
+                params = sharding.tensor_part(
+                    params, self.param_axes, self.mesh.tensor_index,
+                    self.mesh.tensor, self.config.rules)
         if self.mesh is not None and self.mesh.fsdp > 1:
             self.params = FsdpParams(
                 optim.tree_map(lambda p: p.detach().to(self.device), params),
                 self.param_axes, self.config.rules, self.mesh)
             del params          # the whole tree, before the optimizer state
-            self._init_fsdp()
+            self._flat_grad = self.params.grad
         else:
             self.params = optim.tree_map(
                 lambda p: p.detach().to(self.device).requires_grad_(True),
                 params)
+            del params
             if self.mesh is None:
                 for p in optim.tree_leaves(self.params):
                     p.grad = torch.zeros_like(p)
             else:
                 self._init_data()
-            self.opt_state = self.optimizer.init(self.params)
+                if self.mesh.tensor > 1:
+                    self._loss_params = TensorParams(self.params, self.mesh)
+        if self.mesh is not None and self.mesh.size // self.mesh.data > 1:
+            self._init_shards(cuts)
+        self.opt_state = self.optimizer.init(self.local_params)
+        if self._shards is not None:
+            self._opt_cut_dims = _state_cut_dims(
+                self.config, self.local_params, self._shards.cuts,
+                self.opt_state, self.mesh.tensor)
         self.step = 0
         zero = lambda: torch.zeros((), dtype=torch.float32,
                                    device=self.device)
@@ -247,9 +289,27 @@ class Trainer:
                     f"logical axes {tuple(names)}: a parameter cut over "
                     "data is not ported")
 
+    def _leaf_cuts(self, shapes):
+        """A tree of ``optim.LeafCut``: each parameter's whole shape and
+        the dims the world's ``fsdp`` and ``tensor`` axes (those over 1)
+        cut, by ``config.rules``."""
+        rules = self.config.rules
+
+        def cut(shape, names):
+            dims = [sharding.axis_dim(names, a, rules)
+                    if getattr(self.mesh, a) > 1 else None
+                    for a in ("fsdp", "tensor")]
+            if dims[0] is not None and dims[0] == dims[1]:
+                raise NotImplementedError(
+                    f"logical axes {tuple(names)}: dim {dims[0]} is on both "
+                    "fsdp and tensor; a dim is cut over one axis")
+            return optim.LeafCut(tuple(shape), *dims)
+
+        return optim.tree_map(cut, shapes, self.param_axes)
+
     def _init_data(self) -> None:
-        """Under ``data`` alone: the gradient accumulators as views of
-        one flat buffer (one all-reduce a step)."""
+        """Without ``fsdp``: the gradient accumulators as views of one
+        flat buffer (one all-reduce a step over ``data``)."""
         leaves = optim.tree_leaves(self.params)
         self._flat_grad = torch.zeros((sum(p.numel() for p in leaves),),
                                       dtype=leaves[0].dtype,
@@ -259,19 +319,12 @@ class Trainer:
             p.grad = self._flat_grad[off:off + p.numel()].view(p.shape)
             off += p.numel()
 
-    def _init_fsdp(self) -> None:
-        """Under ``fsdp``, once ``self.params`` holds the rank's parts
-        (``FsdpParams``): the optimizer that updates the parts, and its
-        state, made for them."""
-        self._flat_grad = self.params.grad
-        cuts = optim.tree_map(lambda s, d: optim.LeafCut(s, d),
-                              self.params.shapes, self.params.dims)
-        self._shards = optim.Shards(
-            cuts, lambda t: self.mesh.all_reduce(t, "fsdp"))
+    def _init_shards(self, cuts) -> None:
+        """Under ``fsdp`` or ``tensor``, once ``self.params`` holds the
+        rank's parts: the optimizer that updates the parts, summing its
+        whole-leaf reductions over the axes that cut each leaf."""
+        self._shards = optim.Shards(cuts, self.mesh.all_reduce)
         self.optimizer = make_optimizer(self.config, self._shards)
-        self.opt_state = self.optimizer.init(self.params.parts)
-        self._opt_cut_dims = _state_cut_dims(
-            self.config, self.params.parts, cuts, self.opt_state)
 
     @property
     def local_params(self):
@@ -316,7 +369,9 @@ class Trainer:
         micro = {k: v.view(accum, -1, *v.shape[1:]).index_select(
                      0, self._micro)[0]
                  for k, v in self._batch.tensors.items()}
-        loss, metrics = self.loss_fn(self.params, micro)
+        loss, metrics = self.loss_fn(
+            self.params if self._loss_params is None else self._loss_params,
+            micro)
         weighted = accum > 1 or self.mesh is not None
         w = metrics.get(self.config.weight_metric) if weighted else None
         if w is None:
@@ -354,7 +409,7 @@ class Trainer:
                 denom = torch.clamp_min(sums["weight"], 1e-8)
             else:
                 loss_sum, denom, metric_sums = self._reduce_sums()
-                accum *= self.mesh.size
+                accum *= self.mesh.axis_size("batch")
             if self.mesh is not None:
                 self.mesh.all_reduce(self._flat_grad, "data")
             params = self.local_params
@@ -377,13 +432,15 @@ class Trainer:
             self._micro.zero_()
 
     def _reduce_sums(self):
-        """The step's sums over the world, in one all-reduce: (loss sum,
-        max(sum w, 1e-8), the metric sums)."""
+        """The step's sums over the ranks that hold different rows (the
+        ``batch`` group: tensor peers hold the same rows and the same
+        sums), in one all-reduce: (loss sum, max(sum w, 1e-8), the metric
+        sums)."""
         sums = self._sums
         keys = list(self._metric_sums)
         vec = torch.stack([sums["loss"], sums["weight"],
                            *(self._metric_sums[k].float() for k in keys)])
-        self.mesh.all_reduce(vec, "world")
+        self.mesh.all_reduce(vec, "batch")
         metric_sums = {k: vec[2 + i].to(self._metric_sums[k].dtype)
                        for i, k in enumerate(keys)}
         return vec[0], torch.clamp_min(vec[1], 1e-8), metric_sums
@@ -420,7 +477,8 @@ class Trainer:
         ``params``, ``grads`` and ``opt_state`` (whole on one card and
         under ``data``; under ``fsdp=n`` the rank's parts, 1/n of the
         parameters and gradients, and of every optimizer leaf that has
-        the cut dim) and ``other`` (the
+        the cut dim; under ``tensor=n`` its slices, the same share of
+        every leaf but the norms) and ``other`` (the
         staged batch with its host buffers where they lie on the trainer's
         device, the sums and the outputs); ``total``, their sum."""
         kinds = {"param": "params", "grad": "grads", "opt": "opt_state"}
@@ -444,15 +502,15 @@ class Trainer:
     def checkpoint_state(self) -> dict:
         """The whole train state ``{"params", "opt_state"}`` as one
         process holds it, which ``training.checkpoint`` saves. Under
-        ``fsdp`` every rank calls this: each leaf's parts are gathered
-        into host memory, one leaf (and for a stacked leaf, one piece of
-        layers) at a time, so the device never holds the whole state
-        (``parallel.fsdp.gather_to_host``)."""
-        if not isinstance(self.params, FsdpParams):
+        ``fsdp`` or ``tensor`` every rank calls this: each leaf's parts
+        are gathered into host memory, one leaf (and for a stacked leaf,
+        one piece of layers) at a time, so the device never holds the
+        whole state (``parallel.fsdp.gather_to_host``)."""
+        if self._shards is None:
             return {"params": self.params, "opt_state": self.opt_state}
         dims = self._cut_dims()
         live = self._live()
-        it = iter(gather_to_host(t, dims[k], self.mesh)
+        it = iter(gather_to_host(t, dims.get(k), self.mesh)
                   for k, t in live.items())
         return _rebuild({"params": self.local_params,
                          "opt_state": self.opt_state}, it)
@@ -464,12 +522,13 @@ class Trainer:
                                    "opt_state": self.opt_state})
 
     def _cut_dims(self) -> dict:
-        """{``_live`` name: the dim its leaf is cut on over ``fsdp``, or
-        None (held whole)}."""
+        """{``_live`` name: {axis: the dim its leaf is cut on over it}}
+        (empty: held whole)."""
         dims = {f"opt_state/{k}": d for k, d in self._opt_cut_dims.items()}
-        if isinstance(self.params, FsdpParams):
-            dims.update({f"params/{k}": d for k, d in
-                         optim.named_leaves(self.params.dims).items()})
+        if self._shards is not None:
+            dims.update({f"params/{k}": {a: d for a, d in (
+                ("fsdp", c.dim), ("tensor", c.tensor_dim)) if d is not None}
+                for k, c in optim.named_leaves(self._shards.cuts).items()})
         return dims
 
     def load_state(self, state: dict, step: int) -> None:
@@ -486,25 +545,25 @@ class Trainer:
                 f"{sorted(saved.keys() ^ live.keys())} the trainer does "
                 "not, or the other way round")
         dims = self._cut_dims()
-        n = self.mesh.fsdp if self.mesh is not None else 1
         for name, dst in live.items():
+            cut = dims.get(name) or {}
             shape = list(saved[name].shape)
-            if dims.get(name) is not None:
-                shape[dims[name]] //= n
+            for axis, d in cut.items():
+                shape[d] //= self.mesh.axis_size(axis)
             if tuple(shape) != tuple(dst.shape) \
                     or saved[name].dtype != dst.dtype:
                 raise ValueError(
                     f"checkpoint step {step}: {name} is "
                     f"{tuple(saved[name].shape)} {saved[name].dtype}, the "
                     f"trainer's {tuple(dst.shape)} {dst.dtype}"
-                    + (f" (a part of {n})" if dims.get(name) is not None
-                       else ""))
+                    + (f" (a part over {sorted(cut)})" if cut else ""))
         with torch.no_grad():
             for name, dst in live.items():
                 src = saved[name]
-                if dims.get(name) is not None:
-                    src = sharding.fsdp_shard(src, dims[name],
-                                              self.mesh.fsdp_index, n)
+                for axis, d in (dims.get(name) or {}).items():
+                    src = sharding.axis_shard(
+                        src, d, self.mesh.axis_index(axis),
+                        self.mesh.axis_size(axis), axis)
                 dst.copy_(src)
         self.step = step
 
@@ -556,9 +615,11 @@ class Trainer:
         run over NCCL. gloo's cannot be captured: the finish body then
         runs eagerly after the replays (``step_graph.finish_mode``), and
         under ``fsdp``, whose micro body gathers and reduce-scatters each
-        layer, so does the micro body (``step_graph.micro_mode``; with
-        neither captured, the step runs as it runs without
-        ``precompile``). The log says what was captured.
+        layer, and under ``tensor``, whose micro body all-reduces the
+        products of every block, so does the micro body
+        (``step_graph.micro_mode``; with neither captured, the step runs
+        as it runs without ``precompile``). The log says what was
+        captured, and why a body was not.
 
         Raises ValueError before ``init_state`` (JAX's check) and on a
         CPU trainer (there is no graph and no stand-in)."""
@@ -571,17 +632,23 @@ class Trainer:
         self.step_graph = None
         self._stage(batch)
         nccl = self.mesh is None or self.mesh.backend.name == "nccl"
+        micro_collectives = self.mesh is not None and (
+            self.mesh.fsdp > 1 or self.mesh.tensor > 1)
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
             self.config.grad_accum, _COUNTERS, self.device,
-            capture_micro=nccl or not isinstance(self.params, FsdpParams),
+            capture_micro=nccl or not micro_collectives,
             capture_finish=nccl)
         graph = self.step_graph
         logger.info("precompile: micro body %s, finish body %s%s",
-                  graph.micro_mode, graph.finish_mode,
-                  "" if self.mesh is None else
-                  f" ({self.mesh.backend.name}, data={self.mesh.data}, "
-                  f"fsdp={self.mesh.fsdp})")
+                    graph.micro_mode, graph.finish_mode,
+                    "" if self.mesh is None else
+                    f" ({self.mesh.backend.name}, data={self.mesh.data}, "
+                    f"fsdp={self.mesh.fsdp}, tensor={self.mesh.tensor}"
+                    + ("" if nccl else
+                       "; a gloo collective runs on the host, which no "
+                       "CUDA graph can hold, so the bodies holding one "
+                       "run eagerly") + ")")
         self.depot_outcome = local_capture(depot, stats)
         return self.depot_outcome
 

@@ -103,13 +103,14 @@ def test_gather_gradients_match_the_unsharded_leaf_and_the_plain_version(
         dims = optim.named_leaves(fp.dims)
         refs = optim.named_leaves(ref)
         for k, g in optim.named_leaves(fp.grads).items():
-            cut = sharding.fsdp_shard(refs[k].grad, dims[k], r, 2)
+            cut = sharding.axis_shard(refs[k].grad, dims[k], r, 2, "fsdp")
             assert torch.equal(g, cut), (r, k)
             assert torch.equal(g, optim.named_leaves(plain_parts)[k].grad), \
                 (r, k)
         for k, p in optim.named_leaves(fp.parts).items():
-            assert torch.equal(p, sharding.fsdp_shard(refs[k].detach(),
-                                                      dims[k], r, 2)), k
+            assert torch.equal(p, sharding.axis_shard(refs[k].detach(),
+                                                      dims[k], r, 2,
+                                                      "fsdp")), k
         assert fp.flat.grad is None
 
 
@@ -170,7 +171,7 @@ def test_optimizer_updates_strided_layer_parts_as_contiguous_ones(name):
                           fp.dims)
     tx = make_optimizer(TrainerConfig(optimizer=name, warmup_steps=2,
                                       total_steps=10),
-                        optim.Shards(cuts, lambda t: t))
+                        optim.Shards(cuts, lambda t, axes: t))
     own = optim.tree_map(lambda p: p.clone(), fp.parts)
     s_views, s_own = tx.init(fp.parts), tx.init(own)
     gen = torch.Generator().manual_seed(2)

@@ -298,10 +298,10 @@ def test_backend_is_chosen_from_where_the_ranks_run(monkeypatch):
     assert one.shape == {"data": 1, "fsdp": 1}
     x = torch.ones(3)
     assert one.all_reduce(x) is x and torch.equal(x, torch.ones(3))
-    assert t_sharding.fsdp_dim(("layers", "embed", "mlp")) == 1
-    assert t_sharding.fsdp_dim(("vocab", "head_dim")) is None
+    assert t_sharding.axis_dim(("layers", "embed", "mlp"), "fsdp") == 1
+    assert t_sharding.axis_dim(("vocab", "head_dim"), "fsdp") is None
     full = torch.arange(24.0).view(2, 4, 3)
-    parts = [t_sharding.fsdp_shard(full, 1, i, 2) for i in range(2)]
+    parts = [t_sharding.axis_shard(full, 1, i, 2, "fsdp") for i in range(2)]
     assert torch.equal(t_sharding.fsdp_unshard(parts, 1), full)
 
 
