@@ -173,7 +173,33 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              weight-read bound (every expert runs on the dropless path).
              (d) KFT_QUANT_KV=int8 + KFT_QUANT_WEIGHTS=int8 (the runtime's
              env parsing): the weights downgrade with the JAX package's
-             reason, the four requests run through row 2 alone.
+             reason, the four requests run through row 2 alone. Keeps
+             phase 5n's reference: two seeded streams (16-token prompts,
+             32 greedy tokens) teacher-forced through the one-card
+             engine.
+5n. MoE tensor-parallel serving — after phase 5m's weights are freed,
+             the same Mixtral cut (16 of 32 layers, dropless, seed 0)
+             under KFT_MESH=tensor=MOE_TP through the runtime's env
+             parsing (mesh_from_topology_env): each rank draws the mlp
+             slice of every expert (and the router whole), routes as
+             every rank does and all-reduces the MoE output beside the
+             attention's; two ranks on card 0 over gloo on one card (no
+             tensor-parallel speedup), a card a rank over NCCL where
+             the machine has two. Phase 4's four requests over HTTP V2,
+             32 greedy tokens each: every rank's row 3 launches ==
+             n_layers x decode device steps, every rank's sampling
+             bodies and token digest equal; phase 5m's two streams
+             teacher-forced through the mesh against 5m's one-card
+             logits, the rms logit error under MOE_TP_RMS_MAX (set
+             between the sound reading and a planted fault, the MoE
+             all-reduce dropped: tools/moe_quality.py --tensor); the
+             decode step as served.
+5x. Mixtral-8x7B at all 32 layers (93.4 GB bf16, which no one card
+             holds) under tensor=MOE_TP_FULL, one card a rank over NCCL,
+             eager (no capture under a mesh): the four requests, rank
+             digests equal, row 3's launches on every rank, the decode
+             step as served. Runs only on a machine with four cards or
+             more, and says it was skipped otherwise.
 5. flash parity — the three flash-attention kernels (forward, dQ, dK/dV)
              against their plain versions on the card: the training
              shape (B=2, S=2048, H=16, KV_H=8, D=128, causal), an
@@ -273,7 +299,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              resumed_from_step >= 2 and its losses after the resume
              bitwise the uninterrupted world's, and logs the backend each
              world chose and why (the default world's fsdp is ZeRO-3). (b)
-             llama_1b in phase 7's configuration (remat dots, attn_impl
+             llama_1b in phase 7's configuration, cut to WORLD_LAYERS = 8
+             of its 16 layers (remat dots, attn_impl
              pallas, adafactor, global batch 32 x 2048 in 16 micro
              batches of 2 rows) over two processes (tools/world_train),
              each feeding its own 16 rows (ragged loss masks whose
@@ -288,7 +315,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              finish_mode "eager": a gloo collective cannot sit in a
              graph), so the run's steps are eager. Per layout both
              ranks' metrics equal, and the flash launches per rank 8
-             micro batches x (2 x 16 forward, 16 dQ, 16 dK/dV) a step.
+             micro batches x (2 x 8 forward, 8 dQ, 8 dK/dV) a step.
              After the world exits, a one-process trainer from the same
              seed (grad_accum 16) replays 3 steps on the concatenated
              batches; each layout's losses and grad norms must be within
@@ -321,7 +348,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              steps' per-layer gathers and reduce-scatters. Runs only on
              a machine with four cards or more, and says it was skipped
              otherwise.
-             (t) llama_1b in phase 7's configuration under tensor=2
+             (t) phase 9b's 8-layer llama_1b under tensor=2
              (Megatron's cuts: each rank its half of the heads, the MLP
              and the vocab, joined by all-reduces in the forward after
              each row-parallel product and in the backward before each
@@ -334,8 +361,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              and grad norms against phase 9b's one-process reference on
              the same rows within TENSOR_LOSS_RTOL / TENSOR_NORM_RTOL
              (limits between the sound reading and planted faults), the
-             flash launches per rank 16 micro batches x (2 x 16 forward
-             on the rank's 8 query and 4 KV heads, 16 dQ, 16 dK/dV) a
+             flash launches per rank 16 micro batches x (2 x 8 forward
+             on the rank's 8 query and 4 KV heads, 8 dQ, 8 dK/dV) a
              step, and that a rank keeps exactly its slices: half of
              every cut leaf and the whole norms, of the parameters and
              of the gradients. Logs per rank the step's seconds, its
@@ -356,8 +383,48 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              on a machine with four cards or more, and says it was
              skipped otherwise.
 
-Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5, 6,
-7, 7m, 8, 9 (a, b, t, c, d).
+9m. MoE across processes — llama_moe_8x(llama_1b()) at full width (8
+             experts, top-2, capacity 1.25, remat dots, attn_impl pallas,
+             adafactor) cut to MOE_WORLD_LAYERS = 4 of 16 layers, two
+             ranks on one card over gloo, in one world: data=2 (each
+             place 16 rows with ragged masks in 16 micro batches of one)
+             and expert=2 (each rank 4 of the 8 experts, both the same
+             32 rows in 16 micro batches of two, the data=2 places'
+             micro batches in turn). Per layout: (i) one MoE layer at
+             full width in float32 (a global micro batch of 4096
+             tokens, the router's columns scaled so capacity 1.25 drops
+             choices) through world_train.moe_layer_rank against one
+             process on the same inputs: output, gradients, aux and the
+             dropped fraction (> 0) within MOE_LAYER_RTOL; (ii)
+             MOE_WORLD_STEPS eager steps (an MoE micro body holds gloo
+             calls) against one process on the same global micro batches
+             (grad_accum 16, world_train.global_batch grouped): losses,
+             moe_aux and grad norms within MOE_WORLD_RTOL (limits
+             between the sound readings and planted faults: local
+             statistics, local capacity, local slots, an identity
+             backward on the statistics' all-reduce, no copy on the
+             combine weights), both ranks' metrics equal, the flash
+             launches, and a rank's kept parameters and gradients
+             exactly its share (expert=2: half of every expert leaf, the
+             rest whole). Logs per rank the step's seconds, its gloo
+             share, the MoE collectives (calls, bytes, seconds) and
+             peak memory.
+9x. the uncut MoE model (16 layers, which one card does not hold with
+             its state) over data=2 x expert=2, one card a rank over
+             NCCL, each place 16 rows in 8 micro batches of 2: 3 eager
+             steps, then a fresh trainer precompile()d (both bodies
+             captured with their routing all-gathers and all-reduces)
+             and 3 replayed steps, the last traced. Checks every rank's
+             replay bitwise its eager run, every rank's metrics rank
+             0's (expert peers equal), the flash launches, and that a
+             rank keeps exactly its half of the expert leaves and the
+             whole dense part. Logs tokens/s a card, MFU (active top-k
+             FLOPs), the NCCL busy share and peak memory. Runs only on
+             a machine with four cards or more, and says it was skipped
+             otherwise.
+
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5n,
+5x, 5, 6, 7, 7m, 8, 9 (a, b, t, c, d), 9m, 9x.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -522,6 +589,11 @@ POD_TIMEOUT_S = 300
 # mean of the sound reading and the nearest fault (see PERF.md)
 WORLD = 2
 WORLD_ACCUM = TRAIN_ACCUM // WORLD
+# phases 9b and 9t run llama_1b cut to this many of its 16 layers: their
+# gloo-bound steps (fsdp=2's gathers, 93.7 s; tensor=2's all-reduces, 9t
+# 75.8 s) took a sixth of the smoke at 16 layers (F14c, PERF.md), and
+# phases 9m and 5n needed the room under the 1,200 s limit
+WORLD_LAYERS = 8
 WORLD_LOSS_RTOL = 7.7e-7
 WORLD_NORM_RTOL = 4.6e-4
 # phase 9 (b): after a rank's steps, the device memory the run added
@@ -576,6 +648,56 @@ TENSOR_NORM_RTOL = 4.5e-3
 # batches of ZERO3_ROWS rows a step: phase 9c's global batch of 16 rows
 TENSOR3_FSDP = TENSOR3_TENSOR = 2
 TENSOR3_ACCUM = 4
+# phase 5n: phase 5m's Mixtral cut served under KFT_MESH=tensor=MOE_TP
+# (each rank the mlp slice of every expert; two ranks on one card over
+# gloo, or a card a rank over NCCL), and its rms logit error against
+# phase 5m's one-card engine on the same teacher-forced streams
+# (tools/moe_quality.tp_readings). Read with tools/moe_quality.py
+# --tensor 2 on one H100 (700 W), two ranks over gloo: sound 0.1309
+# (bf16 partial sums added across the ranks, and with random weights a
+# near tie at the k-th expert routes a token elsewhere: greedy agreement
+# 0.879); planted fault, the MoE output's all-reduce dropped, 0.6175.
+# The limit is their geometric mean (see PERF.md)
+MOE_TP = 2
+MOE_TP_RMS_MAX = 0.284
+# phase 5x: Mixtral-8x7B at all 32 layers under tensor=MOE_TP_FULL, one
+# card a rank over NCCL (four cards or more)
+MOE_TP_FULL = 4
+# phase 9m: llama_moe_8x(llama_1b()) at full width cut to
+# MOE_WORLD_LAYERS of its 16 layers (two ranks and their state on one
+# card), phase 7's configuration, over two processes on one card
+# (gloo): data=2 (each place 16 rows in 16 micro batches of one) and
+# expert=2 (each rank 4 of the 8 experts, both the same 32 rows in 16
+# micro batches of two, micro batch by micro batch as data=2's), each
+# MOE_WORLD_STEPS steps, against one process on the same global micro
+# batches. Limits on the largest relative difference of the world's
+# losses, moe_aux and grad norms from it (MOE_WORLD_RTOL), and on the MoE
+# layer at full width in float32 (MOE_LAYER_RTOL: its output and
+# gradients, relative to the reference's largest magnitude; the aux
+# losses relative; the dropped fraction absolute). Read on one H100 (700
+# W), two ranks over gloo, the larger of data=2 and expert=2: sound,
+# the layer 1.12e-6 (output), 2.31e-6 (gradients), 0.0 (aux), 0.0
+# (dropped); the steps 1.10e-5 (loss), 4.19e-5 (moe_aux), 1.18e-4 (grad
+# norm). Planted faults, each the nearest one a reading sees: the
+# statistics' sums local 0.0105 (layer aux) and 0.0212 (dropped), the
+# slots local 0.488 / 0.460 (layer output / gradients) and 1.52e-4 /
+# 2.72e-3 (loss / moe_aux), the statistics' all-reduce backward an
+# identity 2.37e-3 (grad norm; the layer's gradients are the output's
+# almost alone there), no copy on the combine weights 0.792 (layer
+# gradients) and 0.0669 (grad norm, with the peers' metrics unequal).
+# Each limit is the geometric mean of the sound reading (a float32 ulp,
+# 1.2e-7, or one choice of 8192, 1.22e-4, where it read 0.0) and the
+# nearest fault (see PERF.md)
+MOE_WORLD_LAYERS = 4
+MOE_WORLD_STEPS = 2
+MOE_WORLD_RTOL = {"loss": 4.1e-5, "moe_aux": 3.4e-4, "grad_norm": 5.3e-4}
+MOE_LAYER_SEED = 11
+MOE_LAYER_RTOL = {"y": 7.4e-4, "grads": 1.0e-3, "aux": 3.5e-5,
+                  "dropped": 1.6e-3}
+# phase 9x: the uncut model (16 layers) over data=2 x expert=2, one card
+# a rank over NCCL (four cards or more): MOE_NCCL_STEPS eager steps,
+# then as many replayed
+MOE_NCCL_STEPS = 3
 # phase 5m (d): the JAX package's reason for keeping MoE weights unquantized
 # (kubeflow_tpu/serving/quant.py:96-101)
 MOE_INT8_REASON = ("MoE expert weights keep full precision (the routed "
@@ -1574,7 +1696,8 @@ def check_ranks_agree(eng, sampled=None) -> None:
     (``serving.tp.status``)."""
     ranks = eng.tp_status()
     seen = {(r["samples"], r["token_digest"]) for r in ranks}
-    log(f"tensor={TP}: per-rank (sampling bodies, token digest) {seen}"
+    log(f"tensor={len(ranks)}: per-rank (sampling bodies, token digest) "
+        f"{seen}"
         + (f", sampling dispatches {sampled}" if sampled is not None else ""))
     if len(seen) != 1 or (sampled is not None
                           and ranks[0]["samples"] != sampled):
@@ -2389,6 +2512,7 @@ def moe_serving(torch, pa) -> dict:
     from kubeflow_tpu_torch.tools.moe_quality import (
         ENGINE_KW, SEED, mixtral_8x7b, readings,
     )
+    from kubeflow_tpu_torch.tools.tp_quality import reference_streams
 
     t_phase = time.perf_counter()
     log(f"phase 5m: {torch.cuda.memory_allocated()} B allocated at its "
@@ -2462,6 +2586,10 @@ def moe_serving(torch, pa) -> dict:
     if not q["rms_over_rms"] <= MOE_RMS_MAX:
         raise SystemExit("phase 5m (c): the MoE decode path's logits are "
                          "off the full forward's")
+    # phase 5n's reference: two seeded streams teacher-forced through this
+    # one-card engine (tools/moe_quality.tp_readings' method)
+    tp_streams = reference_streams(eager, cfg.vocab_size)
+    tp_base = eager.teacher_forced_logits(tp_streams).cpu()
 
     # (e) eight 300-token streams decoding, eager then replay
     dispatch = {}
@@ -2516,7 +2644,134 @@ def moe_serving(torch, pa) -> dict:
     return {"launches": row1 + b_launches,
             "int8_launches": launches["paged_decode_attention_quant"],
             "quality": q, "dispatch": dispatch, "bound_ms": bound_ms,
-            "capture": capture, "weight_bytes": n_bytes}
+            "capture": capture, "weight_bytes": n_bytes,
+            "tp_streams": tp_streams, "tp_base": tp_base}
+
+
+def moe_tp_one(torch, pa, cfg, mesh, tag: str) -> dict:
+    """Serve phase 4's four requests over HTTP from an LLMModel of
+    ``cfg`` (phase 5m's seeded bf16 weights, each rank drawing its shard)
+    under ``mesh``: 32 greedy tokens each, every rank's row 3 launches
+    (the paged kernel on its own KV heads) == n_layers x decode device
+    steps, every rank's sampling bodies and token digest equal. Returns
+    the model (loaded) with the run."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.tools.moe_quality import SEED
+    from kubeflow_tpu_torch.tools.tp_quality import TP_KW
+
+    t0 = time.perf_counter()
+    model = LLMModel(f"mixtral-8x7b-{tag}",
+                     llama.SeededParams(SEED, torch.bfloat16), cfg,
+                     mesh=mesh, **TP_KW)
+    model.load()
+    eng = model.engine
+    ranks = eng.tp_status()
+    log(f"{tag}: engine up in {time.perf_counter() - t0:.1f} s (spawn, "
+        f"rendezvous, each rank drawing its shard): ranks (rank, device, "
+        f"local KV heads) "
+        f"{[(r['rank'], r['device'], r['kv_heads']) for r in ranks]}, "
+        f"rank 0's weights {tree_bytes(eng.params)} B (w_gate "
+        f"{tuple(eng.params['layers']['w_gate'].shape)}), pool "
+        f"{pool_bytes(eng.cache)} B")
+    run = serve_four(torch, pa, model, cfg)
+    stats, sched = run["stats"], run["stats"]["sched"]
+    want = cfg.n_layers * run["device_steps"]
+    log(f"{tag}: launches per rank {run['launches']} (want "
+        f"paged_decode_attention == n_layers x device steps = {want} on "
+        f"every rank); mesh {stats['mesh']}")
+    if want == 0 or any(r["paged_decode_attention"] != want
+                        or r["paged_decode_attention_quant"] != 0
+                        for r in run["launches"]):
+        raise SystemExit(f"{tag}: the MoE decode did not run through row 3 "
+                         "on every rank")
+    check_ranks_agree(eng, sched["decode_dispatches_total"]
+                      + stats["prefill_dispatches_total"]
+                      + sched["chunked_admitted_total"])
+    return model, run
+
+
+def moe_tp_serving(torch, pa, ref: dict) -> dict:
+    """Phase 5n: phase 5m's Mixtral cut under KFT_MESH=tensor=MOE_TP
+    (module docstring), after phase 5m's weights are freed."""
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+    from kubeflow_tpu_torch.tools.moe_quality import (
+        mixtral_8x7b, tp_readings,
+    )
+    from kubeflow_tpu_torch.tools.tp_quality import tp_devices
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = mixtral_8x7b()
+    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={MOE_TP}"},
+                                  devices=tp_devices(MOE_TP))
+    shared = (", both ranks on one card: no tensor-parallel speedup"
+              if mesh.shared else "")
+    log(f"phase 5n: Mixtral-8x7B widths, {cfg.n_layers} of 32 layers, "
+        f"dropless, KFT_MESH=tensor={MOE_TP} over "
+        f"{[str(d) for d in mesh.devices]} ({mesh.backend}{shared}); "
+        f"{torch.cuda.memory_allocated()} B allocated at its start")
+    model, run = moe_tp_one(torch, pa, cfg, mesh, f"tp{MOE_TP}")
+    eng = model.engine
+    err = tp_readings(eng, ref["tp_streams"], ref["tp_base"])
+    log(f"phase 5n: tensor={MOE_TP} against phase 5m's one-card engine, "
+        f"teacher-forced ({len(ref['tp_streams'])} streams, "
+        f"{err['positions']} positions): greedy-token agreement "
+        f"{err['greedy_token_agreement']!r}, max logit drift "
+        f"{err['max_logit_drift']!r}, rms logit error "
+        f"{err['rms_logit_error']!r} (limit {MOE_TP_RMS_MAX})")
+    step_ms = served_step_ms(torch, model)
+    check_ranks_agree(eng)
+    log(f"phase 5n: decode step as served (batch 8, {cfg.n_layers} layers, "
+        f"~{STEP_CONTEXT}-token contexts, one dispatch per "
+        f"{eng.decode_chunk} steps, {mesh.backend}): {step_ms!r} ms "
+        f"({nvidia_smi_line()}); {run['tok_s']!r} generated tok/s over "
+        f"HTTP; {time.perf_counter() - t_phase:.1f} s")
+    model.unload()
+    del model, eng
+    free_card(torch)
+    if not err["rms_logit_error"] <= MOE_TP_RMS_MAX:
+        raise SystemExit("phase 5n: the tensor-parallel MoE logits err past "
+                         "the limit")
+    return {"launches_per_rank": [r["paged_decode_attention"]
+                                  for r in run["launches"]],
+            "errors": err, "decode_ms_per_step": step_ms,
+            "tok_s": run["tok_s"]}
+
+
+def moe_tp_full(torch, pa) -> dict:
+    """Phase 5x: Mixtral-8x7B at all 32 layers under
+    tensor=MOE_TP_FULL, one card a rank over NCCL (module docstring).
+    Skipped, and said so, on a machine with fewer cards."""
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+    from kubeflow_tpu_torch.tools.moe_quality import mixtral_8x7b
+
+    n = torch.cuda.device_count()
+    if n < MOE_TP_FULL:
+        log(f"phase 5x: skipped: Mixtral-8x7B at 32 layers under tensor="
+            f"{MOE_TP_FULL} needs {MOE_TP_FULL} cards, one a rank; this "
+            f"machine has {n}")
+        return {"skipped": f"{n} card(s)", "launches_per_rank": []}
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = mixtral_8x7b(32)
+    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={MOE_TP_FULL}"})
+    log(f"phase 5x: Mixtral-8x7B at all {cfg.n_layers} layers (93.4 GB "
+        f"bf16), dropless, tensor={MOE_TP_FULL} over "
+        f"{[str(d) for d in mesh.devices]} ({mesh.backend}), eager")
+    model, run = moe_tp_one(torch, pa, cfg, mesh, f"tp{MOE_TP_FULL}-full")
+    step_ms = served_step_ms(torch, model)
+    check_ranks_agree(model.engine)
+    log(f"phase 5x: decode step as served (batch 8, all {cfg.n_layers} "
+        f"layers, ~{STEP_CONTEXT}-token contexts): {step_ms!r} ms; "
+        f"{run['tok_s']!r} generated tok/s over HTTP; "
+        f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
+    model.unload()
+    del model
+    free_card(torch)
+    return {"launches_per_rank": [r["paged_decode_attention"]
+                                  for r in run["launches"]],
+            "decode_ms_per_step": step_ms, "tok_s": run["tok_s"]}
 
 
 def tree_clone(tree):
@@ -3421,10 +3676,12 @@ def world_readings(world: list, ref: dict) -> dict:
     (every rank) from the one-process trainer's, over the steps."""
     import math
 
-    out = {"loss": 0.0, "grad_norm": 0.0, "tokens_equal": True}
+    keys = ("loss", "grad_norm") + (("moe_aux",) if "moe_aux" in
+                                     ref["metrics"][0] else ())
+    out = {"tokens_equal": True, **dict.fromkeys(keys, 0.0)}
     for rank in world:
         for m, r in zip(rank, ref["metrics"]):
-            for k in ("loss", "grad_norm"):
+            for k in keys:
                 d = abs(m[k] - r[k]) / abs(r[k])
                 # a NaN reads as infinitely far, never as 0
                 out[k] = max(out[k], d if math.isfinite(d) else math.inf)
@@ -3432,9 +3689,12 @@ def world_readings(world: list, ref: dict) -> dict:
     return out
 
 
-def world_reference(torch, job) -> dict:
+def world_reference(torch, job, grouped: int = 1) -> dict:
     """The one-process trainer (phase 7's, grad_accum 16) from the same
-    seed on the concatenation of both ranks' rows, replayed."""
+    seed on the concatenation of both ranks' rows, replayed; with
+    ``grouped``, their micro batches of ``grouped`` micro batches a rank
+    in turn (``world_train.global_batch``: the world's global micro
+    batches)."""
     import dataclasses
 
     from kubeflow_tpu_torch.tools import world_train as wt
@@ -3442,10 +3702,10 @@ def world_reference(torch, job) -> dict:
     one = dataclasses.replace(
         job, trainer={**job.trainer, "grad_accum": TRAIN_ACCUM})
     trainer = wt.make_trainer(one, torch.device("cuda"))
-    trainer.precompile(wt.global_batch(job, WORLD, 0))
+    trainer.precompile(wt.global_batch(job, WORLD, 0, grouped))
     metrics = []
     for step in range(job.steps):
-        m = trainer.train_step(wt.global_batch(job, WORLD, step))
+        m = trainer.train_step(wt.global_batch(job, WORLD, step, grouped))
         metrics.append({k: float(v) for k, v in m.items()})
     del trainer
     gc.collect()
@@ -3454,13 +3714,18 @@ def world_reference(torch, job) -> dict:
 
 
 def world_job():
-    """Phase 9 (b)'s job: llama_1b in phase 7's configuration, each of
-    WORLD places in the batch axes TRAIN_BATCH / WORLD rows with ragged
-    masks in WORLD_ACCUM micro batches."""
+    """Phase 9 (b)'s job: llama_1b in phase 7's configuration cut to
+    WORLD_LAYERS of its 16 layers, each of WORLD places in the batch axes
+    TRAIN_BATCH / WORLD rows with ragged masks in WORLD_ACCUM micro
+    batches."""
+    import dataclasses
+
     from kubeflow_tpu_torch.models import llama
     from kubeflow_tpu_torch.tools import world_train as wt
 
-    cfg = llama.llama_1b(remat="dots", attn_impl="pallas")
+    cfg = dataclasses.replace(llama.llama_1b(remat="dots",
+                                             attn_impl="pallas"),
+                              n_layers=WORLD_LAYERS)
     return wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
                             total_steps=1000, grad_accum=WORLD_ACCUM,
                             optimizer="adafactor"),
@@ -3992,21 +4257,336 @@ def world_phase(torch) -> dict:
     return out
 
 
-def row3(sharded: dict, tp: dict, spec_tp: dict) -> dict:
+def moe_layer_inputs() -> dict:
+    """Phase 9m (i)'s whole inputs on the current card, float32 from
+    seed MOE_LAYER_SEED: one global micro batch of the 9m model (2 x
+    2048 tokens of width 2048), its router and 8 experts of mlp 5632 at
+    N(0, 1/fan_in), the router's columns scaled 1 to 2.75 (an expert
+    whose column is wider wins more tokens, so capacity 1.25 drops some,
+    as a trained router's imbalance does), every token real, and each
+    output element's weight in the loss."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(MOE_LAYER_SEED)
+    d, m, e = 2048, 5632, 8
+
+    def draw(*shape, fan=1):
+        return torch.randn(shape, generator=gen, device="cuda") * fan ** -0.5
+
+    scale = torch.linspace(1.0, 2.75, e, device="cuda")
+    return {"x": draw(2, TRAIN_SEQ, d),
+            "params": {"router": draw(d, e, fan=d) * scale,
+                       "w_gate": draw(e, d, m, fan=d),
+                       "w_up": draw(e, d, m, fan=d),
+                       "w_down": draw(e, m, d, fan=m)},
+            "mask": torch.ones((2, TRAIN_SEQ), dtype=torch.bool,
+                               device="cuda"),
+            "weights": draw(2, TRAIN_SEQ, d)}
+
+
+# phase 9m (i)'s case: the training configuration's capacity path
+MOE_LAYER_CASES = [("capacity-1.25", 1.25, 2, False)]
+
+
+def moe_layer_readings(ranks: list, ref: dict) -> dict:
+    """Phase 9m (i): the world's layer against one process's on the same
+    whole inputs: each rank's rows of the output and of the input's
+    gradient and the weights' gradients (summed over the batch ranks,
+    each expert rank's experts), as the largest difference over the
+    reference's largest magnitude; the aux losses relative; the dropped
+    fractions."""
+    want, out = ref["cases"][0], {"y": 0.0, "grads": 0.0, "aux": 0.0,
+                                  "dropped": 0.0}
+    summed: dict = {}
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
+    for r in ranks:
+        (i, n), (ix, nx) = r["batch"], r["expert"]
+        got = r["cases"][0]
+        rows = slice(i * want["y"].shape[0] // n,
+                     (i + 1) * want["y"].shape[0] // n)
+        out["y"] = max(out["y"], rel(got["y"], want["y"][rows]))
+        out["grads"] = max(out["grads"], rel(got["x"], want["x"][rows]))
+        for k in ("moe_load_balance", "moe_router_z"):
+            out["aux"] = max(out["aux"], abs(got["aux"][k] - want["aux"][k])
+                             / abs(want["aux"][k]))
+        out["dropped"] = max(out["dropped"], abs(
+            got["aux"]["moe_dropped_fraction"]
+            - want["aux"]["moe_dropped_fraction"]))
+        for k, g in got["grads"].items():
+            summed.setdefault((k, ix, nx), []).append(g)
+    for (k, ix, nx), parts in summed.items():
+        whole = want["grads"][k]
+        if k != "router":
+            e = whole.shape[0] // nx
+            whole = whole[ix * e:(ix + 1) * e]
+        out["grads"] = max(out["grads"], rel(sum(parts), whole))
+    out["dropped_fraction"] = want["aux"]["moe_dropped_fraction"]
+    return out
+
+
+def moe_world_job():
+    """Phase 9m's data=2 job: the MoE model in phase 7's configuration,
+    each of WORLD places in the batch axes TRAIN_BATCH / WORLD rows with
+    ragged masks in TRAIN_ACCUM micro batches of one row (the world's
+    global micro batch: phase 7's two rows)."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    cfg = llama.llama_moe_8x(llama.llama_1b(remat="dots",
+                                            attn_impl="pallas"),
+                             n_layers=MOE_WORLD_LAYERS)
+    return wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                            total_steps=1000, grad_accum=TRAIN_ACCUM,
+                            optimizer="adafactor"),
+                  local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
+                  steps=MOE_WORLD_STEPS, mask=True)
+
+
+def moe_world_phase(torch) -> dict:
+    """Phase 9m: MoE across two processes on one card (module
+    docstring)."""
+    import dataclasses
+    import tempfile
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    t_phase = time.perf_counter()
+    job = moe_world_job()
+    cfg = job.config
+    # (data, fsdp, tensor, expert, the layout's job): expert peers feed
+    # the same rows, the data=2 places' micro batches in turn
+    layouts = {"data": (WORLD, 1, 1, 1, job),
+               "expert": (1, 1, 1, WORLD, dataclasses.replace(
+                   job, merge_places=WORLD, interleave=True))}
+    devices = world_devices(torch, WORLD)
+    free_card(torch)
+    log(f"phase 9m: llama_1b widths with {cfg.n_experts} experts "
+        f"(top-{cfg.moe_top_k}, capacity {cfg.moe_capacity_factor}), "
+        f"{cfg.n_layers} of 16 layers, remat=dots, attn_impl=pallas, "
+        f"adafactor, global batch {TRAIN_BATCH} x {TRAIN_SEQ} with ragged "
+        f"masks in {TRAIN_ACCUM} micro batches, {WORLD} processes on "
+        f"{devices}: data=2 and expert=2, {job.steps} eager steps each; "
+        f"{torch.cuda.memory_allocated()} B allocated in this process")
+    plans = []
+    for d, f, t, x, lj in layouts.values():
+        plans += [(d, f, t, x, wt.moe_layer_rank,
+                   (moe_layer_inputs, MOE_LAYER_CASES)),
+                  (d, f, t, x, wt.train_rank, (lj,))]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9m-") as rundir:
+        results = wt.run(wt.plans_rank, (plans,), 1, WORLD, devices, rundir)
+    world_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    layer_ref = wt.moe_layer_rank(None, moe_layer_inputs, MOE_LAYER_CASES,
+                                  device="cuda")
+    free_card(torch)
+    ref = world_reference(torch, job, TRAIN_ACCUM)
+    ref_s = time.perf_counter() - t1
+    per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
+                 "flash_attention_dq": cfg.n_layers,
+                 "flash_attention_dkv": cfg.n_layers}
+    want_launch = {k: v * TRAIN_ACCUM * job.steps
+                   for k, v in per_micro.items()}
+    out = {"world_s": world_s, "reference_s": ref_s, "launches": {},
+           "reference": ref["metrics"]}
+    failed = []
+    for i, (name, (d, f, t, x, lj)) in enumerate(layouts.items()):
+        layer = moe_layer_readings([r[2 * i] for r in results], layer_ref)
+        ranks = [r[2 * i + 1] for r in results]
+        b = ranks[0]["backend"]
+        log(f"phase 9m {name} (i): the MoE layer at full width in float32 "
+            f"(one global micro batch of 4096 tokens, capacity 1.25) "
+            f"against one process: output {layer['y']!r}, gradients "
+            f"{layer['grads']!r} of the largest magnitude, aux "
+            f"{layer['aux']!r} relative, dropped fraction "
+            f"{layer['dropped_fraction']!r} (the world's off by "
+            f"{layer['dropped']!r}); limits {MOE_LAYER_RTOL}")
+        for r, res in enumerate(ranks):
+            run = res["runs"]["eager"]
+            gloo = [c["gloo_s"] / s for c, s in zip(run["collectives"],
+                                                    run["seconds"])]
+            moe = [{k: c[k] for k in ("moe_calls", "moe_bytes", "moe_s")}
+                   for c in run["collectives"]]
+            log(f"phase 9m {name} rank {r}: backend {b['backend']} "
+                f"({b['reason']}); step s {run['seconds']!r}, gloo share "
+                f"{gloo!r}; MoE collectives per step {moe!r}; all "
+                f"collectives per step {run['collectives']!r}; peak "
+                f"{run.get('peak_allocated')} B allocated, "
+                f"{run.get('peak_reserved')} B reserved; state kept "
+                f"{run['state_bytes']} (reachable {run['held_bytes']} B); "
+                f"flash launches {run['launches']}; losses "
+                f"{[m['loss'] for m in run['metrics']]!r} moe_aux "
+                f"{[m['moe_aux'] for m in run['metrics']]!r} grad norms "
+                f"{[m['grad_norm'] for m in run['metrics']]!r}")
+            if run["launches"] != want_launch:
+                failed.append(f"{name} rank {r}: flash launches "
+                              f"{run['launches']}, expected {want_launch}")
+            if run["held_bytes"] != run["state_bytes"]["total"]:
+                failed.append(f"{name} rank {r}: state_bytes "
+                              f"{run['state_bytes']['total']} B, reachable "
+                              f"{run['held_bytes']} B")
+        world = [res["runs"]["eager"]["metrics"] for res in ranks]
+        read = world_readings(world, ref)
+        share = kept_share(cfg, {"expert": x} if x > 1 else {})
+        kept = ranks[0]["runs"]["eager"]["state_bytes"]
+        log(f"phase 9m {name}: against one process on the same global micro "
+            f"batches ({job.steps} steps): loss {read['loss']!r}, moe_aux "
+            f"{read['moe_aux']!r}, grad norm {read['grad_norm']!r} relative "
+            f"(limits {MOE_WORLD_RTOL}); tokens equal "
+            f"{read['tokens_equal']}; ranks' metrics equal "
+            f"{world[0] == world[1]}; a rank keeps {share['kept']} of "
+            f"{share['whole']} parameters ({share['share']!r}); reference "
+            f"losses {[m['loss'] for m in ref['metrics']]!r}")
+        out[name] = {"layer": layer, "readings": read, "share": share,
+                     "ranks": [{k: res["runs"]["eager"].get(k) for k in (
+                         "seconds", "collectives", "peak_allocated",
+                         "peak_reserved", "state_bytes")} for res in ranks]}
+        out["launches"][name] = {
+            k: sum(res["runs"]["eager"]["launches"][k] for res in ranks)
+            for k in want_launch}
+        if any(layer[k] > MOE_LAYER_RTOL[k] for k in MOE_LAYER_RTOL) \
+                or not layer["dropped_fraction"] > 0:
+            failed.append(f"{name}: the MoE layer over the world is not one "
+                          f"process's ({layer})")
+        if world[0] != world[1] or not read["tokens_equal"] \
+                or any(read[k] > MOE_WORLD_RTOL[k] for k in MOE_WORLD_RTOL):
+            failed.append(f"{name}: the world's steps are not one process's "
+                          "on the same global micro batches")
+        if kept["params"] != 4 * share["kept"] \
+                or kept["grads"] != 4 * share["kept"]:
+            failed.append(f"{name}: a rank keeps {kept}, expected "
+                          f"{4 * share['kept']} B of parameters and of "
+                          "gradients")
+    log(f"phase 9m: world {world_s:.1f} s, references {ref_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9m: {failed}")
+    return out
+
+
+def moe_world_nccl(torch) -> dict:
+    """Phase 9x: the uncut MoE model over data=2 x expert=2, one card a
+    rank over NCCL, eager then replayed (module docstring). Skipped, and
+    said so, on a machine with fewer than four cards."""
+    import math
+    import tempfile
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    zeros = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                           "flash_attention_dkv"), 0)
+    n = torch.cuda.device_count()
+    if n < 2 * WORLD:
+        log(f"phase 9x: skipped: the uncut MoE model over data={WORLD} x "
+            f"expert={WORLD} needs {2 * WORLD} cards, one a rank; this "
+            f"machine has {n}")
+        return {"skipped": f"{n} card(s)", "launches": zeros}
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = llama.llama_moe_8x(llama.llama_1b(remat="dots",
+                                            attn_impl="pallas"))
+    job = wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                           total_steps=1000, grad_accum=WORLD_ACCUM,
+                           optimizer="adafactor"),
+                 local_batch=TRAIN_BATCH // WORLD, seq=TRAIN_SEQ,
+                 steps=MOE_NCCL_STEPS, mask=True,
+                 runs=("eager", "replayed"), profile=True)
+    devices = [f"cuda:{r}" for r in range(2 * WORLD)]
+    log(f"phase 9x: llama_1b widths with {cfg.n_experts} experts, all "
+        f"{cfg.n_layers} layers, data={WORLD} x expert={WORLD} on "
+        f"{devices}; each place {TRAIN_BATCH // WORLD} rows in "
+        f"{WORLD_ACCUM} micro batches; runs {job.runs} of {job.steps} steps")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9x-") as rundir:
+        ranks = wt.run(wt.train_rank, (job,), WORLD, 1, devices, rundir,
+                       expert=WORLD)
+    wall_s = time.perf_counter() - t0
+    want_launch = {k: v * WORLD_ACCUM * job.steps for k, v in {
+        "flash_attention_fwd": 2 * cfg.n_layers,
+        "flash_attention_dq": cfg.n_layers,
+        "flash_attention_dkv": cfg.n_layers}.items()}
+    share = kept_share(cfg, {"expert": WORLD})
+    tokens = TRAIN_BATCH * TRAIN_SEQ / (2 * WORLD)      # a card's share
+    failed, out = [], {"wall_s": wall_s, "ranks": [], "share": share}
+    for r, res in enumerate(ranks):
+        rep, eag = res["runs"]["replayed"], res["runs"]["eager"]
+        step_s = statistics.median(rep["seconds"][1:] or rep["seconds"])
+        tok_s = tokens / step_s
+        mfu = tok_s * cfg.flops_per_token(TRAIN_SEQ) / BF16_FLOPS
+        metrics = [(m["loss"], m["moe_aux"], m["grad_norm"])
+                   for m in rep["metrics"]]
+        bitwise = res["differ"] == [] and metrics == [
+            (m["loss"], m["moe_aux"], m["grad_norm"]) for m in eag["metrics"]]
+        prof = rep.get("profile") or {}
+        nccl_share = prof.get("nccl_busy_ms", 0) / max(prof.get("wall_ms", 1),
+                                                       1e-9)
+        kept = rep["state_bytes"]
+        log(f"phase 9x rank {r}: backend {res['backend']['backend']}, micro "
+            f"body {res.get('micro_mode')}, finish body "
+            f"{res.get('finish_mode')}, capture "
+            f"{res.get('capture_seconds')!r} s, pool {res.get('pool_bytes')} "
+            f"B; eager step s {eag['seconds']!r}, replayed {rep['seconds']!r} "
+            f"({tok_s!r} tok/s a card, MFU {mfu!r} on the active top-k "
+            f"FLOPs); NCCL busy share {nccl_share!r} of the traced step "
+            f"{prof!r}; kept {kept} (reachable "
+            f"{rep['held_bytes']} B); peak {rep.get('peak_allocated')} B "
+            f"allocated, {rep.get('peak_reserved')} B reserved; losses "
+            f"{[m[0] for m in metrics]!r}, moe_aux {[m[1] for m in metrics]!r}"
+            f", grad norms {[m[2] for m in metrics]!r}; replayed bitwise "
+            f"eager {bitwise} (differing {res['differ']})")
+        out["ranks"].append({"step_s": step_s, "tok_s_per_card": tok_s,
+                             "mfu": mfu, "state_bytes": kept,
+                             "profile": prof, "bitwise": bitwise,
+                             "peak_allocated": rep.get("peak_allocated"),
+                             "peak_reserved": rep.get("peak_reserved")})
+        if not bitwise:
+            failed.append(f"rank {r}: the replayed steps are not bitwise "
+                          "the eager ones")
+        if res["backend"]["backend"] != "nccl" \
+                or res.get("micro_mode") != "graph" \
+                or res.get("finish_mode") != "graph":
+            failed.append(f"rank {r}: not both bodies captured over NCCL")
+        if rep["launches"] != want_launch or eag["launches"] != want_launch:
+            failed.append(f"rank {r}: flash launches {rep['launches']}, "
+                          f"expected {want_launch}")
+        if kept["params"] != 4 * share["kept"] \
+                or kept["grads"] != 4 * share["kept"] \
+                or rep["held_bytes"] != kept["total"]:
+            failed.append(f"rank {r}: keeps {kept}, expected "
+                          f"{4 * share['kept']} B of parameters and of "
+                          "gradients")
+        if not all(math.isfinite(m[0]) for m in metrics) or metrics != [
+                (m["loss"], m["moe_aux"], m["grad_norm"])
+                for m in ranks[0]["runs"]["replayed"]["metrics"]]:
+            failed.append(f"rank {r}: losses not finite or not rank 0's")
+    out["launches"] = {k: 2 * WORLD * v for k, v in want_launch.items()}
+    log(f"phase 9x: {time.perf_counter() - t_phase:.1f} s "
+        f"({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9x: {failed}")
+    return out
+
+
+def row3(sharded: dict, tp: dict, spec_tp: dict, moe_tp: dict,
+         moe_tp_all: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
-    run and phase 5s's tensor=4 run (per rank beside them, and phase
-    4tp's int8 run's)."""
+    run, phase 5s's tensor=4 run and phases 5n's and 5x's MoE runs (per
+    rank beside them, and phase 4tp's int8 run's)."""
+    by_phase = {"4tp": sum(tp["bf16"]["launches_per_rank"]),
+                "5s": sum(spec_tp["launches_per_rank"]),
+                "5n": sum(moe_tp["launches_per_rank"]),
+                "5x": sum(moe_tp_all["launches_per_rank"])}
     return {
         "name": "paged_decode_attention_sharded", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
         "replaces": "kubeflow_tpu/ops/pallas_paged_attention.py:257",
-        "launches": (sum(tp["bf16"]["launches_per_rank"])
-                     + sum(spec_tp["launches_per_rank"])),
-        "launches_by_phase": {"4tp": sum(tp["bf16"]["launches_per_rank"]),
-                              "5s": sum(spec_tp["launches_per_rank"])},
+        "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
         "launches_per_rank": tp["bf16"]["launches_per_rank"],
         "launches_per_rank_5s": spec_tp["launches_per_rank"],
+        "launches_per_rank_5n": moe_tp["launches_per_rank"],
         "launches_per_rank_int8": tp["int8"]["launches_per_rank"],
         **{k: sharded[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by")},
@@ -4054,12 +4634,16 @@ def main() -> int:
     del params
     free_card(torch)
     moe_served = moe_serving(torch, pa)
+    moe_tp = moe_tp_serving(torch, pa, moe_served)
+    moe_tp_all = moe_tp_full(torch, pa)
     flash_errs = flash_parity(torch)
     flash_t = flash_timing(torch)
     trained = training(torch)
     moe_trained = moe_training(torch)
     resumed = resume_phase(torch)
     world = world_phase(torch)
+    moe_world = moe_world_phase(torch)
+    moe_nccl = moe_world_nccl(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -4099,30 +4683,26 @@ def main() -> int:
         "library_ms": None,
         "by_kv_dtype": {kv: {"max_abs_err": q_errs[kv], **q_t[kv]}
                         for kv in KV_QMAX},
-    }, row3(sharded, tp, spec["tp"])]
+    }, row3(sharded, tp, spec["tp"], moe_tp, moe_tp_all)]
     for name, line in (("flash_attention_fwd", 54),
                        ("flash_attention_dq", 135),
                        ("flash_attention_dkv", 170)):
+        by_phase = {"7": trained["launches"][name],
+                    "7m": moe_trained["launches"][name],
+                    "8": resumed["launches"][name],
+                    "9": sum(w[name] for w in world["launches"].values()),
+                    "9t": world["tensor"]["launches"][name],
+                    "9c": world["zero3"]["launches"][name],
+                    "9d": world["tensor_zero3"]["launches"][name],
+                    "9m": sum(w[name] for w in
+                              moe_world["launches"].values()),
+                    "9x": moe_nccl["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{name}.cu",
             "replaces": f"kubeflow_tpu/ops/pallas_attention.py:{line}",
-            "launches": (trained["launches"][name]
-                         + moe_trained["launches"][name]
-                         + resumed["launches"][name]
-                         + sum(w[name] for w in world["launches"].values())
-                         + world["tensor"]["launches"][name]
-                         + world["zero3"]["launches"][name]
-                         + world["tensor_zero3"]["launches"][name]),
-            "launches_by_phase": {"7": trained["launches"][name],
-                                  "7m": moe_trained["launches"][name],
-                                  "8": resumed["launches"][name],
-                                  "9": sum(w[name] for w in
-                                           world["launches"].values()),
-                                  "9t": world["tensor"]["launches"][name],
-                                  "9c": world["zero3"]["launches"][name],
-                                  "9d": world["tensor_zero3"]["launches"][
-                                      name]},
+            "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": flash_errs[name], **flash_t[name]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)

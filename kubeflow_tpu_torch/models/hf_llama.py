@@ -13,10 +13,10 @@ permutation is needed.
 The sharded load (``mesh=``; the JAX loader's ``mesh`` path) gives one
 tensor-parallel rank its shard: each HF tensor is read only in the rows
 or columns that hold the rank's heads, MLP columns or vocab entries, so
-no rank reads or holds the whole tree. ``CheckpointParams`` is the same
-load as a parameter source each rank of a serving engine calls itself.
-MoE checkpoints load on one card only (a mesh raises,
-``parallel.moe.MOE_MESH``).
+no rank reads or holds the whole tree: of Mixtral's experts
+(``block_sparse_moe.experts.{e}.w1/w2/w3``) the rank reads its ``mlp``
+slice of every expert. ``CheckpointParams`` is the same load as a
+parameter source each rank of a serving engine calls itself.
 """
 
 from __future__ import annotations
@@ -70,7 +70,6 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
     rank ``mesh.rank``'s shard of it, read slice by slice."""
     device = resolve_device(device)
     cfg = cfg or load_config(model_dir, dtype=dtype)
-    llama.check_moe_mesh(cfg, mesh)
     idx = CheckpointIndex(model_dir)
     tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
     h, kv, hd, d = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim,
@@ -90,14 +89,16 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
         return torch.stack([transform(get(fmt.format(i), index))
                             for i in range(cfg.n_layers)])
 
-    def expert_stack(fmt: str, key: str) -> torch.Tensor:
+    def expert_stack(fmt: str, key: str, index) -> torch.Tensor:
         """Mixtral experts' [out, in] Linear weights -> [L, E, in, out],
-        written one tensor at a time into the preallocated stack."""
-        out = torch.empty(llama.param_shapes(cfg)["layers"][key],
-                          dtype=dtype, device=device)
+        each read in the rank's ``index`` (of its mlp dim) and written one
+        tensor at a time into the preallocated stack."""
+        shape = list(llama.param_shapes(cfg)["layers"][key])
+        shape[3 if key in ("w_gate", "w_up") else 2] //= tp
+        out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(cfg.n_layers):
             for e in range(cfg.n_experts):
-                out[i, e] = get(fmt.format(i, e)).T
+                out[i, e] = get(fmt.format(i, e), index).T
         return out
 
     rows_q = (part(cfg.n_heads * hd), every)
@@ -123,11 +124,12 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
         layers["moe_router"] = layer_stack(
             "model.layers.{}.block_sparse_moe.gate.weight",
             transform=lambda w: w.T)
-        for key, name in (("w_gate", "w1"), ("w_up", "w3"),
-                          ("w_down", "w2")):
+        for key, name, index in (("w_gate", "w1", rows_mlp),
+                                 ("w_up", "w3", rows_mlp),
+                                 ("w_down", "w2", cols_mlp)):
             layers[key] = expert_stack(
                 "model.layers.{}.block_sparse_moe.experts.{}.%s.weight"
-                % name, key)
+                % name, key, index)
     else:
         layers["w_gate"] = layer_stack(
             "model.layers.{}.mlp.gate_proj.weight", rows_mlp, lambda w: w.T)

@@ -26,18 +26,23 @@ rank's heads, the rank's slice of the MLP), ``wo`` and ``w_down``
 row-parallel (a partial product, then an all-reduce), the embedding a
 masked lookup of the rank's vocab rows plus an all-reduce, and the LM
 head the rank's vocab columns of the logits, all-gathered. Norms are
-replicated. MoE under a mesh raises (``parallel.moe.MOE_MESH``).
+replicated. An MoE layer's rank holds the ``mlp`` slice of every expert
+(the router whole): it routes as every rank does, runs its slice of the
+experts the routing picks, and the output is all-reduced.
 
 In training the same cuts run over a ``parallel.mesh.WorldMesh``'s
 ``tensor`` axis, through the autograd-aware collectives of
 ``parallel/tensor.py``: ``forward`` takes the world from the parameters
 it is given (a rank's ``parallel.tensor.TensorParams``, or its
-``parallel.fsdp.FsdpParams`` over a world with a ``tensor`` axis) and
-hands it to ``_block`` and the head (``tp``): ``copy`` before the
-column-parallel products and the head, ``reduce`` after the row-parallel
-ones, the embedding a masked lookup plus ``reduce``, and the logits
-all-gathered along vocab before the loss. Each rank runs attention on
-its own heads.
+``parallel.fsdp.FsdpParams``) and hands it to ``_block`` and the head
+(``tp``): ``copy`` before the column-parallel products and the head,
+``reduce`` after the row-parallel ones, the embedding a masked lookup
+plus ``reduce``, and the logits all-gathered along vocab before the
+loss. Each rank runs attention on its own heads. An MoE FFN gets the
+world itself (``parallel.moe.moe_layer``): its router statistics,
+capacity and slots are the global batch's, and under ``expert`` and
+``tensor`` the rank runs its experts' ``mlp`` slices and joins its
+peers' outputs.
 
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
@@ -145,13 +150,6 @@ def llama_moe_8x(base: LlamaConfig | None = None, n_experts: int = 8,
     return dataclasses.replace(base, n_experts=n_experts, **kw)
 
 
-def check_moe_mesh(cfg: LlamaConfig, mesh) -> None:
-    """MoE has no sharded path yet: raise ``parallel.moe.MOE_MESH`` for an
-    MoE config under a mesh."""
-    if cfg.n_experts and mesh is not None:
-        raise NotImplementedError(moe.MOE_MESH)
-
-
 # ---------------------------------------------------------------------------
 # Params
 # ---------------------------------------------------------------------------
@@ -176,8 +174,7 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     With ``mesh``, the rank's shard only: every matrix is drawn whole
     (one at a time, so the full tree never exists) and cut to the rank's
     slice, so the shards of a seed are exactly the slices of its
-    unsharded tree. MoE under a mesh raises."""
-    check_moe_mesh(cfg, mesh)
+    unsharded tree (for MoE, of each expert's ``mlp`` dim)."""
     device = resolve_device(device)
     shapes, axes = param_shapes(cfg), param_logical_axes(cfg)
     d, m, hd = cfg.dim, cfg.mlp_dim, cfg.n_heads * cfg.head_dim
@@ -197,8 +194,10 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
         if name not in fan_in:                       # the norms
             return torch.ones(shape, dtype=dtype, device=device)
         if cfg.n_experts and name in MOE_KEYS:
+            part = None if mesh is None else tuple(
+                shard_slices(names, shape, mesh.rank, mesh.tp)[-2:])
             return moe.randn_stack(generator, shape, fan_in[name], dtype,
-                                   device)
+                                   device, part)
         return dense(shape, names, fan_in[name])
 
     # the draw order (layers, then embed, then lm_head) fixes the values
@@ -383,21 +382,22 @@ def out_proj(lp, o, cfg: LlamaConfig, mesh=None):
     return _reduced(out, mesh)
 
 
-def _ffn(h, lp, cfg: LlamaConfig, mesh=None, token_mask=None):
+def _ffn(h, lp, cfg: LlamaConfig, mesh=None, token_mask=None, world=None):
     """FFN half of a block on the normed input h -> (delta, aux): the dense
     SwiGLU FFN with aux 0.0, or for MoE configs the routed mixture
     (``parallel.moe.moe_layer``) with its summed penalties (a float32
     0-d tensor). ``token_mask`` [B, S] bool: the serving paths keep pad
-    and idle rows out of MoE routing. Under a mesh the dense gate/up
-    products are the rank's MLP columns and the down product is
-    row-parallel, then all-reduced; MoE raises."""
+    and idle rows out of MoE routing. Under a serving ``mesh`` the gate
+    and up products are the rank's MLP columns (of every expert) and the
+    down product is row-parallel, then all-reduced. ``world``: a
+    training world, which the MoE layer joins itself (its rows, experts
+    and slices; ``_block`` joins the dense FFN's)."""
     if cfg.n_experts:
-        check_moe_mesh(cfg, mesh)
         moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
                       "w_up": lp["w_up"], "w_down": lp["w_down"]}
         y, aux = moe.moe_layer(moe_params, h, cfg.moe_config(),
-                               token_mask=token_mask)
-        return y, moe.moe_aux_total(aux)
+                               token_mask=token_mask, world=world)
+        return _reduced(y, mesh), moe.moe_aux_total(aux)
     if "w_gate_q" in lp:
         gate = qmm(h, lp["w_gate_q"], lp["w_gate_s"], cfg)
         up = qmm(h, lp["w_up_q"], lp["w_up_s"], cfg)
@@ -448,16 +448,20 @@ def head_logits(params, x, cfg: LlamaConfig, mesh=None):
 def _block(x, lp, inv_freq, positions, cfg: LlamaConfig, tp=None):
     """One transformer block on x [B, S, D] in the compute dtype ->
     (x, the layer's MoE aux: 0.0 for a dense layer). ``tp``: the
-    training world whose ``tensor`` axis cuts ``lp`` (module
-    docstring), or None."""
+    training world whose ``tensor`` (and ``expert``) axes cut ``lp``
+    (module docstring), or None."""
     h = tensor.copy(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q, k, v = qkv_proj(lp, h, cfg)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
     o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
     x = x + tensor.reduce(out_proj(lp, o, cfg), tp)
-    h = tensor.copy(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
-    delta, aux = _ffn(h, lp, cfg)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.n_experts:
+        # the MoE layer joins its peers itself (parallel/moe.py)
+        delta, aux = _ffn(h, lp, cfg, world=tp)
+        return x + delta, aux
+    delta, aux = _ffn(tensor.copy(h, tp), lp, cfg)
     return x + tensor.reduce(delta, tp), aux
 
 
@@ -486,16 +490,16 @@ def _remat_wrap(fn, cfg: LlamaConfig):
 
 def _weights(params):
     """(the weights outside the layers, ``i`` -> layer ``i``'s weights,
-    the world whose ``tensor`` axis cuts them or None): the layer loop's
+    the training world that holds them or None): the layer loop's
     accessor. A tree's layers come from one unbind per stacked weight,
     not an index per layer: the backward of unbind stacks the layers'
     gradients once, where indexing would add a zero-filled full
     [L, ...] gradient into the leaf per layer. A rank's
     ``parallel.fsdp.FsdpParams`` gathers the rest once and each layer
-    when it is asked for; a ``parallel.tensor.TensorParams`` holds the
-    rank's slices."""
+    (its expert and tensor slice) when it is asked for; a
+    ``parallel.tensor.TensorParams`` holds the rank's slices."""
     if isinstance(params, FsdpParams):
-        return params.gather(None), params.gather, params.tensor
+        return params.gather(None), params.gather, params.world
     tp = None
     if isinstance(params, tensor.TensorParams):
         params, tp = params.tree, params.mesh
@@ -519,19 +523,17 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None,
     rather than keep them. Under remat "none" the gathered weights are
     saved for the backward like any activation, and live until it.
 
-    Under a world's ``tensor`` axis (``params`` a
-    ``parallel.tensor.TensorParams``, or ``FsdpParams`` over such a
-    world) every rank gets the whole logits of its rows (module
-    docstring); the block's forward collectives run again when remat
-    recomputes it. MoE raises ``parallel.moe.MOE_MESH`` there."""
+    Over a world (``params`` a ``parallel.tensor.TensorParams``, or
+    ``FsdpParams``) every rank gets the whole logits of its rows (module
+    docstring), and an MoE layer's aux is the global batch's; the
+    block's forward collectives run again when remat recomputes it."""
     top, layer, tp = _weights(params)
-    check_moe_mesh(cfg, tp)
     device = top["embed"].device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
     inv_freq = inv_freq_for(cfg, device)
-    x = (embed_tokens(top, tokens, cfg) if tp is None else
-         tensor.vocab_lookup(top["embed"], tokens, tp, cfg.dtype))
+    x = (tensor.vocab_lookup(top["embed"], tokens, tp, cfg.dtype)
+         if tensor.on(tp) else embed_tokens(top, tokens, cfg))
     block = _remat_wrap(
         lambda x, i: _block(x, layer(i), inv_freq, positions, cfg, tp), cfg)
     auxes = []
@@ -578,9 +580,8 @@ def prefill(params, tokens, cfg: LlamaConfig, cache,
     S) gives each prompt's true length: logits are read at position
     ``lengths-1`` and ``cache["len"]`` is set per sequence; positions at
     or past it do not route through MoE experts. Returns (logits [B, V]
-    float32, cache). MoE under a mesh raises.
+    float32, cache).
     """
-    check_moe_mesh(cfg, mesh)
     b, s = tokens.shape
     device = tokens.device
     if lengths is None:

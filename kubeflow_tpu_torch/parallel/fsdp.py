@@ -32,13 +32,14 @@ checkpointed block (``models/llama.forward`` under remat "full" or
 "dots"), the gather runs again when the backward recomputes the block,
 so the whole weights are not kept between the passes.
 
-Over a world with a ``tensor`` axis (``fsdp`` x ``tensor``) the tree a
-rank's ``FsdpParams`` is built from is its ``tensor`` slice
-(``sharding.tensor_part``): each slice is cut on ``embed`` over the
-rank's ``fsdp`` group (the ranks of its ``tensor`` index), so a gathered
-unit is the rank's slice of a layer, and ``tensor`` names the world for
-the model's collectives (``parallel/tensor.py``). ``gather_to_host``
-rebuilds whole leaves across both axes.
+Over a world with ``expert`` or ``tensor`` axes the tree a rank's
+``FsdpParams`` is built from is its expert and tensor slice
+(``sharding.axis_part``): each slice is cut on ``embed`` over the rank's
+``fsdp`` group (the ranks of its expert and tensor indices), so a
+gathered unit is the rank's slice of a layer, and ``world`` names the
+world for the model's collectives (``parallel/tensor.py``,
+``parallel/moe.py``). ``gather_to_host`` rebuilds whole leaves across
+the three axes.
 
 ``PlainGroup`` stands in for the group on one process, for the tests: its
 all-gather concatenates the ranks' parts (``torch.cat``) and its
@@ -151,8 +152,8 @@ class FsdpParams:
     (module docstring). Every leaf must be cut on some dim, a layer leaf
     on a dim other than its ``layers`` one.
 
-    ``tensor`` is ``group`` when it has a ``tensor`` axis over 1 (then
-    ``params`` is the rank's tensor slice of the tree), else None.
+    ``world`` is ``group`` when it is a training world (``params`` is
+    then the rank's expert and tensor slice of the tree), else None.
 
     ``timings`` counts the gathers and reduce-scatters (``gathers`` /
     ``scatters``), the bytes of the whole units they move (``*_bytes``)
@@ -163,7 +164,7 @@ class FsdpParams:
     def __init__(self, params: dict, axes: dict, rules, group):
         self.group = group
         self.n, self.index = group.fsdp, group.fsdp_index
-        self.tensor = group if getattr(group, "tensor", 1) > 1 else None
+        self.world = group if getattr(group, "size", 1) > 1 else None
         named = dict(_items(params))
         names = dict(_items(axes))
         first = next(iter(named.values()))
@@ -288,19 +289,18 @@ def gather_to_host(part: torch.Tensor, dims, group,
                    piece_bytes: int = 1 << 28) -> torch.Tensor:
     """The whole tensor of which this rank holds ``part``, gathered over
     ``group`` into host memory. ``dims``: ``{axis: the dim cut over it}``
-    for ``fsdp`` and ``tensor`` (None or empty: the rank holds it whole,
-    and gets a copy). A leaf cut on both axes is gathered over the
-    ``replica`` group, whose ranks' parts come in ``(fsdp, tensor)``
-    order. Cut on dims after the leading one, it is gathered in pieces
-    of leading rows whose whole takes at most ``piece_bytes`` (a row at
-    least), so the device holds one piece at a time; cut on the leading
-    dim, at once."""
-    sizes = {"fsdp": group.fsdp, "tensor": getattr(group, "tensor", 1)}
+    for ``fsdp``, ``expert`` and ``tensor`` (None or empty: the rank
+    holds it whole, and gets a copy). A leaf cut on several axes is
+    gathered over the group of those axes, whose ranks' parts come in
+    ``(fsdp, expert, tensor)`` order. Cut on dims after the leading one,
+    it is gathered in pieces of leading rows whose whole takes at most
+    ``piece_bytes`` (a row at least), so the device holds one piece at a
+    time; cut on the leading dim, at once."""
+    sizes = {a: getattr(group, a, 1) for a in ("fsdp", "expert", "tensor")}
     cut = {a: d for a, d in (dims or {}).items() if sizes[a] > 1}
     if not cut:
         return part.detach().to("cpu", copy=True)
-    axes = tuple(sorted(cut))
-    name = axes[0] if len(axes) == 1 else "replica"
+    axes = tuple(a for a in sizes if a in cut)
     n = math.prod(sizes[a] for a in axes)
     shape = list(part.shape)
     for a, d in cut.items():
@@ -313,7 +313,7 @@ def gather_to_host(part: torch.Tensor, dims, group,
         piece = part.detach()[a:a + rows].contiguous()
         got = torch.empty((n * piece.numel(),), dtype=part.dtype,
                           device=part.device)
-        group.all_gather(got, piece.view(-1), name)
+        group.all_gather(got, piece.view(-1), axes)
         parts = list(got.view(n, *piece.shape).unbind(0))
         # the innermost axis first: its parts lie next to each other
         for ax in reversed(axes):

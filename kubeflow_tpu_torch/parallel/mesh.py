@@ -28,17 +28,20 @@ contract for serving, where only the ``tensor`` axis is ported, and
 raises for any other axis set above 1.
 
 ``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
-``build_mesh``: ``data`` x ``fsdp`` x ``tensor`` processes, one device
-each (``rendezvous/bootstrap.py`` starts them and chooses the backend),
-with process groups per axis and per pair of axes. Under ``data`` every
-rank holds the whole train state and the gradients are all-reduced;
-under ``fsdp`` each rank holds its shard of the parameters and the
-optimizer state (``parallel/fsdp.py``), gathers each layer's weights
-before it runs and reduce-scatters its gradients after it; under
+``build_mesh``: ``data`` x ``fsdp`` x ``expert`` x ``tensor`` processes,
+one device each (``rendezvous/bootstrap.py`` starts them and chooses the
+backend), with process groups per axis and per set of axes. Under
+``data`` every rank holds the whole train state and the gradients are
+all-reduced; under ``fsdp`` each rank holds its shard of the parameters
+and the optimizer state (``parallel/fsdp.py``), gathers each layer's
+weights before it runs and reduce-scatters its gradients after it; under
 ``tensor`` each rank holds its Megatron cut of every ``heads`` /
 ``kv_heads`` / ``mlp`` / ``vocab`` leaf and the ranks of the axis,
 which feed the same rows, join their products through autograd-aware
-collectives (``parallel/tensor.py``).
+collectives (``parallel/tensor.py``); under ``expert`` each rank holds
+its share of every MoE layer's experts, feeds the same rows as its
+expert peers, and the MoE layer joins their outputs
+(``parallel/moe.py``).
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
                   "item 8.7); the tensor axis is ported for serving, and "
-                  "the data, fsdp and tensor axes for training")
+                  "the data, fsdp, expert and tensor axes for training")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
 # mesh is given another: a first command may build the CUDA kernels
@@ -347,17 +350,19 @@ class Backend:
 
 
 def resolve_world_axes(num_processes: int, data: int = 1,
-                       fsdp: int = -1, tensor: int = 1) -> tuple[int, int]:
+                       fsdp: int = -1, tensor: int = 1,
+                       expert: int = 1) -> tuple[int, int]:
     """``MeshConfig.resolved``'s rule over the world's axes, one device a
     process: at most one batch axis is -1 and absorbs what the others
-    leave (unset, every process the ``tensor`` axis leaves goes on
-    ``fsdp``); ``tensor`` is fixed; the sizes must multiply to
-    ``num_processes``. Returns ``(data, fsdp)``. Raises ValueError with
-    the JAX package's messages."""
-    if tensor < 1:
-        raise ValueError(f"tensor={tensor}: the tensor axis is fixed; only "
-                         "data or fsdp may be -1")
-    sizes = {"data": data, "fsdp": fsdp, "tensor": tensor}
+    leave (unset, every process the ``expert`` and ``tensor`` axes leave
+    goes on ``fsdp``); ``expert`` and ``tensor`` are fixed; the sizes
+    must multiply to ``num_processes``. Returns ``(data, fsdp)``. Raises
+    ValueError with the JAX package's messages."""
+    for name, size in (("tensor", tensor), ("expert", expert)):
+        if size < 1:
+            raise ValueError(f"{name}={size}: the {name} axis is fixed; "
+                             "only data or fsdp may be -1")
+    sizes = {"data": data, "fsdp": fsdp, "expert": expert, "tensor": tensor}
     wild = [k for k, v in sizes.items() if v == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one -1 axis allowed, got {wild}")
@@ -374,14 +379,22 @@ def resolve_world_axes(num_processes: int, data: int = 1,
     return sizes["data"], sizes["fsdp"]
 
 
+# the world's axes, outermost first (``AXIS_ORDER``'s)
+WORLD_AXES = ("data", "fsdp", "expert", "tensor")
+
 # the world's groups: each holds the ranks that differ only on its axes
-GROUP_AXES = {"world": ("data", "fsdp", "tensor"), "data": ("data",),
-              "fsdp": ("fsdp",), "tensor": ("tensor",),
-              # the ranks holding different rows (tensor peers feed the
-              # same rows)
+GROUP_AXES = {"world": WORLD_AXES, "data": ("data",), "fsdp": ("fsdp",),
+              "expert": ("expert",), "tensor": ("tensor",),
+              # the ranks holding different rows (expert and tensor peers
+              # feed the same rows)
               "batch": ("data", "fsdp"),
-              # the ranks holding the parts of one replica of the state
-              "replica": ("fsdp", "tensor")}
+              # the ranks feeding the same rows: an MoE layer's peers
+              "rows": ("expert", "tensor"),
+              # the ranks holding the parts of one replica of the state,
+              # and the pairs of its axes that cut one leaf
+              "replica": ("fsdp", "expert", "tensor"),
+              "fsdp_tensor": ("fsdp", "tensor"),
+              "fsdp_expert": ("fsdp", "expert")}
 
 
 def group_of(axes) -> str:
@@ -397,13 +410,14 @@ def group_of(axes) -> str:
 
 
 class WorldMesh:
-    """``data`` x ``fsdp`` x ``tensor`` training processes, one device
-    each (module docstring). Rank ``r`` sits at ``(d, f, t)`` with
-    ``r = (d * fsdp + f) * tensor + t``: ``data`` outermost and
-    ``tensor`` innermost, as in the JAX package's ``AXIS_ORDER``, so
-    tensor peers are neighbouring ranks (and cards), and a rank's place
-    in the batch (the JAX batch sharding ``("data", "fsdp")``) is
-    ``d * fsdp + f`` (``axis_index("batch")``).
+    """``data`` x ``fsdp`` x ``expert`` x ``tensor`` training processes,
+    one device each (module docstring). Rank ``r`` sits at ``(d, f, x,
+    t)`` with ``r = ((d * fsdp + f) * expert + x) * tensor + t``:
+    ``data`` outermost and ``tensor`` innermost, as in the JAX package's
+    ``AXIS_ORDER``, so tensor peers are neighbouring ranks (and cards),
+    and a rank's place in the batch (the JAX batch sharding ``("data",
+    "fsdp")``) is ``d * fsdp + f`` (``axis_index("batch")``): expert and
+    tensor peers feed the same rows.
 
     Built after ``torch.distributed``'s default group exists (gloo,
     ``rendezvous.bootstrap.join_world``); every rank builds it with the
@@ -414,30 +428,36 @@ class WorldMesh:
     groups.
     The groups (``GROUP_AXES``): ``world``, one per axis (``data``: the
     ranks holding the same shard; ``fsdp``: the ranks sharing one
-    replica's tensor slice; ``tensor``: the ranks feeding the same rows),
-    ``batch`` (``data`` x ``fsdp``) and ``replica`` (``fsdp`` x
-    ``tensor``: the ranks over which a leaf cut on both axes is summed).
+    replica's expert and tensor slice; ``expert``: the ranks holding the
+    other experts of the same rows; ``tensor``: the ranks holding the
+    other Megatron slices of the same rows), ``batch`` (``data`` x
+    ``fsdp``), ``rows`` (``expert`` x ``tensor``: an MoE layer's peers),
+    ``replica`` (``fsdp`` x ``expert`` x ``tensor``) and the pairs of its
+    axes that cut one leaf (over which a leaf's reductions are summed).
     Groups of one rank make no call; groups of the same ranks are one.
 
     ``timings`` sums, per rank, the seconds and bytes of the host-staged
     collectives: the device-to-host copies, the gloo calls and the
     host-to-device copies (NCCL's are queued on the stream and are not
-    timed here); and the ``tensor`` axis's collectives, wherever they
-    run: their calls, bytes and host seconds (``tensor_*``; under NCCL
-    the enqueue only)."""
+    timed here); the ``tensor`` axis's collectives, wherever they run:
+    their calls, bytes and host seconds (``tensor_*``; under NCCL the
+    enqueue only); and the MoE layers' (``moe_*``, the same readings:
+    the routing counts' all-gather and the statistics' all-reduce over
+    ``batch``, the copies' and the output's all-reduces over ``rows``)."""
 
     def __init__(self, data: int, fsdp: int, rank: int, device,
-                 backend: Backend, tensor: int = 1):
-        if data < 1 or fsdp < 1 or tensor < 1:
-            raise ValueError(f"data={data} fsdp={fsdp} tensor={tensor}: "
-                             "sizes must be >= 1")
-        self.data, self.fsdp, self.tensor = int(data), int(fsdp), int(tensor)
-        self.size = self.data * self.fsdp * self.tensor
+                 backend: Backend, tensor: int = 1, expert: int = 1):
+        if min(data, fsdp, tensor, expert) < 1:
+            raise ValueError(f"data={data} fsdp={fsdp} expert={expert} "
+                             f"tensor={tensor}: sizes must be >= 1")
+        self.data, self.fsdp = int(data), int(fsdp)
+        self.expert, self.tensor = int(expert), int(tensor)
+        self.size = self.data * self.fsdp * self.expert * self.tensor
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a world of {self.size}")
         self.rank = int(rank)
-        self.data_index, self.fsdp_index, self.tensor_index = \
-            self._coords(self.rank)
+        (self.data_index, self.fsdp_index, self.expert_index,
+         self.tensor_index) = self._coords(self.rank)
         self.device = torch.device(device)
         self.backend = backend
         self._groups: dict = {}
@@ -446,7 +466,8 @@ class WorldMesh:
         self.timings = {"d2h_s": 0.0, "gloo_s": 0.0, "h2d_s": 0.0,
                         "d2h_bytes": 0, "h2d_bytes": 0, "calls": 0,
                         "tensor_calls": 0, "tensor_bytes": 0,
-                        "tensor_s": 0.0}
+                        "tensor_s": 0.0, "moe_calls": 0, "moe_bytes": 0,
+                        "moe_s": 0.0}
         for name in GROUP_AXES:
             self._members[name] = self._ranks_of(name, self.rank)
         if self.size > 1:
@@ -460,31 +481,36 @@ class WorldMesh:
         the slices are processes too)."""
         return cls(layout.get("data", 1) * layout.get("dcn_data", 1),
                    layout.get("fsdp", 1) * layout.get("dcn_fsdp", 1),
-                   rank, device, backend, tensor=layout.get("tensor", 1))
+                   rank, device, backend, tensor=layout.get("tensor", 1),
+                   expert=layout.get("expert", 1))
 
     # ------------------------------------------------------------ identity
 
     def _coords(self, rank: int) -> tuple:
-        d, rest = divmod(rank, self.fsdp * self.tensor)
-        f, t = divmod(rest, self.tensor)
-        return d, f, t
+        out = []
+        for n in (self.tensor, self.expert, self.fsdp):
+            rank, i = divmod(rank, n)
+            out.append(i)
+        return (rank, *reversed(out))
 
     def _ranks_of(self, name: str, rank: int) -> tuple:
         """The ranks of group ``name`` that ``rank`` belongs to, in rank
         order (they differ from it only on the group's axes)."""
         over = GROUP_AXES[name]
-        mine = dict(zip(("data", "fsdp", "tensor"), self._coords(rank)))
+        mine = dict(zip(WORLD_AXES, self._coords(rank)))
         return tuple(r for r in range(self.size) if all(
-            c == mine[a] for a, c in zip(("data", "fsdp", "tensor"),
-                                         self._coords(r)) if a not in over))
+            c == mine[a] for a, c in zip(WORLD_AXES, self._coords(r))
+            if a not in over))
 
     @property
     def shape(self) -> dict:
         """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them (the
-        batch axes always; ``tensor`` where it is over 1)."""
+        batch axes always; ``expert`` and ``tensor`` where they are over
+        1)."""
         out = {"data": self.data, "fsdp": self.fsdp}
-        if self.tensor > 1:
-            out["tensor"] = self.tensor
+        for axis in ("expert", "tensor"):
+            if getattr(self, axis) > 1:
+                out[axis] = getattr(self, axis)
         return out
 
     def axis_size(self, axis) -> int:
@@ -505,9 +531,10 @@ class WorldMesh:
         return self.backend.name == "gloo" and self.device.type == "cuda"
 
     def describe(self) -> dict:
-        return {"data": self.data, "fsdp": self.fsdp, "tensor": self.tensor,
-                "rank": self.rank, "device": str(self.device),
-                "backend": self.backend.name, "reason": self.backend.reason}
+        return {"data": self.data, "fsdp": self.fsdp, "expert": self.expert,
+                "tensor": self.tensor, "rank": self.rank,
+                "device": str(self.device), "backend": self.backend.name,
+                "reason": self.backend.reason}
 
     def _make_groups(self) -> None:
         """Per group of more than one rank, this rank's: one process
@@ -519,9 +546,9 @@ class WorldMesh:
         if not dist.is_initialized() or dist.get_world_size() != self.size:
             raise RuntimeError(
                 f"a world of data={self.data} x fsdp={self.fsdp} x "
-                f"tensor={self.tensor} needs the default process group "
-                f"over {self.size} processes (rendezvous.bootstrap."
-                "initialize or join_world first)")
+                f"expert={self.expert} x tensor={self.tensor} needs the "
+                f"default process group over {self.size} processes "
+                "(rendezvous.bootstrap.initialize or join_world first)")
         be = self.backend.name
         lanes = GLOO_LANES if be == "gloo" else 1
         made: dict = {}
@@ -627,28 +654,33 @@ class WorldMesh:
         self.timings["gloo_s"] += time.perf_counter() - t0
         self.timings["calls"] += 1
 
-    def _tensor_timed(self, axis, x: torch.Tensor, call) -> None:
-        """``call()``, counted in ``timings``' ``tensor_*`` when ``axis``
-        is the tensor axis (``x``: the collective's input)."""
+    def _timed(self, axis, x: torch.Tensor, call, kind=None) -> None:
+        """``call()``, counted in ``timings``' ``{kind}_*`` (``x``: the
+        collective's input): ``kind`` "moe" for an MoE layer's calls,
+        else "tensor" for the tensor axis's, else not counted."""
         import time
 
-        if group_of(axis) != "tensor":
+        if kind is None and group_of(axis) == "tensor":
+            kind = "tensor"
+        if kind is None:
             call()
             return
         if self.via_host:
             torch.cuda.current_stream(self.device).synchronize()
         t0 = time.perf_counter()
         call()
-        self.timings["tensor_s"] += time.perf_counter() - t0
-        self.timings["tensor_calls"] += 1
-        self.timings["tensor_bytes"] += x.numel() * x.itemsize
+        self.timings[kind + "_s"] += time.perf_counter() - t0
+        self.timings[kind + "_calls"] += 1
+        self.timings[kind + "_bytes"] += x.numel() * x.itemsize
 
-    def all_reduce(self, x: torch.Tensor, axis="world") -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, axis="world",
+                   kind=None) -> torch.Tensor:
         """Sum ``x`` (contiguous) over ``axis`` (an axis or a group's
         name, ``GROUP_AXES``), in place; returns ``x``. Every rank of the
-        axis gets the same bytes."""
+        axis gets the same bytes. ``kind``: the ``timings`` readings it
+        counts in (``_timed``)."""
         if self.axis_size(axis) > 1:
-            self._tensor_timed(axis, x, lambda: self._all_reduce(x, axis))
+            self._timed(axis, x, lambda: self._all_reduce(x, axis), kind)
         return x
 
     def _all_reduce(self, x: torch.Tensor, axis) -> None:
@@ -705,16 +737,16 @@ class WorldMesh:
         return out
 
     def all_gather(self, out: torch.Tensor, x: torch.Tensor,
-                   axis="fsdp") -> torch.Tensor:
+                   axis="fsdp", kind=None) -> torch.Tensor:
         """``out`` [n * k] = every rank's ``x`` [k] of ``axis``,
-        concatenated in axis order."""
+        concatenated in axis order (``kind``: as ``all_reduce``'s)."""
         n, k = self.axis_size(axis), x.numel()
         if out.numel() != n * k:
             raise ValueError(f"all_gather of {n} parts of {k} into "
                              f"{out.numel()} elements")
         if n == 1:
             return out.copy_(x.view(out.shape))
-        self._tensor_timed(axis, out, lambda: self._all_gather(out, x, axis))
+        self._timed(axis, out, lambda: self._all_gather(out, x, axis), kind)
         return out
 
     def _all_gather(self, out: torch.Tensor, x: torch.Tensor, axis) -> None:

@@ -1,10 +1,9 @@
 """Mixture-of-Experts FFN (counterpart of ``kubeflow_tpu.parallel.moe``).
 
-The JAX layer's function, on one card: a float32 router picks each
-token's top-k experts (ties to the lower expert index, as ``lax.top_k``
-breaks them), their probabilities renormalised; the Switch load-balance
-loss and the router z-loss over the real tokens; then one of two
-dispatch paths.
+The JAX layer's function: a float32 router picks each token's top-k
+experts (ties to the lower expert index, as ``lax.top_k`` breaks them),
+their probabilities renormalised; the Switch load-balance loss and the
+router z-loss over the real tokens; then one of two dispatch paths.
 
 - **Capacity** (``capacity_factor > 0``, training): Switch/GShard dense
   dispatch. The (token, choice) pairs are flattened in priority order
@@ -21,8 +20,36 @@ Every shape is static and nothing reads a value back to the host (no
 ``.item()``, boolean-mask indexing or ``nonzero``; one-hots are index
 comparisons, where ``F.one_hot`` checks its indices on the host off the
 card), so the layer runs inside the captured decode program and the
-captured training step. The expert axis is not sharded: under a tensor
-mesh the model raises ``MOE_MESH`` (``models.llama.check_moe_mesh``).
+captured training step.
+
+Over a training world (``world=``, a ``parallel.mesh.WorldMesh``) each
+rank's result is what the JAX layer computes over the global micro batch
+under GSPMD, where sharding never changes the function:
+
+- over ``batch`` (``data`` x ``fsdp``: the ranks holding different rows)
+  the router's statistics are the global batch's: the sums behind both
+  aux losses and the dropped fraction travel in one all-reduce of a
+  small vector (``tensor.psum``, whose backward all-reduces too); the
+  capacity is ``ceil(G * n_batch * k / E * cf)``; and a pair's slot
+  follows JAX's priority order over the global batch (choice 0 of every
+  token first, within a choice the ranks in batch order, then the local
+  tokens): the counts of every rank for the earlier choices, plus those
+  of the earlier ranks for the same choice, plus the local prefix, from
+  one all-gather of each rank's ``[k, E]`` counts;
+- over ``expert`` a rank holds experts ``[x * E / X, (x + 1) * E / X)``
+  and dispatches to them only (one-hots against the global ids; the
+  slots counted over all E), and over ``tensor`` its ``mlp`` slice of
+  every expert. Expert and tensor peers (the ``rows`` group) feed the
+  same rows: the tokens and the combine weights enter the experts
+  through ``tensor.copy`` over ``rows`` (each peer's gradient of them
+  covers its own experts and columns only) and the output leaves
+  through ``tensor.reduce`` over it. The router runs on every rank on
+  the tokens as they are (its gradient is whole there).
+
+Under a serving mesh (``parallel.mesh.TensorMesh``) the caller passes no
+world and all-reduces the output (``models.llama._reduced``): a rank
+holds the ``mlp`` slice of every expert, and its routing is every
+rank's.
 """
 
 from __future__ import annotations
@@ -35,14 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
-
-MOE_MESH = ("MoE layers (n_experts > 0) under a tensor mesh: the expert "
-            "axis and expert sharding are ROADMAP queue 1 item 8.7 "
-            "(parallel/)")
-MOE_WORLD = ("MoE layers (n_experts > 0) trained over a world of processes: "
-             "the router's load-balance statistics are the global batch's "
-             "in the JAX package, and the expert axis and expert sharding "
-             "are ROADMAP queue 1 item 8.7 (parallel/)")
+from kubeflow_tpu_torch.parallel import tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,15 +78,21 @@ class MoEConfig:
 
 
 def randn_stack(generator: torch.Generator, shape, fan_in: int,
-                dtype, device) -> torch.Tensor:
+                dtype, device, part: Optional[tuple] = None) -> torch.Tensor:
     """N(0, 1/fan_in) of ``shape`` [..., rows, cols] in ``dtype``, drawn one
     trailing matrix at a time (in index order) into the preallocated
-    stack, so no float32 temporary larger than one matrix exists."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for mat in out.view(-1, *shape[-2:]):
-        w = torch.randn(shape[-2:], generator=generator, device=device,
+    stack, so no float32 temporary larger than one matrix exists.
+    ``part``: the (rows, cols) slices of every matrix kept (a tensor
+    rank's share: the draws, and so the values, are the whole stack's)."""
+    rows, cols = part or (slice(None), slice(None))
+    full = tuple(shape[-2:])
+    kept = tuple(len(range(*sl.indices(n))) for sl, n in zip((rows, cols),
+                                                             full))
+    out = torch.empty(tuple(shape[:-2]) + kept, dtype=dtype, device=device)
+    for mat in out.view(-1, *kept):
+        w = torch.randn(full, generator=generator, device=device,
                         dtype=torch.float32)
-        mat.copy_(w.mul_(fan_in ** -0.5))
+        mat.copy_(w[rows, cols].mul_(fan_in ** -0.5))
     return out
 
 
@@ -122,23 +148,66 @@ def top_k(probs: torch.Tensor, k: int):
     return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
 
 
+def _aux(cfg: MoEConfig, top1_sum, probs_sum, valid_sum, z_sum) -> dict:
+    """The aux losses from the router's sums over the real tokens (of the
+    rank, or of the global batch)."""
+    denom = torch.clamp_min(valid_sum, 1.0)
+    return {
+        "moe_load_balance": cfg.load_balance_coef * cfg.n_experts
+        * torch.sum((top1_sum / denom) * (probs_sum / denom)),
+        "moe_router_z": cfg.router_z_coef * z_sum / denom,
+    }
+
+
+def _slots(onehot: torch.Tensor, k: int, g: int, world) -> torch.Tensor:
+    """Each valid (token, choice) pair's count among the pairs before it
+    (itself included) that chose its expert, in JAX's priority order over
+    the global batch (module docstring): [k*G, E] from the pairs' one-hots
+    ``onehot`` [k*G, E], ``world``'s ``batch`` ranks counted ahead of the
+    rank for the same choice."""
+    e = onehot.shape[1]
+    per = onehot.T.reshape(e, k, g)
+    mine = per.sum(-1, dtype=torch.int64).T.contiguous()       # [k, E]
+    n = world.axis_size("batch")
+    every = torch.empty((n * k * e,), dtype=torch.int64, device=mine.device)
+    world.all_gather(every, mine.view(-1), "batch", "moe")
+    every = every.view(n, k, e)
+    total = every.sum(0)                                       # [k, E]
+    ahead = total.cumsum(0) - total + every[:world.axis_index("batch")].sum(0)
+    count = per.cumsum(-1, dtype=torch.int64) + ahead.T[:, :, None]
+    return count.reshape(e, k * g).T
+
+
 def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
               capacity: Optional[int] = None,
-              token_mask: Optional[torch.Tensor] = None):
+              token_mask: Optional[torch.Tensor] = None, world=None):
     """Apply the MoE FFN. x: [B, S, D] -> (y [B, S, D] in x's dtype, aux).
 
-    ``params``: router [D, E], w_gate / w_up [E, D, M], w_down [E, M, D].
-    ``token_mask`` [B, S] bool marks the real tokens: padding rows
-    (prefill buckets, idle decode slots) neither route nor count in the
-    aux losses, so they cannot displace a real token from an expert's
-    capacity. ``aux``: float32 ``moe_load_balance``, ``moe_router_z``
-    (``moe_aux_total`` adds them) and the diagnostic
-    ``moe_dropped_fraction`` (of the valid choices)."""
+    ``params``: router [D, E], w_gate / w_up [E', D, M'], w_down
+    [E', M', D]: every expert whole, or over ``world``'s ``expert`` and
+    ``tensor`` axes the rank's experts (E' = E / expert) and ``mlp``
+    slice (M' = M / tensor). ``token_mask`` [B, S] bool marks the real
+    tokens: padding rows (prefill buckets, idle decode slots) neither
+    route nor count in the aux losses, so they cannot displace a real
+    token from an expert's capacity. ``aux``: float32
+    ``moe_load_balance``, ``moe_router_z`` (``moe_aux_total`` adds them)
+    and the diagnostic ``moe_dropped_fraction`` (of the valid choices).
+    ``world``: a training world (module docstring), or None: the one-card
+    function of the rows given."""
     b, s, d = x.shape
     g = b * s
     e, k, dt = cfg.n_experts, cfg.top_k, cfg.dtype
+    batch = tensor.on(world, "batch")
+    n_local = params["w_gate"].shape[0]
+    first = 0
+    if tensor.on(world, "expert"):
+        if n_local * world.axis_size("expert") != e:
+            raise ValueError(f"{n_local} experts a rank over expert="
+                             f"{world.axis_size('expert')}; the model has {e}")
+        first = world.axis_index("expert") * n_local
     if capacity is None:
-        capacity = max(1, int(math.ceil(g * k / e * cfg.capacity_factor)))
+        rows = g * (world.axis_size("batch") if batch else 1)
+        capacity = max(1, int(math.ceil(rows * k / e * cfg.capacity_factor)))
 
     tokens = x.reshape(g, d)
     logits = tokens.float() @ params["router"].float()
@@ -150,17 +219,16 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
     topk_probs = topk_probs / torch.clamp_min(
         topk_probs.sum(-1, keepdim=True), 1e-9)
 
-    # aux losses (float32, real tokens only): one formula for both paths
+    # the router's sums over the real tokens (float32): one formula for
+    # both paths, the global batch's over a world
     vf = valid.float()
-    denom = torch.clamp_min(vf.sum(), 1.0)
     top1 = one_hot(topk_idx[:, 0], e, torch.float32)
-    aux = {
-        "moe_load_balance": cfg.load_balance_coef * e * torch.sum(
-            ((top1 * vf[:, None]).sum(0) / denom)
-            * ((probs * vf[:, None]).sum(0) / denom)),
-        "moe_router_z": cfg.router_z_coef * torch.sum(
-            torch.logsumexp(logits, dim=-1) ** 2 * vf) / denom,
-    }
+    sums = [(top1 * vf[:, None]).sum(0), (probs * vf[:, None]).sum(0),
+            vf.sum()[None],
+            torch.sum(torch.logsumexp(logits, dim=-1) ** 2 * vf)[None]]
+    # the experts' inputs: through copy over the rows group (each peer's
+    # gradient covers its own experts and mlp columns)
+    tk = tensor.copy(tokens, world, "rows", "moe").to(dt)
 
     if cfg.capacity_factor <= 0:
         # dropless-exact: independent of batch composition, E/k x the
@@ -169,16 +237,19 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
         for j in range(k):
             gates = gates + one_hot(topk_idx[:, j], e, dt) \
                 * topk_probs[:, j, None].to(dt)
-        gates = gates * valid[:, None].to(dt)
-        tk = tokens.to(dt)
+        gates = tensor.copy(gates * valid[:, None].to(dt), world, "rows",
+                            "moe")
         y = torch.zeros((g, d), dtype=dt, device=x.device)
         for i, (wg, wu, wd) in enumerate(zip(
                 params["w_gate"].unbind(0), params["w_up"].unbind(0),
                 params["w_down"].unbind(0))):
             h = F.silu(tk @ wg.to(dt)) * (tk @ wu.to(dt))
-            y = y + gates[:, i, None] * (h @ wd.to(dt))
+            y = y + gates[:, first + i, None] * (h @ wd.to(dt))
+        sums = _global(sums, world, batch)
+        aux = _aux(cfg, *sums)
         aux["moe_dropped_fraction"] = torch.zeros(
             (), dtype=torch.float32, device=x.device)
+        y = tensor.reduce(y, world, "rows", "moe")
         return y.reshape(b, s, d).to(x.dtype), aux
 
     # each (token, choice)'s slot in its expert's buffer: the count of
@@ -188,32 +259,55 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
     flat_valid = valid.repeat(k)                               # [k*G]
     onehot = one_hot(flat_idx, e, torch.int32) \
         * flat_valid[:, None]                                  # [k*G, E]
-    # the running count per expert, scanned along the contiguous dim: a
-    # scan down dim 0 of [k*G, E] runs on E columns alone (on an H100,
-    # 1.45 ms a call at G = 4096, E = 8: 14 % of the MoE training step)
-    count = torch.cumsum(onehot.T.contiguous(), dim=1).T       # [k*G, E]
+    if batch:
+        count = _slots(onehot, k, g, world)
+    else:
+        # the running count per expert, scanned along the contiguous dim:
+        # a scan down dim 0 of [k*G, E] runs on E columns alone (on an
+        # H100, 1.45 ms a call at G = 4096, E = 8: 14 % of the MoE
+        # training step)
+        count = torch.cumsum(onehot.T.contiguous(), dim=1).T   # [k*G, E]
     pos = ((count - 1) * onehot).sum(-1)                       # [k*G]
     keep = (pos < capacity) & flat_valid
     pos = torch.where(keep, pos, 0)
 
-    disp = (one_hot(flat_idx, e, dt)[:, :, None]
+    # the rank's experts only: their local ids (an id outside them
+    # matches no column)
+    mine = flat_idx - first if first else flat_idx
+    disp = (one_hot(mine, n_local, dt)[:, :, None]
             * one_hot(pos, capacity, dt)[:, None, :]
-            * keep[:, None, None].to(dt))                      # [k*G, E, C]
-    disp = disp.reshape(k, g, e, capacity)
-    weights = topk_probs.T.reshape(k, g).to(dt)                # [k, G]
-    combine = (disp * weights[:, :, None, None]).sum(0)        # [G, E, C]
-    dispatch = disp.sum(0)                                     # [G, E, C]
+            * keep[:, None, None].to(dt))                      # [k*G, E', C]
+    disp = disp.reshape(k, g, n_local, capacity)
+    weights = tensor.copy(topk_probs.T.reshape(k, g).to(dt), world, "rows",
+                          "moe")                               # [k, G]
+    combine = (disp * weights[:, :, None, None]).sum(0)        # [G, E', C]
+    dispatch = disp.sum(0)                                     # [G, E', C]
 
-    expert_in = torch.einsum("gec,gd->ecd", dispatch, tokens.to(dt))
+    expert_in = torch.einsum("gec,gd->ecd", dispatch, tk)
     h = F.silu(torch.einsum("ecd,edm->ecm", expert_in,
                             params["w_gate"].to(dt)))
     h = h * torch.einsum("ecd,edm->ecm", expert_in, params["w_up"].to(dt))
     expert_out = torch.einsum("ecm,emd->ecd", h, params["w_down"].to(dt))
     y = torch.einsum("gec,ecd->gd", combine, expert_out)
+    y = tensor.reduce(y, world, "rows", "moe")
 
-    aux["moe_dropped_fraction"] = ((~keep) & flat_valid).float().sum() \
-        / torch.clamp_min(flat_valid.float().sum(), 1.0)
+    sums += [((~keep) & flat_valid).float().sum()[None],
+             flat_valid.float().sum()[None]]
+    *sums, dropped, choices = _global(sums, world, batch)
+    aux = _aux(cfg, *sums)
+    aux["moe_dropped_fraction"] = dropped / torch.clamp_min(choices, 1.0)
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _global(sums: list, world, batch: bool) -> list:
+    """The sums (each 1-d) over ``world``'s ``batch`` ranks, in one
+    all-reduce whose backward all-reduces too (``tensor.psum``), or as
+    they are; 0-d where a sum is one number."""
+    if batch:
+        sizes = [t.numel() for t in sums]
+        sums = list(tensor.psum(torch.cat(sums), world, "batch",
+                                "moe").split(sizes))
+    return [t[0] if t.numel() == 1 else t for t in sums]
 
 
 def moe_aux_total(aux: dict) -> torch.Tensor:

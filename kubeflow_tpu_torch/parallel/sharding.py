@@ -11,14 +11,16 @@ its own shard as a plain tensor. Two cuts exist:
   the dim whole.
 - training (``parallel.mesh.WorldMesh``): each parameter cut on the dim
   its rule puts on an axis (``axis_dim``) into equal contiguous parts in
-  rank order (``axis_shard``). Under ``tensor`` a rank keeps its slice
-  of every ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab`` dim
-  (``tensor_part``, by the rules the trainer is given: the slices
-  ``shard_tree`` cuts under ``DEFAULT_RULES``); under ``fsdp`` (ZeRO-3)
-  each parameter, or each rank's tensor slice of it, is cut on its
-  ``embed`` dim (``axis_dim``, ``axis_shard`` over ``fsdp``);
-  ``fsdp_unshard`` puts the parts back together. ``data`` holds no parameter dim: the state
-  is whole on each of its ranks.
+  rank order (``axis_shard``). Under ``expert`` a rank keeps its share
+  of every MoE layer's experts (the ``expert`` dim) and under ``tensor``
+  its slice of every ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab`` dim
+  (``axis_part``, by the rules the trainer is given: under
+  ``DEFAULT_RULES`` the tensor slices are those ``shard_tree`` cuts);
+  under ``fsdp`` (ZeRO-3) each parameter, or each rank's expert and
+  tensor slice of it, is cut on its ``embed`` dim (``axis_dim``,
+  ``axis_shard`` over ``fsdp``); ``fsdp_unshard`` puts the parts back
+  together. ``data`` holds no parameter dim: the state is whole on each
+  of its ranks.
 """
 
 from __future__ import annotations
@@ -72,10 +74,11 @@ def _mesh_axes(part) -> tuple:
 
 def _walk(logical, other, path=""):
     """(path, logical names, leaf of ``other``) over two nested dicts of
-    the same keys; the paths read as ``jax.tree_util.keystr``'s."""
+    the same keys, in ``jax.tree_util``'s order (sorted keys); the paths
+    read as ``jax.tree_util.keystr``'s."""
     if isinstance(logical, dict):
-        for key, sub in logical.items():
-            yield from _walk(sub, other[key], f"{path}['{key}']")
+        for key in sorted(logical):
+            yield from _walk(logical[key], other[key], f"{path}['{key}']")
     else:
         yield path, logical, other
 
@@ -167,12 +170,12 @@ def fsdp_unshard(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     return torch.cat(list(parts), dim=dim)
 
 
-def tensor_part(tree, axes, index: int, n: int, rules=None):
-    """A new tree of rank ``index``'s ``tensor`` slices of ``tree``'s
+def axis_part(tree, axes, axis: str, index: int, n: int, rules=None):
+    """A new tree of rank ``index``'s slices over ``axis`` of ``tree``'s
     leaves (of ``n``; ``axes``: the logical-axis tree), each a tensor of
-    its own; a leaf with no dim on ``tensor`` is kept as it is."""
+    its own; a leaf with no dim on ``axis`` is kept as it is."""
     if isinstance(tree, dict):
-        return {k: tensor_part(v, axes[k], index, n, rules)
+        return {k: axis_part(v, axes[k], axis, index, n, rules)
                 for k, v in tree.items()}
-    dim = axis_dim(axes, "tensor", rules)
-    return tree if dim is None else axis_shard(tree, dim, index, n, "tensor")
+    dim = axis_dim(axes, axis, rules)
+    return tree if dim is None else axis_shard(tree, dim, index, n, axis)

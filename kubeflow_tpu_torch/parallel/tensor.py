@@ -5,7 +5,7 @@ backward carries its counterpart.
 
 Tensor peers feed the same rows, and each holds its slice of every
 ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab`` dim (``sharding.
-tensor_part``). In a block (``models/llama._block``) the normed input
+axis_part``). In a block (``models/llama._block``) the normed input
 enters the column-parallel products (``wq``/``wk``/``wv``,
 ``w_gate``/``w_up``) through ``copy`` and the row-parallel ones (``wo``,
 ``w_down``) leave through ``reduce``:
@@ -26,13 +26,21 @@ enters the column-parallel products (``wq``/``wk``/``wv``,
   JAX model constrains them (``("batch", "seq", None)``), so the loss
   code is unchanged.
 
-Each takes the world (``mesh``; None returns the input: the one-card and
-batch-axes-only paths) and runs over its ``tensor`` group, whose
-calls, bytes and host seconds ``WorldMesh.timings`` counts
-(``tensor_*``). ``TensorParams`` is what the trainer hands the loss
-function under ``tensor`` without ``fsdp``: the rank's slices and the
-world they are cut over (under ``fsdp`` the rank's
-``parallel.fsdp.FsdpParams`` carries it).
+Each takes the world (``mesh``; None, or a group of one rank, returns
+the input: the one-card and batch-axes-only paths) and runs over its
+``tensor`` group, whose calls, bytes and host seconds
+``WorldMesh.timings`` counts (``tensor_*``). ``copy`` and ``reduce`` also
+take another group (``axis``): the MoE layer (``parallel/moe.py``)
+joins its expert and tensor peers through them over ``rows``. ``psum``
+is the sum over a group whose every rank goes on to use it, the MoE
+router's statistics over ``batch``: every rank's loss then depends on
+every rank's rows, so its backward all-reduces too (each rank's
+gradient of the sum is the total of the ranks' ``w_r * d aux / d sum``,
+where ``reduce``'s identity would keep only its own share).
+``TensorParams`` is what the trainer hands the loss function over a
+world without ``fsdp``: the rank's slices and the world they are cut
+over (under ``fsdp`` the rank's ``parallel.fsdp.FsdpParams`` carries
+it).
 """
 
 from __future__ import annotations
@@ -61,25 +69,38 @@ def local_tokens(tokens: torch.Tensor, index: int, n: int) -> tuple:
 
 class _Copy(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis, kind):
+        ctx.mesh, ctx.axis, ctx.kind = mesh, axis, kind
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        return ctx.mesh.all_reduce(g, "tensor"), None
+        return ctx.mesh.all_reduce(g, ctx.axis, ctx.kind), None, None, None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, axis, kind):
         return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format),
-                               "tensor")
+                               axis, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None, None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, kind):
+        ctx.mesh, ctx.axis, ctx.kind = mesh, axis, kind
+        return mesh.all_reduce(x.clone(memory_format=torch.contiguous_format),
+                               axis, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        return ctx.mesh.all_reduce(g, ctx.axis, ctx.kind), None, None, None
 
 
 class _GatherVocab(torch.autograd.Function):
@@ -99,24 +120,34 @@ class _GatherVocab(torch.autograd.Function):
         return g[..., a:a + ctx.k].contiguous(), None
 
 
-def _on(mesh) -> bool:
-    return mesh is not None and mesh.axis_size("tensor") > 1
+def on(mesh, axis="tensor") -> bool:
+    """Whether ``mesh`` (a world, or None) cuts anything over ``axis``."""
+    return mesh is not None and mesh.axis_size(axis) > 1
 
 
-def copy(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Enter column-parallel products (module docstring)."""
-    return _Copy.apply(x, mesh) if _on(mesh) else x
+def copy(x: torch.Tensor, mesh, axis="tensor", kind=None) -> torch.Tensor:
+    """Enter products whose peers over ``axis`` each give a part of the
+    input's gradient (module docstring); ``kind``: the
+    ``WorldMesh.timings`` readings its backward counts in."""
+    return _Copy.apply(x, mesh, axis, kind) if on(mesh, axis) else x
 
 
-def reduce(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Leave row-parallel products (module docstring)."""
-    return _Reduce.apply(x, mesh) if _on(mesh) else x
+def reduce(x: torch.Tensor, mesh, axis="tensor", kind=None) -> torch.Tensor:
+    """Leave products whose peers over ``axis`` each hold a part of the
+    sum (module docstring)."""
+    return _Reduce.apply(x, mesh, axis, kind) if on(mesh, axis) else x
+
+
+def psum(x: torch.Tensor, mesh, axis="batch", kind=None) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``, whose every rank goes on to use it
+    (module docstring): forward and backward all-reduce."""
+    return _Sum.apply(x, mesh, axis, kind) if on(mesh, axis) else x
 
 
 def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
     """The ranks' vocab columns of ``logits``, whole (module
     docstring)."""
-    return _GatherVocab.apply(logits, mesh) if _on(mesh) else logits
+    return _GatherVocab.apply(logits, mesh) if on(mesh) else logits
 
 
 def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh,

@@ -25,11 +25,11 @@ one device). The choice and its reason are logged and kept on
 from what fails: an NCCL error raises and is not retried on gloo.
 
 The world's layout: each process is one device, and a ``KFT_MESH`` whose
-``data`` x ``fsdp`` x ``tensor`` product (times ``KFT_DCN``'s ``data``
-and ``fsdp``) is the number of processes is accepted as that layout
-(``parallel.mesh.WorldMesh`` trains over it). ``KFT_DCN`` spans the
-batch axes only, as in the reference. Any other axis above 1 raises
-``parallel.mesh.PARALLEL_SLICE``: ``pipeline``, ``expert`` and
+``data`` x ``fsdp`` x ``expert`` x ``tensor`` product (times
+``KFT_DCN``'s ``data`` and ``fsdp``) is the number of processes is
+accepted as that layout (``parallel.mesh.WorldMesh`` trains over it).
+``KFT_DCN`` spans the batch axes only, as in the reference. Any other
+axis above 1 raises ``parallel.mesh.PARALLEL_SLICE``: ``pipeline`` and
 ``context`` are not ported.
 
 ``KFT_COMPILE_CACHE`` has no counterpart here: the JAX worker points
@@ -57,7 +57,7 @@ log = logging.getLogger(__name__)
 
 # the world's axes: one device a process, so their product is the
 # number of processes (fsdp absorbs the rest when it is not given)
-WORLD_AXES = ("data", "fsdp", "tensor", "dcn_data", "dcn_fsdp")
+WORLD_AXES = ("data", "fsdp", "expert", "tensor", "dcn_data", "dcn_fsdp")
 
 
 @dataclasses.dataclass
@@ -126,11 +126,11 @@ def world_from_env(env: Optional[Mapping[str, str]] = None) -> WorldInfo:
 
 def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
     """``KFT_MESH`` / ``KFT_DCN`` -> the world's axis sizes
-    (``WORLD_AXES``), one device a process. ``data``, ``fsdp`` and
-    ``tensor`` follow ``MeshConfig.resolved``'s rule
-    (``parallel.mesh.resolve_world_axes``): ``tensor`` is fixed, and
-    unset, ``fsdp`` takes every process the others leave, as the JAX
-    mesh's default puts every device on fsdp. Raises
+    (``WORLD_AXES``), one device a process. ``data``, ``fsdp``,
+    ``expert`` and ``tensor`` follow ``MeshConfig.resolved``'s rule
+    (``parallel.mesh.resolve_world_axes``): ``expert`` and ``tensor``
+    are fixed, and unset, ``fsdp`` takes every process the others leave,
+    as the JAX mesh's default puts every device on fsdp. Raises
     NotImplementedError (``PARALLEL_SLICE``) for any other axis above 1
     and ValueError when the sizes do not multiply to the number of
     processes."""
@@ -150,7 +150,8 @@ def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
             raise ValueError(f"mesh {sizes} does not divide "
                              f"{num_processes} processes")
         layout["data"], layout["fsdp"] = resolve_world_axes(
-            num_processes // slices, data, fsdp, layout["tensor"])
+            num_processes // slices, data, fsdp, layout["tensor"],
+            layout["expert"])
     total = 1
     for v in layout.values():
         total *= v

@@ -24,9 +24,11 @@ reference's ``main``:
    eagerly and the outcome is reported as ``"eager"``, never as a
    capture. Over more than one process the trainer trains over the
    world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data``,
-   ``fsdp`` and ``tensor``, by default every process on ``fsdp``), each
-   place in the batch axes feeding its own rows of the global batch, as
-   the reference's pods do (tensor peers feed the same rows); the
+   ``fsdp``, ``expert`` and ``tensor``, by default every process on
+   ``fsdp``), each place in the batch axes feeding its own rows of the
+   global batch, as the reference's pods do (expert and tensor peers
+   feed the same rows; the model is dense, so ``expert`` only
+   replicates it, as in the reference); the
    coordinator writes the metrics and the checkpoints, and every
    process restores its own part from them.
 
@@ -133,7 +135,8 @@ def train(world, device, steps: int, phases: dict, metrics_path,
         param_axes=llama.param_logical_axes(cfg))
     global_batch = max(2 * world.num_processes, 4)
     # this process's rows: the stream is seeded by its place in the
-    # batch axes (its process index where the world has no tensor axis)
+    # batch axes (its process index where the world has no expert or
+    # tensor axis)
     shard = ((mesh.axis_index("batch"), mesh.axis_size("batch"))
              if mesh is not None else None)
 

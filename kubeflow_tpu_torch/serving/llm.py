@@ -333,7 +333,6 @@ class LLMEngine:
             decode_chunk=decode_chunk, decode_pipeline=decode_pipeline,
             kernel=kernel, scheduler=scheduler, quant=quant)
         self.mesh = tensor_parallel(mesh)
-        llama.check_moe_mesh(cfg, self.mesh)
         if self.mesh is not None:
             tp = self.mesh.tp
             if cfg.n_kv_heads % tp:

@@ -4,7 +4,7 @@ layers (random bf16 weights from a seeded generator), on the card, as
 ``chip_smoke.py``'s phase 5m (c) checks it.
 
     python -m kubeflow_tpu_torch.tools.moe_quality [--layers 16]
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--tensor N]
 
 An engine at phase 5m's geometry (max_batch 8, max_seq 1024, block 64)
 free-runs greedy on one seeded 100-token prompt for 32 tokens; that
@@ -30,8 +30,22 @@ paths, then one JSON line with them and the card's name and power limit.
 A copy of the tree with a fault planted in one path reads what the
 smoke's limit would see.
 
-``MIXTRAL_8X7B`` (the published ``config.json``), ``mixtral_8x7b`` and
-``readings`` (the check's method) are what ``chip_smoke.py`` uses.
+With ``--tensor N`` it reads instead how far the same model served under
+``KFT_MESH=tensor=N`` (each rank the ``mlp`` slice of every expert, the
+MoE output all-reduced; ranks on cards of their own over NCCL where the
+machine has N, else all on card 0 over gloo) is from the one-card
+engine, as ``chip_smoke.py``'s phase 5n checks it and
+``tools/tp_quality.py`` does for llama3_8b: a one-card engine free-runs
+greedy on two seeded prompts of 16 tokens for 32, both engines replay
+those streams teacher-forced through their decode paths
+(``LLMEngine.teacher_forced_logits``: the same method on both, whose
+first step routes no expert on either), and it prints the greedy
+agreement and the max and rms logit error over the generated positions
+(``tp_quality.logit_errors``).
+
+``MIXTRAL_8X7B`` (the published ``config.json``), ``mixtral_8x7b``,
+``readings`` and ``tp_readings`` (the checks' methods) are what
+``chip_smoke.py`` uses.
 """
 
 from __future__ import annotations
@@ -204,6 +218,45 @@ def readings(eng, prompt: list, generated: list) -> dict:
     }
 
 
+def tp_readings(eng, streams: list, base) -> dict:
+    """The tensor-parallel check on ``eng`` (an engine under a mesh):
+    its teacher-forced logits of ``streams`` against ``base``, the
+    one-card engine's of the same streams (``tp_quality.logit_errors``)."""
+    from kubeflow_tpu_torch.tools.tp_quality import logit_errors
+
+    return logit_errors(base, eng.teacher_forced_logits(streams).cpu())
+
+
+def _tensor_main(cfg, source, tp: int, card: str) -> int:
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.tools.tp_quality import (
+        TP_KW, reference_streams, tp_devices,
+    )
+
+    one = LLMEngine(source, cfg, device="cuda", **ENGINE_KW)
+    streams = reference_streams(one, cfg.vocab_size)
+    base = one.teacher_forced_logits(streams).cpu()
+    del one
+    torch.cuda.empty_cache()
+    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={tp}"},
+                                  devices=tp_devices(tp))
+    eng = LLMEngine(source, cfg, mesh=mesh, **TP_KW)
+    try:
+        res = tp_readings(eng, streams, base)
+    finally:
+        eng.close()
+    print(f"Mixtral-8x7B widths, {cfg.n_layers} layers, tensor={tp} "
+          f"({mesh.backend}, {[str(d) for d in mesh.devices]}) vs one card: "
+          f"positions {res['positions']}, greedy-token agreement "
+          f"{res['greedy_token_agreement']!r}, max logit drift "
+          f"{res['max_logit_drift']!r}, rms logit error "
+          f"{res['rms_logit_error']!r}", flush=True)
+    print(json.dumps({"card": card, "layers": cfg.n_layers, "tensor": tp,
+                      "backend": mesh.backend, **res}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     from kubeflow_tpu_torch.serving.llm import LLMEngine, SamplingParams
 
@@ -213,11 +266,21 @@ def main(argv=None) -> int:
                     default="bfloat16",
                     help="weights and compute (float32: the paths' "
                          "arithmetic without bf16 rounding)")
+    ap.add_argument("--tensor", type=int, default=1,
+                    help="N > 1: the tensor-parallel check (module "
+                         "docstring)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("moe_quality needs a CUDA GPU")
     dtype = getattr(torch, args.dtype)
     cfg = dataclasses.replace(mixtral_8x7b(args.layers), dtype=dtype)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    if args.tensor > 1:
+        return _tensor_main(cfg, llama.SeededParams(SEED, dtype),
+                            args.tensor, card)
     eng = LLMEngine(llama.SeededParams(SEED, dtype), cfg, device="cuda",
                     **ENGINE_KW)
     rng = torch.Generator().manual_seed(7)
@@ -225,10 +288,6 @@ def main(argv=None) -> int:
                            generator=rng).tolist()
     [req] = eng.generate([prompt], SamplingParams(max_tokens=GEN))
     res = readings(eng, prompt, req.generated)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     print(f"Mixtral-8x7B widths, {args.layers} layers, {args.dtype}, "
           f"decode path vs full forward: rms/rms with the decode path's "
           f"routing {res['rms_over_rms']!r}, free "

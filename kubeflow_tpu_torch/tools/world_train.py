@@ -14,6 +14,8 @@ asked, the whole parameters.
                               devices=["cpu"] * 2, rundir=tmp)
     # data=1, fsdp=2, tensor=2: four ranks, tensor peers r and r + 1
     world_train.run(..., 1, 2, ["cpu"] * 4, tmp, tensor=2)
+    # data=2, expert=2 (an MoE config): expert peers r and r + 1
+    world_train.run(..., 2, 1, ["cpu"] * 4, tmp, expert=2)
 
 ``run`` spawns one process a rank (the ``spawn`` start method), each
 joining a gloo default group through a file in ``rundir``
@@ -24,14 +26,15 @@ bodies below with the job. A rank's result is written to
 makes ``run`` raise.
 
 Each rank feeds the rows of its place in the batch axes
-(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; tensor peers share
-it): ``batch_for(job, step, index)``, the synthetic token stream's draw
-(``training.data.synthetic_lm_batches``, seeded by ``[data_seed, step,
-index]``) and, with ``mask``, a loss mask drawn after it whose density
-varies by row and by index, so the token counts differ between the
-places. ``global_batch(job, n, step)`` is the concatenation of the rows
+(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; expert and tensor
+peers share it): ``batch_for(job, step, index)``, the synthetic token
+stream's draw (``training.data.synthetic_lm_batches``, seeded by
+``[data_seed, step, index]``) and, with ``mask``, a loss mask drawn
+after it whose density varies by row and by index, so the token counts
+differ between the places. ``global_batch(job, n, step)`` is the concatenation of the rows
 of the ``n`` places, the batch a one-process trainer (or the JAX
-trainer) takes for the same step.
+trainer) takes for the same step; with ``grad_accum``, micro batch by
+micro batch (the world's grouping, ``training/trainer.py``).
 
 The rank bodies: ``train_rank`` (``Job.runs`` one after another, each
 with a fresh trainer from the same parameters: "eager" steps, or
@@ -41,8 +44,10 @@ every rank), ``fit_rank`` (``fit`` with checkpoints: uninterrupted, and
 stopped at ``resume_at`` then resumed by a fresh trainer),
 ``restore_rank`` (a checkpoint restored into this world's layout),
 ``optimizer_rank`` (the optimizer on fsdp (and tensor) parts against
-the unsharded update of the whole tree) and ``plans_rank`` (several of
-them, each on its own layout of the same processes).
+the unsharded update of the whole tree), ``moe_layer_rank`` (one MoE
+layer of whole inputs over the world: the rank's rows, experts and
+slices, forward and backward) and ``plans_rank`` (several of them, each
+on its own layout of the same processes).
 """
 
 from __future__ import annotations
@@ -71,7 +76,9 @@ class Job:
     ``merge_places``: place ``i`` of the batch axes feeds the rows of
     places ``i * k .. i * k + k - 1`` of the stream, concatenated (``k``
     the field), so a world with ``k`` times fewer places trains on the
-    same global batch."""
+    same global batch; with ``interleave``, micro batch by micro batch
+    (``global_batch``'s grouping), so it trains on the same global micro
+    batches too (an MoE layer's capacity and slots depend on them)."""
     config: llama.LlamaConfig
     trainer: dict
     local_batch: int
@@ -85,8 +92,10 @@ class Job:
     keep_params: bool = False
     profile: bool = False
     # each place in the batch axes feeds the rows of this many places of
-    # the stream (``rows_for``)
+    # the stream (``rows_for``), one after another or micro batch by
+    # micro batch
     merge_places: int = 1
+    interleave: bool = False
 
 
 def batch_for(job: Job, step: int, rank: int) -> dict:
@@ -104,21 +113,33 @@ def batch_for(job: Job, step: int, rank: int) -> dict:
     return out
 
 
+def _merged(parts: list, grad_accum: int) -> dict:
+    """The rows of ``parts`` (dicts of arrays), each part's micro batch
+    ``m`` (of ``grad_accum``) in micro batch ``m`` of the result."""
+    return {k: np.concatenate([np.split(p[k], grad_accum)[m]
+                               for m in range(grad_accum) for p in parts])
+            for k in parts[0]}
+
+
 def rows_for(job: Job, step: int, index: int) -> dict:
     """The rows place ``index`` of the batch axes feeds at step ``step``
-    (``Job.merge_places`` draws of ``batch_for``, concatenated)."""
+    (``Job.merge_places`` draws of ``batch_for``, merged)."""
     k = job.merge_places
     if k == 1:
         return batch_for(job, step, index)
     parts = [batch_for(job, step, index * k + j) for j in range(k)]
-    return {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
+    return _merged(parts, job.trainer.get("grad_accum", 1)
+                   if job.interleave else 1)
 
 
-def global_batch(job: Job, world: int, step: int) -> dict:
+def global_batch(job: Job, world: int, step: int,
+                 grad_accum: int = 1) -> dict:
     """The rows of step ``step`` of the ``world`` places of the batch
-    axes, concatenated in their order."""
-    parts = [batch_for(job, step, r) for r in range(world)]
-    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    axes in their order: each place's micro batch ``m`` (of
+    ``grad_accum``) in micro batch ``m`` of the result, so a trainer that
+    cuts it into ``grad_accum`` micro batches trains the world's."""
+    return _merged([batch_for(job, step, r) for r in range(world)],
+                   grad_accum)
 
 
 def make_trainer(job: Job, device: torch.device, mesh=None):
@@ -414,22 +435,96 @@ def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,
             for k in shapes}
 
 
+def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
+                   cases: Sequence[tuple], device=None) -> dict:
+    """``parallel.moe.moe_layer`` over the world on whole inputs, once a
+    case. ``inputs`` (numpy arrays or tensors, or a function of no
+    argument that makes them in the rank): ``x`` [B, S, D], ``params``
+    (``router`` [D, E], ``w_gate`` / ``w_up`` [E, D, M], ``w_down``
+    [E, M, D]), ``mask`` [B, S] bool and ``weights`` [B, S, D];
+    ``cases``: ``(name,
+    capacity factor, top_k, masked)``. The rank takes the rows of its
+    place in the batch axes, the experts of its ``expert`` index and the
+    ``mlp`` slice of its ``tensor`` index, in the inputs' dtype on
+    ``device`` (default the mesh's; without a mesh, the whole inputs:
+    the one-process layer), and runs the backward of ``sum(y *
+    weights) + aux / n`` (n the batch ranks: every batch rank adds the
+    global aux, so the world's summed gradients are those of the
+    whole-batch loss). Returns the rank's coordinates, per case the
+    output rows, the aux readings and the gradients of x and of the
+    rank's weights (on the host), and the world's ``timings``."""
+    from kubeflow_tpu_torch.parallel import moe
+
+    device = torch.device(device) if device is not None else mesh.device
+    size = (lambda a: mesh.axis_size(a)) if mesh is not None else \
+        (lambda a: 1)
+    index = (lambda a: mesh.axis_index(a)) if mesh is not None else \
+        (lambda a: 0)
+
+    def part(n_all, axis):
+        n, i = size(axis), index(axis)
+        return slice(i * n_all // n, (i + 1) * n_all // n)
+
+    if callable(inputs):
+        inputs = inputs()
+    b, _, d = inputs["x"].shape
+    e, _, m = inputs["params"]["w_gate"].shape
+    rows, experts, cols = part(b, "batch"), part(e, "expert"), \
+        part(m, "tensor")
+
+    def tensor(a):
+        """A tensor of its own on ``device``."""
+        if isinstance(a, np.ndarray):
+            return torch.tensor(np.ascontiguousarray(a), device=device)
+        return a.to(device, copy=True).contiguous()
+
+    whole = inputs["params"]
+    out = []
+    for _, cf, top_k, masked in cases:
+        params = {"router": tensor(whole["router"]),
+                  "w_gate": tensor(whole["w_gate"][experts, :, cols]),
+                  "w_up": tensor(whole["w_up"][experts, :, cols]),
+                  "w_down": tensor(whole["w_down"][experts, cols, :])}
+        for p in params.values():
+            p.requires_grad_(True)
+        x = tensor(inputs["x"][rows]).requires_grad_(True)
+        cfg = moe.MoEConfig(dim=d, mlp_dim=m, n_experts=e, top_k=top_k,
+                            capacity_factor=cf, dtype=x.dtype)
+        y, aux = moe.moe_layer(params, x, cfg,
+                               token_mask=(tensor(inputs["mask"][rows])
+                                           if masked else None),
+                               world=mesh)
+        loss = (y * tensor(inputs["weights"][rows])).sum() \
+            + moe.moe_aux_total(aux) / size("batch")
+        loss.backward()
+        out.append({"y": y.detach().cpu(),
+                    "aux": {k: float(v.detach()) for k, v in aux.items()},
+                    "x": x.grad.cpu(),
+                    "grads": {k: p.grad.cpu() for k, p in params.items()}})
+    return {"batch": (index("batch"), size("batch")),
+            "expert": (index("expert"), size("expert")),
+            "tensor": (index("tensor"), size("tensor")), "cases": out,
+            "timings": dict(mesh.timings) if mesh is not None else {}}
+
+
 def plans_rank(mesh: WorldMesh, plans: Sequence[tuple]) -> list:
-    """Several bodies over one world, each ``(data, fsdp[, tensor], body,
-    args)`` on a mesh of those sizes over the same processes (new
-    groups, the same backend); their results in order."""
+    """Several bodies over one world, each ``(data, fsdp[, tensor[,
+    expert]], body, args)`` on a mesh of those sizes over the same
+    processes (new groups, the same backend); their results in order."""
     out = []
     for *sizes, body, args in plans:
-        data, fsdp, tensor = (*sizes, 1)[:3]
-        m = mesh if (data, fsdp, tensor) == (
-            mesh.data, mesh.fsdp, mesh.tensor) else WorldMesh(
-            data, fsdp, mesh.rank, mesh.device, mesh.backend, tensor=tensor)
+        data, fsdp, tensor, expert = (*sizes, 1, 1)[:4]
+        m = mesh if (data, fsdp, tensor, expert) == (
+            mesh.data, mesh.fsdp, mesh.tensor, mesh.expert) else WorldMesh(
+            data, fsdp, mesh.rank, mesh.device, mesh.backend, tensor=tensor,
+            expert=expert)
         out.append(body(m, *args))
     return out
 
 
 def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
-               rundir: str, body, args: tuple, tensor: int = 1) -> None:
+               rundir: str, body, args: tuple, tensor: int = 1,
+               expert: int = 1) -> None:
     from kubeflow_tpu_torch.rendezvous.bootstrap import join_world
 
     device = torch.device(devices[rank])
@@ -437,7 +532,8 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
         torch.cuda.set_device(device)
     backend = join_world("file://" + os.path.join(rundir, "rendezvous"),
                          rank, len(devices), device)
-    mesh = WorldMesh(data, fsdp, rank, device, backend, tensor=tensor)
+    mesh = WorldMesh(data, fsdp, rank, device, backend, tensor=tensor,
+                     expert=expert)
     try:
         result = body(mesh, *args)
         torch.save(result, os.path.join(rundir, f"rank{rank}.pt"))
@@ -449,19 +545,20 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
 
 
 def run(body, args: tuple, data: int, fsdp: int, devices: Sequence[str],
-        rundir: str, tensor: int = 1) -> list:
-    """Spawn ``data * fsdp * tensor`` ranks, rank ``r`` on
+        rundir: str, tensor: int = 1, expert: int = 1) -> list:
+    """Spawn ``data * fsdp * expert * tensor`` ranks, rank ``r`` on
     ``devices[r]``, each running ``body(mesh, *args)``; their results in
     rank order (module docstring). ``rundir`` must be empty of an
     earlier world's rendezvous file."""
     import torch.multiprocessing as mp
 
-    n = data * fsdp * tensor
+    n = data * fsdp * tensor * expert
     if len(devices) != n:
-        raise ValueError(f"data={data} x fsdp={fsdp} x tensor={tensor} "
-                         f"needs {n} devices, got {list(devices)}")
+        raise ValueError(f"data={data} x fsdp={fsdp} x expert={expert} x "
+                         f"tensor={tensor} needs {n} devices, got "
+                         f"{list(devices)}")
     os.makedirs(rundir, exist_ok=True)
     mp.spawn(_rank_main, args=(list(devices), data, fsdp, rundir, body,
-                               args, tensor), nprocs=n, join=True)
+                               args, tensor, expert), nprocs=n, join=True)
     return [torch.load(os.path.join(rundir, f"rank{r}.pt"),
                        weights_only=False) for r in range(n)]

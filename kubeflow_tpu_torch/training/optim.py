@@ -15,18 +15,20 @@ the learning rate, the bias corrections and the decay are computed from
 them on the device in float32 (as optax's ``jnp`` arithmetic does), so
 no update reads the host and a replay never sees a frozen count.
 
-Under ``fsdp`` and ``tensor`` (``training/trainer.py`` with a
+Under ``fsdp``, ``expert`` and ``tensor`` (``training/trainer.py`` with a
 ``parallel.mesh.WorldMesh``) each rank updates its own part of every
 parameter, and ``Shards`` says how the parts were cut: a leaf may be cut
-on one dim over ``fsdp`` and another over ``tensor``. A transformation
+on one dim over ``fsdp``, another over ``expert`` and a third over
+``tensor``. A transformation
 given one reduces over the ranks that hold the other parts of the
 reduced dims wherever optax reduces over a whole leaf (the global norm
 and the block rms of the update and of the parameter: over every axis
 that cuts the leaf; the factored second moments' mean along a dim: over
 the axis that cuts that dim), so every rank applies its part of the
-unsharded update. A leaf no axis cuts (the norms under ``tensor``) is
-whole, and alike, on every rank that holds it, and counts once. Without
-``Shards`` nothing changes.
+unsharded update. A leaf no axis cuts (the norms under ``tensor``, the
+router and the attention under ``expert``) is whole, and alike, on
+every rank that holds it, and counts once. Without ``Shards`` nothing
+changes.
 
 ``torch.optim`` is not used: ``torch.optim.Adafactor`` has no
 ``min_dim_size_to_factor`` and no ``multiply_by_parameter_scale``, and
@@ -93,21 +95,26 @@ class GradientTransformation:
 class LeafCut:
     """One parameter held as a rank's part: the whole parameter's shape,
     the dim cut over ``fsdp`` (the group's one axis, where a group has
-    one) and the dim cut over ``tensor`` (None: not cut over it)."""
+    one), the dim cut over ``tensor`` and the dim cut over ``expert``
+    (None: not cut over it)."""
     full_shape: tuple
     dim: Optional[int] = None
     tensor_dim: Optional[int] = None
+    expert_dim: Optional[int] = None
+
+    def _dims(self) -> tuple:
+        return (("fsdp", self.dim), ("expert", self.expert_dim),
+                ("tensor", self.tensor_dim))
 
     @property
     def axes(self) -> tuple:
-        """The axes that cut the leaf, in ``(fsdp, tensor)`` order."""
-        return tuple(a for a, d in (("fsdp", self.dim),
-                                    ("tensor", self.tensor_dim))
-                     if d is not None)
+        """The axes that cut the leaf, in ``(fsdp, expert, tensor)``
+        order."""
+        return tuple(a for a, d in self._dims() if d is not None)
 
     def axis_of(self, dim: int) -> Optional[str]:
         """The axis that cuts ``dim``, or None."""
-        for axis, d in (("fsdp", self.dim), ("tensor", self.tensor_dim)):
+        for axis, d in self._dims():
             if d is not None and d == dim:
                 return axis
         return None
@@ -118,8 +125,8 @@ class Shards:
     """How the parameters an optimizer sees are cut over groups of ranks:
     ``cuts`` is a tree of ``LeafCut`` with the parameters' keys, and
     ``psum(t, axes)`` sums ``t`` in place over the ranks that differ on
-    ``axes`` (a tuple of ``fsdp`` and ``tensor``) and returns it (every
-    rank gets the same bytes)."""
+    ``axes`` (a tuple of ``fsdp``, ``expert`` and ``tensor``) and returns
+    it (every rank gets the same bytes)."""
     cuts: Any
     psum: Callable[[torch.Tensor, tuple], torch.Tensor]
 

@@ -18,9 +18,13 @@ which no graph can hold, so it runs eagerly in its turn. (b) always
 holds one (``finish_mode`` "eager"; "graph" otherwise: NCCL's
 collectives sit inside graph (b)); (a) holds them under ``fsdp``, whose
 micro body gathers each layer's weights and reduce-scatters its
-gradients, and under ``tensor``, whose micro body all-reduces every
-block's products (``micro_mode`` "eager" under gloo; "graph" under
-``data`` alone, whose micro body has none, and under NCCL). With neither body captured
+gradients, under ``tensor``, whose micro body all-reduces every
+block's products, and for an MoE model under ``expert`` or over
+several batch ranks, whose MoE layers gather their routing counts and
+all-reduce their statistics and outputs (``micro_mode`` "eager" under
+gloo; "graph" under ``data`` alone with a dense model, whose micro body
+has none, and under NCCL, where the routing collectives sit inside
+graph (a) too). With neither body captured
 there is no warm-up and no capture: the step runs as ``train_step``
 runs it without ``precompile``. Two graphs
 rather than one whole-step graph: each holds one

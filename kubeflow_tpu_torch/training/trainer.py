@@ -32,15 +32,33 @@ runs the optimizer on the parts (``optim.Shards``: every reduction over
 a whole leaf is summed over the group). Under ``tensor`` (Megatron's
 column and row cuts) the ranks of the axis feed the SAME rows, and each
 keeps its slice of every ``heads`` / ``kv_heads`` / ``mlp`` / ``vocab``
-leaf (``sharding.tensor_part``), which the model joins through the
+leaf (``sharding.axis_part``), which the model joins through the
 collectives of ``parallel/tensor.py``; its loss is the whole loss of
 those rows, so the sums are reduced over the ranks that hold different
 rows (the ``batch`` group, ``data`` x ``fsdp``), the gradients are
 never summed over ``tensor``, and the optimizer's whole-leaf reductions
-are summed over the axes that cut each leaf. Under ``fsdp`` x
-``tensor`` a rank's ``FsdpParams`` holds its tensor slice cut on
-``embed``. ``TrainerConfig.rules`` (logical axis -> mesh axes) places
-the parameters over a world; on one card there is nothing to place.
+are summed over the axes that cut each leaf. Under ``expert`` (an MoE
+model's expert parallelism) the ranks of the axis feed the same rows
+too, and each keeps its share of every MoE layer's experts and the whole
+rest; the MoE layer dispatches to the rank's experts and joins the
+peers' outputs (``parallel/moe.py``), and the router, the attention and
+the norms get equal gradients on every expert peer, never summed over
+it. Under ``fsdp`` x ``expert`` x ``tensor`` a rank's ``FsdpParams``
+holds its expert and tensor slice cut on ``embed``. An MoE layer over a
+world takes its router statistics, capacity and slots over the global
+micro batch, as the JAX layer does (``parallel.moe.moe_layer``).
+``TrainerConfig.rules`` (logical axis -> mesh axes) places the
+parameters over a world; on one card there is nothing to place.
+
+The world's micro batches: with ``grad_accum`` = n, micro batch ``m`` of
+a step is every batch rank's ``m``-th micro batch (its rows ``[m * b /
+n, (m + 1) * b / n)`` of the ``b`` it is fed), in batch order. The JAX
+trainer's micro batch ``m`` is the global batch's rows ``[m * B / n,
+(m + 1) * B / n)``. For a dense model the step does not depend on how
+rows group into micro batches; an MoE layer's capacity and slots do, so
+the JAX step equals the world's when its global batch holds, micro batch
+by micro batch, the ranks' micro batches in batch order (the same rows
+as the ranks' batches concatenated when n = 1).
 """
 
 from __future__ import annotations
@@ -57,7 +75,6 @@ from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
-from kubeflow_tpu_torch.parallel.moe import MOE_WORLD
 from kubeflow_tpu_torch.parallel.tensor import TensorParams
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
@@ -119,31 +136,34 @@ def make_optimizer(cfg: TrainerConfig, shards: Optional[optim.Shards] = None
 
 
 def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state,
-                    tensor: int) -> dict:
+                    sizes: dict) -> dict:
     """{optimizer state leaf: {axis: the dim it is cut on over it}}: each
     leaf's shape against the same leaf of the state the optimizer makes
-    for the whole parameters, and for their slices over ``tensor`` ranks
-    (on the meta device: no memory; both decide what factors on the
-    whole shapes, as the rank's optimizer does), which differ on the cut
-    dims alone."""
-    def meta(n):
+    for the whole parameters, for their slices over the ``expert``
+    ranks, and for those over the ``tensor`` ranks too (``sizes``: the
+    two axes' sizes; on the meta device: no memory; all decide what
+    factors on the whole shapes, as the rank's optimizer does), which
+    differ on the cut dims alone; what differs last is ``fsdp``'s."""
+    def meta(axes):
         def leaf(p, c):
             shape = list(c.full_shape)
-            if c.tensor_dim is not None:
-                shape[c.tensor_dim] //= n
+            for axis, d in (("expert", c.expert_dim),
+                            ("tensor", c.tensor_dim)):
+                if axis in axes and d is not None:
+                    shape[d] //= sizes[axis]
             return torch.empty(shape, dtype=p.dtype, device="meta")
         return optim.tree_map(leaf, parts, cuts)
 
     tx = make_optimizer(config, optim.Shards(cuts, lambda *a: None))
-    full = optim.named_leaves(tx.init(meta(1)))
-    sliced = optim.named_leaves(tx.init(meta(tensor)))
+    steps = [optim.named_leaves(tx.init(meta(axes)))
+             for axes in ((), ("expert",), ("expert", "tensor"))]
     out = {}
     for name, t in optim.named_leaves(opt_state).items():
         dims = {}
-        for axis, a, b in (("tensor", full[name], sliced[name]),
-                           ("fsdp", sliced[name], t)):
-            diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
-                    if x != y]
+        shapes = [s[name].shape for s in steps] + [t.shape]
+        for axis, a, b in zip(("expert", "tensor", "fsdp"), shapes,
+                              shapes[1:]):
+            diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
             if diff:
                 dims[axis] = diff[0]
         out[name] = dims
@@ -165,13 +185,14 @@ class Trainer:
     parameters' logical axes (``llama.param_logical_axes``), placed by
     ``config.rules``. Each rank calls every method the others call, in
     the same order, and feeds ``train_step`` its own rows of the global
-    batch (``config.grad_accum`` micro batches of them; tensor peers the
-    same rows: those of their place in the batch axes,
-    ``mesh.axis_index("batch")``). MoE parameters (an ``expert`` axis)
-    raise ``parallel.moe.MOE_WORLD``. Under ``fsdp`` the loss function
-    is given the rank's ``parallel.fsdp.FsdpParams`` and gathers the
-    weights it uses (``models/llama.forward`` does); under ``tensor``
-    alone a ``parallel.tensor.TensorParams`` of the rank's slices.
+    batch (``config.grad_accum`` micro batches of them, grouped over the
+    world as the module docstring says; expert and tensor peers the same
+    rows: those of their place in the batch axes,
+    ``mesh.axis_index("batch")``). Under ``fsdp`` the loss function is
+    given the rank's ``parallel.fsdp.FsdpParams`` and gathers the
+    weights it uses (``models/llama.forward`` does); otherwise a
+    ``parallel.tensor.TensorParams`` of the rank's slices and the world
+    (the whole tree under ``data`` alone).
 
     Every state tensor is written in place, step after step: the
     parameters and their gradient accumulators (``.grad``; under
@@ -195,8 +216,6 @@ class Trainer:
             if param_axes is None:
                 raise ValueError("a trainer over a world needs param_axes, "
                                  "the parameters' logical axes")
-            if any("expert" in names for names in _axes_leaves(param_axes)):
-                raise NotImplementedError(MOE_WORLD)
         self.param_axes = param_axes
         self.init_params_fn = init_params_fn
         self.loss_fn = loss_fn
@@ -216,10 +235,10 @@ class Trainer:
         Over a world every rank draws the same parameters; their dims
         must divide over the mesh axes they are placed on
         (``sharding.validate_divisibility``, the JAX message). Under
-        ``tensor`` each rank keeps its slices of them; under ``fsdp`` its
-        parts of them (of its slices), of their gradients and of the
-        optimizer state (``FsdpParams``). The whole tree drawn is freed
-        before the optimizer state is made."""
+        ``expert`` and ``tensor`` each rank keeps its slices of them;
+        under ``fsdp`` its parts of them (of its slices), of their
+        gradients and of the optimizer state (``FsdpParams``). The whole
+        tree drawn is freed before the optimizer state is made."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         params = self.init_params_fn(generator)
@@ -232,10 +251,12 @@ class Trainer:
                                            shapes, self.config.rules)
             self._check_world(params)
             cuts = self._leaf_cuts(shapes)
-            if self.mesh.tensor > 1:
-                params = sharding.tensor_part(
-                    params, self.param_axes, self.mesh.tensor_index,
-                    self.mesh.tensor, self.config.rules)
+            for axis in ("expert", "tensor"):
+                if getattr(self.mesh, axis) > 1:
+                    params = sharding.axis_part(
+                        params, self.param_axes, axis,
+                        self.mesh.axis_index(axis), getattr(self.mesh, axis),
+                        self.config.rules)
         if self.mesh is not None and self.mesh.fsdp > 1:
             self.params = FsdpParams(
                 optim.tree_map(lambda p: p.detach().to(self.device), params),
@@ -252,15 +273,15 @@ class Trainer:
                     p.grad = torch.zeros_like(p)
             else:
                 self._init_data()
-                if self.mesh.tensor > 1:
-                    self._loss_params = TensorParams(self.params, self.mesh)
+                self._loss_params = TensorParams(self.params, self.mesh)
         if self.mesh is not None and self.mesh.size // self.mesh.data > 1:
             self._init_shards(cuts)
         self.opt_state = self.optimizer.init(self.local_params)
         if self._shards is not None:
             self._opt_cut_dims = _state_cut_dims(
                 self.config, self.local_params, self._shards.cuts,
-                self.opt_state, self.mesh.tensor)
+                self.opt_state, {"expert": self.mesh.expert,
+                                 "tensor": self.mesh.tensor})
         self.step = 0
         zero = lambda: torch.zeros((), dtype=torch.float32,
                                    device=self.device)
@@ -291,18 +312,19 @@ class Trainer:
 
     def _leaf_cuts(self, shapes):
         """A tree of ``optim.LeafCut``: each parameter's whole shape and
-        the dims the world's ``fsdp`` and ``tensor`` axes (those over 1)
-        cut, by ``config.rules``."""
+        the dims the world's ``fsdp``, ``tensor`` and ``expert`` axes
+        (those over 1) cut, by ``config.rules``."""
         rules = self.config.rules
 
         def cut(shape, names):
             dims = [sharding.axis_dim(names, a, rules)
                     if getattr(self.mesh, a) > 1 else None
-                    for a in ("fsdp", "tensor")]
-            if dims[0] is not None and dims[0] == dims[1]:
+                    for a in ("fsdp", "tensor", "expert")]
+            placed = [d for d in dims if d is not None]
+            if len(set(placed)) < len(placed):
                 raise NotImplementedError(
-                    f"logical axes {tuple(names)}: dim {dims[0]} is on both "
-                    "fsdp and tensor; a dim is cut over one axis")
+                    f"logical axes {tuple(names)}: one dim is on two of "
+                    "fsdp, tensor and expert; a dim is cut over one axis")
             return optim.LeafCut(tuple(shape), *dims)
 
         return optim.tree_map(cut, shapes, self.param_axes)
@@ -320,9 +342,10 @@ class Trainer:
             off += p.numel()
 
     def _init_shards(self, cuts) -> None:
-        """Under ``fsdp`` or ``tensor``, once ``self.params`` holds the
-        rank's parts: the optimizer that updates the parts, summing its
-        whole-leaf reductions over the axes that cut each leaf."""
+        """Under ``fsdp``, ``expert`` or ``tensor``, once ``self.params``
+        holds the rank's parts: the optimizer that updates the parts,
+        summing its whole-leaf reductions over the axes that cut each
+        leaf."""
         self._shards = optim.Shards(cuts, self.mesh.all_reduce)
         self.optimizer = make_optimizer(self.config, self._shards)
 
@@ -478,7 +501,8 @@ class Trainer:
         under ``data``; under ``fsdp=n`` the rank's parts, 1/n of the
         parameters and gradients, and of every optimizer leaf that has
         the cut dim; under ``tensor=n`` its slices, the same share of
-        every leaf but the norms) and ``other`` (the
+        every leaf but the norms; under ``expert=n`` 1/n of every expert
+        leaf and the whole rest) and ``other`` (the
         staged batch with its host buffers where they lie on the trainer's
         device, the sums and the outputs); ``total``, their sum."""
         kinds = {"param": "params", "grad": "grads", "opt": "opt_state"}
@@ -502,7 +526,8 @@ class Trainer:
     def checkpoint_state(self) -> dict:
         """The whole train state ``{"params", "opt_state"}`` as one
         process holds it, which ``training.checkpoint`` saves. Under
-        ``fsdp`` or ``tensor`` every rank calls this: each leaf's parts
+        ``fsdp``, ``expert`` or ``tensor`` every rank calls this: each
+        leaf's parts
         are gathered into host memory, one leaf (and for a stacked leaf,
         one piece of layers) at a time, so the device never holds the
         whole state (``parallel.fsdp.gather_to_host``)."""
@@ -527,7 +552,8 @@ class Trainer:
         dims = {f"opt_state/{k}": d for k, d in self._opt_cut_dims.items()}
         if self._shards is not None:
             dims.update({f"params/{k}": {a: d for a, d in (
-                ("fsdp", c.dim), ("tensor", c.tensor_dim)) if d is not None}
+                ("fsdp", c.dim), ("expert", c.expert_dim),
+                ("tensor", c.tensor_dim)) if d is not None}
                 for k, c in optim.named_leaves(self._shards.cuts).items()})
         return dims
 
@@ -615,10 +641,12 @@ class Trainer:
         run over NCCL. gloo's cannot be captured: the finish body then
         runs eagerly after the replays (``step_graph.finish_mode``), and
         under ``fsdp``, whose micro body gathers and reduce-scatters each
-        layer, and under ``tensor``, whose micro body all-reduces the
-        products of every block, so does the micro body
-        (``step_graph.micro_mode``; with neither captured, the step runs
-        as it runs without ``precompile``). The log says what was
+        layer, under ``tensor``, whose micro body all-reduces the
+        products of every block, and for an MoE model under ``expert`` or
+        over several batch ranks, whose MoE layers gather their routing
+        counts and all-reduce their statistics and outputs, so does the
+        micro body (``step_graph.micro_mode``; with neither captured, the
+        step runs as it runs without ``precompile``). The log says what was
         captured, and why a body was not.
 
         Raises ValueError before ``init_state`` (JAX's check) and on a
@@ -632,8 +660,12 @@ class Trainer:
         self.step_graph = None
         self._stage(batch)
         nccl = self.mesh is None or self.mesh.backend.name == "nccl"
+        moe = any("expert" in names
+                  for names in _axes_leaves(self.param_axes or {}))
         micro_collectives = self.mesh is not None and (
-            self.mesh.fsdp > 1 or self.mesh.tensor > 1)
+            self.mesh.fsdp > 1 or self.mesh.tensor > 1
+            or self.mesh.expert > 1
+            or (moe and self.mesh.axis_size("batch") > 1))
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
             self.config.grad_accum, _COUNTERS, self.device,
@@ -644,7 +676,8 @@ class Trainer:
                     graph.micro_mode, graph.finish_mode,
                     "" if self.mesh is None else
                     f" ({self.mesh.backend.name}, data={self.mesh.data}, "
-                    f"fsdp={self.mesh.fsdp}, tensor={self.mesh.tensor}"
+                    f"fsdp={self.mesh.fsdp}, expert={self.mesh.expert}, "
+                    f"tensor={self.mesh.tensor}"
                     + ("" if nccl else
                        "; a gloo collective runs on the host, which no "
                        "CUDA graph can hold, so the bodies holding one "

@@ -99,9 +99,10 @@ def test_prefill_ragged_lengths_matches_jax(tiny):
 
 
 def test_moe_and_int8_raise_naming_the_slice(tiny):
-    """MoE, which raised until the MoE slice, runs on one card now and
-    raises only under a tensor mesh, naming ROADMAP queue 1 item 8.7 (its
-    parity cases are in tests/test_torch_moe.py). int8 weight trees,
+    """MoE, which raised until the MoE slice, runs on one card and under
+    a tensor mesh now, whose rank draws the mlp slice of every expert
+    (its parity cases are in tests/test_torch_moe.py and
+    tests/test_torch_moe_tp.py). int8 weight trees,
     which raised until the quantized-serving slice, are served now:
     prefill over the JAX package's int8 tree (tied and untied heads)
     matches its quantized prefill, logits and cache."""
@@ -116,9 +117,12 @@ def test_moe_and_int8_raise_naming_the_slice(tiny):
     assert logits.shape == (1, 4, moe.vocab_size)
     assert torch.isfinite(logits).all()
     mesh = types.SimpleNamespace(tp=2, rank=0)
-    with pytest.raises(NotImplementedError, match="MoE.*item 8.7"):
-        tl.init_params(torch.Generator().manual_seed(0), moe, device="cpu",
-                       mesh=mesh)
+    part = tl.init_params(torch.Generator().manual_seed(0), moe,
+                          device="cpu", mesh=mesh)
+    assert torch.equal(part["layers"]["w_gate"],
+                       mp["layers"]["w_gate"][..., :moe.mlp_dim // 2])
+    assert torch.equal(part["layers"]["moe_router"],
+                       mp["layers"]["moe_router"])
     untied = dataclasses.replace(jcfg, tie_embeddings=False)
     for jc, (jw, tc, _) in ((jcfg, (jp, tcfg, tp)),
                             (untied, _pair(untied, seed=2))):

@@ -496,26 +496,30 @@ def test_mixtral_checkpoint_matches_jax(tmp_path):
 # ------------------------------------------------------------- the mesh --
 
 def test_moe_under_a_mesh_raises_naming_item_8_7(tiny_moe, tmp_path):
-    """Every MoE entry point refuses a tensor mesh, naming where expert
-    sharding belongs; the same calls without a mesh run on one card."""
-    _, _, tcfg, tp = tiny_moe
-    mesh = types.SimpleNamespace(tp=2, rank=0, device=torch.device("cpu"))
-    match = "queue 1 item 8.7"
-    with pytest.raises(NotImplementedError, match=match):
-        tl.init_params(torch.Generator().manual_seed(0), tcfg,
-                       device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match=match):
-        LLMEngine(tp, tcfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match=match):
-        tl.prefill(tp, torch.zeros((1, 4), dtype=torch.long), tcfg,
-                   tl.init_cache(tcfg, 1, 4, device="cpu"), mesh=mesh)
+    """Of MoE under a serving mesh only the ``expert`` axis still raises,
+    naming item 8.7 (the JAX package has no test of it). A tensor mesh
+    draws and loads each rank's ``mlp`` slice of every expert, the
+    router whole (tests/test_torch_moe_tp.py holds the engine, the
+    shards and the runtime to the JAX package)."""
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+
+    _, _, tcfg, _ = tiny_moe
+    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
+        mesh_from_topology_env({"KFT_MESH": "expert=2,tensor=2",
+                                "KFT_FORCE_PLATFORM": "cpu"})
+    mesh = types.SimpleNamespace(tp=2, rank=1, device=torch.device("cpu"))
+    part = tl.init_params(torch.Generator().manual_seed(0), tcfg,
+                          device="cpu", mesh=mesh)
+    assert part["layers"]["w_gate"].shape == (2, 4, 64, 64)
+    assert part["layers"]["w_down"].shape == (2, 4, 64, 64)
+    assert part["layers"]["moe_router"].shape == (2, 64, 4)
     model_dir = str(tmp_path / "m")
     jcfg = jl.llama_tiny(n_experts=4, dtype=jnp.float32)
     j_hf.save_pretrained(model_dir, jcfg,
                          jl.init_params(jax.random.key(0), jcfg))
-    with pytest.raises(NotImplementedError, match=match):
-        t_hf.load_params(model_dir, dtype=torch.float32, device="cpu",
-                         mesh=mesh)
+    _, params = t_hf.load_params(model_dir, dtype=torch.float32,
+                                 device="cpu", mesh=mesh)
+    assert params["layers"]["w_up"].shape == (2, 4, 64, 64)
     _, params = t_hf.load_params(model_dir, dtype=torch.float32,
                                  device="cpu")
     assert params["layers"]["w_gate"].shape == (2, 4, 64, 128)

@@ -628,26 +628,32 @@ def test_world_axes_errors_match_mesh_config(data, fsdp, tensor, n):
 
 
 def test_axes_not_ported_still_raise_naming_their_item():
-    for mesh in ("tensor=2,context=2", "pipeline=2", "expert=2"):
+    for mesh in ("tensor=2,context=2", "pipeline=2"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
             t_boot.world_layout({"KFT_MESH": mesh}, 4)
 
 
 def test_moe_under_tensor_raises():
-    """MoE under a world raises ``MOE_WORLD`` in the trainer, and its
-    forward under the tensor axis ``MOE_MESH``; both name item 8.7."""
-    cfg = tl.llama_tiny(n_experts=4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        Trainer(lambda g: tl.init_params(g, cfg, device="cpu"),
-                lm_loss_fn(tl.forward, cfg), TrainerConfig(), device="cpu",
-                mesh=_stub_mesh(1, 1, 2),
-                param_axes=tl.param_logical_axes(cfg))
-    params = tl.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
-    stub = types.SimpleNamespace(axis_size=lambda a: 2)
-    with pytest.raises(NotImplementedError, match="MoE.*item 8.7"):
-        tl.forward(t_tensor.TensorParams(params, stub),
-                   torch.zeros((1, 4), dtype=torch.long), cfg)
+    """MoE under the tensor axis raises only where the JAX package does:
+    the trainer takes an MoE config over a tensor=2 world, and
+    ``init_state`` refuses an expert mlp dim that tensor=2 does not
+    divide, before any collective, with the JAX package's message."""
+    jcfg = dataclasses.replace(jl.llama_tiny(n_experts=4, dtype=jnp.float32),
+                               mlp_dim=129)
+    cfg = interop.config_from_jax(jcfg)
+    axes = tl.param_logical_axes(cfg)
+    with pytest.raises(ValueError) as want:
+        j_sharding.validate_divisibility(_jax_mesh(1, 1, 2), axes,
+                                         tl.param_shapes(cfg))
+    trainer = Trainer(lambda g: tl.init_params(g, cfg, device="cpu"),
+                      lm_loss_fn(tl.forward, cfg), TrainerConfig(),
+                      device="cpu", mesh=_stub_mesh(1, 1, 2),
+                      param_axes=axes)
+    with pytest.raises(ValueError) as got:
+        trainer.init_state()
+    assert str(got.value) == str(want.value)
+    assert "['layers']['w_down']: dim 129 not divisible by mesh axes " \
+        "('tensor',)" in str(got.value)
 
 
 # ------------------------------------------------------------------ pod --

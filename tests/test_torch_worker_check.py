@@ -114,7 +114,8 @@ def test_world_layout_agrees_with_the_reference_mesh(mesh, dcn, n):
 
 def test_world_layout_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError,
-                       match="data, fsdp and tensor axes for training"):
+                       match="data, fsdp, expert and tensor axes for "
+                             "training"):
         t_boot.world_layout({"KFT_MESH": "data=2,context=2"}, 4)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         t_boot.world_layout({"KFT_MESH": "pipeline=2"}, 2)
