@@ -44,12 +44,25 @@ capacity and slots are the global batch's, and under ``expert`` and
 ``tensor`` the rank runs its experts' ``mlp`` slices and joins its
 peers' outputs.
 
+Context parallelism (``attn_impl="ring"`` or ``"ulysses"``, the JAX
+package's ``attn_impl`` values): ``forward(..., mesh=)`` takes the
+training world (``parallel.mesh.WorldMesh``; by default the one the
+parameters carry), each rank runs its chunk of every row's tokens, at
+their global positions by default (``c * Sl + arange(Sl)``, so RoPE sees
+what the JAX package's sharded sequence sees), and attention joins the
+chunks over the ``context`` axis (``parallel/ring_attention.py``) on the
+rank's heads. Without a world these impls raise as the JAX model does;
+a world whose ``context`` axis cuts the sequence raises for any other
+impl, which would attend within the rank's chunk alone. Serving's
+prefill runs them as the flash path (as the JAX ``prefill`` does).
+
 ``forward`` honours ``cfg.remat`` while autograd records: "none" keeps
 every activation, "full" recomputes each block in backward
 (``torch.utils.checkpoint``), and "dots" saves only the weight products
 (``aten.mm``: the projections have no batch dims once flattened to rows)
-and recomputes everything else, the flash-attention forward included --
-the JAX package's ``checkpoint_dots_with_no_batch_dims``. The weight
+and recomputes everything else, the flash-attention forward included
+(the ring's with its shifts) -- the JAX package's
+``checkpoint_dots_with_no_batch_dims``. The weight
 products are written as row-major ``matmul``s so they reach ``aten.mm``.
 """
 
@@ -71,6 +84,9 @@ from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rope, rope_frequencies
 from kubeflow_tpu_torch.parallel import moe, tensor
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams
+from kubeflow_tpu_torch.parallel.ring_attention import (
+    ring_attention, ulysses_attention,
+)
 from kubeflow_tpu_torch.parallel.sharding import shard_slices
 
 
@@ -88,7 +104,9 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16
-    attn_impl: str = "xla"            # "xla" | "flash" | "pallas"
+    # "xla" | "flash" | "pallas" | "ring" | "ulysses" (the last two over
+    # a training world's context axis)
+    attn_impl: str = "xla"
     attn_block: int = 512
     remat: str = "full"               # "none" | "full" | "dots"
     z_loss: float = 1e-4
@@ -445,16 +463,37 @@ def head_logits(params, x, cfg: LlamaConfig, mesh=None):
         torch.einsum("...d,dv->...v", x, lm_head_weight(params, cfg)), mesh)
 
 
+CONTEXT_IMPLS = {"ring": ring_attention, "ulysses": ulysses_attention}
+
+
+def _attention(q, k, v, cfg: LlamaConfig, world):
+    """The block's causal attention by ``cfg.attn_impl`` (module
+    docstring): over the world's ``context`` axis for "ring" and
+    "ulysses", else ``ops.attention.attention``."""
+    if cfg.attn_impl in CONTEXT_IMPLS:
+        if world is None:
+            raise ValueError(f"attn_impl={cfg.attn_impl!r} requires mesh=")
+        return CONTEXT_IMPLS[cfg.attn_impl](q, k, v, world, causal=True)
+    if tensor.on(world, "context"):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} over context="
+            f"{world.axis_size('context')}: a rank holds one chunk of the "
+            "sequence, which this impl would attend within; use ring or "
+            "ulysses")
+    return attention(q, k, v, causal=True, impl=cfg.attn_impl)
+
+
 def _block(x, lp, inv_freq, positions, cfg: LlamaConfig, tp=None):
     """One transformer block on x [B, S, D] in the compute dtype ->
     (x, the layer's MoE aux: 0.0 for a dense layer). ``tp``: the
     training world whose ``tensor`` (and ``expert``) axes cut ``lp``
-    (module docstring), or None."""
+    and whose ``context`` axis cuts the sequence (module docstring), or
+    None."""
     h = tensor.copy(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q, k, v = qkv_proj(lp, h, cfg)
     q = apply_rope(q, positions, inv_freq)
     k = apply_rope(k, positions, inv_freq)
-    o = attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    o = _attention(q, k, v, cfg, tp)
     x = x + tensor.reduce(out_proj(lp, o, cfg), tp)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.n_experts:
@@ -507,7 +546,7 @@ def _weights(params):
     return params, lambda i: {k: v[i] for k, v in layers.items()}, tp
 
 
-def forward(params, tokens, cfg: LlamaConfig, positions=None,
+def forward(params, tokens, cfg: LlamaConfig, positions=None, mesh=None,
             return_aux: bool = False):
     """Full-sequence forward. tokens: [B, S] integer -> logits [B, S, V]
     float32. With ``return_aux``, (logits, {"moe_aux": the MoE penalties
@@ -524,13 +563,19 @@ def forward(params, tokens, cfg: LlamaConfig, positions=None,
     saved for the backward like any activation, and live until it.
 
     Over a world (``params`` a ``parallel.tensor.TensorParams``, or
-    ``FsdpParams``) every rank gets the whole logits of its rows (module
-    docstring), and an MoE layer's aux is the global batch's; the
+    ``FsdpParams``, or ``mesh``, the JAX argument: a
+    ``parallel.mesh.WorldMesh``) every rank gets the whole logits of its
+    rows (module docstring), under ``context`` those of its chunk of
+    their tokens, and an MoE layer's aux is the global batch's; the
     block's forward collectives run again when remat recomputes it."""
     top, layer, tp = _weights(params)
+    tp = mesh if mesh is not None else tp
     device = top["embed"].device
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=device)[None, :]
+        if tensor.on(tp, "context"):
+            positions = positions + tp.axis_index("context") \
+                * tokens.shape[1]
     inv_freq = inv_freq_for(cfg, device)
     x = (tensor.vocab_lookup(top["embed"], tokens, tp, cfg.dtype)
          if tensor.on(tp) else embed_tokens(top, tokens, cfg))

@@ -28,7 +28,8 @@ contract for serving, where only the ``tensor`` axis is ported, and
 raises for any other axis set above 1.
 
 ``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
-``build_mesh``: ``data`` x ``fsdp`` x ``expert`` x ``tensor`` processes,
+``build_mesh``: ``data`` x ``fsdp`` x ``expert`` x ``context`` x
+``tensor`` processes,
 one device each (``rendezvous/bootstrap.py`` starts them and chooses the
 backend), with process groups per axis and per set of axes. Under
 ``data`` every rank holds the whole train state and the gradients are
@@ -41,7 +42,11 @@ which feed the same rows, join their products through autograd-aware
 collectives (``parallel/tensor.py``); under ``expert`` each rank holds
 its share of every MoE layer's experts, feeds the same rows as its
 expert peers, and the MoE layer joins their outputs
-(``parallel/moe.py``).
+(``parallel/moe.py``); under ``context`` each rank feeds its chunk of
+the same rows' tokens and holds the same state as its context peers, and
+attention joins the chunks (``parallel/ring_attention.py``: K/V passed
+round the ring, ``ring_shift``, or the sequence cut swapped for a head
+cut, ``all_to_all``).
 """
 
 from __future__ import annotations
@@ -61,11 +66,17 @@ AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
                   "item 8.7); the tensor axis is ported for serving, and "
-                  "the data, fsdp, expert and tensor axes for training")
+                  "the data, fsdp, expert, context and tensor axes for "
+                  "training, context neither beside expert nor with an "
+                  "MoE model")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
 # mesh is given another: a first command may build the CUDA kernels
 DEFAULT_TIMEOUT_S = 600.0
+# a context collective's wait under gloo (NCCL's groups keep their own
+# watchdog timeout): a send posted without its receive raises after this
+# rather than hang the world
+CONTEXT_TIMEOUT_S = 600.0
 
 
 def parse_topology_env(env: Mapping[str, str]) -> dict:
@@ -351,18 +362,21 @@ class Backend:
 
 def resolve_world_axes(num_processes: int, data: int = 1,
                        fsdp: int = -1, tensor: int = 1,
-                       expert: int = 1) -> tuple[int, int]:
+                       expert: int = 1, context: int = 1) -> tuple[int, int]:
     """``MeshConfig.resolved``'s rule over the world's axes, one device a
     process: at most one batch axis is -1 and absorbs what the others
-    leave (unset, every process the ``expert`` and ``tensor`` axes leave
-    goes on ``fsdp``); ``expert`` and ``tensor`` are fixed; the sizes
-    must multiply to ``num_processes``. Returns ``(data, fsdp)``. Raises
-    ValueError with the JAX package's messages."""
-    for name, size in (("tensor", tensor), ("expert", expert)):
+    leave (unset, every process the ``expert``, ``context`` and
+    ``tensor`` axes leave goes on ``fsdp``); ``expert``, ``context`` and
+    ``tensor`` are fixed; the sizes must multiply to ``num_processes``.
+    Returns ``(data, fsdp)``. Raises ValueError with the JAX package's
+    messages."""
+    for name, size in (("tensor", tensor), ("expert", expert),
+                       ("context", context)):
         if size < 1:
             raise ValueError(f"{name}={size}: the {name} axis is fixed; "
                              "only data or fsdp may be -1")
-    sizes = {"data": data, "fsdp": fsdp, "expert": expert, "tensor": tensor}
+    sizes = {"data": data, "fsdp": fsdp, "expert": expert,
+             "context": context, "tensor": tensor}
     wild = [k for k, v in sizes.items() if v == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one -1 axis allowed, got {wild}")
@@ -380,14 +394,21 @@ def resolve_world_axes(num_processes: int, data: int = 1,
 
 
 # the world's axes, outermost first (``AXIS_ORDER``'s)
-WORLD_AXES = ("data", "fsdp", "expert", "tensor")
+WORLD_AXES = ("data", "fsdp", "expert", "context", "tensor")
 
 # the world's groups: each holds the ranks that differ only on its axes
 GROUP_AXES = {"world": WORLD_AXES, "data": ("data",), "fsdp": ("fsdp",),
-              "expert": ("expert",), "tensor": ("tensor",),
-              # the ranks holding different rows (expert and tensor peers
-              # feed the same rows)
+              "expert": ("expert",), "context": ("context",),
+              "tensor": ("tensor",),
+              # the ranks holding different rows (expert, context and
+              # tensor peers feed the same rows)
               "batch": ("data", "fsdp"),
+              # the ranks holding different tokens (context peers hold
+              # different chunks of the same rows): every sum over tokens
+              "tokens": ("data", "fsdp", "context"),
+              # the ranks holding the same part of the state and
+              # different tokens: the gradient all-reduce
+              "data_context": ("data", "context"),
               # the ranks feeding the same rows: an MoE layer's peers
               "rows": ("expert", "tensor"),
               # the ranks holding the parts of one replica of the state,
@@ -410,14 +431,16 @@ def group_of(axes) -> str:
 
 
 class WorldMesh:
-    """``data`` x ``fsdp`` x ``expert`` x ``tensor`` training processes,
-    one device each (module docstring). Rank ``r`` sits at ``(d, f, x,
-    t)`` with ``r = ((d * fsdp + f) * expert + x) * tensor + t``:
-    ``data`` outermost and ``tensor`` innermost, as in the JAX package's
-    ``AXIS_ORDER``, so tensor peers are neighbouring ranks (and cards),
-    and a rank's place in the batch (the JAX batch sharding ``("data",
-    "fsdp")``) is ``d * fsdp + f`` (``axis_index("batch")``): expert and
-    tensor peers feed the same rows.
+    """``data`` x ``fsdp`` x ``expert`` x ``context`` x ``tensor``
+    training processes, one device each (module docstring). Rank ``r``
+    sits at ``(d, f, x, c, t)`` with ``r = (((d * fsdp + f) * expert +
+    x) * context + c) * tensor + t``: ``data`` outermost and ``tensor``
+    innermost, as in the JAX package's ``AXIS_ORDER``, so tensor peers
+    are neighbouring ranks (and cards), and a rank's place in the batch
+    (the JAX batch sharding ``("data", "fsdp")``) is ``d * fsdp + f``
+    (``axis_index("batch")``): expert, context and tensor peers feed the
+    same rows, context peers each its chunk ``c`` of their tokens (the
+    JAX ``seq`` -> ``context`` rule).
 
     Built after ``torch.distributed``'s default group exists (gloo,
     ``rendezvous.bootstrap.join_world``); every rank builds it with the
@@ -430,8 +453,11 @@ class WorldMesh:
     ranks holding the same shard; ``fsdp``: the ranks sharing one
     replica's expert and tensor slice; ``expert``: the ranks holding the
     other experts of the same rows; ``tensor``: the ranks holding the
-    other Megatron slices of the same rows), ``batch`` (``data`` x
-    ``fsdp``), ``rows`` (``expert`` x ``tensor``: an MoE layer's peers),
+    other Megatron slices of the same rows; ``context``: the ranks
+    holding the other chunks of the same rows' tokens), ``batch``
+    (``data`` x ``fsdp``), ``tokens`` (``data`` x ``fsdp`` x
+    ``context``: every sum over tokens), ``data_context`` (the gradient
+    all-reduce), ``rows`` (``expert`` x ``tensor``: an MoE layer's peers),
     ``replica`` (``fsdp`` x ``expert`` x ``tensor``) and the pairs of its
     axes that cut one leaf (over which a leaf's reductions are summed).
     Groups of one rank make no call; groups of the same ranks are one.
@@ -443,21 +469,34 @@ class WorldMesh:
     their calls, bytes and host seconds (``tensor_*``; under NCCL the
     enqueue only); and the MoE layers' (``moe_*``, the same readings:
     the routing counts' all-gather and the statistics' all-reduce over
-    ``batch``, the copies' and the output's all-reduces over ``rows``)."""
+    ``batch``, the copies' and the output's all-reduces over ``rows``);
+    and the ``context`` axis's ``ring_shift`` and ``all_to_all``
+    (``context_*``, the same readings).
+
+    ``context`` beside ``expert`` raises NotImplementedError
+    (``PARALLEL_SLICE``)."""
 
     def __init__(self, data: int, fsdp: int, rank: int, device,
-                 backend: Backend, tensor: int = 1, expert: int = 1):
-        if min(data, fsdp, tensor, expert) < 1:
+                 backend: Backend, tensor: int = 1, expert: int = 1,
+                 context: int = 1):
+        if min(data, fsdp, tensor, expert, context) < 1:
             raise ValueError(f"data={data} fsdp={fsdp} expert={expert} "
-                             f"tensor={tensor}: sizes must be >= 1")
+                             f"context={context} tensor={tensor}: sizes "
+                             "must be >= 1")
+        if context > 1 and expert > 1:
+            raise NotImplementedError(
+                f"a training world over expert={expert} x context={context} "
+                f"{PARALLEL_SLICE}")
         self.data, self.fsdp = int(data), int(fsdp)
         self.expert, self.tensor = int(expert), int(tensor)
-        self.size = self.data * self.fsdp * self.expert * self.tensor
+        self.context = int(context)
+        self.size = (self.data * self.fsdp * self.expert * self.context
+                     * self.tensor)
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a world of {self.size}")
         self.rank = int(rank)
         (self.data_index, self.fsdp_index, self.expert_index,
-         self.tensor_index) = self._coords(self.rank)
+         self.context_index, self.tensor_index) = self._coords(self.rank)
         self.device = torch.device(device)
         self.backend = backend
         self._groups: dict = {}
@@ -467,7 +506,8 @@ class WorldMesh:
                         "d2h_bytes": 0, "h2d_bytes": 0, "calls": 0,
                         "tensor_calls": 0, "tensor_bytes": 0,
                         "tensor_s": 0.0, "moe_calls": 0, "moe_bytes": 0,
-                        "moe_s": 0.0}
+                        "moe_s": 0.0, "context_calls": 0,
+                        "context_bytes": 0, "context_s": 0.0}
         for name in GROUP_AXES:
             self._members[name] = self._ranks_of(name, self.rank)
         if self.size > 1:
@@ -482,13 +522,14 @@ class WorldMesh:
         return cls(layout.get("data", 1) * layout.get("dcn_data", 1),
                    layout.get("fsdp", 1) * layout.get("dcn_fsdp", 1),
                    rank, device, backend, tensor=layout.get("tensor", 1),
-                   expert=layout.get("expert", 1))
+                   expert=layout.get("expert", 1),
+                   context=layout.get("context", 1))
 
     # ------------------------------------------------------------ identity
 
     def _coords(self, rank: int) -> tuple:
         out = []
-        for n in (self.tensor, self.expert, self.fsdp):
+        for n in (self.tensor, self.context, self.expert, self.fsdp):
             rank, i = divmod(rank, n)
             out.append(i)
         return (rank, *reversed(out))
@@ -505,10 +546,10 @@ class WorldMesh:
     @property
     def shape(self) -> dict:
         """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them (the
-        batch axes always; ``expert`` and ``tensor`` where they are over
-        1)."""
+        batch axes always; ``expert``, ``context`` and ``tensor`` where
+        they are over 1)."""
         out = {"data": self.data, "fsdp": self.fsdp}
-        for axis in ("expert", "tensor"):
+        for axis in ("expert", "context", "tensor"):
             if getattr(self, axis) > 1:
                 out[axis] = getattr(self, axis)
         return out
@@ -532,7 +573,8 @@ class WorldMesh:
 
     def describe(self) -> dict:
         return {"data": self.data, "fsdp": self.fsdp, "expert": self.expert,
-                "tensor": self.tensor, "rank": self.rank,
+                "context": self.context, "tensor": self.tensor,
+                "rank": self.rank,
                 "device": str(self.device), "backend": self.backend.name,
                 "reason": self.backend.reason}
 
@@ -546,7 +588,8 @@ class WorldMesh:
         if not dist.is_initialized() or dist.get_world_size() != self.size:
             raise RuntimeError(
                 f"a world of data={self.data} x fsdp={self.fsdp} x "
-                f"expert={self.expert} x tensor={self.tensor} needs the "
+                f"expert={self.expert} x context={self.context} x "
+                f"tensor={self.tensor} needs the "
                 f"default process group over {self.size} processes "
                 "(rendezvous.bootstrap.initialize or join_world first)")
         be = self.backend.name
@@ -769,5 +812,94 @@ class WorldMesh:
                 [rows[r, a:b] for r in range(n)], src[a:b], group=g)
             for a, b in self._ranges(k, x.itemsize,
                                      len(self._groups[group_of(axis)]))])
+        if self.via_host:
+            self._from_host(out, dst)
+
+    def ring_shift(self, x: torch.Tensor, axis: str = "context"
+                   ) -> torch.Tensor:
+        """A new tensor holding the ``x`` of the rank before this one on
+        ``axis`` (index ``c - 1``, cyclically), while this rank's ``x``
+        goes to the rank after it (``c + 1``): one step round the ring.
+        Every rank of the axis calls it with a tensor of the same shape
+        and dtype. Counted in ``timings``' ``context_*``."""
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        if self.axis_size(axis) == 1:
+            return out.copy_(x)
+        self._timed(axis, x, lambda: self._ring_shift(out, x, axis),
+                    "context")
+        return out
+
+    def _ring_shift(self, out: torch.Tensor, x: torch.Tensor,
+                    axis: str) -> None:
+        import torch.distributed as dist
+
+        members = self._members[group_of(axis)]
+        c, n = members.index(self.rank), len(members)
+        nxt, prv = members[(c + 1) % n], members[(c - 1) % n]
+        if self.backend.name == "nccl":
+            # one NCCL group call: both ranks of a pair post their send
+            # and receive together, whatever order the ranks reach it in
+            group = self._groups[group_of(axis)][0]
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x.contiguous(), nxt, group),
+                dist.P2POp(dist.irecv, out, prv, group)])
+            for w in works:
+                w.wait()
+            return
+        src, dst = x.contiguous().view(-1), out.view(-1)
+        if self.via_host:
+            host = self._host(2 * x.numel(), x.dtype)
+            src, dst = host[:x.numel()], host[x.numel():]
+            self._to_host(src, x)
+
+        def sendrecv(group) -> None:
+            # both posted before either is waited for, so no rank blocks
+            # in a send whose receive its peer has not reached
+            works = [dist.isend(src, nxt, group=group),
+                     dist.irecv(dst, prv, group=group)]
+            for w in works:
+                w.wait(datetime.timedelta(seconds=CONTEXT_TIMEOUT_S))
+
+        self._gloo(axis, [sendrecv])
+        if self.via_host:
+            self._from_host(out, dst)
+
+    def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
+                   axis: str = "context") -> torch.Tensor:
+        """The ``jax.lax.all_to_all(x, axis, split_axis=split_dim,
+        concat_axis=concat_dim, tiled=True)`` of ``x``: ``x`` cut into n
+        equal chunks along ``split_dim`` (n the axis size), chunk j sent
+        to the rank of index j, and the n chunks this rank receives
+        concatenated along ``concat_dim`` in index order. Counted in
+        ``timings``' ``context_*``."""
+        n = self.axis_size(axis)
+        if x.shape[split_dim] % n:
+            raise ValueError(f"all_to_all of dim {x.shape[split_dim]} over "
+                             f"{axis}={n}")
+        if n == 1:
+            return x.clone(memory_format=torch.contiguous_format)
+        # [n, *chunk]: chunk j first, then the rest in x's order
+        parts = torch.stack(x.chunk(n, split_dim))
+        got = torch.empty_like(parts)
+        self._timed(axis, x, lambda: self._all_to_all(got, parts, axis),
+                    "context")
+        return torch.cat(got.unbind(0), dim=concat_dim)
+
+    def _all_to_all(self, out: torch.Tensor, x: torch.Tensor,
+                    axis: str) -> None:
+        import torch.distributed as dist
+
+        if self.backend.name == "nccl":
+            dist.all_to_all_single(out, x,
+                                   group=self._groups[group_of(axis)][0])
+            return
+        src, dst = x.view(-1), out.view(-1)
+        if self.via_host:
+            host = self._host(2 * x.numel(), x.dtype)
+            src, dst = host[:x.numel()], host[x.numel():]
+            self._to_host(src, x)
+        self._gloo(axis, [lambda group: dist.all_to_all_single(
+            dst, src, group=group, async_op=True).wait(
+                datetime.timedelta(seconds=CONTEXT_TIMEOUT_S))])
         if self.via_host:
             self._from_host(out, dst)

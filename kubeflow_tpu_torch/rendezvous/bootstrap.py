@@ -25,12 +25,12 @@ one device). The choice and its reason are logged and kept on
 from what fails: an NCCL error raises and is not retried on gloo.
 
 The world's layout: each process is one device, and a ``KFT_MESH`` whose
-``data`` x ``fsdp`` x ``expert`` x ``tensor`` product (times
-``KFT_DCN``'s ``data`` and ``fsdp``) is the number of processes is
-accepted as that layout (``parallel.mesh.WorldMesh`` trains over it).
+``data`` x ``fsdp`` x ``expert`` x ``context`` x ``tensor`` product
+(times ``KFT_DCN``'s ``data`` and ``fsdp``) is the number of processes
+is accepted as that layout (``parallel.mesh.WorldMesh`` trains over it).
 ``KFT_DCN`` spans the batch axes only, as in the reference. Any other
-axis above 1 raises ``parallel.mesh.PARALLEL_SLICE``: ``pipeline`` and
-``context`` are not ported.
+axis above 1 raises ``parallel.mesh.PARALLEL_SLICE``: ``pipeline`` is
+not ported, nor ``context`` beside ``expert``.
 
 ``KFT_COMPILE_CACHE`` has no counterpart here: the JAX worker points
 XLA's persistent compile cache at it, and the port compiles no XLA
@@ -57,7 +57,8 @@ log = logging.getLogger(__name__)
 
 # the world's axes: one device a process, so their product is the
 # number of processes (fsdp absorbs the rest when it is not given)
-WORLD_AXES = ("data", "fsdp", "expert", "tensor", "dcn_data", "dcn_fsdp")
+WORLD_AXES = ("data", "fsdp", "expert", "context", "tensor", "dcn_data",
+              "dcn_fsdp")
 
 
 @dataclasses.dataclass
@@ -127,16 +128,19 @@ def world_from_env(env: Optional[Mapping[str, str]] = None) -> WorldInfo:
 def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
     """``KFT_MESH`` / ``KFT_DCN`` -> the world's axis sizes
     (``WORLD_AXES``), one device a process. ``data``, ``fsdp``,
-    ``expert`` and ``tensor`` follow ``MeshConfig.resolved``'s rule
-    (``parallel.mesh.resolve_world_axes``): ``expert`` and ``tensor``
-    are fixed, and unset, ``fsdp`` takes every process the others leave,
-    as the JAX mesh's default puts every device on fsdp. Raises
-    NotImplementedError (``PARALLEL_SLICE``) for any other axis above 1
-    and ValueError when the sizes do not multiply to the number of
-    processes."""
+    ``expert``, ``context`` and ``tensor`` follow
+    ``MeshConfig.resolved``'s rule (``parallel.mesh.resolve_world_axes``):
+    ``expert``, ``context`` and ``tensor`` are fixed, and unset,
+    ``fsdp`` takes every process the others leave, as the JAX mesh's
+    default puts every device on fsdp. Raises NotImplementedError
+    (``PARALLEL_SLICE``) for any other axis above 1 and for ``context``
+    beside ``expert``, and ValueError when the sizes do not multiply to
+    the number of processes."""
     sizes = parse_topology_env(env)
     other = {k: v for k, v in sizes.items()
              if k not in WORLD_AXES and v > 1}
+    if sizes.get("context", 1) > 1 and sizes.get("expert", 1) > 1:
+        other.update(expert=sizes["expert"], context=sizes["context"])
     if other:
         raise NotImplementedError(
             f"KFT_MESH={env.get('KFT_MESH', '')!r} "
@@ -151,7 +155,7 @@ def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
                              f"{num_processes} processes")
         layout["data"], layout["fsdp"] = resolve_world_axes(
             num_processes // slices, data, fsdp, layout["tensor"],
-            layout["expert"])
+            layout["expert"], layout["context"])
     total = 1
     for v in layout.values():
         total *= v

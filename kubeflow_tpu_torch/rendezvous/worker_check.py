@@ -24,11 +24,14 @@ reference's ``main``:
    eagerly and the outcome is reported as ``"eager"``, never as a
    capture. Over more than one process the trainer trains over the
    world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data``,
-   ``fsdp``, ``expert`` and ``tensor``, by default every process on
-   ``fsdp``), each place in the batch axes feeding its own rows of the
-   global batch, as the reference's pods do (expert and tensor peers
-   feed the same rows; the model is dense, so ``expert`` only
-   replicates it, as in the reference); the
+   ``fsdp``, ``expert``, ``context`` and ``tensor``, by default every
+   process on ``fsdp``), each place in the batch axes feeding its own
+   rows of the global batch, as the reference's pods do (expert,
+   context and tensor peers feed the same rows, context peers each its
+   chunk of their tokens; the model is dense, so ``expert`` only
+   replicates it, as in the reference). Under ``context`` the model is
+   ``pod_config``'s: ring attention over the axis, at the flash
+   kernels' head_dim 64; the
    coordinator writes the metrics and the checkpoints, and every
    process restores its own part from them.
 
@@ -111,6 +114,26 @@ def world_check(world, device, mesh=None) -> float:
     return total
 
 
+def pod_config(mesh=None):
+    """The pod's model: the reference's ``llama_tiny`` in float32, and
+    over a world with a ``context`` axis the same with
+    ``attn_impl="ring"`` and 2 heads of 64 (dim 128; the flash kernels,
+    which every ring step launches on a card, take head_dim 64 or 128,
+    and llama_tiny's is 16). The reference's pod keeps llama_tiny there,
+    whose "xla" attention XLA joins across the sequence's shards."""
+    import dataclasses
+
+    import torch
+
+    from kubeflow_tpu_torch.models import llama
+
+    cfg = llama.llama_tiny(dtype=torch.float32)
+    if mesh is not None and mesh.context > 1:
+        cfg = dataclasses.replace(cfg, dim=128, n_heads=2, n_kv_heads=2,
+                                  attn_impl="ring")
+    return cfg
+
+
 def train(world, device, steps: int, phases: dict, metrics_path,
           mesh=None):
     """The ``KFT_TRAIN_STEPS`` mode (module docstring, step 3), over
@@ -125,7 +148,7 @@ def train(world, device, steps: int, phases: dict, metrics_path,
         lm_loss_fn, restore_latest, synthetic_lm_batches,
     )
 
-    cfg = llama.llama_tiny(dtype=torch.float32)
+    cfg = pod_config(mesh)
     trainer = Trainer(
         lambda g: llama.init_params(g, cfg, device=device),
         lm_loss_fn(llama.forward, cfg),
@@ -135,8 +158,8 @@ def train(world, device, steps: int, phases: dict, metrics_path,
         param_axes=llama.param_logical_axes(cfg))
     global_batch = max(2 * world.num_processes, 4)
     # this process's rows: the stream is seeded by its place in the
-    # batch axes (its process index where the world has no expert or
-    # tensor axis)
+    # batch axes (its process index where the world has no expert,
+    # context or tensor axis)
     shard = ((mesh.axis_index("batch"), mesh.axis_size("batch"))
              if mesh is not None else None)
 

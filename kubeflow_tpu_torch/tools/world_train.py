@@ -16,6 +16,9 @@ asked, the whole parameters.
     world_train.run(..., 1, 2, ["cpu"] * 4, tmp, tensor=2)
     # data=2, expert=2 (an MoE config): expert peers r and r + 1
     world_train.run(..., 2, 1, ["cpu"] * 4, tmp, expert=2)
+    # data=2, context=2 (attn_impl "ring" or "ulysses"): context peers
+    # r and r + 1, each training its chunk of the same rows' tokens
+    world_train.run(..., 2, 1, ["cpu"] * 4, tmp, context=2)
 
 ``run`` spawns one process a rank (the ``spawn`` start method), each
 joining a gloo default group through a file in ``rundir``
@@ -26,10 +29,11 @@ bodies below with the job. A rank's result is written to
 makes ``run`` raise.
 
 Each rank feeds the rows of its place in the batch axes
-(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; expert and tensor
-peers share it): ``batch_for(job, step, index)``, the synthetic token
-stream's draw (``training.data.synthetic_lm_batches``, seeded by
-``[data_seed, step, index]``) and, with ``mask``, a loss mask drawn
+(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; expert, context
+and tensor peers share it, and under ``context`` the trainer stages the
+rank's chunk of each row): ``batch_for(job, step, index)``, the
+synthetic token stream's draw (``training.data.synthetic_lm_batches``,
+seeded by ``[data_seed, step, index]``) and, with ``mask``, a loss mask drawn
 after it whose density varies by row and by index, so the token counts
 differ between the places. ``global_batch(job, n, step)`` is the concatenation of the rows
 of the ``n`` places, the batch a one-process trainer (or the JAX
@@ -46,7 +50,9 @@ stopped at ``resume_at`` then resumed by a fresh trainer),
 ``optimizer_rank`` (the optimizer on fsdp (and tensor) parts against
 the unsharded update of the whole tree), ``moe_layer_rank`` (one MoE
 layer of whole inputs over the world: the rank's rows, experts and
-slices, forward and backward) and ``plans_rank`` (several of them, each
+slices, forward and backward), ``attention_layer_rank`` (one attention
+layer of whole inputs over the ``context`` axis, forward and backward)
+and ``plans_rank`` (several of them, each
 on its own layout of the same processes).
 """
 
@@ -61,6 +67,7 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models import llama
+from kubeflow_tpu_torch.parallel import ring_attention as ra
 from kubeflow_tpu_torch.parallel.mesh import WorldMesh
 from kubeflow_tpu_torch.training import optim
 
@@ -507,24 +514,82 @@ def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
             "timings": dict(mesh.timings) if mesh is not None else {}}
 
 
+# the attention functions ``attention_layer_rank`` runs, by name
+ATTENTION_IMPLS = {"ring": ra.ring_attention,
+                   "ring_plain": ra.ring_attention_reference,
+                   "ulysses": ra.ulysses_attention}
+
+
+def attention_layer_rank(mesh: Optional[WorldMesh], inputs,
+                         impls: Sequence[str], causal: bool = True,
+                         device=None) -> dict:
+    """One attention layer over the world's ``context`` axis on whole
+    inputs, once an impl of ``impls`` (``ATTENTION_IMPLS``: the kernels'
+    ring, the ring through the kernels' plain versions, Ulysses).
+    ``inputs``: a function of the device that makes the whole q [B, S,
+    H, D], k/v [B, S, KV, D] and loss weights ``w`` [B, S, H, D] there
+    (every rank makes the same). The rank takes the rows of its place in
+    the batch axes and the tokens of its context index, runs the layer
+    and the backward of ``sum(o * w)``; without a mesh, the whole inputs
+    through ``ops.flash_attention.flash_attention`` (one process).
+    Returns where the rank's part lies (``rows``, ``tokens``: (start,
+    stop)) and per impl its output and the gradients of its q, k and v
+    (float32, on the host), the kernels' launches it made, and the
+    world's ``timings``."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    device = torch.device(device) if device is not None else mesh.device
+    whole = inputs(device)
+    b, s = whole["q"].shape[:2]
+    nb, ib = ((mesh.axis_size("batch"), mesh.axis_index("batch"))
+              if mesh is not None else (1, 0))
+    n, c = ((mesh.axis_size("context"), mesh.axis_index("context"))
+            if mesh is not None else (1, 0))
+    rows = (ib * b // nb, (ib + 1) * b // nb)
+    toks = (c * s // n, (c + 1) * s // n)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_dq,
+               fa.flash_attention_dkv)
+    out = {"rows": rows, "tokens": toks, "impls": {}}
+    for impl in impls:
+        part = {k: x[rows[0]:rows[1], toks[0]:toks[1]].clone()
+                for k, x in whole.items()}
+        q, k, v = (part[x].requires_grad_(True) for x in "qkv")
+        before = [f.launches for f in kernels]
+        if mesh is None:
+            o = fa.flash_attention(q, k, v, causal=causal)
+        else:
+            o = ATTENTION_IMPLS[impl](q, k, v, mesh, causal=causal)
+        (o.float() * part["w"].float()).sum().backward()
+        _sync(device)
+        out["impls"][impl] = {
+            "o": o.detach().float().cpu(), "q": q.grad.float().cpu(),
+            "k": k.grad.float().cpu(), "v": v.grad.float().cpu(),
+            "launches": {f.__name__: f.launches - a
+                         for f, a in zip(kernels, before)}}
+    out["timings"] = dict(mesh.timings) if mesh is not None else {}
+    return out
+
+
 def plans_rank(mesh: WorldMesh, plans: Sequence[tuple]) -> list:
     """Several bodies over one world, each ``(data, fsdp[, tensor[,
-    expert]], body, args)`` on a mesh of those sizes over the same
-    processes (new groups, the same backend); their results in order."""
+    expert[, context]]], body, args)`` on a mesh of those sizes over the
+    same processes (new groups, the same backend); their results in
+    order."""
     out = []
     for *sizes, body, args in plans:
-        data, fsdp, tensor, expert = (*sizes, 1, 1)[:4]
-        m = mesh if (data, fsdp, tensor, expert) == (
-            mesh.data, mesh.fsdp, mesh.tensor, mesh.expert) else WorldMesh(
+        data, fsdp, tensor, expert, context = (*sizes, 1, 1, 1)[:5]
+        m = mesh if (data, fsdp, tensor, expert, context) == (
+            mesh.data, mesh.fsdp, mesh.tensor, mesh.expert,
+            mesh.context) else WorldMesh(
             data, fsdp, mesh.rank, mesh.device, mesh.backend, tensor=tensor,
-            expert=expert)
+            expert=expert, context=context)
         out.append(body(m, *args))
     return out
 
 
 def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
                rundir: str, body, args: tuple, tensor: int = 1,
-               expert: int = 1) -> None:
+               expert: int = 1, context: int = 1) -> None:
     from kubeflow_tpu_torch.rendezvous.bootstrap import join_world
 
     device = torch.device(devices[rank])
@@ -533,7 +598,7 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
     backend = join_world("file://" + os.path.join(rundir, "rendezvous"),
                          rank, len(devices), device)
     mesh = WorldMesh(data, fsdp, rank, device, backend, tensor=tensor,
-                     expert=expert)
+                     expert=expert, context=context)
     try:
         result = body(mesh, *args)
         torch.save(result, os.path.join(rundir, f"rank{rank}.pt"))
@@ -545,20 +610,22 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
 
 
 def run(body, args: tuple, data: int, fsdp: int, devices: Sequence[str],
-        rundir: str, tensor: int = 1, expert: int = 1) -> list:
-    """Spawn ``data * fsdp * expert * tensor`` ranks, rank ``r`` on
-    ``devices[r]``, each running ``body(mesh, *args)``; their results in
-    rank order (module docstring). ``rundir`` must be empty of an
-    earlier world's rendezvous file."""
+        rundir: str, tensor: int = 1, expert: int = 1,
+        context: int = 1) -> list:
+    """Spawn ``data * fsdp * expert * context * tensor`` ranks, rank
+    ``r`` on ``devices[r]``, each running ``body(mesh, *args)``; their
+    results in rank order (module docstring). ``rundir`` must be empty of
+    an earlier world's rendezvous file."""
     import torch.multiprocessing as mp
 
-    n = data * fsdp * tensor * expert
+    n = data * fsdp * tensor * expert * context
     if len(devices) != n:
         raise ValueError(f"data={data} x fsdp={fsdp} x expert={expert} x "
-                         f"tensor={tensor} needs {n} devices, got "
-                         f"{list(devices)}")
+                         f"context={context} x tensor={tensor} needs {n} "
+                         f"devices, got {list(devices)}")
     os.makedirs(rundir, exist_ok=True)
     mp.spawn(_rank_main, args=(list(devices), data, fsdp, rundir, body,
-                               args, tensor, expert), nprocs=n, join=True)
+                               args, tensor, expert, context), nprocs=n,
+             join=True)
     return [torch.load(os.path.join(rundir, f"rank{r}.pt"),
                        weights_only=False) for r in range(n)]

@@ -19,9 +19,11 @@ holds one (``finish_mode`` "eager"; "graph" otherwise: NCCL's
 collectives sit inside graph (b)); (a) holds them under ``fsdp``, whose
 micro body gathers each layer's weights and reduce-scatters its
 gradients, under ``tensor``, whose micro body all-reduces every
-block's products, and for an MoE model under ``expert`` or over
-several batch ranks, whose MoE layers gather their routing counts and
-all-reduce their statistics and outputs (``micro_mode`` "eager" under
+block's products, under ``context``, whose attention passes K/V
+round the ring or all-to-alls every block's q, k, v and output, and
+for an MoE model under ``expert`` or over several batch ranks, whose
+MoE layers gather their routing counts and all-reduce their statistics
+and outputs (``micro_mode`` "eager" under
 gloo; "graph" under ``data`` alone with a dense model, whose micro body
 has none, and under NCCL, where the routing collectives sit inside
 graph (a) too). With neither body captured

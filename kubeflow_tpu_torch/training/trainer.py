@@ -46,9 +46,21 @@ the norms get equal gradients on every expert peer, never summed over
 it. Under ``fsdp`` x ``expert`` x ``tensor`` a rank's ``FsdpParams``
 holds its expert and tensor slice cut on ``embed``. An MoE layer over a
 world takes its router statistics, capacity and slots over the global
-micro batch, as the JAX layer does (``parallel.moe.moe_layer``).
-``TrainerConfig.rules`` (logical axis -> mesh axes) places the
-parameters over a world; on one card there is nothing to place.
+micro batch, as the JAX layer does (``parallel.moe.moe_layer``). Under
+``context`` (the JAX ``seq`` -> ``context`` rule) the ranks of the axis
+feed the same rows, each its chunk ``c`` of n of their tokens: the
+trainer stages ``[:, c * Sl : (c + 1) * Sl + 1]`` of every row (Sl = S /
+n; one token of overlap, so the loss function shifts its inputs and
+targets as it does on one card), and the model's attention joins the
+chunks (``parallel/ring_attention.py``, ``attn_impl`` "ring" or
+"ulysses"). Context peers hold the same state, so every sum over tokens
+(the loss, the weights, the metrics) runs over ``data`` x ``fsdp`` x
+``context`` (the ``tokens`` group) and the gradients are all-reduced
+over ``data`` x ``context``, while the optimizer's whole-leaf
+reductions never sum over it. ``context`` beside an MoE model raises
+(``parallel.mesh.PARALLEL_SLICE``). ``TrainerConfig.rules`` (logical
+axis -> mesh axes) places the parameters over a world; on one card
+there is nothing to place.
 
 The world's micro batches: with ``grad_accum`` = n, micro batch ``m`` of
 a step is every batch rank's ``m``-th micro batch (its rows ``[m * b /
@@ -75,6 +87,7 @@ from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
+from kubeflow_tpu_torch.parallel.mesh import PARALLEL_SLICE
 from kubeflow_tpu_torch.parallel.tensor import TensorParams
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
@@ -208,6 +221,9 @@ class Trainer:
                  mesh=None, param_axes=None):
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # the context axis's size (the JAX mesh shape's, 1 where absent)
+        self._context = (1 if self.mesh is None
+                         else self.mesh.shape.get("context", 1))
         if self.mesh is not None:
             if self.mesh.device != self.device:
                 raise ValueError(f"the mesh's rank computes on "
@@ -216,6 +232,10 @@ class Trainer:
             if param_axes is None:
                 raise ValueError("a trainer over a world needs param_axes, "
                                  "the parameters' logical axes")
+            if self._context > 1 and _moe(param_axes):
+                raise NotImplementedError(
+                    f"an MoE model over context={self._context} "
+                    f"{PARALLEL_SLICE}")
         self.param_axes = param_axes
         self.init_params_fn = init_params_fn
         self.loss_fn = loss_fn
@@ -274,7 +294,8 @@ class Trainer:
             else:
                 self._init_data()
                 self._loss_params = TensorParams(self.params, self.mesh)
-        if self.mesh is not None and self.mesh.size // self.mesh.data > 1:
+        if self.mesh is not None and self.mesh.size // (
+                self.mesh.data * self._context) > 1:
             self._init_shards(cuts)
         self.opt_state = self.optimizer.init(self.local_params)
         if self._shards is not None:
@@ -367,7 +388,10 @@ class Trainer:
     def _stage(self, batch) -> None:
         """Copy ``batch`` into the static batch, made for its key set,
         shapes and dtypes at the first step (and again when they change,
-        unless a captured step pins them)."""
+        unless a captured step pins them); under ``context``, the rank's
+        chunk of it (``_context_chunk``)."""
+        if self._context > 1:
+            batch = self._context_chunk(batch)
         n = len(next(iter(batch.values())))
         accum = self.config.grad_accum
         if n % accum:
@@ -381,6 +405,23 @@ class Trainer:
                     "shapes or dtypes")
             self._batch = BatchBuffers(batch, self.device)
         self._batch.stage(batch)
+
+    def _context_chunk(self, batch) -> dict:
+        """This rank's tokens of every row of ``batch`` (each value [B,
+        S + 1], as ``lm_loss_fn`` takes it): ``[:, c * Sl : (c + 1) * Sl
+        + 1]`` with c its ``context`` index and Sl = S / context. Raises
+        ValueError when ``context`` does not divide S."""
+        n, c = self._context, self.mesh.axis_index("context")
+        out = {}
+        for k, v in batch.items():
+            s = v.shape[1] - 1
+            if s % n:
+                raise ValueError(
+                    f"batch {k!r} of {s} + 1 tokens a row: a sequence of "
+                    f"{s} does not split into context={n} chunks")
+            sl = s // n
+            out[k] = v[:, c * sl:(c + 1) * sl + 1]
+        return out
 
     def _micro_body(self) -> None:
         """Step body (a), one micro batch: micro batch ``_micro`` of the
@@ -432,9 +473,9 @@ class Trainer:
                 denom = torch.clamp_min(sums["weight"], 1e-8)
             else:
                 loss_sum, denom, metric_sums = self._reduce_sums()
-                accum *= self.mesh.axis_size("batch")
+                accum *= self.mesh.axis_size("tokens")
             if self.mesh is not None:
-                self.mesh.all_reduce(self._flat_grad, "data")
+                self.mesh.all_reduce(self._flat_grad, "data_context")
             params = self.local_params
             grads = optim.tree_map(lambda g: g.div_(denom), self._grads())
             gnorm = optim.global_norm(grads, self._shards)
@@ -455,15 +496,15 @@ class Trainer:
             self._micro.zero_()
 
     def _reduce_sums(self):
-        """The step's sums over the ranks that hold different rows (the
-        ``batch`` group: tensor peers hold the same rows and the same
-        sums), in one all-reduce: (loss sum, max(sum w, 1e-8), the metric
-        sums)."""
+        """The step's sums over the ranks that hold different tokens (the
+        ``tokens`` group: tensor and expert peers hold the same rows and
+        the same sums, context peers other chunks of the same rows), in
+        one all-reduce: (loss sum, max(sum w, 1e-8), the metric sums)."""
         sums = self._sums
         keys = list(self._metric_sums)
         vec = torch.stack([sums["loss"], sums["weight"],
                            *(self._metric_sums[k].float() for k in keys)])
-        self.mesh.all_reduce(vec, "batch")
+        self.mesh.all_reduce(vec, "tokens")
         metric_sums = {k: vec[2 + i].to(self._metric_sums[k].dtype)
                        for i, k in enumerate(keys)}
         return vec[0], torch.clamp_min(vec[1], 1e-8), metric_sums
@@ -642,7 +683,9 @@ class Trainer:
         runs eagerly after the replays (``step_graph.finish_mode``), and
         under ``fsdp``, whose micro body gathers and reduce-scatters each
         layer, under ``tensor``, whose micro body all-reduces the
-        products of every block, and for an MoE model under ``expert`` or
+        products of every block, under ``context``, whose attention
+        passes K/V round the ring (or swaps the sequence cut for a head
+        cut) in every block, and for an MoE model under ``expert`` or
         over several batch ranks, whose MoE layers gather their routing
         counts and all-reduce their statistics and outputs, so does the
         micro body (``step_graph.micro_mode``; with neither captured, the
@@ -660,11 +703,10 @@ class Trainer:
         self.step_graph = None
         self._stage(batch)
         nccl = self.mesh is None or self.mesh.backend.name == "nccl"
-        moe = any("expert" in names
-                  for names in _axes_leaves(self.param_axes or {}))
+        moe = _moe(self.param_axes or {})
         micro_collectives = self.mesh is not None and (
             self.mesh.fsdp > 1 or self.mesh.tensor > 1
-            or self.mesh.expert > 1
+            or self.mesh.expert > 1 or self._context > 1
             or (moe and self.mesh.axis_size("batch") > 1))
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
@@ -677,6 +719,7 @@ class Trainer:
                     "" if self.mesh is None else
                     f" ({self.mesh.backend.name}, data={self.mesh.data}, "
                     f"fsdp={self.mesh.fsdp}, expert={self.mesh.expert}, "
+                    f"context={self._context}, "
                     f"tensor={self.mesh.tensor}"
                     + ("" if nccl else
                        "; a gloo collective runs on the host, which no "
@@ -687,6 +730,11 @@ class Trainer:
 
     def lower_step(self, *args, **kwargs):
         raise NotImplementedError(AOT_SLICE)
+
+
+def _moe(param_axes) -> bool:
+    """Whether parameters of these logical axes hold MoE experts."""
+    return any("expert" in names for names in _axes_leaves(param_axes))
 
 
 def _axes_leaves(axes) -> list:
@@ -713,6 +761,14 @@ def lm_loss_fn(forward, cfg):
     ``moe_aux`` metric.
 
     Batch: {"tokens": [B, S+1] integer, "mask": optional [B, S+1]}.
+
+    The ``tokens`` metric, the micro batch's weight, is the mask's sum
+    clamped at 1 (``softmax_cross_entropy``'s total weight, as the JAX
+    loss reports it) on one card; over a world (``params`` a rank's
+    ``parallel.tensor.TensorParams`` or ``parallel.fsdp.FsdpParams``)
+    the rank's sum unclamped: the JAX step clamps the GLOBAL micro
+    batch's count, which no rank sees, and a rank's rows (under
+    ``context`` its chunk of them) may hold no token of the mask.
     """
     moe = bool(getattr(cfg, "n_experts", 0))
 
@@ -727,7 +783,9 @@ def lm_loss_fn(forward, cfg):
         mask = mask[:, 1:] if mask is not None else None
         loss, aux = softmax_cross_entropy(
             logits, targets, mask, z_loss=getattr(cfg, "z_loss", 0.0))
-        metrics = {"tokens": aux["total_weight"]}
+        world = getattr(params, "world", getattr(params, "mesh", None))
+        metrics = {"tokens": aux["total_weight"] if world is None
+                   or mask is None else mask.float().sum()}
         if moe:
             loss = loss + fwd_aux["moe_aux"]
             metrics["moe_aux"] = fwd_aux["moe_aux"].detach()

@@ -628,7 +628,7 @@ def test_world_axes_errors_match_mesh_config(data, fsdp, tensor, n):
 
 
 def test_axes_not_ported_still_raise_naming_their_item():
-    for mesh in ("tensor=2,context=2", "pipeline=2"):
+    for mesh in ("expert=2,context=2", "pipeline=2"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
             t_boot.world_layout({"KFT_MESH": mesh}, 4)
 
