@@ -239,7 +239,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              through the kernels against attn_impl="xla" (plain einsum
              attention) from the same parameters.
 7m. MoE training — llama_1b's widths with 8 experts (top-2, capacity
-             1.25), 8 of its 16 layers (2.38 B f32 parameters), trained
+             1.25), MOE_TRAIN_LAYERS = 4 of its 16 layers (1.23 B f32
+             parameters), trained
              as phase 7 trains: an eager trainer takes 3 steps (its
              losses, grad norms, moe_aux and parameters kept on the
              host) and is freed, then one from the same seed runs
@@ -457,8 +458,31 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              busy share. Runs only on a machine with four cards or more,
              and says it was skipped otherwise.
 
+9p. pipeline parallelism — llama_1b's widths in phase 7's configuration
+             (remat dots, adafactor, bf16 compute) with attn_impl flash,
+             cut to PIPELINE_LAYERS = 8 of its 16 layers, two ranks on one
+             card over gloo under pipeline=2 (a check, no speed-up; one
+             world of two ranks runs 9r's plans, then 9p's), 4 layers a
+             stage: 8 rows of 2048 + 1 tokens (ragged masks) a
+             step as one trainer micro batch of 4 pipeline micro batches
+             (GPipe fill-drain, parallel/pipeline.py: the activations
+             passed round the ring, the last stage's outputs broadcast),
+             PIPELINE_STEPS eager steps; after the world exits one
+             process with the plain forward (flash) on the same rows:
+             losses (before and after the first update reaches them)
+             and grad norms within PIPELINE_RTOL (limits between the
+             sound readings and planted faults), both ranks' metrics
+             equal, the flash launches against the reckoned count (per
+             layer of the stage and pipeline micro batch two forward
+             under remat dots, one dQ, one dK/dV), that a rank keeps its
+             stage and the whole rest of the parameters, and logs per
+             rank the step's seconds, the pipeline collectives (calls,
+             bytes, seconds), the bubble share (S - 1) / (M + S - 1)
+             beside the traced last step's idle share, and peak memory
+             against the one process.
+
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5n,
-5x, 5, 6, 7, 7m, 8, 9 (a, b, t, c, d), 9m, 9x, 9r, 9r4.
+5x, 5, 6, 7, 7m, 8, 9 (a, b, t, c, d), 9m, 9x, 9r, 9p, 9r4.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -615,6 +639,10 @@ MOE_RMS_FAULT = 0.4958
 POD_STEPS = 6
 POD_STEP_SLEEP_S = 0.5
 POD_TIMEOUT_S = 300
+# phase 7m: train_profile's MoE llama_1b (8 experts) cut to this many of
+# its 16 layers (8 until phase 9p needed the room; the check is bitwise,
+# replayed against eager, at any depth)
+MOE_TRAIN_LAYERS = 4
 # phase 8 (b): llama_1b cut to this many of its 16 layers (16 until
 # phase 9r needed the room; the resume is bitwise at any depth, PERF.md
 # §4)
@@ -804,6 +832,26 @@ CONTEXT_LAYER_ERR = {"flash": 0.055, "plain": 0.034}
 # CONTEXT4_STEPS eager steps, then as many replayed
 CONTEXT4_SEQ = 16384
 CONTEXT4_ROWS, CONTEXT4_ACCUM, CONTEXT4_STEPS = 4, 4, 3
+# phase 9p: llama_1b's widths in phase 7's configuration (bf16 compute,
+# remat dots, adafactor) with attn_impl flash, cut to PIPELINE_LAYERS of
+# its 16 layers, over pipeline=PIPELINE (two ranks on one card over gloo:
+# a check, no speed-up), PIPELINE_LAYERS / PIPELINE layers a stage:
+# PIPELINE_ROWS rows of TRAIN_SEQ + 1 tokens (ragged masks) a step in one
+# trainer micro batch of PIPELINE_MICRO pipeline micro batches,
+# PIPELINE_STEPS eager steps, against one process with the plain forward
+# (flash) on the same rows. The schedule warms up from 0, so step 0's
+# update is zero and the first loss that reads an update (step 1's) is
+# that of step PIPELINE_UPDATED. PIPELINE_RTOL: limits on the largest
+# relative difference from it of the world's losses before that step
+# ("loss"), from it on ("updated_loss"), and of its grad norms at every
+# step (see PERF.md for the sound readings and the planted faults they
+# sit between)
+PIPELINE = 2
+PIPELINE_LAYERS = 8
+PIPELINE_ROWS, PIPELINE_MICRO, PIPELINE_STEPS = 8, 4, 3
+PIPELINE_UPDATED = 2
+PIPELINE_RTOL = {"loss": 1.2e-5, "updated_loss": 4.1e-5,
+                 "grad_norm": 2.7e-5}
 
 
 def log(msg: str) -> None:
@@ -3219,8 +3267,10 @@ def training(torch) -> dict:
 
 
 def moe_training(torch) -> dict:
-    """Phase 7m: llama_1b with 8 experts (top-2, capacity 1.25), 8 of its
-    16 layers, trained as phase 7 trains llama_1b (module docstring)."""
+    """Phase 7m: llama_1b with 8 experts (top-2, capacity 1.25),
+    MOE_TRAIN_LAYERS of its 16 layers, trained as phase 7 trains
+    llama_1b (module docstring)."""
+    import dataclasses
     import math
 
     from kubeflow_tpu_torch.models import llama
@@ -3232,7 +3282,8 @@ def moe_training(torch) -> dict:
     t_phase = time.perf_counter()
     log(f"phase 7m: {torch.cuda.memory_allocated()} B allocated at its "
         f"start")
-    cfg = model_config(moe=True)
+    cfg = dataclasses.replace(model_config(moe=True),
+                              n_layers=MOE_TRAIN_LAYERS)
     config = TrainerConfig(learning_rate=3e-4, warmup_steps=10,
                            total_steps=1000, grad_accum=TRAIN_ACCUM,
                            optimizer="adafactor")
@@ -4779,9 +4830,10 @@ def context_launches(cfg, index: int, impl: str, micro: int) -> dict:
 
 
 def context_reference(torch, job) -> dict:
-    """The one process of phase 9r: ``job`` with attn_impl "flash", eager,
-    on the rows of the world's one place in the batch axes: its metrics,
-    step seconds and peak memory."""
+    """The one process of phases 9r and 9p: ``job`` with attn_impl
+    "flash" and the plain forward, eager, on the rows of the world's one
+    place in the batch axes: its metrics, step seconds and peak
+    memory."""
     import dataclasses
 
     from kubeflow_tpu_torch.tools import world_train as wt
@@ -4806,44 +4858,67 @@ def context_reference(torch, job) -> dict:
     return {"metrics": metrics, "seconds": seconds, "peak_allocated": peak}
 
 
-def context_world_phase(torch) -> dict:
-    """Phase 9r: context parallelism, two ranks on one card over gloo
-    (module docstring)."""
-    import math
+def card_pair_world(torch, phases: dict) -> dict:
+    """The world of phases 9r and 9p: two ranks on one card over gloo,
+    spawned once for both (a rank's start and its kernels' builds are
+    paid once), running each phase's plans (``world_train.plans_rank``)
+    in turn. ``phases``: {phase: its plans}; returns {phase: per rank,
+    the results of its plans}."""
     import tempfile
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    plans = [p for own in phases.values() for p in own]
+    free_card(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9rp-") as rundir:
+        results = wt.run(wt.plans_rank, (plans,), 1, 1,
+                         ["cuda:0"] * CONTEXT, rundir, context=CONTEXT)
+    log(f"phases {' and '.join(phases)}: their world of two ranks on one "
+        f"card (gloo) took {time.perf_counter() - t0:.1f} s")
+    out, at = {}, 0
+    for name, own in phases.items():
+        out[name] = [r[at:at + len(own)] for r in results]
+        at += len(own)
+    return out
+
+
+def context_plans() -> list:
+    """Phase 9r's plans (``world_train.plans_rank``): the ring layer, then
+    the ring and the Ulysses trainers, each over context=CONTEXT."""
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    plans = [(1, 1, 1, 1, CONTEXT, wt.attention_layer_rank,
+              (context_layer_inputs, ("ring", "ring_plain", "ulysses")))]
+    return plans + [(1, 1, 1, 1, CONTEXT, wt.train_rank,
+                     (context_job(impl),)) for impl in ("ring", "ulysses")]
+
+
+def context_world_phase(torch, results: list) -> dict:
+    """Phase 9r: context parallelism, two ranks on one card over gloo
+    (module docstring). ``results``: per rank, those of
+    ``context_plans`` (``card_pair_world``)."""
+    import math
 
     from kubeflow_tpu_torch.tools import world_train as wt
 
     t_phase = time.perf_counter()
     jobs = {impl: context_job(impl) for impl in ("ring", "ulysses")}
     cfg = jobs["ring"].config
-    devices = ["cuda:0"] * CONTEXT
-    free_card(torch)
     log(f"phase 9r: llama_1b widths at max_seq {CONTEXT_SEQ}, "
         f"{cfg.n_layers} of 16 layers, remat=dots, adafactor, "
         f"{CONTEXT_ROWS} rows of {CONTEXT_SEQ} + 1 tokens with ragged masks "
         f"a step in {CONTEXT_ACCUM} micro batches, context={CONTEXT} on "
-        f"{devices} (gloo): ring then ulysses, {CONTEXT_STEPS} eager steps "
-        f"each; the ring layer at B={CONTEXT_LAYER['B']} S={CONTEXT_SEQ} "
-        f"H={CONTEXT_LAYER['H']} KV={CONTEXT_LAYER['KVH']} "
+        f"{['cuda:0'] * CONTEXT} (gloo): ring then ulysses, {CONTEXT_STEPS} "
+        f"eager steps each; the ring layer at B={CONTEXT_LAYER['B']} "
+        f"S={CONTEXT_SEQ} H={CONTEXT_LAYER['H']} KV={CONTEXT_LAYER['KVH']} "
         f"D={CONTEXT_LAYER['D']} causal bf16")
-    plans = [(1, 1, 1, 1, CONTEXT, wt.attention_layer_rank,
-              (context_layer_inputs, ("ring", "ring_plain", "ulysses")))]
-    plans += [(1, 1, 1, 1, CONTEXT, wt.train_rank, (job,))
-              for job in jobs.values()]
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="kft-phase9r-") as rundir:
-        results = wt.run(wt.plans_rank, (plans,), 1, 1, devices, rundir,
-                         context=CONTEXT)
-    world_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
     layer_ref = wt.attention_layer_rank(None, context_layer_inputs,
                                         ("flash",), device="cuda")
     ref = context_reference(torch, jobs["ring"])
-    ref_s = time.perf_counter() - t1
+    ref_s = time.perf_counter() - t_phase
     failed = []
-    out = {"world_s": world_s, "reference_s": ref_s, "launches": {},
-           "reference": ref}
+    out = {"reference_s": ref_s, "launches": {}, "reference": ref}
     # (i) the ring layer alone
     layers = [r[0] for r in results]
     one = layer_ref["impls"]["flash"]
@@ -4932,8 +5007,9 @@ def context_world_phase(torch) -> dict:
                 or any(rd[k] > v for k, v in CONTEXT_RTOL[impl].items()):
             failed.append(f"{impl}: the context={CONTEXT} steps are not one "
                           "process's on the same rows")
-    log(f"phase 9r: world {world_s:.1f} s, references {ref_s:.1f} s; "
-        f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
+    log(f"phase 9r: references {ref_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s after the world "
+        f"({nvidia_smi_line()})")
     if failed:
         raise SystemExit(f"phase 9r: {failed}")
     return out
@@ -5041,6 +5117,153 @@ def context_world_nccl(torch) -> dict:
     return out
 
 
+def pipeline_job(cfg, steps: int, **fields):
+    """Phase 9p's job on ``cfg``: adafactor (phase 7's optimizer and
+    schedule), PIPELINE_ROWS rows of TRAIN_SEQ + 1 tokens with ragged
+    masks a step in one trainer micro batch, PIPELINE_MICRO pipeline
+    micro batches (one place in the batch axes)."""
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    return wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                            total_steps=1000, grad_accum=1,
+                            optimizer="adafactor"),
+                  local_batch=PIPELINE_ROWS, seq=TRAIN_SEQ, steps=steps,
+                  mask=True, microbatches=PIPELINE_MICRO, **fields)
+
+
+def pipeline_launches(layers: int, micro: int) -> dict:
+    """The flash launches a stage of ``layers`` layers makes over
+    ``micro`` pipeline micro batches: per layer and micro batch its
+    forward twice under remat dots (the recompute), dQ and dK/dV once."""
+    per = layers * micro
+    return {"flash_attention_fwd": 2 * per, "flash_attention_dq": per,
+            "flash_attention_dkv": per}
+
+
+def pipeline_stage_bytes(cfg) -> int:
+    """The float32 bytes of the parameters a stage rank keeps: its
+    stage's share of every layer and the whole rest (the embedding, the
+    final norm; an untied head)."""
+    import math
+
+    from kubeflow_tpu_torch.models import llama
+
+    shapes = llama.param_shapes(cfg)
+    layers = shapes.pop("layers")
+    per_layer = sum(math.prod(s[1:]) for s in layers.values())
+    rest = sum(math.prod(s) for s in shapes.values())
+    return 4 * (per_layer * cfg.n_layers // PIPELINE + rest)
+
+
+def pipeline_plan() -> tuple:
+    """Phase 9p's plan (``world_train.plans_rank``): its job over
+    pipeline=PIPELINE (two ranks), run after phase 9r's plans in their
+    world (``card_pair_world``: its ranks are already up and warm)."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    cfg = dataclasses.replace(llama.llama_1b(remat="dots", attn_impl="flash"),
+                              n_layers=PIPELINE_LAYERS)
+    job = pipeline_job(cfg, PIPELINE_STEPS, profile=True)
+    return (1, 1, 1, 1, 1, PIPELINE, wt.train_rank, (job,))
+
+
+def pipeline_world_phase(torch, ranks: list) -> dict:
+    """Phase 9p: the GPipe pipeline, two ranks on one card over gloo
+    (module docstring). ``ranks``: per rank, the result of
+    ``pipeline_plan`` (``card_pair_world``)."""
+    import dataclasses
+    import math
+
+    t_phase = time.perf_counter()
+    job = pipeline_plan()[-1][0]
+    cfg = job.config
+    devices = ["cuda:0"] * PIPELINE
+    stage_layers = cfg.n_layers // PIPELINE
+    bubble = (PIPELINE - 1) / (PIPELINE_MICRO + PIPELINE - 1)
+    free_card(torch)
+    log(f"phase 9p: llama_1b widths, {cfg.n_layers} of 16 layers "
+        f"({stage_layers} a stage), remat=dots, attn_impl=flash, adafactor, "
+        f"{PIPELINE_ROWS} rows of {TRAIN_SEQ} + 1 tokens with ragged masks a "
+        f"step in {PIPELINE_MICRO} pipeline micro batches, pipeline="
+        f"{PIPELINE} on {devices} (gloo, in the world it shares with phase "
+        f"9r), "
+        f"{PIPELINE_STEPS} eager steps")
+    t1 = time.perf_counter()
+    ref = context_reference(torch, dataclasses.replace(
+        job, trainer={**job.trainer, "grad_accum": PIPELINE_MICRO}))
+    ref_s = time.perf_counter() - t1
+    want = pipeline_launches(stage_layers, PIPELINE_MICRO * job.steps)
+    kept = pipeline_stage_bytes(cfg)
+    failed = []
+    out = {"reference_s": ref_s, "reference": ref, "bubble_share": bubble,
+           "ranks": []}
+    for r, res in enumerate(ranks):
+        run = res["runs"]["eager"]
+        pipe = [{k: c[k] for k in ("pipeline_calls", "pipeline_bytes",
+                                   "pipeline_s", "gloo_s")}
+                for c in run["collectives"]]
+        prof = run.get("profile") or {}
+        log(f"phase 9p rank {r} (stage {r}): backend "
+            f"{res['backend']['backend']} ({res['backend']['reason']}); step "
+            f"s {run['seconds']!r}; pipeline collectives per step {pipe!r}; "
+            f"bubble share {bubble!r} against the traced last step's idle "
+            f"share {prof.get('idle_share')!r} ({prof!r}); peak "
+            f"{run.get('peak_allocated')} B allocated, "
+            f"{run.get('peak_reserved')} B reserved (one process "
+            f"{ref['peak_allocated']} B); state kept {run['state_bytes']} "
+            f"(reachable {run['held_bytes']} B; parameters reckoned {kept} "
+            f"B: the stage and the whole rest); flash launches "
+            f"{run['launches']} (reckoned {want}); losses "
+            f"{[m['loss'] for m in run['metrics']]!r} grad norms "
+            f"{[m['grad_norm'] for m in run['metrics']]!r}")
+        out["ranks"].append({k: run.get(k) for k in (
+            "seconds", "collectives", "peak_allocated", "peak_reserved",
+            "state_bytes", "launches", "profile")})
+        if run["launches"] != want:
+            failed.append(f"rank {r}: flash launches {run['launches']}, "
+                          f"expected {want}")
+        if run["held_bytes"] != run["state_bytes"]["total"] \
+                or run["state_bytes"]["params"] != kept:
+            failed.append(f"rank {r}: state_bytes {run['state_bytes']}, "
+                          f"reachable {run['held_bytes']} B, parameters "
+                          f"reckoned {kept} B")
+    world = [res["runs"]["eager"]["metrics"] for res in ranks]
+    rd = world_readings(world, ref)
+    cut = PIPELINE_UPDATED
+    rd["loss"] = world_readings([w[:cut] for w in world],
+                                {"metrics": ref["metrics"][:cut]})["loss"]
+    rd["updated_loss"] = world_readings(
+        [w[cut:] for w in world], {"metrics": ref["metrics"][cut:]})["loss"]
+    out["readings"] = rd
+    out["launches"] = {k: sum(res["runs"]["eager"]["launches"][k]
+                              for res in ranks) for k in want}
+    log(f"phase 9p: against one process with the plain forward (flash) on "
+        f"the same rows ({job.steps} steps): loss {rd['loss']!r} before step "
+        f"{cut} (limit {PIPELINE_RTOL['loss']}), {rd['updated_loss']!r} "
+        f"from it on (limit {PIPELINE_RTOL['updated_loss']}), grad norm "
+        f"{rd['grad_norm']!r} (limit {PIPELINE_RTOL['grad_norm']}) "
+        f"relative; tokens equal "
+        f"{rd['tokens_equal']}; ranks' metrics equal {world[0] == world[1]}; "
+        f"one process's losses {[m['loss'] for m in ref['metrics']]!r}, "
+        f"grad norms {[m['grad_norm'] for m in ref['metrics']]!r}, step s "
+        f"{ref['seconds']!r}")
+    if world[0] != world[1] or not rd["tokens_equal"] \
+            or not all(math.isfinite(m["loss"]) for m in world[0]) \
+            or any(rd[k] > v for k, v in PIPELINE_RTOL.items()):
+        failed.append(f"the pipeline={PIPELINE} steps are not one "
+                      "process's on the same rows")
+    steps_s = [sum(r["seconds"]) for r in out["ranks"]]
+    log(f"phase 9p: steps per rank {steps_s!r} s, reference {ref_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s after the world "
+        f"({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9p: {failed}")
+    return out
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict, moe_tp: dict,
          moe_tp_all: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
@@ -5117,7 +5340,10 @@ def main() -> int:
     world = world_phase(torch)
     moe_world = moe_world_phase(torch)
     moe_nccl = moe_world_nccl(torch)
-    context = context_world_phase(torch)
+    pair = card_pair_world(torch, {"9r": context_plans(),
+                                   "9p": [pipeline_plan()]})
+    context = context_world_phase(torch, pair["9r"])
+    pipeline = pipeline_world_phase(torch, [r[0] for r in pair["9p"]])
     context_nccl = context_world_nccl(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
@@ -5173,7 +5399,8 @@ def main() -> int:
                               moe_world["launches"].values()),
                     "9x": moe_nccl["launches"][name],
                     "9r": sum(w[name] for w in context["launches"].values()),
-                    "9r4": context_nccl["launches"][name]}
+                    "9r4": context_nccl["launches"][name],
+                    "9p": pipeline["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kubeflow_tpu_torch/csrc/{name}.cu",

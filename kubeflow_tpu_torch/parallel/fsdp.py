@@ -7,13 +7,16 @@ Every parameter is cut on its ``fsdp`` dim (``sharding.axis_dim``) into
 ``n`` equal contiguous parts in rank order, as ``sharding.axis_shard``
 cuts it. The parameters fall into units: one a layer (layer ``i``'s slice
 of every leaf under ``params["layers"]``, whose first logical axis is
-``layers``) and one of the rest (the embedding, the final norm, an untied
-head). A rank's parts of a unit lie back to back in one flat buffer, so a
-unit costs one all-gather forward and one reduce-scatter backward, not one
-a leaf. ``FsdpParams.flat`` holds every unit's parts (the layers in order,
-then the rest) and ``FsdpParams.grad`` the gradient parts in the same
-layout; ``parts`` and ``grads`` are trees of views of them with the
-parameters' structure, a stacked leaf viewed across the layer units with
+``layers``, or under a pipeline rank's ``params["stages"]``, whose
+leaves ``[1, L/S, ...]`` lead with ``pipe_stage`` and then ``layers``:
+the rank's stage, ``parallel/pipeline_llama.py``) and one of the rest
+(the embedding, the final norm, an untied head). A rank's parts of a
+unit lie back to back in one flat buffer, so a unit costs one all-gather
+forward and one reduce-scatter backward, not one a leaf.
+``FsdpParams.flat`` holds every unit's parts (the layers in order, then
+the rest) and ``FsdpParams.grad`` the gradient parts in the same layout;
+``parts`` and ``grads`` are trees of views of them with the parameters'
+structure, a stacked leaf viewed across the layer units with
 the unit's length as its layer stride. The optimizer updates ``parts``
 (``training.optim.Shards`` makes its whole-leaf reductions sum over the
 group).
@@ -57,6 +60,7 @@ from typing import Optional, Sequence
 import torch
 
 from kubeflow_tpu_torch.parallel import sharding
+from kubeflow_tpu_torch.parallel.pipeline import STAGES
 
 
 def _items(tree, prefix: str = ""):
@@ -171,19 +175,27 @@ class FsdpParams:
         self.dtype, self.device = first.dtype, first.device
         layers, rest, dims = [], [], {}
         self.n_layers = None
+        # the layer leaves' key and the dims before their layers dim
+        # (``pipe_stage``, one stage a rank), one for every layer leaf
+        self._stack: Optional[tuple] = None
         for path, t in named.items():
             dim = sharding.axis_dim(names[path], "fsdp", rules)
             dims[path] = dim
             if dim is None:
                 continue
-            if names[path][0] == "layers" and path.startswith("layers/"):
-                if dim == 0 or self.n_layers not in (None, t.shape[0]):
+            top, _, key = path.partition("/")
+            lead = _layers_dim(names[path]) if key else None
+            if lead is not None and top in ("layers", STAGES):
+                if dim <= lead or self.n_layers not in (None, t.shape[lead]) \
+                        or self._stack not in (None, (top, lead)) \
+                        or any(d != 1 for d in t.shape[:lead]):
                     raise ValueError(
                         f"{path} {tuple(t.shape)}: a layer leaf is cut on "
-                        "a dim after its layers dim, and every layer leaf "
-                        "has the same number of layers")
-                self.n_layers = t.shape[0]
-                layers.append((path[len("layers/"):], t.shape[1:], dim - 1))
+                        "a dim after its layers dim, leads with one stage, "
+                        "and every layer leaf has the same number of "
+                        "layers")
+                self.n_layers, self._stack = t.shape[lead], (top, lead)
+                layers.append((key, t.shape[lead + 1:], dim - lead - 1))
             else:
                 rest.append((path, t.shape, dim))
         whole = [p for p, d in dims.items() if d is None]
@@ -214,12 +226,14 @@ class FsdpParams:
         a stacked leaf strided over the layer units."""
         L, U = self.n_layers, self._layer_numel
         base = L * U
+        top, lead = self._stack or ("layers", 0)
         views = {}
         for leaf in self._layer:
-            shape = (L,) + leaf.part_shape
+            shape = (1,) * lead + (L,) + leaf.part_shape
             inner = torch.empty(leaf.part_shape, device="meta").stride()
-            views["layers/" + leaf.key] = buf.as_strided(
-                shape, (U,) + inner, buf.storage_offset() + leaf.offset)
+            views[f"{top}/{leaf.key}"] = buf.as_strided(
+                shape, (L * U,) * lead + (U,) + inner,
+                buf.storage_offset() + leaf.offset)
         for leaf in self._rest:
             views[leaf.key] = buf[base + leaf.offset:
                                   base + leaf.offset + leaf.size] \
@@ -234,6 +248,11 @@ class FsdpParams:
         if not 0 <= unit < self.n_layers:
             raise IndexError(f"layer {unit} of {self.n_layers}")
         return unit * self._layer_numel, self._layer, self._layer_numel
+
+    @property
+    def rest_grad(self) -> torch.Tensor:
+        """The gradient parts of the rest unit (a view of ``grad``)."""
+        return self.grad[self.n_layers * self._layer_numel:]
 
     def gather(self, unit: Optional[int] = None) -> dict:
         """The whole weights of layer ``unit`` (its leaves' keys under
@@ -285,18 +304,30 @@ class FsdpParams:
         self.grad[off:off + numel].add_(out)
 
 
+def _layers_dim(names) -> Optional[int]:
+    """The index of the ``layers`` axis of a stacked layer leaf's logical
+    axes (``("layers", ...)``, or ``("pipe_stage", "layers", ...)``), or
+    None."""
+    names = tuple(names)
+    for lead, want in enumerate((("layers",), ("pipe_stage", "layers"))):
+        if names[:lead + 1] == want:
+            return lead
+    return None
+
+
 def gather_to_host(part: torch.Tensor, dims, group,
                    piece_bytes: int = 1 << 28) -> torch.Tensor:
     """The whole tensor of which this rank holds ``part``, gathered over
     ``group`` into host memory. ``dims``: ``{axis: the dim cut over it}``
-    for ``fsdp``, ``expert`` and ``tensor`` (None or empty: the rank
-    holds it whole, and gets a copy). A leaf cut on several axes is
-    gathered over the group of those axes, whose ranks' parts come in
-    ``(fsdp, expert, tensor)`` order. Cut on dims after the leading one,
-    it is gathered in pieces of leading rows whose whole takes at most
-    ``piece_bytes`` (a row at least), so the device holds one piece at a
-    time; cut on the leading dim, at once."""
-    sizes = {a: getattr(group, a, 1) for a in ("fsdp", "expert", "tensor")}
+    for ``pipeline``, ``fsdp``, ``expert`` and ``tensor`` (None or
+    empty: the rank holds it whole, and gets a copy). A leaf cut on
+    several axes is gathered over the group of those axes, whose ranks'
+    parts come in ``(pipeline, fsdp, expert, tensor)`` order. Cut on dims
+    after the leading one, it is gathered in pieces of leading rows whose
+    whole takes at most ``piece_bytes`` (a row at least), so the device
+    holds one piece at a time; cut on the leading dim, at once."""
+    sizes = {a: getattr(group, a, 1)
+             for a in ("pipeline", "fsdp", "expert", "tensor")}
     cut = {a: d for a, d in (dims or {}).items() if sizes[a] > 1}
     if not cut:
         return part.detach().to("cpu", copy=True)

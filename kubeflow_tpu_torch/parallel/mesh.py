@@ -28,11 +28,11 @@ contract for serving, where only the ``tensor`` axis is ported, and
 raises for any other axis set above 1.
 
 ``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
-``build_mesh``: ``data`` x ``fsdp`` x ``expert`` x ``context`` x
-``tensor`` processes,
-one device each (``rendezvous/bootstrap.py`` starts them and chooses the
-backend), with process groups per axis and per set of axes. Under
-``data`` every rank holds the whole train state and the gradients are
+``build_mesh``: ``pipeline`` x ``data`` x ``fsdp`` x ``expert`` x
+``context`` x ``tensor`` processes, one device each
+(``rendezvous/bootstrap.py`` starts them and chooses the backend), with
+process groups per axis and per set of axes. Under ``data`` every rank
+holds the whole train state and the gradients are
 all-reduced; under ``fsdp`` each rank holds its shard of the parameters
 and the optimizer state (``parallel/fsdp.py``), gathers each layer's
 weights before it runs and reduce-scatters its gradients after it; under
@@ -46,7 +46,10 @@ expert peers, and the MoE layer joins their outputs
 the same rows' tokens and holds the same state as its context peers, and
 attention joins the chunks (``parallel/ring_attention.py``: K/V passed
 round the ring, ``ring_shift``, or the sequence cut swapped for a head
-cut, ``all_to_all``).
+cut, ``all_to_all``); under ``pipeline`` each rank holds one stage of
+the layers and feeds the same rows as its pipeline peers, whose
+activations it passes on round the ring (``parallel/pipeline.py``:
+``ring_shift`` and ``broadcast``).
 """
 
 from __future__ import annotations
@@ -66,16 +69,17 @@ AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
                   "item 8.7); the tensor axis is ported for serving, and "
-                  "the data, fsdp, expert, context and tensor axes for "
-                  "training, context neither beside expert nor with an "
-                  "MoE model")
+                  "the pipeline, data, fsdp, expert, context and tensor "
+                  "axes for training, context neither beside expert nor "
+                  "with an MoE model, pipeline over gloo alone (over NCCL "
+                  "it is not verified: queue 3 fault 8)")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
 # mesh is given another: a first command may build the CUDA kernels
 DEFAULT_TIMEOUT_S = 600.0
-# a context collective's wait under gloo (NCCL's groups keep their own
-# watchdog timeout): a send posted without its receive raises after this
-# rather than hang the world
+# a context or pipeline collective's wait under gloo (NCCL's groups keep
+# their own watchdog timeout): a send posted without its receive raises
+# after this rather than hang the world
 CONTEXT_TIMEOUT_S = 600.0
 
 
@@ -362,21 +366,22 @@ class Backend:
 
 def resolve_world_axes(num_processes: int, data: int = 1,
                        fsdp: int = -1, tensor: int = 1,
-                       expert: int = 1, context: int = 1) -> tuple[int, int]:
+                       expert: int = 1, context: int = 1,
+                       pipeline: int = 1) -> tuple[int, int]:
     """``MeshConfig.resolved``'s rule over the world's axes, one device a
     process: at most one batch axis is -1 and absorbs what the others
-    leave (unset, every process the ``expert``, ``context`` and
-    ``tensor`` axes leave goes on ``fsdp``); ``expert``, ``context`` and
-    ``tensor`` are fixed; the sizes must multiply to ``num_processes``.
-    Returns ``(data, fsdp)``. Raises ValueError with the JAX package's
-    messages."""
+    leave (unset, every process the ``pipeline``, ``expert``,
+    ``context`` and ``tensor`` axes leave goes on ``fsdp``);
+    ``pipeline``, ``expert``, ``context`` and ``tensor`` are fixed; the
+    sizes must multiply to ``num_processes``. Returns ``(data, fsdp)``.
+    Raises ValueError with the JAX package's messages."""
     for name, size in (("tensor", tensor), ("expert", expert),
-                       ("context", context)):
+                       ("context", context), ("pipeline", pipeline)):
         if size < 1:
             raise ValueError(f"{name}={size}: the {name} axis is fixed; "
                              "only data or fsdp may be -1")
-    sizes = {"data": data, "fsdp": fsdp, "expert": expert,
-             "context": context, "tensor": tensor}
+    sizes = {"pipeline": pipeline, "data": data, "fsdp": fsdp,
+             "expert": expert, "context": context, "tensor": tensor}
     wild = [k for k, v in sizes.items() if v == -1]
     if len(wild) > 1:
         raise ValueError(f"at most one -1 axis allowed, got {wild}")
@@ -394,7 +399,7 @@ def resolve_world_axes(num_processes: int, data: int = 1,
 
 
 # the world's axes, outermost first (``AXIS_ORDER``'s)
-WORLD_AXES = ("data", "fsdp", "expert", "context", "tensor")
+WORLD_AXES = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 # the world's groups: each holds the ranks that differ only on its axes
 GROUP_AXES = {"world": WORLD_AXES, "data": ("data",), "fsdp": ("fsdp",),
@@ -415,7 +420,18 @@ GROUP_AXES = {"world": WORLD_AXES, "data": ("data",), "fsdp": ("fsdp",),
               # and the pairs of its axes that cut one leaf
               "replica": ("fsdp", "expert", "tensor"),
               "fsdp_tensor": ("fsdp", "tensor"),
-              "fsdp_expert": ("fsdp", "expert")}
+              "fsdp_expert": ("fsdp", "expert"),
+              # the ranks holding the other stages of the same rows and
+              # state (parallel/pipeline.py), and the sets of axes that
+              # cut one stage leaf beside it
+              "pipeline": ("pipeline",),
+              "pipeline_fsdp": ("pipeline", "fsdp"),
+              "pipeline_expert": ("pipeline", "expert"),
+              "pipeline_tensor": ("pipeline", "tensor"),
+              "pipeline_rows": ("pipeline", "expert", "tensor"),
+              "pipeline_fsdp_tensor": ("pipeline", "fsdp", "tensor"),
+              "pipeline_fsdp_expert": ("pipeline", "fsdp", "expert"),
+              "pipeline_replica": ("pipeline", "fsdp", "expert", "tensor")}
 
 
 def group_of(axes) -> str:
@@ -431,16 +447,18 @@ def group_of(axes) -> str:
 
 
 class WorldMesh:
-    """``data`` x ``fsdp`` x ``expert`` x ``context`` x ``tensor``
-    training processes, one device each (module docstring). Rank ``r``
-    sits at ``(d, f, x, c, t)`` with ``r = (((d * fsdp + f) * expert +
-    x) * context + c) * tensor + t``: ``data`` outermost and ``tensor``
-    innermost, as in the JAX package's ``AXIS_ORDER``, so tensor peers
-    are neighbouring ranks (and cards), and a rank's place in the batch
-    (the JAX batch sharding ``("data", "fsdp")``) is ``d * fsdp + f``
-    (``axis_index("batch")``): expert, context and tensor peers feed the
-    same rows, context peers each its chunk ``c`` of their tokens (the
-    JAX ``seq`` -> ``context`` rule).
+    """``pipeline`` x ``data`` x ``fsdp`` x ``expert`` x ``context`` x
+    ``tensor`` training processes, one device each (module docstring).
+    Rank ``r`` sits at ``(p, d, f, x, c, t)`` with ``r = ((((p * data +
+    d) * fsdp + f) * expert + x) * context + c) * tensor + t``:
+    ``pipeline`` outermost and ``tensor`` innermost, as in the JAX
+    package's ``AXIS_ORDER``, so tensor peers are neighbouring ranks (and
+    cards), and a rank's place in the batch (the JAX batch sharding
+    ``("data", "fsdp")``) is ``d * fsdp + f`` (``axis_index("batch")``):
+    pipeline, expert, context and tensor peers feed the same rows,
+    context peers each its chunk ``c`` of their tokens (the JAX ``seq``
+    -> ``context`` rule), pipeline peers each its stage ``p`` of the
+    layers (the JAX ``pipe_stage`` -> ``pipeline`` rule).
 
     Built after ``torch.distributed``'s default group exists (gloo,
     ``rendezvous.bootstrap.join_world``); every rank builds it with the
@@ -459,7 +477,11 @@ class WorldMesh:
     ``context``: every sum over tokens), ``data_context`` (the gradient
     all-reduce), ``rows`` (``expert`` x ``tensor``: an MoE layer's peers),
     ``replica`` (``fsdp`` x ``expert`` x ``tensor``) and the pairs of its
-    axes that cut one leaf (over which a leaf's reductions are summed).
+    axes that cut one leaf (over which a leaf's reductions are summed),
+    ``pipeline`` (the ranks holding the other stages), and ``pipeline``
+    beside each set of axes that cuts a leaf. ``batch``, ``tokens`` and
+    ``data_context`` never include ``pipeline``: pipeline peers hold
+    the same rows and, after the pipeline's broadcast, the same loss.
     Groups of one rank make no call; groups of the same ranks are one.
 
     ``timings`` sums, per rank, the seconds and bytes of the host-staged
@@ -471,32 +493,39 @@ class WorldMesh:
     the routing counts' all-gather and the statistics' all-reduce over
     ``batch``, the copies' and the output's all-reduces over ``rows``);
     and the ``context`` axis's ``ring_shift`` and ``all_to_all``
-    (``context_*``, the same readings).
+    (``context_*``, the same readings); and the ``pipeline`` axis's
+    ``ring_shift`` and ``broadcast`` (``pipeline_*``, the same
+    readings).
 
-    ``context`` beside ``expert`` raises NotImplementedError
-    (``PARALLEL_SLICE``)."""
+    ``context`` beside ``expert``, and ``pipeline`` under NCCL, raise
+    NotImplementedError (``PARALLEL_SLICE``)."""
 
     def __init__(self, data: int, fsdp: int, rank: int, device,
                  backend: Backend, tensor: int = 1, expert: int = 1,
-                 context: int = 1):
-        if min(data, fsdp, tensor, expert, context) < 1:
-            raise ValueError(f"data={data} fsdp={fsdp} expert={expert} "
-                             f"context={context} tensor={tensor}: sizes "
-                             "must be >= 1")
+                 context: int = 1, pipeline: int = 1):
+        if min(data, fsdp, tensor, expert, context, pipeline) < 1:
+            raise ValueError(f"pipeline={pipeline} data={data} fsdp={fsdp} "
+                             f"expert={expert} context={context} "
+                             f"tensor={tensor}: sizes must be >= 1")
         if context > 1 and expert > 1:
             raise NotImplementedError(
                 f"a training world over expert={expert} x context={context} "
                 f"{PARALLEL_SLICE}")
+        if pipeline > 1 and backend.name == "nccl":
+            raise NotImplementedError(
+                f"a training world over pipeline={pipeline} under NCCL "
+                f"{PARALLEL_SLICE}")
         self.data, self.fsdp = int(data), int(fsdp)
         self.expert, self.tensor = int(expert), int(tensor)
-        self.context = int(context)
-        self.size = (self.data * self.fsdp * self.expert * self.context
-                     * self.tensor)
+        self.context, self.pipeline = int(context), int(pipeline)
+        self.size = (self.pipeline * self.data * self.fsdp * self.expert
+                     * self.context * self.tensor)
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a world of {self.size}")
         self.rank = int(rank)
-        (self.data_index, self.fsdp_index, self.expert_index,
-         self.context_index, self.tensor_index) = self._coords(self.rank)
+        (self.pipeline_index, self.data_index, self.fsdp_index,
+         self.expert_index, self.context_index,
+         self.tensor_index) = self._coords(self.rank)
         self.device = torch.device(device)
         self.backend = backend
         self._groups: dict = {}
@@ -507,7 +536,9 @@ class WorldMesh:
                         "tensor_calls": 0, "tensor_bytes": 0,
                         "tensor_s": 0.0, "moe_calls": 0, "moe_bytes": 0,
                         "moe_s": 0.0, "context_calls": 0,
-                        "context_bytes": 0, "context_s": 0.0}
+                        "context_bytes": 0, "context_s": 0.0,
+                        "pipeline_calls": 0, "pipeline_bytes": 0,
+                        "pipeline_s": 0.0}
         for name in GROUP_AXES:
             self._members[name] = self._ranks_of(name, self.rank)
         if self.size > 1:
@@ -523,13 +554,15 @@ class WorldMesh:
                    layout.get("fsdp", 1) * layout.get("dcn_fsdp", 1),
                    rank, device, backend, tensor=layout.get("tensor", 1),
                    expert=layout.get("expert", 1),
-                   context=layout.get("context", 1))
+                   context=layout.get("context", 1),
+                   pipeline=layout.get("pipeline", 1))
 
     # ------------------------------------------------------------ identity
 
     def _coords(self, rank: int) -> tuple:
         out = []
-        for n in (self.tensor, self.context, self.expert, self.fsdp):
+        for n in (self.tensor, self.context, self.expert, self.fsdp,
+                  self.data):
             rank, i = divmod(rank, n)
             out.append(i)
         return (rank, *reversed(out))
@@ -546,9 +579,10 @@ class WorldMesh:
     @property
     def shape(self) -> dict:
         """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them (the
-        batch axes always; ``expert``, ``context`` and ``tensor`` where
-        they are over 1)."""
-        out = {"data": self.data, "fsdp": self.fsdp}
+        batch axes always; ``pipeline``, ``expert``, ``context`` and
+        ``tensor`` where they are over 1)."""
+        out = {"pipeline": self.pipeline} if self.pipeline > 1 else {}
+        out.update(data=self.data, fsdp=self.fsdp)
         for axis in ("expert", "context", "tensor"):
             if getattr(self, axis) > 1:
                 out[axis] = getattr(self, axis)
@@ -572,7 +606,8 @@ class WorldMesh:
         return self.backend.name == "gloo" and self.device.type == "cuda"
 
     def describe(self) -> dict:
-        return {"data": self.data, "fsdp": self.fsdp, "expert": self.expert,
+        return {"pipeline": self.pipeline, "data": self.data,
+                "fsdp": self.fsdp, "expert": self.expert,
                 "context": self.context, "tensor": self.tensor,
                 "rank": self.rank,
                 "device": str(self.device), "backend": self.backend.name,
@@ -587,9 +622,9 @@ class WorldMesh:
 
         if not dist.is_initialized() or dist.get_world_size() != self.size:
             raise RuntimeError(
-                f"a world of data={self.data} x fsdp={self.fsdp} x "
-                f"expert={self.expert} x context={self.context} x "
-                f"tensor={self.tensor} needs the "
+                f"a world of pipeline={self.pipeline} x data={self.data} "
+                f"x fsdp={self.fsdp} x expert={self.expert} x "
+                f"context={self.context} x tensor={self.tensor} needs the "
                 f"default process group over {self.size} processes "
                 "(rendezvous.bootstrap.initialize or join_world first)")
         be = self.backend.name
@@ -700,11 +735,11 @@ class WorldMesh:
     def _timed(self, axis, x: torch.Tensor, call, kind=None) -> None:
         """``call()``, counted in ``timings``' ``{kind}_*`` (``x``: the
         collective's input): ``kind`` "moe" for an MoE layer's calls,
-        else "tensor" for the tensor axis's, else not counted."""
+        else "tensor" or "pipeline" for that axis's, else not counted."""
         import time
 
-        if kind is None and group_of(axis) == "tensor":
-            kind = "tensor"
+        if kind is None and group_of(axis) in ("tensor", "pipeline"):
+            kind = group_of(axis)
         if kind is None:
             call()
             return
@@ -815,27 +850,31 @@ class WorldMesh:
         if self.via_host:
             self._from_host(out, dst)
 
-    def ring_shift(self, x: torch.Tensor, axis: str = "context"
-                   ) -> torch.Tensor:
+    def ring_shift(self, x: torch.Tensor, axis: str = "context",
+                   reverse: bool = False) -> torch.Tensor:
         """A new tensor holding the ``x`` of the rank before this one on
         ``axis`` (index ``c - 1``, cyclically), while this rank's ``x``
-        goes to the rank after it (``c + 1``): one step round the ring.
-        Every rank of the axis calls it with a tensor of the same shape
-        and dtype. Counted in ``timings``' ``context_*``."""
+        goes to the rank after it (``c + 1``): one step round the ring;
+        with ``reverse``, one step the other way (from ``c + 1``, to ``c
+        - 1``). Every rank of the axis calls it with a tensor of the same
+        shape and dtype. Counted in ``timings``' ``pipeline_*`` over
+        ``pipeline``, else ``context_*``."""
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         if self.axis_size(axis) == 1:
             return out.copy_(x)
-        self._timed(axis, x, lambda: self._ring_shift(out, x, axis),
-                    "context")
+        kind = "pipeline" if group_of(axis) == "pipeline" else "context"
+        self._timed(axis, x,
+                    lambda: self._ring_shift(out, x, axis, reverse), kind)
         return out
 
     def _ring_shift(self, out: torch.Tensor, x: torch.Tensor,
-                    axis: str) -> None:
+                    axis: str, reverse: bool = False) -> None:
         import torch.distributed as dist
 
         members = self._members[group_of(axis)]
         c, n = members.index(self.rank), len(members)
-        nxt, prv = members[(c + 1) % n], members[(c - 1) % n]
+        step = -1 if reverse else 1
+        nxt, prv = members[(c + step) % n], members[(c - step) % n]
         if self.backend.name == "nccl":
             # one NCCL group call: both ranks of a pair post their send
             # and receive together, whatever order the ranks reach it in
@@ -863,6 +902,36 @@ class WorldMesh:
         self._gloo(axis, [sendrecv])
         if self.via_host:
             self._from_host(out, dst)
+
+    def broadcast(self, x: torch.Tensor, axis: str = "pipeline",
+                  index: int = 0) -> torch.Tensor:
+        """``x`` (contiguous) overwritten, in place, with the ``x`` of the
+        rank of index ``index`` on ``axis``; returns ``x``. Every rank of
+        the axis calls it with a tensor of the same shape and dtype.
+        Counted in ``timings``' ``pipeline_*`` over ``pipeline``."""
+        if self.axis_size(axis) > 1:
+            self._timed(axis, x, lambda: self._broadcast(x, axis, index))
+        return x
+
+    def _broadcast(self, x: torch.Tensor, axis: str, index: int) -> None:
+        import torch.distributed as dist
+
+        src = self._members[group_of(axis)][index]
+        lanes = self._groups[group_of(axis)]
+        if self.backend.name == "nccl":
+            dist.broadcast(x, src, group=lanes[0])
+            return
+        host = x.view(-1)
+        if self.via_host:
+            host = self._host(x.numel(), x.dtype)
+            if self.rank == src:
+                self._to_host(host, x)
+        self._gloo(axis, [
+            lambda g, a=a, b=b: dist.broadcast(host[a:b], src, group=g)
+            for a, b in self._ranges(host.numel(), host.itemsize,
+                                     len(lanes))])
+        if self.via_host and self.rank != src:
+            self._from_host(x, host)
 
     def all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int,
                    axis: str = "context") -> torch.Tensor:

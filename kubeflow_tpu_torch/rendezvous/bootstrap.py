@@ -25,12 +25,13 @@ one device). The choice and its reason are logged and kept on
 from what fails: an NCCL error raises and is not retried on gloo.
 
 The world's layout: each process is one device, and a ``KFT_MESH`` whose
-``data`` x ``fsdp`` x ``expert`` x ``context`` x ``tensor`` product
-(times ``KFT_DCN``'s ``data`` and ``fsdp``) is the number of processes
-is accepted as that layout (``parallel.mesh.WorldMesh`` trains over it).
-``KFT_DCN`` spans the batch axes only, as in the reference. Any other
-axis above 1 raises ``parallel.mesh.PARALLEL_SLICE``: ``pipeline`` is
-not ported, nor ``context`` beside ``expert``.
+``pipeline`` x ``data`` x ``fsdp`` x ``expert`` x ``context`` x
+``tensor`` product (times ``KFT_DCN``'s ``data`` and ``fsdp``) is the
+number of processes is accepted as that layout
+(``parallel.mesh.WorldMesh`` trains over it). ``KFT_DCN`` spans the
+batch axes only, as in the reference. Any other axis above 1 raises
+``parallel.mesh.PARALLEL_SLICE``, and so do ``context`` beside
+``expert`` and, once the world has chosen NCCL, ``pipeline``.
 
 ``KFT_COMPILE_CACHE`` has no counterpart here: the JAX worker points
 XLA's persistent compile cache at it, and the port compiles no XLA
@@ -57,8 +58,8 @@ log = logging.getLogger(__name__)
 
 # the world's axes: one device a process, so their product is the
 # number of processes (fsdp absorbs the rest when it is not given)
-WORLD_AXES = ("data", "fsdp", "expert", "context", "tensor", "dcn_data",
-              "dcn_fsdp")
+WORLD_AXES = ("pipeline", "data", "fsdp", "expert", "context", "tensor",
+              "dcn_data", "dcn_fsdp")
 
 
 @dataclasses.dataclass
@@ -125,27 +126,33 @@ def world_from_env(env: Optional[Mapping[str, str]] = None) -> WorldInfo:
     )
 
 
-def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
+def world_layout(env: Mapping[str, str], num_processes: int,
+                 backend: Optional[str] = None) -> dict:
     """``KFT_MESH`` / ``KFT_DCN`` -> the world's axis sizes
-    (``WORLD_AXES``), one device a process. ``data``, ``fsdp``,
-    ``expert``, ``context`` and ``tensor`` follow
+    (``WORLD_AXES``), one device a process. ``pipeline``, ``data``,
+    ``fsdp``, ``expert``, ``context`` and ``tensor`` follow
     ``MeshConfig.resolved``'s rule (``parallel.mesh.resolve_world_axes``):
-    ``expert``, ``context`` and ``tensor`` are fixed, and unset,
+    ``pipeline``, ``expert``, ``context`` and ``tensor`` are fixed, and
+    unset,
     ``fsdp`` takes every process the others leave, as the JAX mesh's
     default puts every device on fsdp. Raises NotImplementedError
-    (``PARALLEL_SLICE``) for any other axis above 1 and for ``context``
-    beside ``expert``, and ValueError when the sizes do not multiply to
-    the number of processes."""
+    (``PARALLEL_SLICE``) for any other axis above 1, for ``context``
+    beside ``expert`` and, where ``backend`` (the world's, once chosen)
+    is "nccl", for ``pipeline``; ValueError when the sizes do not
+    multiply to the number of processes."""
     sizes = parse_topology_env(env)
     other = {k: v for k, v in sizes.items()
              if k not in WORLD_AXES and v > 1}
     if sizes.get("context", 1) > 1 and sizes.get("expert", 1) > 1:
         other.update(expert=sizes["expert"], context=sizes["context"])
+    under = ""
+    if sizes.get("pipeline", 1) > 1 and backend == "nccl":
+        other["pipeline"], under = sizes["pipeline"], " under NCCL"
     if other:
         raise NotImplementedError(
             f"KFT_MESH={env.get('KFT_MESH', '')!r} "
             f"KFT_DCN={env.get('KFT_DCN', '')!r}: a training world over "
-            f"{sorted(other)} {PARALLEL_SLICE}")
+            f"{sorted(other)}{under} {PARALLEL_SLICE}")
     layout = {k: sizes.get(k, 1) for k in WORLD_AXES}
     data, fsdp = sizes.get("data", 1), sizes.get("fsdp", -1)
     if -1 in (data, fsdp):
@@ -155,7 +162,7 @@ def world_layout(env: Mapping[str, str], num_processes: int) -> dict:
                              f"{num_processes} processes")
         layout["data"], layout["fsdp"] = resolve_world_axes(
             num_processes // slices, data, fsdp, layout["tensor"],
-            layout["expert"], layout["context"])
+            layout["expert"], layout["context"], layout["pipeline"])
     total = 1
     for v in layout.values():
         total *= v
@@ -233,7 +240,8 @@ def initialize(env: Optional[Mapping[str, str]] = None,
     the world joined at ``tcp://{coordinator}`` within ``timeout_s``
     (``join_world``; the backend chosen lands on ``world.backend``).
     Returns ``(world, device)``; the layout (``world_layout``) is
-    checked before any process group starts."""
+    checked before any process group starts, and again against the
+    backend the world chose."""
     env = load_downward_env(env=env if env is not None else os.environ)
     world = world_from_env(env)
     world_layout(env, world.num_processes)
@@ -244,6 +252,7 @@ def initialize(env: Optional[Mapping[str, str]] = None,
         world.backend = join_world(
             f"tcp://{world.coordinator}", world.process_id,
             world.num_processes, device, timeout_s)
+        world_layout(env, world.num_processes, world.backend.name)
     return world, device
 
 
@@ -257,8 +266,9 @@ def world_mesh(world: WorldInfo, device: torch.device,
     if world.num_processes == 1:
         return None
     env = load_downward_env(env=env if env is not None else os.environ)
-    return WorldMesh.from_layout(world_layout(env, world.num_processes),
-                                 world.process_id, device, world.backend)
+    return WorldMesh.from_layout(
+        world_layout(env, world.num_processes, world.backend.name),
+        world.process_id, device, world.backend)
 
 
 def wait_for_workers(world: WorldInfo) -> None:

@@ -23,16 +23,19 @@ reference's ``main``:
    the CPU (``KFT_FORCE_PLATFORM=cpu``) there is no graph: the step runs
    eagerly and the outcome is reported as ``"eager"``, never as a
    capture. Over more than one process the trainer trains over the
-   world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``data``,
-   ``fsdp``, ``expert``, ``context`` and ``tensor``, by default every
-   process on ``fsdp``), each place in the batch axes feeding its own
-   rows of the global batch, as the reference's pods do (expert,
-   context and tensor peers feed the same rows, context peers each its
-   chunk of their tokens; the model is dense, so ``expert`` only
-   replicates it, as in the reference). Under ``context`` the model is
-   ``pod_config``'s: ring attention over the axis, at the flash
-   kernels' head_dim 64; the
-   coordinator writes the metrics and the checkpoints, and every
+   world ``KFT_MESH`` lays out (``bootstrap.world_mesh``: ``pipeline``,
+   ``data``, ``fsdp``, ``expert``, ``context`` and ``tensor``, by
+   default every process on ``fsdp``), each place in the batch axes
+   feeding its own rows of the global batch, as the reference's pods do
+   (pipeline, expert, context and tensor peers feed the same rows,
+   context peers each its chunk of their tokens; the model is dense, so
+   ``expert`` only replicates it, as in the reference). Under
+   ``context`` the model is ``pod_config``'s: ring attention over the
+   axis, at the flash kernels' head_dim 64. Under ``pipeline`` the
+   layers are cut into stages (``pod_config``'s ``POD_MICROBATCHES``
+   pipeline micro batches, ``parallel/pipeline_llama.py``); ``context``
+   beside it raises the reference's ValueError for its ring attention.
+   The coordinator writes the metrics and the checkpoints, and every
    process restores its own part from them.
 
 The world check and the training run over the backend the world chose
@@ -47,6 +50,8 @@ import sys
 
 # the outcome reported where no step is captured (the CPU)
 EAGER = "eager"
+# the pipeline's micro batches of each step's rows under ``pipeline``
+POD_MICROBATCHES = 2
 
 
 def _phase(phases: dict, name: str, extra: dict | None = None,
@@ -120,7 +125,12 @@ def pod_config(mesh=None):
     ``attn_impl="ring"`` and 2 heads of 64 (dim 128; the flash kernels,
     which every ring step launches on a card, take head_dim 64 or 128,
     and llama_tiny's is 16). The reference's pod keeps llama_tiny there,
-    whose "xla" attention XLA joins across the sequence's shards."""
+    whose "xla" attention XLA joins across the sequence's shards. Over a
+    ``pipeline`` axis the pod trains the same model cut into stages (one
+    layer a stage at pipeline=2) through ``pipeline_lm_loss_fn``, where
+    the reference's pod trains the plain ``llama.forward`` over the same
+    mesh: the same function of the same weights (the same choice as for
+    ``context``), here computed by real stages."""
     import dataclasses
 
     import torch
@@ -149,17 +159,23 @@ def train(world, device, steps: int, phases: dict, metrics_path,
     )
 
     cfg = pod_config(mesh)
+    init = lambda g: llama.init_params(g, cfg, device=device)
+    loss = lm_loss_fn(llama.forward, cfg)
+    axes = llama.param_logical_axes(cfg)
+    if mesh is not None and mesh.pipeline > 1:
+        from kubeflow_tpu_torch.parallel import pipeline_llama as pl
+
+        init, loss, axes = pl.pipeline_training(
+            cfg, mesh, init, microbatches=POD_MICROBATCHES)
     trainer = Trainer(
-        lambda g: llama.init_params(g, cfg, device=device),
-        lm_loss_fn(llama.forward, cfg),
+        init, loss,
         TrainerConfig(learning_rate=1e-3, warmup_steps=2,
                       total_steps=max(steps, 3)),
-        device=device, mesh=mesh,
-        param_axes=llama.param_logical_axes(cfg))
+        device=device, mesh=mesh, param_axes=axes)
     global_batch = max(2 * world.num_processes, 4)
     # this process's rows: the stream is seeded by its place in the
-    # batch axes (its process index where the world has no expert,
-    # context or tensor axis)
+    # batch axes (its process index where the world has no pipeline,
+    # expert, context or tensor axis)
     shard = ((mesh.axis_index("batch"), mesh.axis_size("batch"))
              if mesh is not None else None)
 

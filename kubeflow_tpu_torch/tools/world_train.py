@@ -19,6 +19,9 @@ asked, the whole parameters.
     # data=2, context=2 (attn_impl "ring" or "ulysses"): context peers
     # r and r + 1, each training its chunk of the same rows' tokens
     world_train.run(..., 2, 1, ["cpu"] * 4, tmp, context=2)
+    # pipeline=2, data=2: stage 0 on ranks 0 and 1, stage 1 on 2 and 3,
+    # pipeline peers r and r + 2 training their stages on the same rows
+    world_train.run(..., 2, 1, ["cpu"] * 4, tmp, pipeline=2)
 
 ``run`` spawns one process a rank (the ``spawn`` start method), each
 joining a gloo default group through a file in ``rundir``
@@ -29,9 +32,9 @@ bodies below with the job. A rank's result is written to
 makes ``run`` raise.
 
 Each rank feeds the rows of its place in the batch axes
-(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; expert, context
-and tensor peers share it, and under ``context`` the trainer stages the
-rank's chunk of each row): ``batch_for(job, step, index)``, the
+(``mesh.axis_index("batch")``, ``data`` x ``fsdp``; pipeline, expert,
+context and tensor peers share it, and under ``context`` the trainer
+stages the rank's chunk of each row): ``batch_for(job, step, index)``, the
 synthetic token stream's draw (``training.data.synthetic_lm_batches``,
 seeded by ``[data_seed, step, index]``) and, with ``mask``, a loss mask drawn
 after it whose density varies by row and by index, so the token counts
@@ -51,8 +54,11 @@ stopped at ``resume_at`` then resumed by a fresh trainer),
 the unsharded update of the whole tree), ``moe_layer_rank`` (one MoE
 layer of whole inputs over the world: the rank's rows, experts and
 slices, forward and backward), ``attention_layer_rank`` (one attention
-layer of whole inputs over the ``context`` axis, forward and backward)
-and ``plans_rank`` (several of them, each
+layer of whole inputs over the ``context`` axis, forward and backward),
+``pipeline_rank`` (``pipeline_apply`` over the ``pipeline`` axis on
+seeded MLP stages, forward and backward, and its aux masking),
+``pipeline_forward_rank`` (the pipelined llama's logits of the rank's
+rows) and ``plans_rank`` (several of them, each
 on its own layout of the same processes).
 """
 
@@ -85,7 +91,12 @@ class Job:
     the field), so a world with ``k`` times fewer places trains on the
     same global batch; with ``interleave``, micro batch by micro batch
     (``global_batch``'s grouping), so it trains on the same global micro
-    batches too (an MoE layer's capacity and slots depend on them)."""
+    batches too (an MoE layer's capacity and slots depend on them);
+    ``microbatches``: over a world with a ``pipeline`` axis, the
+    pipeline's micro batches of each trainer micro batch
+    (``make_trainer``); ``watch``: parameters (``optim.named_leaves``
+    names) whose bytes, as the rank keeps them, each step's result
+    keeps."""
     config: llama.LlamaConfig
     trainer: dict
     local_batch: int
@@ -103,6 +114,8 @@ class Job:
     # micro batch
     merge_places: int = 1
     interleave: bool = False
+    microbatches: int = 1
+    watch: tuple = ()
 
 
 def batch_for(job: Job, step: int, rank: int) -> dict:
@@ -151,8 +164,12 @@ def global_batch(job: Job, world: int, step: int,
 
 def make_trainer(job: Job, device: torch.device, mesh=None):
     """The job's llama trainer on ``device`` (over ``mesh`` when given),
-    its state initialised."""
+    its state initialised. Over a world with a ``pipeline`` axis the
+    tree is re-stacked into its stages and the loss runs them as a
+    pipeline of ``job.microbatches`` micro batches
+    (``parallel/pipeline_llama.py``)."""
     from kubeflow_tpu_torch import interop
+    from kubeflow_tpu_torch.parallel import pipeline_llama as pl
     from kubeflow_tpu_torch.training import Trainer, TrainerConfig, lm_loss_fn
 
     cfg = job.config
@@ -160,9 +177,14 @@ def make_trainer(job: Job, device: torch.device, mesh=None):
         init = lambda g: interop.params_from_jax(job.params, device=device)
     else:
         init = lambda g: llama.init_params(g, cfg, device=device)
-    trainer = Trainer(init, lm_loss_fn(llama.forward, cfg),
-                      TrainerConfig(**job.trainer), device=device, mesh=mesh,
-                      param_axes=llama.param_logical_axes(cfg))
+    if mesh is not None and mesh.pipeline > 1:
+        init, loss, axes = pl.pipeline_training(
+            cfg, mesh, init, microbatches=job.microbatches)
+    else:
+        loss = lm_loss_fn(llama.forward, cfg)
+        axes = llama.param_logical_axes(cfg)
+    trainer = Trainer(init, loss, TrainerConfig(**job.trainer),
+                      device=device, mesh=mesh, param_axes=axes)
     trainer.init_state(torch.Generator(device=device)
                        .manual_seed(job.param_seed))
     return trainer
@@ -179,9 +201,10 @@ def _host_tree(tree) -> dict:
 
 def _steps(job: Job, trainer, rank: int, mesh) -> dict:
     """``job.steps`` steps on the rows of place ``rank`` of the batch
-    axes: per step the metrics, the wall seconds (ending in a
-    synchronize), the host-staged and ``tensor`` collectives' timings
-    (``WorldMesh.timings``, this step's share) and, under
+    axes: per step the metrics, the ``job.watch`` parameters' bytes, the
+    wall seconds (ending in a synchronize), the host-staged and
+    ``tensor`` collectives' timings (``WorldMesh.timings``, this step's
+    share) and, under
     ``fsdp``, the per-layer gathers' and reduce-scatters' counts, bytes
     and seconds (``FsdpParams.timings``, this step's share: none while a
     captured micro body replays); with ``job.profile`` on a card, the
@@ -194,7 +217,7 @@ def _steps(job: Job, trainer, rank: int, mesh) -> dict:
     for k in kernels:
         k.launches = 0
     out: dict = {"metrics": [], "seconds": [], "collectives": [],
-                 "layer_collectives": []}
+                 "layer_collectives": [], "watched": []}
     layered = trainer.params.timings \
         if isinstance(trainer.params, FsdpParams) else None
     dev = trainer.device
@@ -220,6 +243,10 @@ def _steps(job: Job, trainer, rank: int, mesh) -> dict:
             prof.stop()
             out["profile"] = _device_readings(prof, out["seconds"][-1])
         out["metrics"].append({k: float(v) for k, v in m.items()})
+        if job.watch:
+            kept = optim.named_leaves(trainer.local_params)
+            out["watched"].append({k: kept[k].detach().to("cpu", copy=True)
+                                   for k in job.watch})
         if mesh is not None:
             out["collectives"].append({k: mesh.timings[k] - before[k]
                                        for k in before})
@@ -399,28 +426,43 @@ def restore_rank(mesh: WorldMesh, job: Job, ckpt_dir: str) -> dict:
 
 def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,
                    optimizer: str, steps: int, seed: int = 0,
-                   tensor_dims: Optional[dict] = None) -> dict:
+                   tensor_dims: Optional[dict] = None,
+                   pipeline_dims: Optional[dict] = None) -> dict:
     """``steps`` updates of ``optimizer`` (``make_optimizer``'s, warmup
     2) on each rank's parts of a seeded tree (leaf ``k`` of shape
     ``shapes[k]`` cut on ``dims[k]`` over fsdp and, where the world has
-    a ``tensor`` axis, on ``tensor_dims[k]`` over it; None: not cut),
-    gradients drawn anew each step, against the unsharded update of the
-    whole tree on the same rank. Returns per leaf the largest absolute
-    difference between the rank's part and its slice of the whole
-    result."""
+    a ``tensor`` or a ``pipeline`` axis, on ``tensor_dims[k]`` or
+    ``pipeline_dims[k]`` over it; None: not cut), gradients drawn anew
+    each step, against the unsharded update of the whole tree on the
+    same rank. Slice ``s`` of a leaf along its ``pipeline_dims`` dim is
+    scaled by 2 ** -s, in the parameters and in every gradient, so that
+    the stages' statistics differ, as a model's stages' do. Returns per
+    leaf the largest absolute difference between the rank's part and
+    its slice of the whole result."""
     from kubeflow_tpu_torch.parallel import sharding
     from kubeflow_tpu_torch.training import TrainerConfig, make_optimizer
 
     cfg = TrainerConfig(optimizer=optimizer, warmup_steps=2, total_steps=10)
     rng = np.random.default_rng(seed)
-    whole = {k: torch.tensor(rng.standard_normal(s).astype(np.float32))
-             for k, s in shapes.items()}
-    tensor_dims = tensor_dims or {}
-    cuts = {k: optim.LeafCut(tuple(s), dims.get(k), tensor_dims.get(k))
+    tensor_dims, pipeline_dims = tensor_dims or {}, pipeline_dims or {}
+
+    def draw(k, s):
+        t = torch.tensor(rng.standard_normal(s).astype(np.float32))
+        d = pipeline_dims.get(k)
+        if d is None:
+            return t
+        scale = [1] * len(s)
+        scale[d] = s[d]
+        return t * (0.5 ** torch.arange(s[d], dtype=t.dtype)).reshape(scale)
+
+    whole = {k: draw(k, s) for k, s in shapes.items()}
+    cuts = {k: optim.LeafCut(tuple(s), dims.get(k), tensor_dims.get(k),
+                             pipeline_dim=pipeline_dims.get(k))
             for k, s in shapes.items()}
 
     def part(k, t):
-        for axis, d in (("fsdp", dims.get(k)), ("tensor", tensor_dims.get(k))):
+        for axis, d in (("pipeline", pipeline_dims.get(k)),
+                        ("fsdp", dims.get(k)), ("tensor", tensor_dims.get(k))):
             if d is not None and mesh.axis_size(axis) > 1:
                 t = sharding.axis_shard(t, d, mesh.axis_index(axis),
                                         mesh.axis_size(axis), axis)
@@ -431,8 +473,7 @@ def optimizer_rank(mesh: WorldMesh, shapes: dict, dims: dict,
     tx_parts = make_optimizer(cfg, optim.Shards(cuts, mesh.all_reduce))
     s_whole, s_parts = tx_whole.init(whole), tx_parts.init(parts)
     for _ in range(steps):
-        g = {k: torch.tensor(rng.standard_normal(s).astype(np.float32))
-             for k, s in shapes.items()}
+        g = {k: draw(k, s) for k, s in shapes.items()}
         up, _ = tx_whole.update(g, s_whole, whole)
         optim.apply_updates(whole, up)
         g_parts = {k: part(k, t) for k, t in g.items()}
@@ -570,26 +611,92 @@ def attention_layer_rank(mesh: Optional[WorldMesh], inputs,
     return out
 
 
+def mlp_stage(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """``pipeline_rank``'s stage: ``tanh(x @ w + b)``."""
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def pipeline_rank(mesh: Optional[WorldMesh], inputs: dict,
+                  microbatches: int) -> dict:
+    """``parallel.pipeline.pipeline_apply`` of ``mlp_stage`` over the
+    world's ``pipeline`` axis (S stages). ``inputs``: numpy arrays, the
+    stacked stages ``w`` [S, D, D] and ``b`` [S, D], and ``x`` [B, D].
+    The rank takes its stage (float32, on the CPU), runs the forward and
+    the backward of ``sum(y ** 2)``; then a stage whose aux is 1 on
+    every tick it runs (``x + p`` with ``p`` 0, the JAX package's
+    masking case) with ``stage_aux``. Returns its stage index, ``y``,
+    its stage's gradients, the masking case's output and aux total, and
+    the world's ``timings`` of the first pipeline's forward and
+    backward."""
+    from kubeflow_tpu_torch.parallel.pipeline import pipeline_apply
+
+    s = mesh.axis_index("pipeline") if mesh is not None else 0
+    before = dict(mesh.timings) if mesh is not None else {}
+    mine = {k: torch.tensor(inputs[k][s]).requires_grad_(True)
+            for k in ("w", "b")}
+    x = torch.tensor(inputs["x"])
+    y = pipeline_apply(mlp_stage, mesh, microbatches=microbatches)(mine, x)
+    (y ** 2).sum().backward()
+    timings = {k: v - before[k] for k, v in mesh.timings.items()} \
+        if mesh is not None else {}
+    masked = pipeline_apply(
+        lambda p, x: (x + p, 1.0 + 0.0 * x.sum()), mesh,
+        microbatches=microbatches, stage_aux=True)
+    with torch.no_grad():
+        y_aux, aux = masked(torch.zeros(()), torch.ones_like(x))
+    return {"stage": s, "y": y.detach(),
+            "grads": {k: t.grad for k, t in mine.items()},
+            "y_aux": y_aux, "aux": float(aux), "timings": timings}
+
+
+def pipeline_forward_rank(mesh: WorldMesh, job: Job, tokens) -> dict:
+    """The pipelined llama's logits (``parallel.pipeline_llama.
+    pipeline_forward``, ``job.microbatches`` micro batches) of this
+    rank's rows of ``tokens`` (numpy [B, S]: the rows of its place in
+    the batch axes), its stage cut from ``job.params``, on the host."""
+    from kubeflow_tpu_torch import interop
+    from kubeflow_tpu_torch.parallel import pipeline_llama as pl
+    from kubeflow_tpu_torch.parallel import sharding
+    from kubeflow_tpu_torch.parallel.tensor import TensorParams
+
+    n, i = mesh.axis_size("pipeline"), mesh.axis_index("pipeline")
+    tree = pl.to_pipeline_params(
+        interop.params_from_jax(job.params, device=mesh.device), n)
+    tree = sharding.axis_part(tree, pl.pipeline_param_logical_axes(
+        job.config), "pipeline", i, n)
+    nb, ib = mesh.axis_size("batch"), mesh.axis_index("batch")
+    b = tokens.shape[0] // nb
+    rows = torch.tensor(tokens[ib * b:(ib + 1) * b], device=mesh.device)
+    with torch.no_grad():
+        logits, aux = pl.pipeline_forward(
+            TensorParams(tree, mesh), rows, job.config,
+            microbatches=job.microbatches)
+    return {"rows": (ib * b, (ib + 1) * b), "logits": logits.cpu(),
+            "moe_aux": float(aux["moe_aux"])}
+
+
 def plans_rank(mesh: WorldMesh, plans: Sequence[tuple]) -> list:
     """Several bodies over one world, each ``(data, fsdp[, tensor[,
-    expert[, context]]], body, args)`` on a mesh of those sizes over the
-    same processes (new groups, the same backend); their results in
-    order."""
+    expert[, context[, pipeline]]]], body, args)`` on a mesh of those
+    sizes over the same processes (new groups, the same backend); their
+    results in order."""
     out = []
     for *sizes, body, args in plans:
-        data, fsdp, tensor, expert, context = (*sizes, 1, 1, 1)[:5]
-        m = mesh if (data, fsdp, tensor, expert, context) == (
+        data, fsdp, tensor, expert, context, pipeline = \
+            (*sizes, 1, 1, 1, 1)[:6]
+        m = mesh if (data, fsdp, tensor, expert, context, pipeline) == (
             mesh.data, mesh.fsdp, mesh.tensor, mesh.expert,
-            mesh.context) else WorldMesh(
+            mesh.context, mesh.pipeline) else WorldMesh(
             data, fsdp, mesh.rank, mesh.device, mesh.backend, tensor=tensor,
-            expert=expert, context=context)
+            expert=expert, context=context, pipeline=pipeline)
         out.append(body(m, *args))
     return out
 
 
 def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
                rundir: str, body, args: tuple, tensor: int = 1,
-               expert: int = 1, context: int = 1) -> None:
+               expert: int = 1, context: int = 1,
+               pipeline: int = 1) -> None:
     from kubeflow_tpu_torch.rendezvous.bootstrap import join_world
 
     device = torch.device(devices[rank])
@@ -598,7 +705,7 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
     backend = join_world("file://" + os.path.join(rundir, "rendezvous"),
                          rank, len(devices), device)
     mesh = WorldMesh(data, fsdp, rank, device, backend, tensor=tensor,
-                     expert=expert, context=context)
+                     expert=expert, context=context, pipeline=pipeline)
     try:
         result = body(mesh, *args)
         torch.save(result, os.path.join(rundir, f"rank{rank}.pt"))
@@ -611,21 +718,22 @@ def _rank_main(rank: int, devices: Sequence[str], data: int, fsdp: int,
 
 def run(body, args: tuple, data: int, fsdp: int, devices: Sequence[str],
         rundir: str, tensor: int = 1, expert: int = 1,
-        context: int = 1) -> list:
-    """Spawn ``data * fsdp * expert * context * tensor`` ranks, rank
-    ``r`` on ``devices[r]``, each running ``body(mesh, *args)``; their
-    results in rank order (module docstring). ``rundir`` must be empty of
-    an earlier world's rendezvous file."""
+        context: int = 1, pipeline: int = 1) -> list:
+    """Spawn ``pipeline * data * fsdp * expert * context * tensor``
+    ranks, rank ``r`` on ``devices[r]``, each running ``body(mesh,
+    *args)``; their results in rank order (module docstring). ``rundir``
+    must be empty of an earlier world's rendezvous file."""
     import torch.multiprocessing as mp
 
-    n = data * fsdp * tensor * expert * context
+    n = pipeline * data * fsdp * tensor * expert * context
     if len(devices) != n:
-        raise ValueError(f"data={data} x fsdp={fsdp} x expert={expert} x "
-                         f"context={context} x tensor={tensor} needs {n} "
-                         f"devices, got {list(devices)}")
+        raise ValueError(f"pipeline={pipeline} x data={data} x fsdp={fsdp} "
+                         f"x expert={expert} x context={context} x "
+                         f"tensor={tensor} needs {n} devices, got "
+                         f"{list(devices)}")
     os.makedirs(rundir, exist_ok=True)
     mp.spawn(_rank_main, args=(list(devices), data, fsdp, rundir, body,
-                               args, tensor, expert, context), nprocs=n,
-             join=True)
+                               args, tensor, expert, context, pipeline),
+             nprocs=n, join=True)
     return [torch.load(os.path.join(rundir, f"rank{r}.pt"),
                        weights_only=False) for r in range(n)]

@@ -15,11 +15,12 @@ the learning rate, the bias corrections and the decay are computed from
 them on the device in float32 (as optax's ``jnp`` arithmetic does), so
 no update reads the host and a replay never sees a frozen count.
 
-Under ``fsdp``, ``expert`` and ``tensor`` (``training/trainer.py`` with a
-``parallel.mesh.WorldMesh``) each rank updates its own part of every
-parameter, and ``Shards`` says how the parts were cut: a leaf may be cut
-on one dim over ``fsdp``, another over ``expert`` and a third over
-``tensor``. A transformation
+Under ``fsdp``, ``expert``, ``tensor`` and ``pipeline``
+(``training/trainer.py`` with a ``parallel.mesh.WorldMesh``) each rank
+updates its own part of every parameter, and ``Shards`` says how the
+parts were cut: a leaf may be cut on one dim over ``fsdp``, another over
+``expert``, a third over ``tensor`` and a fourth over ``pipeline`` (a
+stage leaf's stage dim). A transformation
 given one reduces over the ranks that hold the other parts of the
 reduced dims wherever optax reduces over a whole leaf (the global norm
 and the block rms of the update and of the parameter: over every axis
@@ -95,21 +96,23 @@ class GradientTransformation:
 class LeafCut:
     """One parameter held as a rank's part: the whole parameter's shape,
     the dim cut over ``fsdp`` (the group's one axis, where a group has
-    one), the dim cut over ``tensor`` and the dim cut over ``expert``
-    (None: not cut over it)."""
+    one), the dim cut over ``tensor``, the dim cut over ``expert`` and
+    the dim cut over ``pipeline`` (a stage leaf's ``pipe_stage`` dim;
+    None: not cut over it)."""
     full_shape: tuple
     dim: Optional[int] = None
     tensor_dim: Optional[int] = None
     expert_dim: Optional[int] = None
+    pipeline_dim: Optional[int] = None
 
     def _dims(self) -> tuple:
-        return (("fsdp", self.dim), ("expert", self.expert_dim),
-                ("tensor", self.tensor_dim))
+        return (("pipeline", self.pipeline_dim), ("fsdp", self.dim),
+                ("expert", self.expert_dim), ("tensor", self.tensor_dim))
 
     @property
     def axes(self) -> tuple:
-        """The axes that cut the leaf, in ``(fsdp, expert, tensor)``
-        order."""
+        """The axes that cut the leaf, in ``(pipeline, fsdp, expert,
+        tensor)`` order."""
         return tuple(a for a, d in self._dims() if d is not None)
 
     def axis_of(self, dim: int) -> Optional[str]:
@@ -125,7 +128,8 @@ class Shards:
     """How the parameters an optimizer sees are cut over groups of ranks:
     ``cuts`` is a tree of ``LeafCut`` with the parameters' keys, and
     ``psum(t, axes)`` sums ``t`` in place over the ranks that differ on
-    ``axes`` (a tuple of ``fsdp``, ``expert`` and ``tensor``) and returns
+    ``axes`` (a tuple of ``pipeline``, ``fsdp``, ``expert`` and
+    ``tensor``) and returns
     it (every rank gets the same bytes)."""
     cuts: Any
     psum: Callable[[torch.Tensor, tuple], torch.Tensor]

@@ -58,9 +58,23 @@ chunks (``parallel/ring_attention.py``, ``attn_impl`` "ring" or
 ``context`` (the ``tokens`` group) and the gradients are all-reduced
 over ``data`` x ``context``, while the optimizer's whole-leaf
 reductions never sum over it. ``context`` beside an MoE model raises
-(``parallel.mesh.PARALLEL_SLICE``). ``TrainerConfig.rules`` (logical
-axis -> mesh axes) places the parameters over a world; on one card
-there is nothing to place.
+(``parallel.mesh.PARALLEL_SLICE``). Under ``pipeline`` (the JAX
+``pipe_stage`` -> ``pipeline`` rule, a tree of
+``parallel.pipeline_llama.to_pipeline_params``' stages and a loss
+function that runs them as a pipeline, ``pipeline_lm_loss_fn``) the
+ranks of the axis feed the same rows, each keeps its stage of the layers
+and the whole rest, and the model passes the activations between them
+(``parallel/pipeline.py``). Every pipeline rank ends with the same loss,
+so the sums never run over the axis; a stage leaf's gradients are its
+stage's alone, and the whole-leaf reductions sum them over the axis
+once; a leaf outside the stages (the embedding, the final norm, the
+head) gets its lookup's gradient on stage 0 and its head's on the last
+stage, which the finish body sums over the axis before the gradient
+all-reduce, so every pipeline rank updates the same bytes. A
+checkpoint holds the layers in the plain ``[L, ...]`` stack
+(``parallel.pipeline.from_pipeline_state``), the one-process tree.
+``TrainerConfig.rules`` (logical axis -> mesh axes) places the
+parameters over a world; on one card there is nothing to place.
 
 The world's micro batches: with ``grad_accum`` = n, micro batch ``m`` of
 a step is every batch rank's ``m``-th micro batch (its rows ``[m * b /
@@ -88,6 +102,9 @@ from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
 from kubeflow_tpu_torch.parallel.mesh import PARALLEL_SLICE
+from kubeflow_tpu_torch.parallel.pipeline import (
+    from_pipeline_state, stage_count, to_pipeline_state,
+)
 from kubeflow_tpu_torch.parallel.tensor import TensorParams
 from kubeflow_tpu_torch.training import optim
 from kubeflow_tpu_torch.training.data import BatchBuffers
@@ -152,15 +169,17 @@ def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state,
                     sizes: dict) -> dict:
     """{optimizer state leaf: {axis: the dim it is cut on over it}}: each
     leaf's shape against the same leaf of the state the optimizer makes
-    for the whole parameters, for their slices over the ``expert``
-    ranks, and for those over the ``tensor`` ranks too (``sizes``: the
-    two axes' sizes; on the meta device: no memory; all decide what
-    factors on the whole shapes, as the rank's optimizer does), which
-    differ on the cut dims alone; what differs last is ``fsdp``'s."""
+    for the whole parameters, for their slices over the ``pipeline``
+    ranks, for those over the ``expert`` ranks too, and for those over
+    the ``tensor`` ranks too (``sizes``: the three axes' sizes; on the
+    meta device: no memory; all decide what factors on the whole shapes,
+    as the rank's optimizer does), which differ on the cut dims alone;
+    what differs last is ``fsdp``'s."""
     def meta(axes):
         def leaf(p, c):
             shape = list(c.full_shape)
-            for axis, d in (("expert", c.expert_dim),
+            for axis, d in (("pipeline", c.pipeline_dim),
+                            ("expert", c.expert_dim),
                             ("tensor", c.tensor_dim)):
                 if axis in axes and d is not None:
                     shape[d] //= sizes[axis]
@@ -169,13 +188,14 @@ def _state_cut_dims(config: TrainerConfig, parts, cuts, opt_state,
 
     tx = make_optimizer(config, optim.Shards(cuts, lambda *a: None))
     steps = [optim.named_leaves(tx.init(meta(axes)))
-             for axes in ((), ("expert",), ("expert", "tensor"))]
+             for axes in ((), ("pipeline",), ("pipeline", "expert"),
+                          ("pipeline", "expert", "tensor"))]
     out = {}
     for name, t in optim.named_leaves(opt_state).items():
         dims = {}
         shapes = [s[name].shape for s in steps] + [t.shape]
-        for axis, a, b in zip(("expert", "tensor", "fsdp"), shapes,
-                              shapes[1:]):
+        for axis, a, b in zip(("pipeline", "expert", "tensor", "fsdp"),
+                              shapes, shapes[1:]):
             diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
             if diff:
                 dims[axis] = diff[0]
@@ -265,13 +285,20 @@ class Trainer:
         self._shards = None
         self._opt_cut_dims: dict = {}
         self._loss_params = None
+        # the number of stages of a pipelined tree, else None; whether
+        # the world's pipeline axis cuts them
+        self._n_stages = stage_count(params)
+        self._staged = False
+        cuts = None
         if self.mesh is not None:
             shapes = optim.tree_map(lambda p: tuple(p.shape), params)
             sharding.validate_divisibility(self.mesh, self.param_axes,
                                            shapes, self.config.rules)
             self._check_world(params)
             cuts = self._leaf_cuts(shapes)
-            for axis in ("expert", "tensor"):
+            self._staged = any(c.pipeline_dim is not None
+                               for c in optim.tree_leaves(cuts))
+            for axis in ("pipeline", "expert", "tensor"):
                 if getattr(self.mesh, axis) > 1:
                     params = sharding.axis_part(
                         params, self.param_axes, axis,
@@ -283,6 +310,7 @@ class Trainer:
                 self.param_axes, self.config.rules, self.mesh)
             del params          # the whole tree, before the optimizer state
             self._flat_grad = self.params.grad
+            self._whole_grad = self.params.rest_grad
         else:
             self.params = optim.tree_map(
                 lambda p: p.detach().to(self.device).requires_grad_(True),
@@ -292,7 +320,7 @@ class Trainer:
                 for p in optim.tree_leaves(self.params):
                     p.grad = torch.zeros_like(p)
             else:
-                self._init_data()
+                self._init_data(cuts)
                 self._loss_params = TensorParams(self.params, self.mesh)
         if self.mesh is not None and self.mesh.size // (
                 self.mesh.data * self._context) > 1:
@@ -301,7 +329,8 @@ class Trainer:
         if self._shards is not None:
             self._opt_cut_dims = _state_cut_dims(
                 self.config, self.local_params, self._shards.cuts,
-                self.opt_state, {"expert": self.mesh.expert,
+                self.opt_state, {"pipeline": self.mesh.pipeline,
+                                 "expert": self.mesh.expert,
                                  "tensor": self.mesh.tensor})
         self.step = 0
         zero = lambda: torch.zeros((), dtype=torch.float32,
@@ -333,34 +362,42 @@ class Trainer:
 
     def _leaf_cuts(self, shapes):
         """A tree of ``optim.LeafCut``: each parameter's whole shape and
-        the dims the world's ``fsdp``, ``tensor`` and ``expert`` axes
-        (those over 1) cut, by ``config.rules``."""
+        the dims the world's ``fsdp``, ``tensor``, ``expert`` and
+        ``pipeline`` axes (those over 1) cut, by ``config.rules``."""
         rules = self.config.rules
 
         def cut(shape, names):
             dims = [sharding.axis_dim(names, a, rules)
                     if getattr(self.mesh, a) > 1 else None
-                    for a in ("fsdp", "tensor", "expert")]
+                    for a in ("fsdp", "tensor", "expert", "pipeline")]
             placed = [d for d in dims if d is not None]
             if len(set(placed)) < len(placed):
                 raise NotImplementedError(
                     f"logical axes {tuple(names)}: one dim is on two of "
-                    "fsdp, tensor and expert; a dim is cut over one axis")
+                    "fsdp, tensor, expert and pipeline; a dim is cut over "
+                    "one axis")
             return optim.LeafCut(tuple(shape), *dims)
 
         return optim.tree_map(cut, shapes, self.param_axes)
 
-    def _init_data(self) -> None:
+    def _init_data(self, cuts) -> None:
         """Without ``fsdp``: the gradient accumulators as views of one
-        flat buffer (one all-reduce a step over ``data``)."""
+        flat buffer (one all-reduce a step over ``data``), the leaves no
+        ``pipeline`` dim cuts first (``_whole_grad``: their part of it,
+        which a pipelined tree sums over the axis)."""
         leaves = optim.tree_leaves(self.params)
+        staged = [c.pipeline_dim is not None
+                  for c in optim.tree_leaves(cuts)]
         self._flat_grad = torch.zeros((sum(p.numel() for p in leaves),),
                                       dtype=leaves[0].dtype,
                                       device=self.device)
         off = 0
-        for p in leaves:
+        for p in ([p for p, s in zip(leaves, staged) if not s]
+                  + [p for p, s in zip(leaves, staged) if s]):
             p.grad = self._flat_grad[off:off + p.numel()].view(p.shape)
             off += p.numel()
+        self._whole_grad = self._flat_grad[:sum(
+            p.numel() for p, s in zip(leaves, staged) if not s)]
 
     def _init_shards(self, cuts) -> None:
         """Under ``fsdp``, ``expert`` or ``tensor``, once ``self.params``
@@ -474,6 +511,10 @@ class Trainer:
             else:
                 loss_sum, denom, metric_sums = self._reduce_sums()
                 accum *= self.mesh.axis_size("tokens")
+            if self._staged:
+                # the lookup's gradient (stage 0) and the head's (the last
+                # stage) of the leaves outside the stages
+                self.mesh.all_reduce(self._whole_grad, "pipeline")
             if self.mesh is not None:
                 self.mesh.all_reduce(self._flat_grad, "data_context")
             params = self.local_params
@@ -571,15 +612,19 @@ class Trainer:
         leaf's parts
         are gathered into host memory, one leaf (and for a stacked leaf,
         one piece of layers) at a time, so the device never holds the
-        whole state (``parallel.fsdp.gather_to_host``)."""
+        whole state (``parallel.fsdp.gather_to_host``). A pipelined tree's
+        stages come back as the plain ``"layers"`` stack
+        (``parallel.pipeline.from_pipeline_state``)."""
         if self._shards is None:
-            return {"params": self.params, "opt_state": self.opt_state}
-        dims = self._cut_dims()
-        live = self._live()
-        it = iter(gather_to_host(t, dims.get(k), self.mesh)
-                  for k, t in live.items())
-        return _rebuild({"params": self.local_params,
-                         "opt_state": self.opt_state}, it)
+            state = {"params": self.params, "opt_state": self.opt_state}
+        else:
+            dims = self._cut_dims()
+            live = self._live()
+            it = iter(gather_to_host(t, dims.get(k), self.mesh)
+                      for k, t in live.items())
+            state = _rebuild({"params": self.local_params,
+                              "opt_state": self.opt_state}, it)
+        return state if self._n_stages is None else from_pipeline_state(state)
 
     def _live(self) -> dict:
         """The state ``checkpoint_state`` saves as this rank holds it,
@@ -593,8 +638,9 @@ class Trainer:
         dims = {f"opt_state/{k}": d for k, d in self._opt_cut_dims.items()}
         if self._shards is not None:
             dims.update({f"params/{k}": {a: d for a, d in (
-                ("fsdp", c.dim), ("expert", c.expert_dim),
-                ("tensor", c.tensor_dim)) if d is not None}
+                ("pipeline", c.pipeline_dim), ("fsdp", c.dim),
+                ("expert", c.expert_dim), ("tensor", c.tensor_dim))
+                if d is not None}
                 for k, c in optim.named_leaves(self._shards.cuts).items()})
         return dims
 
@@ -603,7 +649,10 @@ class Trainer:
         gives it, on any device) into this trainer's tensors, each rank
         its own part, and set the step. Every leaf is checked before any
         is copied. The tensors keep their addresses: a captured step
-        trains the loaded state at its next replay."""
+        trains the loaded state at its next replay. A pipelined trainer
+        takes the plain ``"layers"`` stack, re-stacked into its stages."""
+        if self._n_stages is not None:
+            state = to_pipeline_state(state, self._n_stages)
         saved = optim.named_leaves(state)
         live = self._live()
         if saved.keys() != live.keys():
@@ -685,11 +734,13 @@ class Trainer:
         layer, under ``tensor``, whose micro body all-reduces the
         products of every block, under ``context``, whose attention
         passes K/V round the ring (or swaps the sequence cut for a head
-        cut) in every block, and for an MoE model under ``expert`` or
-        over several batch ranks, whose MoE layers gather their routing
-        counts and all-reduce their statistics and outputs, so does the
-        micro body (``step_graph.micro_mode``; with neither captured, the
-        step runs as it runs without ``precompile``). The log says what was
+        cut) in every block, under ``pipeline``, whose pipeline passes
+        the activations between the stages at every tick, and for an MoE
+        model under ``expert`` or over several batch ranks, whose MoE
+        layers gather their routing counts and all-reduce their
+        statistics and outputs, so does the micro body
+        (``step_graph.micro_mode``; with neither captured, the step runs
+        as it runs without ``precompile``). The log says what was
         captured, and why a body was not.
 
         Raises ValueError before ``init_state`` (JAX's check) and on a
@@ -707,6 +758,7 @@ class Trainer:
         micro_collectives = self.mesh is not None and (
             self.mesh.fsdp > 1 or self.mesh.tensor > 1
             or self.mesh.expert > 1 or self._context > 1
+            or self._staged
             or (moe and self.mesh.axis_size("batch") > 1))
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
@@ -717,7 +769,8 @@ class Trainer:
         logger.info("precompile: micro body %s, finish body %s%s",
                     graph.micro_mode, graph.finish_mode,
                     "" if self.mesh is None else
-                    f" ({self.mesh.backend.name}, data={self.mesh.data}, "
+                    f" ({self.mesh.backend.name}, "
+                    f"pipeline={self.mesh.pipeline}, data={self.mesh.data}, "
                     f"fsdp={self.mesh.fsdp}, expert={self.mesh.expert}, "
                     f"context={self._context}, "
                     f"tensor={self.mesh.tensor}"

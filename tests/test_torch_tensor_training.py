@@ -628,9 +628,10 @@ def test_world_axes_errors_match_mesh_config(data, fsdp, tensor, n):
 
 
 def test_axes_not_ported_still_raise_naming_their_item():
-    for mesh in ("expert=2,context=2", "pipeline=2"):
+    for env in ({"KFT_MESH": "expert=2,context=2"},
+                {"KFT_MESH": "pipeline=2", "KFT_DCN": "pipeline=2"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-            t_boot.world_layout({"KFT_MESH": mesh}, 4)
+            t_boot.world_layout(env, 4)
 
 
 def test_moe_under_tensor_raises():

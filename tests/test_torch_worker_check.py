@@ -118,7 +118,8 @@ def test_world_layout_refuses_what_is_not_ported():
                              "for training"):
         t_boot.world_layout({"KFT_MESH": "expert=2,context=2"}, 4)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        t_boot.world_layout({"KFT_MESH": "pipeline=2"}, 2)
+        t_boot.world_layout({"KFT_MESH": "pipeline=2",
+                             "KFT_DCN": "pipeline=2"}, 4)
     with pytest.raises(ValueError, match="one device each"):
         t_boot.world_layout({"KFT_MESH": "data=2,fsdp=2"}, 2)
     with pytest.raises(ValueError, match="unknown mesh axis"):

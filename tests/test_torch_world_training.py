@@ -266,7 +266,7 @@ def test_moe_under_a_world_raises_naming_its_item():
                       device="cpu", mesh=_stub_mesh(2, 1),
                       param_axes=tl.param_logical_axes(cfg))
     assert trainer.mesh is not None
-    for mesh in ("expert=2,context=2", "data=2,expert=2,pipeline=2"):
+    for mesh in ("expert=2,context=2", "data=2,expert=2,context=2"):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
             t_boot.world_layout({"KFT_MESH": mesh}, 8)
 
