@@ -95,10 +95,11 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              (llama_tiny f32); at full width the drift budget and an rms
              logit error limit per KV dtype set against planted faults.
              The model is freed after.
-4g. decode graph — llama3_8b at its published widths (phase 4's
-             weights), max_batch 8, max_seq 1024, block 64, decode_chunk
-             8, bf16 and int8 KV + int8 weights: an eager LLMEngine and
-             one whose decode program precompile() captured as a CUDA
+4g. decode graph — llama3_8b at its published widths, the first
+             GRAPH_LAYERS = 8 of phase 4's 32 layers, max_batch 8,
+             max_seq 1024, block 64, decode_chunk 8, bf16 and int8
+             KV + int8 weights: an eager LLMEngine and one whose decode
+             program precompile() captured as a CUDA
              graph, on the same weights. (a) Phase 4's four prompts, 32
              greedy tokens each, pipelined, through both: token for token
              equal streams and bitwise equal logprobs (the largest
@@ -131,16 +132,17 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              under 2 x (b)'s largest error; the verify and decode steps
              timed and profiled (batch 8, 300-token contexts). The same
              with int8 KV + int8 weights (row 2). Then tensor=4 as phase
-             4tp runs it: three prompts, 24 tokens, rank digests equal,
+             4tp runs it: three prompts, 12 tokens, rank digests equal,
              row 3 on every rank for the fallbacks, (c) against the
              one-card plain streams with phase 4tp's drift allowed.
 5d. disaggregated serving — a prefill tier and a decode tier, each an
-             LLMModel with its own copy of the llama3_8b weights behind
+             LLMModel with its own copy of llama3_8b's weights (its
+             widths, DISAGG_LAYERS = 8 of its 32 layers, seed 0) behind
              its own ModelServer, attached as the runtime attaches
              KFT_TIER replicas: phase 4's 100-, 300- and 700-token
              prompts migrated one at a time through
-             /v2/models/{m}/disagg/prefill and /collect (32 tokens),
-             each equal token for token to the same prompt served
+             /v2/models/{m}/disagg/prefill and /collect
+             (DISAGG_TOKENS = 16), each equal token for token to the same prompt served
              co-located; per request the migrated blocks and bytes,
              prefill/export/transfer and inject-to-first-commit seconds
              and the host round trip's GB/s; the decode tier's row 1
@@ -148,6 +150,29 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              blocks it did not write; a duplicate kv frame injects once
              and a release frame frees the decode side's blocks; no
              migration failure. Then the same with int8 KV (row 2).
+5dt. disaggregated tiers on a mesh — inside 5d, for each KV dtype, while
+             5d's one-card tiers are up: 5d's llama3_8b cut as a
+             ``LLMModel(mesh=)`` of KFT_MESH=tensor=DISAGG_TP
+             (each rank drawing its shard of 5d's seeded weights; two
+             ranks on card 0 over gloo, or a card a rank over NCCL where
+             two cards are present, as the line before the phase says),
+             playing both tiers through a prefill and a decode
+             TierRuntime over its engine: 5d's three prompts (100, 300,
+             700 tokens) migrated mesh -> 5d's one-card decode tier and
+             5d's one-card prefill tier -> mesh, DISAGG_TP_TOKENS greedy
+             tokens each. Per request: token counts, migrated blocks and
+             frame bytes, the decode side's launches over blocks it did
+             not write (row 1 or 2 on one card, row 3 on every rank ==
+             n_layers x its decode device steps), the stream against the
+             unsharded full forward's teacher-forced argmax within the
+             bf16 tie tolerance, and the mesh's payload (every KV head,
+             its ranks' slices joined in tensor order) against the
+             one-card payload for the same prompt: rms error over rms
+             under DISAGG_TP_PAYLOAD_MAX, with the planted fault (the
+             head slices joined in reverse) read beside it and required
+             above it. Prints export, transfer and inject-to-first-commit
+             seconds beside 5d's, checks the ranks' digests agree and no
+             block stays in use on any rank.
 5m. MoE serving — Mixtral-8x7B at its published widths (the literal
              config.json through hf_llama.config_from_hf), 16 of its 32
              layers (46.97 GB in bf16; all 32 would not fit the card),
@@ -195,8 +220,26 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              between the sound reading and a planted fault, the MoE
              all-reduce dropped: tools/moe_quality.py --tensor); the
              decode step as served.
+5e. MoE over an expert axis — after phase 5n's mesh is freed, the same
+             Mixtral cut under KFT_MESH=expert=MOE_EP,tensor=MOE_EP_TP
+             through the runtime's env parsing: four ranks (on card 0
+             over gloo, or a card a rank over NCCL where four cards are
+             present), each drawing its 4 experts' mlp slice and the
+             router whole, routing every token as one card does; the
+             MoE output summed over the whole mesh, attention's over
+             tensor. Phase 4's four requests over HTTP V2, 32 greedy
+             tokens each: every rank's row 3 launches == n_layers x
+             decode device steps, every rank's sampling bodies and
+             digest equal, each rank at its (expert, tensor) index
+             holding its experts; phase 5m's two streams teacher-forced
+             through the mesh against 5m's one-card logits, the rms
+             logit error under MOE_EP_RMS_MAX (set between the sound
+             reading and a planted fault, the MoE output summed over
+             tensor only: tools/moe_quality.py --expert 2 --tensor 2);
+             the decode step as served beside phase 5n's.
 5x. Mixtral-8x7B at all 32 layers (93.4 GB bf16, which no one card
-             holds) under tensor=MOE_TP_FULL, one card a rank over NCCL,
+             holds) under tensor=MOE_TP_FULL, then under
+             expert=MOE_EP,tensor=MOE_EP_TP, one card a rank over NCCL,
              eager (no capture under a mesh): the four requests, rank
              digests equal, row 3's launches on every rank, the decode
              step as served. Runs only on a machine with four cards or
@@ -239,8 +282,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              through the kernels against attn_impl="xla" (plain einsum
              attention) from the same parameters.
 7m. MoE training — llama_1b's widths with 8 experts (top-2, capacity
-             1.25), MOE_TRAIN_LAYERS = 4 of its 16 layers (1.23 B f32
-             parameters), trained
+             1.25), MOE_TRAIN_LAYERS = 2 of its 16 layers, trained
              as phase 7 trains: an eager trainer takes 3 steps (its
              losses, grad norms, moe_aux and parameters kept on the
              host) and is freed, then one from the same seed runs
@@ -268,7 +310,7 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              stamp the reference writes, and the losses of every step
              after the resume bitwise the uninterrupted run's. (b)
              llama_1b in phase 7's configuration, cut to RESUME_LAYERS =
-             8 of its 16 layers, fed by a TokenDataset
+             2 of its 16 layers, fed by a TokenDataset
              (two shards of 1<<22 tokens, ids < 32768, from a numpy
              stream seeded 0, written by write_token_shards), three
              trainers one at a time: A init_state, precompile, fit to
@@ -593,15 +635,17 @@ TP_RMS_MAX = {"bf16": 0.153, "int8": 0.0365}
 # phase 4tp: greedy tokens a request (phase 4's 32 until phase 9r needed
 # the room: all ranks on one card over gloo take ~0.5 s a decode step),
 # and the decode dispatches the served step is timed over (the mesh's
-# and the one-card model's alike)
+# and the one-card model's alike; 2 until phases 5dt and 5e needed the
+# room)
 TP_TOKENS = 16
-TP_STEP_CHUNKS = 2
+TP_STEP_CHUNKS = 1
 # phase 5s: draft tokens a verify (the verify width is SPEC_K + 1 = 4),
 # greedy tokens a request at full width, and under tensor=4 (fewer there:
-# gloo on one card takes ~0.5 s a decode step)
+# gloo on one card takes ~0.5 s a decode step; 24 until phases 5dt and 5e
+# needed the room)
 SPEC_K = 3
 SPEC_TOKENS = 64
-SPEC_TP_TOKENS = 24
+SPEC_TP_TOKENS = 12
 # phase 5s (b): rms of the verify step's logit error against sequential
 # decode over the same tokens, over the decode logits' rms, per weight
 # type. Verify and decode are different programs (dense attention over
@@ -612,13 +656,41 @@ SPEC_TP_TOKENS = 24
 # row sees the next row's KV): 0.09631 / 0.08501. Each limit is the
 # geometric mean of the two (see PERF.md)
 SPEC_RMS_MAX = {"bf16": 0.0391, "int8": 0.0393}
-# phase 5d: greedy tokens of each migrated request
-DISAGG_TOKENS = 32
+# phase 5d: greedy tokens of each migrated request (32 until phases 5dt
+# and 5e needed the room; its checks are exact)
+DISAGG_TOKENS = 16
+# phases 5d and 5dt serve llama3_8b's widths at DISAGG_LAYERS of its 32
+# layers, drawn from seed 0 at that depth (all 32 until phase 5dt needed
+# the room; 5d's checks are exact at any depth, PERF.md §4)
+DISAGG_LAYERS = 8
+# phase 5dt: disaggregated tiers on a mesh: llama3_8b under
+# tensor=DISAGG_TP (5d's seeded weights, each rank drawing its shard; two
+# ranks on one card over gloo, or a card a rank over NCCL) as the
+# prefill tier into 5d's one-card decode tier and as the decode tier of
+# 5d's one-card prefill tier, DISAGG_TP_TOKENS greedy tokens a request.
+# DISAGG_TP_PAYLOAD_MAX bounds the rms of the mesh's payload (K and V
+# over the prompt's rows, dequantized) minus the one-card payload for
+# the same prompt, over the one-card payload's rms, per KV dtype; each
+# run also reads the planted fault (the ranks' head slices joined in
+# reverse order), which must read above it. Read on one H100 (700 W),
+# two ranks over gloo, the largest of the three prompts: sound 0.01627
+# (bf16: the layers past the first add the ranks' partial sums in
+# bf16) and 0.02189 (int8); the fault 1.41274 (unrelated heads: ~√2).
+# Each limit is the geometric mean of the two (see PERF.md)
+DISAGG_TP = 2
+DISAGG_TP_TOKENS = 8
+DISAGG_TP_PAYLOAD_MAX = {"bf16": 0.152, "int8": 0.176}
 # phase 4g: greedy tokens a stream in (a)/(d); dispatches timed per
 # engine in (c), and the budget of (c)'s eight streams (enough that none
 # finishes inside the warm-up, timed and profiled dispatches)
 GRAPH_TOKENS = 32
-GRAPH_DISPATCHES = 4
+# phase 4g runs on the first GRAPH_LAYERS of phase 4's 32 layers (all 32
+# until phases 5dt and 5e needed the room; its checks are bitwise, eager
+# against replay, and exact launch counts, at any depth, PERF.md §4)
+GRAPH_LAYERS = 8
+# (c)'s and phase 5m (e)'s timed dispatches (4 until phases 5dt and 5e
+# needed the room)
+GRAPH_DISPATCHES = 2
 GRAPH_FILL_TOKENS = 8 * (GRAPH_DISPATCHES + 6)
 # phase 5m (c): rms of the MoE serving path's logit error against the
 # full forward's with the serving path's routing (tools/moe_quality.
@@ -640,13 +712,13 @@ POD_STEPS = 6
 POD_STEP_SLEEP_S = 0.5
 POD_TIMEOUT_S = 300
 # phase 7m: train_profile's MoE llama_1b (8 experts) cut to this many of
-# its 16 layers (8 until phase 9p needed the room; the check is bitwise,
-# replayed against eager, at any depth)
-MOE_TRAIN_LAYERS = 4
+# its 16 layers (8 until phase 9p, 4 until phases 5dt and 5e needed the
+# room; the check is bitwise, replayed against eager, at any depth)
+MOE_TRAIN_LAYERS = 2
 # phase 8 (b): llama_1b cut to this many of its 16 layers (16 until
-# phase 9r needed the room; the resume is bitwise at any depth, PERF.md
-# §4)
-RESUME_LAYERS = 8
+# phase 9r, 8 until phases 5dt and 5e needed the room; the resume is
+# bitwise at any depth, PERF.md §4)
+RESUME_LAYERS = 2
 # phase 9: two training processes, each with half the global batch in
 # phase 7's micro batches (so WORLD_ACCUM a rank, TRAIN_ACCUM in all).
 # Phase 9 (b)'s limits on the largest relative difference of the world's
@@ -741,8 +813,23 @@ TENSOR3_ACCUM = 4
 MOE_TP = 2
 MOE_TP_RMS_MAX = 0.284
 # phase 5x: Mixtral-8x7B at all 32 layers under tensor=MOE_TP_FULL, one
-# card a rank over NCCL (four cards or more)
+# card a rank over NCCL (four cards or more), then under
+# expert=MOE_EP,tensor=MOE_EP_TP
 MOE_TP_FULL = 4
+# phase 5e: phase 5m's Mixtral cut served under KFT_MESH=expert=MOE_EP,
+# tensor=MOE_EP_TP (each rank MOE_EP's share of the experts and its mlp
+# slice of each, the router whole; four ranks on one card over gloo, or a
+# card a rank over NCCL), its rms logit error against phase 5m's
+# one-card engine on the same teacher-forced streams
+# (tools/moe_quality.tp_readings) under MOE_EP_RMS_MAX, set between the
+# sound reading and a planted fault (the MoE output summed over tensor
+# only): tools/moe_quality.py --expert 2 --tensor 2. Read on one H100
+# (700 W), four ranks over gloo: sound 0.1407 (bf16 partial sums over
+# the ranks, near ties at the k-th expert: greedy agreement 0.803); the
+# fault 0.6185. The limit is their geometric mean (see PERF.md)
+MOE_EP = 2
+MOE_EP_TP = 2
+MOE_EP_RMS_MAX = 0.295
 # phase 9m: llama_moe_8x(llama_1b()) at full width cut to
 # MOE_WORLD_LAYERS of its 16 layers (two ranks and their state on one
 # card; 4 layers until phase 9r needed the room, PERF.md §4), phase 7's
@@ -1333,17 +1420,20 @@ def decode_step_ms(torch, eng, steps: int = 20) -> float:
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def llama3_8b(torch):
-    """llama3_8b at its published widths, random bf16 weights from seed
-    0 on the card."""
+def llama3_8b(torch, n_layers: int = 32):
+    """llama3_8b at its published widths (``n_layers`` of its 32
+    layers), random bf16 weights from seed 0 on the card."""
+    import dataclasses
+
     from kubeflow_tpu_torch.models import llama
 
-    cfg = llama.llama3_8b()                 # published widths, bf16
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=n_layers)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = llama.init_params(gen, cfg, device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    log(f"llama3_8b: {tree_numel(params)} params bf16 "
+    log(f"llama3_8b ({n_layers} of 32 layers): {tree_numel(params)} "
+        f"params bf16 "
         f"({tree_bytes(params) / 1e9:.2f} GB), init "
         f"{time.perf_counter() - t0:.1f} s")
     return cfg, params
@@ -1689,7 +1779,10 @@ def graph_streams(eng, prompts: dict) -> tuple:
 
 def graph_phase(torch, pa, cfg, params) -> dict:
     """Phase 4g: the captured decode program against the eager body, bf16
-    and int8 KV + int8 weights (module docstring)."""
+    and int8 KV + int8 weights, on the first GRAPH_LAYERS layers of
+    phase 4's weights (module docstring)."""
+    import dataclasses
+
     from kubeflow_tpu_torch.serving.llm import LLMEngine
     from kubeflow_tpu_torch.serving.quant import quantize_weights
     from kubeflow_tpu_torch.serving.scheduler import QuantConfig
@@ -1698,6 +1791,9 @@ def graph_phase(torch, pa, cfg, params) -> dict:
     )
 
     t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=GRAPH_LAYERS)
+    params = dict(params, layers={k: v[:GRAPH_LAYERS]
+                                  for k, v in params["layers"].items()})
     prompts = dict(four_prompts(torch, cfg))
     rng = torch.Generator().manual_seed(4)
     prompts["fifth"] = torch.randint(1, cfg.vocab_size, (150,),
@@ -1790,7 +1886,7 @@ def graph_phase(torch, pa, cfg, params) -> dict:
     return out
 
 
-def served_step_ms(torch, model, chunks: int = 4) -> float:
+def served_step_ms(torch, model, chunks: int = 2) -> float:
     """Host clock per decode step of a loaded LLMModel (tensor-parallel
     or one card) as it serves: eight greedy requests with STEP_CONTEXT-
     token prompts go in through ``generate_stream`` and the model's own
@@ -1847,7 +1943,7 @@ def check_ranks_agree(eng, sampled=None) -> None:
     (``serving.tp.status``)."""
     ranks = eng.tp_status()
     seen = {(r["samples"], r["token_digest"]) for r in ranks}
-    log(f"tensor={len(ranks)}: per-rank (sampling bodies, token digest) "
+    log(f"{len(ranks)} ranks: per-rank (sampling bodies, token digest) "
         f"{seen}"
         + (f", sampling dispatches {sampled}" if sampled is not None else ""))
     if len(seen) != 1 or (sampled is not None
@@ -2456,13 +2552,14 @@ def spec_phase(torch, pa, cfg, params, tp: dict) -> dict:
     return out
 
 
-def held_payload(torch, model, prompt, max_tokens: int) -> dict:
+def held_payload(torch, model, prompt, max_tokens: int, rt=None) -> dict:
     """A prefill tier's migration payload for ``prompt``, made as
     ``TierRuntime.prefill_and_migrate`` makes it (hold, export, release
-    on the engine's thread), without sending it."""
+    on the engine's thread, through ``rt``, by default the model's),
+    without sending it."""
     from kubeflow_tpu_torch.serving.llm import SamplingParams
 
-    rt, eng = model.disagg, model.engine
+    rt, eng = rt or model.disagg, model.engine
     req = eng.add_request(prompt, SamplingParams(max_tokens=max_tokens),
                           hold_after_prefill=True)
     model.kick()
@@ -2578,6 +2675,8 @@ def disagg_run(torch, pa, cfg, params, params2, tag, quant) -> dict:
                                  "differs from the co-located stream")
         if tag == "bf16":
             disagg_races(torch, pre, dec)
+        mesh_run = disagg_mesh(torch, pa, cfg, params, tag, quant, pre, dec,
+                               prompts, rows)
         labelled = 'tier="prefill"' in servers["prefill"]._render_metrics()
         fails = pre.stats()["disagg"].get("migration_failures_total", 0)
         log(f"phase 5d {tag}: kft_disagg_migration_failures_total {fails}; "
@@ -2593,7 +2692,198 @@ def disagg_run(torch, pa, cfg, params, params2, tag, quant) -> dict:
             m.unload()
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches[kern]}
+    return {"launches": launches[kern], "mesh": mesh_run}
+
+
+def tie_margin(torch, params, cfg, prompt, toks) -> tuple:
+    """``toks`` (a greedy stream after ``prompt``) teacher-forced through
+    the unsharded full forward: how many are its exact argmax, and the
+    largest gap between a row's max logit and the chosen token's."""
+    from kubeflow_tpu_torch.models import llama
+
+    with torch.no_grad():
+        seq = torch.tensor([prompt + toks], device="cuda")
+        rows = llama.forward(params, seq, cfg)[0][
+            len(prompt) - 1:len(prompt) - 1 + len(toks)]
+    margin = (rows.max(-1).values
+              - rows[torch.arange(len(toks)), torch.tensor(toks)])
+    return int((margin == 0).sum()), margin.max().item()
+
+
+def payload_values(torch, payload, n: int) -> dict:
+    """A payload's K and V over the prompt's ``n`` rows as float32
+    [L, n, KV, D] (bf16 from its bit pattern, int8 and fp8 times their
+    per-block scales)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving.quant import kv_store_dtype
+
+    blocks, dtype = payload["blocks"], payload["kv_dtype"]
+    out = {}
+    for key in ("k", "v"):
+        arr = blocks[key]
+        if dtype == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        elif dtype == "float8_e4m3fn":
+            t = torch.from_numpy(arr).view(kv_store_dtype("fp8_e4m3"))
+        else:
+            t = torch.from_numpy(arr)
+        t = t.float()
+        if key + "_scale" in blocks:
+            t = t * torch.from_numpy(blocks[key + "_scale"])[:, :, None, :,
+                                                            None]
+        out[key] = t.reshape(t.shape[0], -1, *t.shape[3:])[:, :n]
+    return out
+
+
+def payload_error(torch, mine, ref, n: int) -> float:
+    """rms of ``mine``'s K and V minus ``ref``'s over the prompt's ``n``
+    rows, over ``ref``'s rms."""
+    a, b = payload_values(torch, mine, n), payload_values(torch, ref, n)
+    err = sum((a[k] - b[k]).double().pow(2).sum().item() for k in a)
+    return (err / sum(b[k].double().pow(2).sum().item() for k in b)) ** 0.5
+
+
+def disagg_mesh(torch, pa, cfg, params, tag, quant, pre, dec, prompts,
+                one_rows) -> dict:
+    """Phase 5dt for one KV dtype (module docstring): a tensor=DISAGG_TP
+    LLMModel of llama3_8b plays the prefill tier into phase 5d's one-card
+    decode tier (``dec``) and the decode tier of its one-card prefill
+    tier (``pre``), through a prefill and a decode ``TierRuntime`` over
+    its engine; phase 5d's three prompts both ways."""
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+    from kubeflow_tpu_torch.serving import LLMModel
+    from kubeflow_tpu_torch.serving.disagg import TierRuntime
+    from kubeflow_tpu_torch.serving.llm import SamplingParams
+    from kubeflow_tpu_torch.serving.paged_kv import (
+        blocks_for, join_heads, payload_heads,
+    )
+    from kubeflow_tpu_torch.tools.tp_quality import TP_KW, tp_devices
+
+    t_phase = time.perf_counter()
+    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={DISAGG_TP}"},
+                                  devices=tp_devices(DISAGG_TP))
+    log(f"phase 5dt {tag}: tensor={DISAGG_TP} over "
+        f"{[str(d) for d in mesh.devices]} ({mesh.backend}"
+        + (", the ranks share one card: no tensor-parallel speedup"
+           if mesh.shared else ", a card a rank") + ")")
+    model = LLMModel(f"llama3-8b-tp{DISAGG_TP}-tiers-{tag}",
+                     llama.SeededParams(0, torch.bfloat16), cfg, mesh=mesh,
+                     quant=quant, **TP_KW)
+    model.load()
+    eng = model.engine
+    kern, off = (("paged_decode_attention_quant", "paged_decode_attention")
+                 if quant is not None else
+                 ("paged_decode_attention", "paged_decode_attention_quant"))
+    mesh_pre = TierRuntime(eng, "prefill", model=model)
+    mesh_dec = TierRuntime(eng, "decode", model=model)
+    mesh_dec.attach_receiver()
+    sampling = SamplingParams(max_tokens=DISAGG_TP_TOKENS)
+    out = {}
+    try:
+        log(f"phase 5dt {tag}: mesh up in {time.perf_counter() - t_phase:.1f}"
+            f" s; ranks {[(r['rank'], r['kv_heads']) for r in eng.tp_status()]}")
+        for name, prompt in prompts.items():
+            n = len(prompt)
+            want_blocks = blocks_for(n, eng.paged.block_size)
+            row = out[name] = {}
+            # the payloads: the mesh's (its ranks' head slices joined)
+            # against the one-card prefill tier's, and the planted fault
+            mine = held_payload(torch, model, prompt, DISAGG_TP_TOKENS,
+                                rt=mesh_pre)
+            ref = held_payload(torch, pre, prompt, DISAGG_TP_TOKENS)
+            rev = dict(mine, blocks=join_heads([
+                payload_heads(mine["blocks"], r, DISAGG_TP)
+                for r in reversed(range(DISAGG_TP))]))
+            row["payload_err"] = payload_error(torch, mine, ref, n)
+            row["payload_err_fault"] = payload_error(torch, rev, ref, n)
+            for direction, src, dst in (("mesh->one", mesh_pre, dec.disagg),
+                                        ("one->mesh", pre.disagg, mesh_dec)):
+                d_eng = dst.engine
+                steps0 = d_eng.sched.decode_device_steps
+                if d_eng is eng:
+                    eng.tp_status(reset_launches=True)
+                else:
+                    pa.paged_decode_attention.launches = 0
+                    pa.paged_decode_attention_quant.launches = 0
+                hid = f"5dt-{tag}-{name}-{direction}"
+                sent0 = src.stats.get("bytes_sent_total")
+                res = src.prefill_and_migrate(prompt, sampling, dst.kv_addr,
+                                              hid)
+                if res.get("status") != "migrated":
+                    raise SystemExit(f"phase 5dt {tag} {name} {direction}: "
+                                     f"{res}")
+                got = dst.collect(hid)
+                steps = d_eng.sched.decode_device_steps - steps0
+                if d_eng is eng:
+                    launches = [r["launches"] for r in eng.tp_status()]
+                else:
+                    launches = [{"paged_decode_attention":
+                                 pa.paged_decode_attention.launches,
+                                 "paged_decode_attention_quant":
+                                 pa.paged_decode_attention_quant.launches}]
+                exact, worst = tie_margin(torch, params, cfg, prompt,
+                                          got["tokens"])
+                t = res["timings"]
+                row[direction] = {
+                    "blocks": res["migrated_blocks"],
+                    "frame_bytes": src.stats.get("bytes_sent_total")
+                    - sent0,
+                    "export_s": t["export_s"], "transfer_s": t["transfer_s"],
+                    "inject_to_first_commit_s":
+                        got["timings"].get("inject_to_first_commit_s"),
+                    "decode_steps": steps,
+                    "launches": [x[kern] for x in launches],
+                    "exact_argmax": exact, "worst_margin": worst}
+                log(f"phase 5dt {tag} {name} {direction}: {row[direction]}")
+                want = cfg.n_layers * steps
+                if (len(got["tokens"]) != DISAGG_TP_TOKENS
+                        or res["migrated_blocks"] != want_blocks):
+                    raise SystemExit(f"phase 5dt {tag} {name} {direction}: "
+                                     "token count or migrated blocks wrong")
+                if want == 0 or any(x[kern] != want or x[off] != 0
+                                    for x in launches):
+                    raise SystemExit(f"phase 5dt {tag} {name} {direction}: "
+                                     f"the decode side did not run {kern} "
+                                     f"n_layers x {steps} times (on every "
+                                     "rank)")
+                if worst > TIE_TOL:
+                    raise SystemExit(f"phase 5dt {tag} {name} {direction}: "
+                                     "the stream disagrees with the "
+                                     "unsharded forward")
+            log(f"phase 5dt {tag} {name}: payload rms error against the "
+                f"one-card payload {row['payload_err']!r} (limit "
+                f"{DISAGG_TP_PAYLOAD_MAX[tag]}); the planted fault (head "
+                f"slices "
+                f"joined in reverse) {row['payload_err_fault']!r}; 5d's "
+                f"one-card export / transfer / inject-to-first-commit "
+                f"{one_rows[name]['export_s']!r} / "
+                f"{one_rows[name]['transfer_s']!r} / "
+                f"{one_rows[name]['inject_to_first_commit_s']!r} s")
+            if not (row["payload_err"] <= DISAGG_TP_PAYLOAD_MAX[tag]
+                    < row["payload_err_fault"]):
+                raise SystemExit(f"phase 5dt {tag} {name}: the mesh's "
+                                 "payload is off the one-card payload, or "
+                                 "the limit cannot see the planted fault")
+        check_ranks_agree(eng)
+        idle = [r["blocks_in_use"] for r in eng.tp_status()]
+        if any(idle):
+            raise SystemExit(f"phase 5dt {tag}: blocks still in use on the "
+                             f"ranks after every hand-off: {idle}")
+    finally:
+        mesh_dec.receiver.close()
+        model.unload()
+        del model, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 5dt {tag}: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches_one": sum(out[n]["mesh->one"]["launches"][0]
+                                for n in prompts),
+            "launches_per_rank": [sum(out[n]["one->mesh"]["launches"][r]
+                                      for n in prompts)
+                                  for r in range(DISAGG_TP)],
+            "rows": out}
 
 
 def disagg_races(torch, pre, dec) -> None:
@@ -2627,16 +2917,18 @@ def disagg_races(torch, pre, dec) -> None:
         raise SystemExit("phase 5d: duplicate delivery or release failed")
 
 
-def disagg_phase(torch, pa, cfg, params) -> dict:
-    """Phase 5d: bf16, then int8 KV, over the same two weight copies."""
+def disagg_phase(torch, pa) -> dict:
+    """Phase 5d: bf16, then int8 KV, over the same two weight copies of
+    llama3_8b's widths at DISAGG_LAYERS layers (seed 0)."""
     from kubeflow_tpu_torch.serving.scheduler import QuantConfig
 
     t0 = time.perf_counter()
+    cfg, params = llama3_8b(torch, DISAGG_LAYERS)
     params2 = tree_clone(params)        # the decode tier's own weights
     out = {"bf16": disagg_run(torch, pa, cfg, params, params2, "bf16", None),
            "int8": disagg_run(torch, pa, cfg, params, params2, "int8",
                               QuantConfig(kv_dtype="int8"))}
-    del params2
+    del params, params2
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 5d: {time.perf_counter() - t0:.1f} s")
@@ -2725,7 +3017,8 @@ def moe_serving(torch, pa) -> dict:
     # (c) one served stream teacher-forced against the full forward
     tag = "short_100"
     q = readings(eager, run["prompts"][tag], run["results"][tag])
-    log(f"phase 5m (c): {tag} and its {GRAPH_TOKENS} served tokens, the "
+    log(f"phase 5m (c): {tag} and its {len(run['results'][tag])} served "
+        f"tokens, the "
         f"serving path against llama.forward (capacity path, no drops) "
         f"with the serving path's routing: rms/rms {q['rms_over_rms']!r} "
         f"(limit {MOE_RMS_MAX}; the planted fault, gates not renormalised "
@@ -2890,10 +3183,72 @@ def moe_tp_serving(torch, pa, ref: dict) -> dict:
             "tok_s": run["tok_s"]}
 
 
+def moe_ep_serving(torch, pa, ref: dict, tp_ms: float) -> dict:
+    """Phase 5e: phase 5m's Mixtral cut under KFT_MESH=expert=MOE_EP,
+    tensor=MOE_EP_TP (module docstring), after phase 5n's mesh is
+    freed."""
+    from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
+    from kubeflow_tpu_torch.tools.moe_quality import (
+        mixtral_8x7b, tp_readings,
+    )
+    from kubeflow_tpu_torch.tools.tp_quality import tp_devices
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    cfg = mixtral_8x7b()
+    n = MOE_EP * MOE_EP_TP
+    layout = f"expert={MOE_EP},tensor={MOE_EP_TP}"
+    mesh = mesh_from_topology_env({"KFT_MESH": layout},
+                                  devices=tp_devices(n))
+    log(f"phase 5e: Mixtral-8x7B widths, {cfg.n_layers} of 32 layers, "
+        f"dropless, KFT_MESH={layout} over {[str(d) for d in mesh.devices]}"
+        f" ({mesh.backend}"
+        + (", all ranks on one card: no speedup" if mesh.shared else "")
+        + f"); {torch.cuda.memory_allocated()} B allocated at its start")
+    model, run = moe_tp_one(torch, pa, cfg, mesh, f"ep{MOE_EP}tp{MOE_EP_TP}")
+    eng = model.engine
+    ranks = eng.tp_status()
+    coords = [(r["expert_index"], r["tensor_index"]) for r in ranks]
+    w_gate = tuple(eng.params["layers"]["w_gate"].shape)
+    log(f"phase 5e: (expert, tensor) index per rank {coords}; rank 0's "
+        f"w_gate {w_gate} ({cfg.n_experts // MOE_EP} experts, mlp "
+        f"{cfg.mlp_dim // MOE_EP_TP})")
+    if coords != [(r // MOE_EP_TP, r % MOE_EP_TP) for r in range(n)] \
+            or w_gate[1:] != (cfg.n_experts // MOE_EP, cfg.dim,
+                              cfg.mlp_dim // MOE_EP_TP):
+        raise SystemExit("phase 5e: the ranks do not hold their experts")
+    err = tp_readings(eng, ref["tp_streams"], ref["tp_base"])
+    log(f"phase 5e: {layout} against phase 5m's one-card engine, "
+        f"teacher-forced ({len(ref['tp_streams'])} streams, "
+        f"{err['positions']} positions): greedy-token agreement "
+        f"{err['greedy_token_agreement']!r}, max logit drift "
+        f"{err['max_logit_drift']!r}, rms logit error "
+        f"{err['rms_logit_error']!r} (limit {MOE_EP_RMS_MAX})")
+    step_ms = served_step_ms(torch, model)
+    check_ranks_agree(eng)
+    log(f"phase 5e: decode step as served (batch 8, {cfg.n_layers} layers, "
+        f"~{STEP_CONTEXT}-token contexts, one dispatch per "
+        f"{eng.decode_chunk} steps, {mesh.backend}): {step_ms!r} ms against "
+        f"phase 5n's tensor={MOE_TP} {tp_ms!r} ms ({nvidia_smi_line()}); "
+        f"{run['tok_s']!r} generated tok/s over HTTP; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    model.unload()
+    del model, eng
+    free_card(torch)
+    if not err["rms_logit_error"] <= MOE_EP_RMS_MAX:
+        raise SystemExit("phase 5e: the expert x tensor MoE logits err past "
+                         "the limit")
+    return {"launches_per_rank": [r["paged_decode_attention"]
+                                  for r in run["launches"]],
+            "errors": err, "decode_ms_per_step": step_ms,
+            "tok_s": run["tok_s"]}
+
+
 def moe_tp_full(torch, pa) -> dict:
     """Phase 5x: Mixtral-8x7B at all 32 layers under
-    tensor=MOE_TP_FULL, one card a rank over NCCL (module docstring).
-    Skipped, and said so, on a machine with fewer cards."""
+    tensor=MOE_TP_FULL, then expert=MOE_EP,tensor=MOE_EP_TP, one card a
+    rank over NCCL (module docstring). Skipped, and said so, on a machine
+    with fewer cards."""
     from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
     from kubeflow_tpu_torch.tools.moe_quality import mixtral_8x7b
 
@@ -2906,23 +3261,29 @@ def moe_tp_full(torch, pa) -> dict:
     t_phase = time.perf_counter()
     free_card(torch)
     cfg = mixtral_8x7b(32)
-    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={MOE_TP_FULL}"})
     log(f"phase 5x: Mixtral-8x7B at all {cfg.n_layers} layers (93.4 GB "
-        f"bf16), dropless, tensor={MOE_TP_FULL} over "
-        f"{[str(d) for d in mesh.devices]} ({mesh.backend}), eager")
-    model, run = moe_tp_one(torch, pa, cfg, mesh, f"tp{MOE_TP_FULL}-full")
-    step_ms = served_step_ms(torch, model)
-    check_ranks_agree(model.engine)
-    log(f"phase 5x: decode step as served (batch 8, all {cfg.n_layers} "
-        f"layers, ~{STEP_CONTEXT}-token contexts): {step_ms!r} ms; "
-        f"{run['tok_s']!r} generated tok/s over HTTP; "
-        f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
-    model.unload()
-    del model
-    free_card(torch)
-    return {"launches_per_rank": [r["paged_decode_attention"]
-                                  for r in run["launches"]],
-            "decode_ms_per_step": step_ms, "tok_s": run["tok_s"]}
+        f"bf16), dropless, tensor={MOE_TP_FULL}, then expert={MOE_EP},"
+        f"tensor={MOE_EP_TP}, a card a rank")
+    out = {"launches_per_rank": []}
+    for layout in (f"tensor={MOE_TP_FULL}",
+                   f"expert={MOE_EP},tensor={MOE_EP_TP}"):
+        mesh = mesh_from_topology_env({"KFT_MESH": layout})
+        log(f"phase 5x {layout}: over {[str(d) for d in mesh.devices]} "
+            f"({mesh.backend}), eager")
+        model, run = moe_tp_one(torch, pa, cfg, mesh, f"5x-{layout}")
+        step_ms = served_step_ms(torch, model)
+        check_ranks_agree(model.engine)
+        log(f"phase 5x {layout}: decode step as served (batch 8, all "
+            f"{cfg.n_layers} layers, ~{STEP_CONTEXT}-token contexts): "
+            f"{step_ms!r} ms; {run['tok_s']!r} generated tok/s over HTTP; "
+            f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
+        model.unload()
+        del model
+        free_card(torch)
+        out["launches_per_rank"] += [r["paged_decode_attention"]
+                                     for r in run["launches"]]
+        out[layout] = {"decode_ms_per_step": step_ms, "tok_s": run["tok_s"]}
+    return out
 
 
 def tree_clone(tree):
@@ -5264,15 +5625,19 @@ def pipeline_world_phase(torch, ranks: list) -> dict:
     return out
 
 
-def row3(sharded: dict, tp: dict, spec_tp: dict, moe_tp: dict,
-         moe_tp_all: dict) -> dict:
+def row3(sharded: dict, tp: dict, spec_tp: dict, disagg: dict,
+         moe_tp: dict, moe_ep: dict, moe_tp_all: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
     timed (phase 3s); launches summed over the ranks of phase 4tp's bf16
-    run, phase 5s's tensor=4 run and phases 5n's and 5x's MoE runs (per
-    rank beside them, and phase 4tp's int8 run's)."""
+    run, phase 5s's tensor=4 run, phase 5dt's mesh decode tier (bf16 and
+    int8 KV) and phases 5n's, 5e's and 5x's MoE runs (per rank beside
+    them, and phase 4tp's int8 run's)."""
     by_phase = {"4tp": sum(tp["bf16"]["launches_per_rank"]),
                 "5s": sum(spec_tp["launches_per_rank"]),
+                "5dt": sum(sum(disagg[k]["mesh"]["launches_per_rank"])
+                           for k in ("bf16", "int8")),
                 "5n": sum(moe_tp["launches_per_rank"]),
+                "5e": sum(moe_ep["launches_per_rank"]),
                 "5x": sum(moe_tp_all["launches_per_rank"])}
     return {
         "name": "paged_decode_attention_sharded", "route": "cuda",
@@ -5283,6 +5648,10 @@ def row3(sharded: dict, tp: dict, spec_tp: dict, moe_tp: dict,
         "launches_per_rank": tp["bf16"]["launches_per_rank"],
         "launches_per_rank_5s": spec_tp["launches_per_rank"],
         "launches_per_rank_5n": moe_tp["launches_per_rank"],
+        "launches_per_rank_5dt": {
+            k: disagg[k]["mesh"]["launches_per_rank"]
+            for k in ("bf16", "int8")},
+        "launches_per_rank_5e": moe_ep["launches_per_rank"],
         "launches_per_rank_int8": tp["int8"]["launches_per_rank"],
         **{k: sharded[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by")},
@@ -5326,11 +5695,13 @@ def main() -> int:
             f"alone on one card (phase 4/4q) {one['decode_ms_per_step']!r} "
             f"ms")
     spec = spec_phase(torch, pa, cfg, params, tp)
-    disagg = disagg_phase(torch, pa, cfg, params)
+    disagg = disagg_phase(torch, pa)
     del params
     free_card(torch)
     moe_served = moe_serving(torch, pa)
     moe_tp = moe_tp_serving(torch, pa, moe_served)
+    moe_ep = moe_ep_serving(torch, pa, moe_served,
+                            moe_tp["decode_ms_per_step"])
     moe_tp_all = moe_tp_full(torch, pa)
     flash_errs = flash_parity(torch)
     flash_t = flash_timing(torch)
@@ -5352,11 +5723,13 @@ def main() -> int:
         "launches": (served["launches"] + graphed["bf16"]["launches"]
                      + spec["bf16"]["launches"]
                      + disagg["bf16"]["launches"]
+                     + disagg["bf16"]["mesh"]["launches_one"]
                      + moe_served["launches"]),
         "launches_by_phase": {"4": served["launches"],
                               "4g": graphed["bf16"]["launches"],
                               "5s": spec["bf16"]["launches"],
                               "5d": disagg["bf16"]["launches"],
+                              "5dt": disagg["bf16"]["mesh"]["launches_one"],
                               "5m": moe_served["launches"]},
         "max_abs_err": errs["bfloat16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5368,11 +5741,13 @@ def main() -> int:
         "launches": (q_served["launches"] + graphed["int8"]["launches"]
                      + spec["int8"]["launches"]
                      + disagg["int8"]["launches"]
+                     + disagg["int8"]["mesh"]["launches_one"]
                      + moe_served["int8_launches"]),
         "launches_by_phase": {"4q": q_served["launches"],
                               "4g": graphed["int8"]["launches"],
                               "5s": spec["int8"]["launches"],
                               "5d": disagg["int8"]["launches"],
+                              "5dt": disagg["int8"]["mesh"]["launches_one"],
                               "5m": moe_served["int8_launches"]},
         # the served pool's dtype (int8) in the top-level numbers; both
         # pool dtypes under by_kv_dtype. No PyTorch call reads a
@@ -5384,7 +5759,7 @@ def main() -> int:
         "library_ms": None,
         "by_kv_dtype": {kv: {"max_abs_err": q_errs[kv], **q_t[kv]}
                         for kv in KV_QMAX},
-    }, row3(sharded, tp, spec["tp"], moe_tp, moe_tp_all)]
+    }, row3(sharded, tp, spec["tp"], disagg, moe_tp, moe_ep, moe_tp_all)]
     for name, line in (("flash_attention_fwd", 54),
                        ("flash_attention_dq", 135),
                        ("flash_attention_dkv", 170)):

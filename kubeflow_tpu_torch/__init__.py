@@ -14,9 +14,11 @@ Slices ported so far:
   batching ``serving.llm.LLMEngine``, whose paged decode attention is the
   CUDA kernel ``csrc/paged_decode_attention.cu``.
   Quantized (int8/fp8 KV, int8 weights) through the same kernel
-  source's fused-dequant entry; tensor-parallel (``KFT_MESH=tensor=N``,
-  ``parallel.TensorMesh``) with one process per rank, each decoding its
-  own KV heads through the same kernels.
+  source's fused-dequant entry; over a serving mesh
+  (``KFT_MESH=expert=E,tensor=T``, ``parallel.TensorMesh``) with one
+  process per rank, each decoding its own KV heads through the same
+  kernels (MoE experts cut over ``expert``), disaggregated tiers
+  included.
 - training: ``training.Trainer`` / ``training.loop.fit`` on one card
   (the ``kubeflow_tpu.training`` contract minus checkpoints), whose
   ``attn_impl="pallas"``/``"flash"`` attention is the CUDA kernels

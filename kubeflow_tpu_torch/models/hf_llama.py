@@ -11,11 +11,12 @@ rotate-half RoPE layout that ``ops/rotary.py`` implements, so no weight
 permutation is needed.
 
 The sharded load (``mesh=``; the JAX loader's ``mesh`` path) gives one
-tensor-parallel rank its shard: each HF tensor is read only in the rows
-or columns that hold the rank's heads, MLP columns or vocab entries, so
-no rank reads or holds the whole tree: of Mixtral's experts
-(``block_sparse_moe.experts.{e}.w1/w2/w3``) the rank reads its ``mlp``
-slice of every expert. ``CheckpointParams`` is the same load as a
+rank of a serving mesh its shard: each HF tensor is read only in the
+rows or columns that hold the rank's heads, MLP columns or vocab entries
+(by its ``tensor`` index), so no rank reads or holds the whole tree: of
+Mixtral's experts (``block_sparse_moe.experts.{e}.w1/w2/w3``) the rank
+reads its ``mlp`` slice of its own experts (by its ``expert`` index)
+and nothing of another rank's; the router is read whole. ``CheckpointParams`` is the same load as a
 parameter source each rank of a serving engine calls itself.
 """
 
@@ -71,7 +72,14 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
     device = resolve_device(device)
     cfg = cfg or load_config(model_dir, dtype=dtype)
     idx = CheckpointIndex(model_dir)
-    tp, rank = (mesh.tp, mesh.rank) if mesh is not None else (1, 0)
+    tp, rank = ((mesh.tp, mesh.tensor_index) if mesh is not None
+                else (1, 0))
+    ep, ex = (mesh.ep, mesh.expert_index) if mesh is not None else (1, 0)
+    if cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} not divisible by "
+                         f"expert={ep}")
+    experts = range(ex * cfg.n_experts // ep,
+                    (ex + 1) * cfg.n_experts // ep)
     h, kv, hd, d = (cfg.n_heads // tp, cfg.n_kv_heads // tp, cfg.head_dim,
                     cfg.dim)
     every = slice(None)
@@ -90,15 +98,17 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
                             for i in range(cfg.n_layers)])
 
     def expert_stack(fmt: str, key: str, index) -> torch.Tensor:
-        """Mixtral experts' [out, in] Linear weights -> [L, E, in, out],
-        each read in the rank's ``index`` (of its mlp dim) and written one
-        tensor at a time into the preallocated stack."""
+        """Mixtral experts' [out, in] Linear weights -> [L, E', in, out]
+        for the rank's E' experts, each read in the rank's ``index`` (of
+        its mlp dim) and written one tensor at a time into the
+        preallocated stack."""
         shape = list(llama.param_shapes(cfg)["layers"][key])
+        shape[1] = len(experts)
         shape[3 if key in ("w_gate", "w_up") else 2] //= tp
         out = torch.empty(shape, dtype=dtype, device=device)
         for i in range(cfg.n_layers):
-            for e in range(cfg.n_experts):
-                out[i, e] = get(fmt.format(i, e), index).T
+            for j, e in enumerate(experts):
+                out[i, j] = get(fmt.format(i, e), index).T
         return out
 
     rows_q = (part(cfg.n_heads * hd), every)

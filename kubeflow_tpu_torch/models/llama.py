@@ -17,18 +17,23 @@ MoE penalties. The serving functions also take the int8 weight trees of
 ``serving.quant.quantize_weights`` (``wq_q`` + ``wq_s`` ...): ``qmm`` is
 their product.
 
-Tensor parallelism (``mesh=``, a launched ``parallel.mesh.TensorMesh``;
-None is the one-card path, unchanged): each rank holds its shard of the
-tree (``param_logical_axes`` through ``parallel.sharding``) and the
-serving functions are Megatron's column- and row-parallel products.
-``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are column-parallel (the
-rank's heads, the rank's slice of the MLP), ``wo`` and ``w_down``
-row-parallel (a partial product, then an all-reduce), the embedding a
-masked lookup of the rank's vocab rows plus an all-reduce, and the LM
-head the rank's vocab columns of the logits, all-gathered. Norms are
-replicated. An MoE layer's rank holds the ``mlp`` slice of every expert
-(the router whole): it routes as every rank does, runs its slice of the
-experts the routing picks, and the output is all-reduced.
+Serving meshes (``mesh=``, a launched ``parallel.mesh.TensorMesh`` of
+``expert`` x ``tensor`` ranks; None is the one-card path, unchanged):
+each rank holds its shard of the tree (``param_logical_axes`` through
+``parallel.sharding``) and the serving functions are Megatron's column-
+and row-parallel products over the rank's ``tensor`` group (the ranks of
+its expert index). ``wq``/``wk``/``wv`` and ``w_gate``/``w_up`` are
+column-parallel (the rank's heads, the rank's slice of the MLP), ``wo``
+and ``w_down`` row-parallel (a partial product, then an all-reduce over
+``tensor``), the embedding a masked lookup of the rank's vocab rows plus
+an all-reduce over ``tensor``, and the LM head the rank's vocab columns
+of the logits, all-gathered over ``tensor``. Norms are replicated, and
+so is everything but the experts over ``expert``: under ``expert``
+alone attention and a dense FFN run whole on every rank with no
+collective. An MoE layer's rank holds the ``mlp`` slice of its experts
+(the router whole): it routes every token as every rank does, runs its
+slice of its experts (``parallel.moe.moe_layer`` with the mesh as its
+world), and the output is all-reduced over the whole mesh.
 
 In training the same cuts run over a ``parallel.mesh.WorldMesh``'s
 ``tensor`` axis, through the autograd-aware collectives of
@@ -204,7 +209,8 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
                         dtype=torch.float32)
         if mesh is None:
             return w.mul_(fan ** -0.5).to(dtype)
-        part = w[tuple(shard_slices(names, shape, mesh.rank, mesh.tp))]
+        part = w[tuple(shard_slices(names, shape, mesh.rank, mesh.tp,
+                                    mesh.ep))]
         out = torch.empty(part.shape, dtype=dtype, device=device)
         return out.copy_(part.mul_(fan ** -0.5))
 
@@ -213,7 +219,7 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
             return torch.ones(shape, dtype=dtype, device=device)
         if cfg.n_experts and name in MOE_KEYS:
             part = None if mesh is None else tuple(
-                shard_slices(names, shape, mesh.rank, mesh.tp)[-2:])
+                shard_slices(names, shape, mesh.rank, mesh.tp, mesh.ep))
             return moe.randn_stack(generator, shape, fan_in[name], dtype,
                                    device, part)
         return dense(shape, names, fan_in[name])
@@ -338,7 +344,8 @@ def embed_tokens(params, tokens, cfg: LlamaConfig, mesh=None):
     if mesh is not None:
         n = (params["embed_q"] if "embed_q" in params
              else params["embed"]).shape[0]
-        tokens, hit = tensor.local_tokens(tokens, mesh.rank, n)
+        tokens, hit = tensor.local_tokens(
+            tokens, mesh.axis_index("tensor"), n)
     if "embed_q" in params:
         rows = params["embed_q"][tokens].to(cfg.dtype)
         rows = rows * params["embed_s"][tokens].to(cfg.dtype)[..., None]
@@ -346,7 +353,7 @@ def embed_tokens(params, tokens, cfg: LlamaConfig, mesh=None):
         rows = params["embed"].to(cfg.dtype)[tokens]
     if mesh is None:
         return rows
-    return mesh.all_reduce(torch.where(hit[..., None], rows, 0))
+    return mesh.all_reduce(torch.where(hit[..., None], rows, 0), "tensor")
 
 
 def _rows_mm(x, w, cfg: LlamaConfig):
@@ -381,8 +388,9 @@ def qkv_proj(lp, h, cfg: LlamaConfig):
 
 
 def _reduced(x, mesh):
-    """A row-parallel product's partial sums, all-reduced under a mesh."""
-    return x if mesh is None else mesh.all_reduce(x)
+    """A row-parallel product's partial sums, all-reduced over the
+    mesh's ``tensor`` group (the ranks of one expert index)."""
+    return x if mesh is None else mesh.all_reduce(x, "tensor")
 
 
 def out_proj(lp, o, cfg: LlamaConfig, mesh=None):
@@ -406,16 +414,20 @@ def _ffn(h, lp, cfg: LlamaConfig, mesh=None, token_mask=None, world=None):
     (``parallel.moe.moe_layer``) with its summed penalties (a float32
     0-d tensor). ``token_mask`` [B, S] bool: the serving paths keep pad
     and idle rows out of MoE routing. Under a serving ``mesh`` the gate
-    and up products are the rank's MLP columns (of every expert) and the
-    down product is row-parallel, then all-reduced. ``world``: a
-    training world, which the MoE layer joins itself (its rows, experts
-    and slices; ``_block`` joins the dense FFN's)."""
+    and up products are the rank's MLP columns and the down product is
+    row-parallel: a dense FFN (replicated over ``expert``) sums over
+    ``tensor``; the MoE layer, whose rank holds its experts' columns,
+    joins the mesh itself as a training world's layer joins its world,
+    its output summed over the whole mesh. ``world``: a training world,
+    which the MoE layer joins itself (its rows, experts and slices;
+    ``_block`` joins the dense FFN's)."""
     if cfg.n_experts:
         moe_params = {"router": lp["moe_router"], "w_gate": lp["w_gate"],
                       "w_up": lp["w_up"], "w_down": lp["w_down"]}
         y, aux = moe.moe_layer(moe_params, h, cfg.moe_config(),
-                               token_mask=token_mask, world=world)
-        return _reduced(y, mesh), moe.moe_aux_total(aux)
+                               token_mask=token_mask,
+                               world=world if world is not None else mesh)
+        return y, moe.moe_aux_total(aux)
     if "w_gate_q" in lp:
         gate = qmm(h, lp["w_gate_q"], lp["w_gate_s"], cfg)
         up = qmm(h, lp["w_up_q"], lp["w_up_s"], cfg)
@@ -433,8 +445,8 @@ def lm_head_weight(params, cfg: LlamaConfig):
 
 
 def _gathered(logits, mesh):
-    """The ranks' vocab columns of the logits, concatenated in rank
-    order (each rank holds every logit after it)."""
+    """The vocab columns of the logits of the rank's ``tensor`` group,
+    concatenated in rank order (each rank holds every logit after it)."""
     return logits if mesh is None else mesh.all_gather(logits, dim=-1)
 
 

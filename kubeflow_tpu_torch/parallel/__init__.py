@@ -1,7 +1,8 @@
 """Parallelism of the PyTorch port (counterpart of
-``kubeflow_tpu.parallel``): the tensor-parallel mesh and the
-logical-axis sharding rules; ``parallel.depot`` holds the executable
-depot's env contract. Other axes are a later slice."""
+``kubeflow_tpu.parallel``): the serving mesh (``expert`` x ``tensor``)
+and the logical-axis sharding rules; ``parallel.depot`` holds the
+executable depot's env contract; the training world and its axes are
+``parallel.mesh.WorldMesh``."""
 
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_ORDER, TensorMesh, mesh_from_topology_env, parse_topology_env,

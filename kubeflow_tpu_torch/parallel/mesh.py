@@ -1,31 +1,36 @@
-"""Tensor-parallel device mesh of the PyTorch port (counterpart of
+"""Device meshes of the PyTorch port (counterpart of
 ``kubeflow_tpu.parallel.mesh``).
 
 The JAX package runs one program over a ``jax.sharding.Mesh`` and XLA
 inserts the collectives. PyTorch's idiom is one process per rank under
-``torch.distributed``; ``TensorMesh`` is that: ``tp`` ranks, the device
-each rank computes on, and the process groups they talk over.
+``torch.distributed``; ``TensorMesh`` is that for serving: ``expert`` x
+``tensor`` ranks (rank = expert index x tensor + tensor index, ``tensor``
+innermost as in ``AXIS_ORDER``), the device each rank computes on, and
+the process groups they talk over.
 
-- Rank 0 is the calling process. ``launch`` spawns ranks 1..tp-1 (the
+- Rank 0 is the calling process. ``launch`` spawns ranks 1..n-1 (the
   ``spawn`` start method) and rendezvouses with them through a file, so
   no fixed port is ever taken.
-- Three groups: the default group carries rank 0's commands (workers wait
-  on it for as long as the server idles); ``ack`` (gloo, with the mesh's
-  timeout) carries every rank's answer back to rank 0, so a rank that
-  died or hangs makes rank 0 raise instead of wait; ``dev`` carries the
-  model's collectives: NCCL when every rank has a card of its own, gloo
-  on the CPU or when the caller places several ranks on one card
-  (NCCL refuses two ranks on one device). gloo's collectives run on CPU
-  tensors here: a CUDA tensor is copied to the host and back. A rank in
-  a gloo mesh runs torch's CPU ops on one thread: with the default (one
-  a core, in every rank) the ranks' idle worker threads crowd out gloo's
-  own and an all-reduce of 64 KB among 4 ranks on 8 cores took 7.8 ms
-  against 0.8 ms.
+- The default group carries rank 0's commands (workers wait on it for as
+  long as the server idles) and what rank 0 scatters to the ranks;
+  ``ack`` (gloo, with the mesh's timeout) carries every rank's answer
+  back to rank 0, so a rank that died or hangs makes rank 0 raise instead
+  of wait. The model's collectives run over one group per axis
+  (``tensor``: the ranks of one expert index; ``expert``: the ranks of
+  one tensor index) and over the whole mesh (``mesh``, also named
+  ``rows``: every serving rank feeds the same rows): NCCL when every
+  rank has a card of its own, gloo on the CPU or when the caller places
+  several ranks on one card (NCCL refuses two ranks on one device).
+  gloo's collectives run on CPU tensors here: a CUDA tensor is copied to
+  the host and back. A rank in a gloo mesh runs torch's CPU ops on one
+  thread: with the default (one a core, in every rank) the ranks' idle
+  worker threads crowd out gloo's own and an all-reduce of 64 KB among
+  4 ranks on 8 cores took 7.8 ms against 0.8 ms.
 - No fallback: an NCCL failure raises and is never retried on gloo.
 
 ``mesh_from_topology_env`` parses the JAX package's ``KFT_MESH``/``KFT_DCN``
-contract for serving, where only the ``tensor`` axis is ported, and
-raises for any other axis set above 1.
+contract for serving, where the ``expert`` and ``tensor`` axes are
+ported, and raises for any other axis set above 1.
 
 ``WorldMesh`` is the training world's counterpart of ``MeshConfig`` /
 ``build_mesh``: ``pipeline`` x ``data`` x ``fsdp`` x ``expert`` x
@@ -68,7 +73,8 @@ import torch
 AXIS_ORDER = ("pipeline", "data", "fsdp", "expert", "context", "tensor")
 
 PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
-                  "item 8.7); the tensor axis is ported for serving, and "
+                  "item 8.7); the expert and tensor axes are ported for "
+                  "serving, and "
                   "the pipeline, data, fsdp, expert, context and tensor "
                   "axes for training, context neither beside expert nor "
                   "with an MoE model, pipeline over gloo alone (over NCCL "
@@ -101,55 +107,76 @@ def parse_topology_env(env: Mapping[str, str]) -> dict:
     return sizes
 
 
+# the axes a serving mesh cuts, outermost first
+SERVING_AXES = ("expert", "tensor")
+
+
 def mesh_from_topology_env(env: Mapping[str, str],
                            devices: Optional[Sequence] = None,
                            ) -> Optional["TensorMesh"]:
-    """The mesh ``KFT_MESH`` asks for, or None when it asks for no
-    tensor parallelism. Axes other than ``tensor`` set above 1 raise
-    (NotImplementedError, naming the slice). ``devices`` defaults to one
-    card per rank (``cuda:0..tp-1``; fewer visible cards raise, as
+    """The mesh ``KFT_MESH`` asks for, or None when it cuts nothing.
+    ``expert`` and ``tensor`` make the mesh; any other axis set above 1,
+    and any ``KFT_DCN`` axis, raises (NotImplementedError, naming the
+    slice). ``devices`` defaults to one card per rank (``cuda:0..n-1``
+    for n = expert x tensor ranks; fewer visible cards raise, as
     ``build_mesh`` does) or, with ``KFT_FORCE_PLATFORM=cpu``, the CPU."""
     sizes = parse_topology_env(env)
-    other = {k: v for k, v in sizes.items() if k != "tensor" and v > 1}
+    other = {k: v for k, v in sizes.items()
+             if k not in SERVING_AXES and v > 1}
     if other:
         raise NotImplementedError(
             f"KFT_MESH={env.get('KFT_MESH', '')!r} "
             f"KFT_DCN={env.get('KFT_DCN', '')!r}: a mesh over "
             f"{sorted(other)} {PARALLEL_SLICE}")
-    tp = sizes.get("tensor", 1)
-    if tp <= 1:
+    tp, ep = sizes.get("tensor", 1), sizes.get("expert", 1)
+    if tp < 1 or ep < 1:
+        raise ValueError(f"KFT_MESH={env.get('KFT_MESH', '')!r}: the "
+                         "serving axes are fixed sizes >= 1")
+    if tp * ep <= 1:
         return None
     if devices is None:
         platform = (env.get("KFT_FORCE_PLATFORM") or "").strip().lower()
-        devices = (["cpu"] * tp if platform == "cpu"
-                   else cuda_devices(tp))
-    return TensorMesh(tp, devices)
+        devices = (["cpu"] * (tp * ep) if platform == "cpu"
+                   else cuda_devices(tp * ep))
+    return TensorMesh(tp, devices, expert=ep)
 
 
-def cuda_devices(tp: int) -> list[str]:
-    """One card per rank; raises when fewer than ``tp`` are visible."""
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n < tp:
+def cuda_devices(n: int) -> list[str]:
+    """One card per rank; raises when fewer than ``n`` are visible."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < n:
         raise RuntimeError(
-            f"tensor={tp} needs {tp} CUDA devices, one per rank; {n} "
-            "visible (pass devices= to place several ranks on one card, "
-            "or set KFT_FORCE_PLATFORM=cpu to run on the CPU)")
-    return [f"cuda:{i}" for i in range(tp)]
+            f"a mesh of {n} ranks needs {n} CUDA devices, one per rank; "
+            f"{have} visible (pass devices= to place several ranks on one "
+            "card, or set KFT_FORCE_PLATFORM=cpu to run on the CPU)")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+# a serving mesh's groups by name: each holds the ranks that differ only
+# on its axes. Every serving rank feeds the same rows, so ``rows`` (the
+# MoE layer's peers, as a training world names them) is the whole mesh
+SERVING_GROUPS = {"tensor": ("tensor",), "expert": ("expert",),
+                  "mesh": SERVING_AXES, "rows": SERVING_AXES}
 
 
 class TensorMesh:
-    """``tp`` ranks over ``devices`` (rank r computes on ``devices[r]``):
-    all CPU, or all CUDA. Distinct cards talk over NCCL; a list that
-    repeats a card, or the CPU, over gloo. Before ``launch`` (rank 0) or
-    ``join`` (ranks 1..) the object is only a description and can be
-    handed to spawned processes."""
+    """``expert`` x ``tp`` ranks over ``devices`` (rank r computes on
+    ``devices[r]`` and sits at expert index r // tp, tensor index
+    r % tp): all CPU, or all CUDA. Distinct cards talk over NCCL; a list
+    that repeats a card, or the CPU, over gloo. Before ``launch`` (rank
+    0) or ``join`` (ranks 1..) the object is only a description and can
+    be handed to spawned processes; a description's ``rank`` may be set
+    to stand as another rank (what a parameter draw or a load reads)."""
 
-    def __init__(self, tp: int, devices: Sequence, *,
+    def __init__(self, tp: int, devices: Sequence, *, expert: int = 1,
                  timeout_s: float = DEFAULT_TIMEOUT_S,
                  rendezvous_dir: Optional[str] = None):
         devs = [torch.device(d) for d in devices]
-        if tp < 1 or len(devs) != tp:
-            raise ValueError(f"tensor={tp} needs {tp} devices, got "
+        n = tp * expert
+        if tp < 1 or expert < 1 or len(devs) != n:
+            what = (f"tensor={tp}" if expert == 1
+                    else f"expert={expert} x tensor={tp}")
+            raise ValueError(f"{what} needs {n} devices, got "
                              f"{[str(d) for d in devs]}")
         kinds = {d.type for d in devs}
         if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
@@ -158,8 +185,10 @@ class TensorMesh:
         if "cuda" in kinds:
             devs = [torch.device("cuda", d.index or 0) for d in devs]
         self.tp = tp
+        self.ep = expert
+        self.size = n
         self.devices = devs
-        self.shared = len(set(devs)) < tp
+        self.shared = len(set(devs)) < n
         self.backend = ("nccl" if "cuda" in kinds and not self.shared
                         else "gloo")
         self.timeout_s = float(timeout_s)
@@ -177,15 +206,44 @@ class TensorMesh:
     @property
     def shape(self) -> dict:
         """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them."""
-        return {"tensor": self.tp}
+        return {"expert": self.ep, "tensor": self.tp}
+
+    @property
+    def tensor_index(self) -> int:
+        return self.rank % self.tp
+
+    @property
+    def expert_index(self) -> int:
+        return self.rank // self.tp
 
     @property
     def device(self) -> torch.device:
         return self.devices[self.rank]
 
+    def members(self, axis: str, rank: Optional[int] = None) -> tuple:
+        """The ranks of ``rank``'s (default: this rank's) group over
+        ``axis`` (``SERVING_GROUPS``; any other axis is the rank alone),
+        in rank order."""
+        rank = self.rank if rank is None else rank
+        axes = SERVING_GROUPS.get(axis, ())
+        x, t = divmod(rank, self.tp)
+        xs = range(self.ep) if "expert" in axes else (x,)
+        ts = range(self.tp) if "tensor" in axes else (t,)
+        return tuple(i * self.tp + j for i in xs for j in ts)
+
+    def axis_size(self, axis: str) -> int:
+        """The number of ranks in this rank's group over ``axis`` (a
+        serving group's name; a training world's axes, which a serving
+        mesh does not cut, count 1)."""
+        return len(self.members(axis))
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's place in its group over ``axis``."""
+        return self.members(axis).index(self.rank)
+
     def describe(self) -> dict:
-        return {"tensor": self.tp, "backend": self.backend,
-                "shared_card": self.shared,
+        return {"expert": self.ep, "tensor": self.tp,
+                "backend": self.backend, "shared_card": self.shared,
                 "devices": [str(d) for d in self.devices]}
 
     def __getstate__(self):
@@ -199,11 +257,11 @@ class TensorMesh:
     # ------------------------------------------------------------ lifetime
 
     def launch(self, target, args: tuple = ()) -> list:
-        """Rank 0: spawn ranks 1..tp-1, each running
-        ``target(mesh, *args)`` once it has joined, then join as rank 0.
-        Returns the worker processes (daemonic: they end with this
-        process at the latest). One launched mesh per process:
-        torch.distributed's default group is the process's."""
+        """Rank 0: spawn ranks 1..n-1, each running ``target(mesh,
+        *args)`` once it has joined, then join as rank 0. Returns the
+        worker processes (daemonic: they end with this process at the
+        latest). One launched mesh per process: torch.distributed's
+        default group is the process's."""
         import torch.distributed as dist
         import torch.multiprocessing as mp
 
@@ -217,7 +275,7 @@ class TensorMesh:
         ctx = mp.get_context("spawn")
         procs = []
         try:
-            for rank in range(1, self.tp):
+            for rank in range(1, self.size):
                 p = ctx.Process(target=_rank_entry,
                                 args=(self, rank, target, args),
                                 daemon=True, name=f"kft-tp-rank{rank}")
@@ -234,7 +292,9 @@ class TensorMesh:
 
     def join(self, rank: int) -> None:
         """Join the mesh as ``rank``: select the rank's card and create
-        the three groups (blocks until every rank has joined)."""
+        the groups (blocks until every rank has joined). Every rank
+        creates every group, in the same order; a group of the same ranks
+        as another is that group."""
         import torch.distributed as dist
 
         self.rank = rank
@@ -247,11 +307,20 @@ class TensorMesh:
         # server idles, so it must outlast any idle period
         dist.init_process_group(
             "gloo", init_method="file://" + self.rendezvous, rank=rank,
-            world_size=self.tp, timeout=datetime.timedelta(days=7))
-        ack = dist.new_group(backend="gloo", timeout=datetime.timedelta(
-            seconds=self.timeout_s))
-        dev = dist.new_group(backend=self.backend)
-        self._groups = {"ack": ack, "dev": dev}
+            world_size=self.size, timeout=datetime.timedelta(days=7))
+        groups = {"ack": dist.new_group(backend="gloo",
+                                        timeout=datetime.timedelta(
+                                            seconds=self.timeout_s))}
+        made: dict = {}
+        for name in SERVING_GROUPS:
+            for r in range(self.size):
+                ranks = self.members(name, r)
+                if len(ranks) > 1 and ranks not in made:
+                    made[ranks] = dist.new_group(list(ranks),
+                                                 backend=self.backend)
+            mine = self.members(name)
+            groups[name] = made.get(mine)          # None: a group of one
+        self._groups = groups
 
     def shutdown(self) -> None:
         """Leave the process groups (every rank calls it once)."""
@@ -288,13 +357,33 @@ class TensorMesh:
         dist.broadcast_object_list(box, src=0)
         return box[0]
 
+    def scatter(self, objs: Optional[Sequence] = None) -> Any:
+        """Rank 0 hands rank r ``objs[r]`` (over the command group, after
+        a command that says so); every rank returns its own. Ranks 1..
+        pass nothing."""
+        import torch.distributed as dist
+
+        box = [None]
+        dist.scatter_object_list(
+            box, list(objs) if self.rank == 0 else None, src=0)
+        return box[0]
+
     def gather_answers(self, obj: Any) -> list:
         """Every rank's ``obj``, in rank order, on every rank (the ack
         group: raises when a rank died, or after the mesh's timeout)."""
         import torch.distributed as dist
 
-        out = [None] * self.tp
+        out = [None] * self.size
         dist.all_gather_object(out, obj, group=self._groups["ack"])
+        return out
+
+    def gather_to_root(self, obj: Any) -> Optional[list]:
+        """Every rank's ``obj`` in rank order on rank 0 (None elsewhere),
+        over the ack group: data that only rank 0 needs crosses once."""
+        import torch.distributed as dist
+
+        out = [None] * self.size if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0, group=self._groups["ack"])
         return out
 
     # --------------------------------------------------------- collectives
@@ -302,33 +391,46 @@ class TensorMesh:
     def _via_host(self, x: torch.Tensor) -> bool:
         return self.backend == "gloo" and x.device.type == "cuda"
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Sum (or max) of ``x`` over the ranks, in place; returns ``x``.
-        Every rank gets the same bytes."""
+    def all_reduce(self, x: torch.Tensor, axis: str = "mesh", kind=None,
+                   op: str = "sum") -> torch.Tensor:
+        """Sum (or max) of ``x`` over this rank's group over ``axis``
+        (``SERVING_GROUPS``), in place; returns ``x``. Every rank of the
+        group gets the same bytes; a group of one makes no call.
+        ``kind`` is a training world's timings label, unused here."""
         import torch.distributed as dist
 
+        group = self._groups[axis] if axis in SERVING_GROUPS else None
+        if group is None:
+            if self.axis_size(axis) > 1:
+                raise RuntimeError(f"the mesh has not joined ({axis})")
+            return x
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         buf = x.cpu() if self._via_host(x) else x
-        dist.all_reduce(buf, op=red, group=self._groups["dev"])
+        dist.all_reduce(buf, op=red, group=group)
         if buf is not x:
             x.copy_(buf)
         return x
 
-    def all_gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+    def all_gather(self, x: torch.Tensor, dim: int = -1,
+                   axis: str = "tensor") -> torch.Tensor:
+        """The ``x`` of this rank's group over ``axis``, concatenated
+        along ``dim`` in rank order."""
         import torch.distributed as dist
 
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
         buf = x.cpu() if self._via_host(x) else x.contiguous()
-        parts = [torch.empty_like(buf) for _ in range(self.tp)]
-        dist.all_gather(parts, buf, group=self._groups["dev"])
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf, group=self._groups[axis])
         out = torch.cat(parts, dim=dim)
         return out.to(x.device) if out.device != x.device else out
 
 
 def tensor_parallel(mesh) -> Optional[TensorMesh]:
-    """``mesh`` when it shards anything (tp > 1), else None: a 1-rank
-    mesh runs today's single-card path unchanged."""
-    return mesh if mesh is not None and mesh.tp > 1 else None
+    """``mesh`` when it cuts anything (more than one rank), else None: a
+    1-rank mesh runs today's single-card path unchanged."""
+    return mesh if mesh is not None and mesh.size > 1 else None
 
 
 def _rank_entry(mesh: TensorMesh, rank: int, target, args: tuple) -> None:

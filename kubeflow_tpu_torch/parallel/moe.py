@@ -46,15 +46,19 @@ under GSPMD, where sharding never changes the function:
   through ``tensor.reduce`` over it. The router runs on every rank on
   the tokens as they are (its gradient is whole there).
 
-Under a serving mesh (``parallel.mesh.TensorMesh``) the caller passes no
-world and all-reduces the output (``models.llama._reduced``): a rank
-holds the ``mlp`` slice of every expert, and its routing is every
-rank's.
+A serving mesh (``parallel.mesh.TensorMesh``, ``expert`` x ``tensor``)
+is passed as the world the same way: a rank holds experts ``[x * E / X,
+(x + 1) * E / X)`` and its ``mlp`` slice of each, every rank routes every
+token with the whole router (so the dropless path and the capacity
+path, its capacity and slots counted over all tokens and all E, are
+one card's), and the output leaves through the sum over ``rows``, the
+whole mesh. Its ``batch`` axis is one rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Optional
 
@@ -82,17 +86,22 @@ def randn_stack(generator: torch.Generator, shape, fan_in: int,
     """N(0, 1/fan_in) of ``shape`` [..., rows, cols] in ``dtype``, drawn one
     trailing matrix at a time (in index order) into the preallocated
     stack, so no float32 temporary larger than one matrix exists.
-    ``part``: the (rows, cols) slices of every matrix kept (a tensor
-    rank's share: the draws, and so the values, are the whole stack's)."""
-    rows, cols = part or (slice(None), slice(None))
-    full = tuple(shape[-2:])
-    kept = tuple(len(range(*sl.indices(n))) for sl, n in zip((rows, cols),
-                                                             full))
-    out = torch.empty(tuple(shape[:-2]) + kept, dtype=dtype, device=device)
-    for mat in out.view(-1, *kept):
-        w = torch.randn(full, generator=generator, device=device,
+    ``part``: the slices of the trailing dims kept (a mesh rank's share:
+    its experts and its (rows, cols) of each; every matrix is drawn, so
+    the values are the whole stack's)."""
+    shape = tuple(shape)
+    part = tuple(part or ())
+    part = (slice(None),) * (len(shape) - len(part)) + part
+    kept = tuple(len(range(*sl.indices(n))) for sl, n in zip(part, shape))
+    lead = [range(*sl.indices(n)) for sl, n in zip(part[:-2], shape[:-2])]
+    rows, cols = part[-2:]
+    out = torch.empty(kept, dtype=dtype, device=device)
+    mats = iter(out.view(-1, *kept[-2:]))
+    for idx in itertools.product(*(range(n) for n in shape[:-2])):
+        w = torch.randn(shape[-2:], generator=generator, device=device,
                         dtype=torch.float32)
-        mat.copy_(w[rows, cols].mul_(fan_in ** -0.5))
+        if all(i in r for i, r in zip(idx, lead)):
+            next(mats).copy_(w[rows, cols].mul_(fan_in ** -0.5))
     return out
 
 

@@ -6,9 +6,13 @@ Model code names each parameter dim with a *logical* axis ("heads",
 the JAX package. There XLA places a sharded array; here each rank holds
 its own shard as a plain tensor. Two cuts exist:
 
-- ``tensor`` (serving, ``parallel.mesh.TensorMesh``): ``shard_tree`` cuts
-  a full tree into one rank's shard; a rule naming another axis leaves
-  the dim whole.
+- serving (``parallel.mesh.TensorMesh``, ``expert`` x ``tensor``):
+  ``shard_tree`` cuts a full tree into one rank's shard, each dim whose
+  rule names ``tensor`` by the rank's tensor index and each whose rule
+  names ``expert`` (an MoE layer's experts) by its expert index, as
+  JAX's ``tree_shardings`` places the tree on ``build_mesh(MeshConfig(
+  expert=, tensor=))``; a rule naming another axis leaves the dim
+  whole.
 - training (``parallel.mesh.WorldMesh``): each parameter cut on the dim
   its rule puts on an axis (``axis_dim``) into equal contiguous parts in
   rank order (``axis_shard``). Under ``expert`` a rank keeps its share
@@ -102,38 +106,43 @@ def validate_divisibility(mesh, logical_tree, shapes_tree,
 
 
 def shard_slices(names: Sequence[Optional[str]], shape: Sequence[int],
-                 rank: int, tp: int) -> list[slice]:
-    """Rank ``rank``'s slice of each dim: the ``rank``-th of ``tp`` equal
-    contiguous parts of every dim whose rule names ``tensor``, the whole
-    dim otherwise."""
+                 rank: int, tp: int, expert: int = 1) -> list[slice]:
+    """Rank ``rank``'s slice of each dim on a mesh of ``expert`` x ``tp``
+    ranks (rank = expert index x tp + tensor index): the tensor index's
+    of ``tp`` equal contiguous parts of every dim whose rule names
+    ``tensor``, the expert index's of ``expert`` parts of every dim whose
+    rule names ``expert``, the whole dim otherwise."""
+    cuts = {"tensor": (rank % tp, tp), "expert": (rank // tp, expert)}
     out = []
     for dim, part in zip(tuple(shape), pspec(names)):
-        if "tensor" in _mesh_axes(part) and tp > 1:
-            if dim % tp:
-                raise ValueError(f"dim {dim} not divisible by tensor={tp}")
-            n = dim // tp
-            out.append(slice(rank * n, (rank + 1) * n))
-        else:
-            out.append(slice(None))
+        sl = slice(None)
+        for axis in _mesh_axes(part):
+            index, n = cuts.get(axis, (0, 1))
+            if n > 1:
+                if dim % n:
+                    raise ValueError(f"dim {dim} not divisible by "
+                                     f"{axis}={n}")
+                sl = slice(index * (dim // n), (index + 1) * (dim // n))
+        out.append(sl)
     return out
 
 
-def shard_tensor(x: torch.Tensor, names, rank: int,
-                 tp: int) -> torch.Tensor:
+def shard_tensor(x: torch.Tensor, names, rank: int, tp: int,
+                 expert: int = 1) -> torch.Tensor:
     """One rank's shard of ``x`` as a contiguous tensor of its own (a
     copy: it never keeps the full tensor's storage alive)."""
-    part = x[tuple(shard_slices(names, x.shape, rank, tp))]
+    part = x[tuple(shard_slices(names, x.shape, rank, tp, expert))]
     return part.clone(memory_format=torch.contiguous_format)
 
 
-def shard_tree(tree, axes, rank: int, tp: int):
+def shard_tree(tree, axes, rank: int, tp: int, expert: int = 1):
     """One rank's shard of a full parameter tree: ``axes`` is the tree of
     logical-axis tuples (``llama.param_logical_axes``, or the int8 tree's
     ``serving.quant.quant_logical_axes``) with the same keys."""
     if isinstance(tree, dict):
-        return {k: shard_tree(v, axes[k], rank, tp)
+        return {k: shard_tree(v, axes[k], rank, tp, expert)
                 for k, v in tree.items()}
-    return shard_tensor(tree, axes, rank, tp)
+    return shard_tensor(tree, axes, rank, tp, expert)
 
 
 def placed_on(names: Sequence[Optional[str]], axis: str,

@@ -15,15 +15,18 @@
 - quantized serving (``quant=``, serving/quant.py): int8 weights are
   quantized once at build, int8/fp8 KV pools quantize on insert and on
   write, and decode reads them through the fused-dequant kernel;
-- tensor-parallel serving (``mesh=``, a ``parallel.mesh.TensorMesh`` of
-  tp ranks): this engine is rank 0 and spawns the other ranks, each an
-  ``LLMEngine`` on its shard of the weights and of the KV heads. The
+- serving over a mesh (``mesh=``, a ``parallel.mesh.TensorMesh`` of
+  ``expert`` x ``tensor`` ranks): this engine is rank 0 and spawns the
+  other ranks, each an ``LLMEngine`` on its shard of the weights (its
+  heads and MLP columns over ``tensor``, its experts over ``expert``) and
+  of the KV heads (cut over ``tensor``, replicated over ``expert``). The
   device bodies (``_body_*``) take host inputs only; ``_run`` sends each
-  one to every rank (serving/tp.py) and runs it here. Every rank samples
-  the same all-gathered logits with the same seeded generator, and folds
-  the tokens it sampled into a running digest on its device (no
-  collective, no readback); ``tp_status`` reports each rank's digest,
-  so a caller checks that the ranks agree;
+  one to every rank (serving/tp.py) and runs it here, after every rank
+  has replayed rank 0's pool bookkeeping. Every rank samples the same
+  all-gathered logits with the same seeded generator, and folds the
+  tokens it sampled into a running digest on its device (no collective,
+  no readback); ``tp_status`` reports each rank's digest, so a caller
+  checks that the ranks agree;
 - speculative decoding (``SchedulerConfig(spec_decode=True)``): a
   host-side drafter (serving/spec_decode.py) proposes up to ``spec_k``
   tokens per stream, ONE verify dispatch (``paged_kv.paged_verify_step``)
@@ -34,8 +37,12 @@
   a request after its first token (``hold_after_prefill``) and exports
   its prompt blocks to host numpy (``export_held_kv``); a decode tier
   scatters them into its own pool and resumes (``inject_request``).
-  Every touch of the pool from another thread queues through
-  ``submit_ctl`` and runs at the top of the next ``step()``.
+  Under a mesh the payload is the same, every KV head in tensor order:
+  export gathers each ``tensor`` rank's heads (expert index 0's copy)
+  and joins them on rank 0; inject hands each rank its own heads, and
+  every rank scatters them and sets the slot's length. Every touch of
+  the pool from another thread queues through ``submit_ctl`` and runs
+  at the top of the next ``step()``.
 
 Pipelined decode keeps the JAX engine's structure: chunk N+1 is
 dispatched before chunk N's tokens are read back. CUDA launches are
@@ -61,10 +68,8 @@ outcome is the reference's for a program it cannot serialize,
 
 Not in this slice (each raises or is absent, never quietly different):
 capture of the prefill tier's chunked-prefill program or under a mesh
-(``precompile`` raises ``GRAPH_SLICE``), meshes over axes other than
-``tensor``, and
-disaggregated serving under a tensor mesh (a rank's pool holds only its
-KV heads: hold, export and inject raise ``DISAGG_SLICE``).
+(``precompile`` raises ``GRAPH_SLICE``), and serving meshes over axes
+other than ``expert`` and ``tensor``.
 """
 
 from __future__ import annotations
@@ -95,8 +100,9 @@ from kubeflow_tpu_torch.serving import tp as tp_serving
 from kubeflow_tpu_torch.serving.decode_graph import DecodeBuffers, DecodeGraph
 from kubeflow_tpu_torch.serving.paged_kv import (
     PagedKV, _lm_head, blocks_for, gather_kv_blocks, init_paged_cache,
-    paged_decode_step, paged_insert_batch, paged_prefill_chunk,
-    paged_verify_step, resolve_decode_kernel, scatter_kv_blocks, wire_dtype,
+    join_heads, paged_decode_step, paged_insert_batch, paged_prefill_chunk,
+    paged_verify_step, payload_heads, resolve_decode_kernel,
+    scatter_kv_blocks, wire_dtype,
 )
 from kubeflow_tpu_torch.serving.quant import (
     is_weight_quantized, quant_logical_axes, quantize_weights, resolve_quant,
@@ -114,10 +120,6 @@ _REQ_LAT_BUCKETS = log_buckets(0.001, 64.0, factor=2 ** 0.25)
 # modulus of a rank's running token digest (``_note_tokens``): a prime
 # that keeps digest * 1000003 + one dispatch's weighted sum inside int64
 _DIGEST_PRIME = 2 ** 31 - 1
-
-DISAGG_SLICE = ("disaggregated serving under a tensor mesh (hold, export "
-                "and inject of a pool that holds one rank's KV heads) is a "
-                "later slice of the PyTorch port (ROADMAP queue 1 item 8.7)")
 
 GRAPH_SLICE = {
     "mesh": ("capture of the decode program under a tensor mesh (NCCL "
@@ -294,7 +296,7 @@ def local_params(params, cfg: llama.LlamaConfig, mesh, device):
     if mesh is not None:
         axes = (quant_logical_axes(cfg) if is_weight_quantized(params)
                 else llama.param_logical_axes(cfg))
-        params = shard_tree(params, axes, mesh.rank, mesh.tp)
+        params = shard_tree(params, axes, mesh.rank, mesh.tp, mesh.ep)
     return _tree_to(params, device)
 
 
@@ -307,7 +309,7 @@ class LLMEngine:
     full tree or a source). ``kernel``: the decode attention path
     (serving/paged_kv.resolve_decode_kernel).
 
-    ``mesh``: tensor-parallel serving (module docstring) on the mesh's
+    ``mesh``: serving over a mesh (module docstring) on the mesh's
     devices; rank 0's device is this engine's, ``device`` must be None
     or the same. A full tree ``params`` must then lie on the CPU (it is
     handed to the spawned ranks); ``close()`` stops them."""
@@ -334,10 +336,13 @@ class LLMEngine:
             kernel=kernel, scheduler=scheduler, quant=quant)
         self.mesh = tensor_parallel(mesh)
         if self.mesh is not None:
-            tp = self.mesh.tp
+            tp, ep = self.mesh.tp, self.mesh.ep
             if cfg.n_kv_heads % tp:
                 raise ValueError(f"n_kv_heads={cfg.n_kv_heads} not "
                                  f"divisible by tensor={tp}")
+            if cfg.n_experts % ep:
+                raise ValueError(f"n_experts={cfg.n_experts} not "
+                                 f"divisible by expert={ep}")
             validate_divisibility(self.mesh, llama.param_logical_axes(cfg),
                                   llama.param_shapes(cfg))
             if device is not None and \
@@ -411,6 +416,8 @@ class LLMEngine:
             self.close()
             raise
         self.cache = self.paged.cache
+        if self.tp is not None:
+            self.paged.log = []        # replayed by the other ranks
         self._free: list[int] = list(range(max_batch))
         self._active: dict[int, GenRequest] = {}     # slot -> request
         self._waiting: list[GenRequest] = []
@@ -500,11 +507,18 @@ class LLMEngine:
     # Each ``_body_<name>`` takes host inputs only (numpy arrays, Python
     # scalars) and is run through ``_run``: on every rank under a mesh.
 
-    def _run(self, name: str, **host):
+    def _run(self, name: str, scatter=None, answers: bool = False,
+             **host):
+        """Run ``_body_<name>(**host)`` here and, under a mesh, on every
+        rank (serving/tp.py). ``scatter``: per-rank host inputs, rank r's
+        merged into its ``host``; ``answers``: return every rank's result
+        in rank order (a list of one without a mesh)."""
         body = getattr(self, "_body_" + name)
         if self.tp is None:
-            return body(**host)
-        return self.tp.run(name, host, body)
+            out = body(**host, **(scatter[0] if scatter else {}))
+            return [out] if answers else out
+        return self.tp.run(name, host, body, self.paged.take_log(),
+                           scatter=scatter, answers=answers)
 
     def _note_tokens(self, toks) -> None:
         """Under a mesh, fold the tokens this rank sampled into its
@@ -737,8 +751,6 @@ class LLMEngine:
         KV export instead of decoding."""
         sampling = sampling or SamplingParams()
         self.validate_prompt(prompt, sampling)
-        if hold_after_prefill:
-            self._check_disagg()
         req = GenRequest(id=next(self._ids), prompt=list(map(int, prompt)),
                          sampling=sampling,
                          hold_after_prefill=bool(hold_after_prefill))
@@ -772,10 +784,6 @@ class LLMEngine:
     # threads go through submit_ctl. Single-threaded tests may call them
     # directly between step()s.
 
-    def _check_disagg(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(DISAGG_SLICE)
-
     def held_requests(self) -> list[GenRequest]:
         return list(self._held.values())
 
@@ -786,9 +794,10 @@ class LLMEngine:
         (``paged_kv.gather_kv_blocks``, with ``kv_dtype`` naming the
         pool dtype its bytes are in), plus what the decode tier needs to
         resume: prompt, the prefill-sampled token #1 and its logprob,
-        sampling params and the original enqueue time. Returns None when
-        the request was aborted or released before export."""
-        self._check_disagg()
+        sampling params and the original enqueue time. Under a mesh the
+        blocks hold every KV head in tensor order, as one card's do.
+        Returns None when the request was aborted or released before
+        export."""
         slot = req.slot
         if slot is None or self._held.get(slot) is not req:
             return None
@@ -805,8 +814,25 @@ class LLMEngine:
             "block_size": bs,
             "n_blocks": n,
             "kv_dtype": wire_dtype(self.cache),
-            "blocks": gather_kv_blocks(self.cache, ids),
+            "blocks": join_heads([p for p in self._run(
+                "export", answers=True, ids=np.asarray(ids, np.int64))
+                if p is not None]),
         }
+
+    def _body_export(self, ids):
+        """Pool blocks ``ids`` as host numpy (``gather_kv_blocks``): the
+        rank's KV heads; None from a rank whose heads an expert index 0
+        rank of the same tensor index already gives."""
+        if self.mesh is not None and self.mesh.expert_index:
+            return None
+        return gather_kv_blocks(self.cache, ids)
+
+    def _body_inject(self, ids, slot: int, length: int, blocks: dict):
+        """Scatter the migrated ``blocks`` (the rank's KV heads) into pool
+        blocks ``ids`` and set the slot's length, in place."""
+        if len(ids):
+            scatter_kv_blocks(self.cache, ids, blocks)
+        self.cache["len"][slot] = length
 
     def release_held(self, req: GenRequest) -> bool:
         """Drop a held request's slot and blocks: the prefill side of the
@@ -836,9 +862,9 @@ class LLMEngine:
         BEFORE the scatter, so eviction can never reclaim a mid-handoff
         block. Returns None when no slot or pool capacity is free (the
         caller nacks and the prefill side falls back to local
-        generation). A payload whose ``kv_dtype`` or block size is not
-        this pool's raises."""
-        self._check_disagg()
+        generation). A payload whose ``kv_dtype``, block size or layout is
+        not this pool's raises. Under a mesh every rank scatters its own
+        KV heads of the payload and sets the slot's length."""
         if kv_dtype is not None and kv_dtype != wire_dtype(self.cache):
             raise ValueError(f"payload KV dtype {kv_dtype} is not this "
                              f"pool's {wire_dtype(self.cache)}")
@@ -846,6 +872,16 @@ class LLMEngine:
         if n_blocks != blocks_for(len(prompt), bs):
             raise ValueError(f"{n_blocks} blocks for a {len(prompt)}-token "
                              f"prompt at block size {bs}")
+        cfg = self.cfg
+        for key, arr in blocks.items():
+            shape = tuple(np.shape(arr))
+            want = ((cfg.n_layers, n_blocks, bs, cfg.n_kv_heads,
+                     cfg.head_dim) if len(shape) == 5
+                    else (cfg.n_layers, n_blocks, cfg.n_kv_heads))
+            if shape != want:
+                raise ValueError(f"payload {key!r} of shape {shape} does not "
+                                 f"fit {n_blocks} blocks of this model's "
+                                 f"pool {want}")
         self.validate_prompt(prompt, sampling)
         with self._lock:
             if not self._free:
@@ -863,11 +899,14 @@ class LLMEngine:
                          prompt=list(map(int, prompt)), sampling=sampling)
         req.t_enqueue = t_enqueue or time.time()
         ids = self.paged.slot_blocks(slot)[:n_blocks]
-        if n_shared < n_blocks:
-            scatter_kv_blocks(self.cache, ids[n_shared:],
-                              {k: v[:, n_shared:n_blocks]
-                               for k, v in blocks.items()})
-        self.cache["len"][slot] = L
+        fresh = {k: np.asarray(v)[:, n_shared:n_blocks]
+                 for k, v in blocks.items()}
+        tp, ranks = ((self.mesh.tp, self.mesh.size) if self.mesh is not None
+                     else (1, 1))
+        self._run("inject", ids=np.asarray(ids[n_shared:], np.int64),
+                  slot=slot, length=L,
+                  scatter=[{"blocks": payload_heads(fresh, r % tp, tp)}
+                           for r in range(ranks)])
         # publish the imported full prompt blocks to THIS pool's radix
         # tree: a later request sharing the prefix admits here at
         # radix-hit cost

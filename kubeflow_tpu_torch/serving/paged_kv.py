@@ -36,13 +36,19 @@ fused-dequant kernel, the gather path reads ``dequant_gather_view``.
 fp8 pools are indexed through a ``uint8`` view of the same bytes
 (``_raw``), so no index op ever needs an fp8 kernel.
 
-Tensor parallelism (``mesh=``, a launched ``parallel.mesh.TensorMesh``;
-None is the one-card path): every rank runs the same step on its shard.
-Its pool and scale tables hold its ``n_kv_heads / tp`` KV heads, its
-tables and lengths are the same as every rank's, the decode attention is
+Serving meshes (``mesh=``, a launched ``parallel.mesh.TensorMesh`` of
+``expert`` x ``tensor`` ranks; None is the one-card path): every rank
+runs the same step on its shard. Its pool and scale tables hold its
+``n_kv_heads / tensor`` KV heads (cut over ``tensor`` by its tensor
+index, replicated over ``expert``), its tables and lengths are the same
+as every rank's, the decode attention is
 ``ops.paged_attention.paged_decode_attention_shard`` (rows 1-2's kernels
 on the rank's heads) or the gather oracle over the rank's heads, and the
-model's collectives are those of ``models/llama.py``.
+model's collectives are those of ``models/llama.py``. Every rank keeps
+its own ``PagedKV`` bookkeeping: rank 0 decides (``reserve``,
+``release``, ``publish_prompt_blocks``) and records each call in
+``log``; the other ranks ``replay`` the record before their next
+command, so each rank's tables, refcounts and radix tree are rank 0's.
 
 Speculative decoding scores its drafts with ``paged_verify_step``: S
 candidate rows a slot in one dispatch, through the JAX package's plain
@@ -53,7 +59,15 @@ numpy (``gather_kv_blocks`` / ``scatter_kv_blocks``).
 
 Block 0 is the pool's scratch block: idle slots (len 0, all-zero table
 row) and pad rows scatter into it, several idle slots into the same row,
-which is harmless only because nothing live ever reads block 0.
+which is harmless only because nothing live ever reads block 0. Rows
+that are not live do read it (an idle slot, a request that finished
+mid-chunk stepping past its blocks, padding rows), and on the capacity
+path such a row still takes an expert's slot. Which of several writes
+to one row lands is not fixed on a card, so every scatter into the pool
+gives each duplicate the LAST duplicate's values (``_last_writes``):
+block 0 then holds what a CPU scatter (and the JAX package's) leaves,
+on every device, and a rank's replicas over ``expert`` compute the same
+bytes for every row.
 """
 
 from __future__ import annotations
@@ -317,6 +331,32 @@ class PagedKV:
         self.radix = RadixPrefixCache(self.block_size)
         self.prefix_hits = 0                        # blocks shared
         self.prefix_queries = 0                     # full blocks looked up
+        # rank 0 of a mesh: the bookkeeping calls since the last command,
+        # which the other ranks replay (module docstring); None: unrecorded
+        self.log: Optional[list] = None
+
+    def _record(self, name: str, *args, **kwargs) -> None:
+        if self.log is not None:
+            self.log.append((name, args, kwargs))
+
+    def take_log(self) -> tuple:
+        """The recorded calls since the last take, emptied (() when
+        nothing records)."""
+        if not self.log:
+            return ()
+        ops, self.log = tuple(self.log), []
+        return ops
+
+    def replay(self, ops) -> None:
+        """Make rank 0's recorded calls (``take_log``) on this copy."""
+        for name, args, kwargs in ops:
+            getattr(self, name)(*args, **kwargs)
+
+    @property
+    def blocks_in_use(self) -> int:
+        """Blocks a live slot holds (refcounted); cached blocks no slot
+        holds are not counted."""
+        return len(self._ref)
 
     def _alloc_evicting(self, n: int):
         """Allocator alloc with LRU eviction of unpinned cached blocks.
@@ -348,6 +388,9 @@ class PagedKV:
         prefill) skips registering the private full-prompt blocks — their
         content lands over FUTURE steps, so the engine publishes them
         chunk by chunk instead (a premature match would read garbage)."""
+        self._record("reserve", slot, prompt_len, max_tokens,
+                     min_blocks=min_blocks, prompt=prompt,
+                     defer_publish=defer_publish)
         need = max(blocks_for(prompt_len + max_tokens, self.block_size),
                    min_blocks)
         need = min(need, self.max_blocks_per_seq)
@@ -391,6 +434,7 @@ class PagedKV:
         content is complete (every position < ``upto_tokens`` written and
         dispatched) as shareable read-only radix nodes. Safe mid-prefill
         and after an abort — the published KV is already valid."""
+        self._record("publish_prompt_blocks", slot, prompt, upto_tokens)
         if not self.prefix_cache:
             return 0
         ids = self._slot_blocks.get(slot)
@@ -400,6 +444,7 @@ class PagedKV:
         return len(self.radix.insert(prompt, ids, n_blocks=n))
 
     def release(self, slot: int) -> None:
+        self._record("release", slot)
         ids = self._slot_blocks.pop(slot, None)
         for blk in ids or []:
             self._ref[blk] = self._ref.get(blk, 1) - 1
@@ -538,7 +583,43 @@ def scatter_kv_blocks(cache: dict, ids, blocks: dict) -> dict:
     return cache
 
 
+def payload_heads(blocks: dict, index: int, n: int) -> dict:
+    """Part ``index`` of ``n`` of a full-head payload's KV heads (a
+    ``tensor`` rank's slice: pools [L, n, bs, KV, D] on axis 3, scale
+    tables [L, n, KV] on axis 2), each an array of its own."""
+    out = {}
+    for key, arr in blocks.items():
+        axis = 3 if np.ndim(arr) == 5 else 2
+        kv = np.shape(arr)[axis]
+        if kv % n:
+            raise ValueError(f"payload {key!r}: {kv} KV heads do not split "
+                             f"over tensor={n}")
+        sl = [slice(None)] * np.ndim(arr)
+        sl[axis] = slice(index * kv // n, (index + 1) * kv // n)
+        out[key] = np.ascontiguousarray(np.asarray(arr)[tuple(sl)])
+    return out
+
+
+def join_heads(parts) -> dict:
+    """The full-head payload of the ``tensor`` ranks' ``gather_kv_blocks``
+    results, in tensor order (``payload_heads``' inverse)."""
+    return {key: np.concatenate(
+        [p[key] for p in parts], axis=3 if parts[0][key].ndim == 5 else 2)
+        for key in parts[0]}
+
+
 # ------------------------------------------------------------- step bodies
+
+def _last_writes(keys: torch.Tensor) -> torch.Tensor:
+    """For each entry of ``keys`` [N] (a scatter's destinations), the
+    index of the LAST entry with the same key. A scatter that writes
+    ``values[_last_writes(keys)]`` gives every duplicate the same bytes,
+    so its result does not depend on which write lands, and it is what a
+    sequential scatter leaves (the last write's)."""
+    n = keys.shape[0]
+    idx = torch.arange(n, device=keys.device)
+    return torch.where(keys[:, None] == keys[None, :], idx, -1).amax(1)
+
 
 def _layer_qkv(lp, x, positions, cfg, inv_freq):
     """Shared attention-input path of the paged decode AND chunked-prefill
@@ -606,8 +687,9 @@ def quant_scatter_rows(pool, scale, blk, off, rows):
     the scatter-max folds all their amaxes first, every duplicate then
     computes the identical grown scale and requantized resident content,
     and the new rows land at distinct offsets. Rows routed to the
-    scratch block 0 only ever pollute scratch scales, which nothing
-    reads. Returns (pool, scale), the same tensors."""
+    scratch block 0 pollute only scratch scales, and where several land
+    at one offset each writes the last one's values (``_last_writes``).
+    Returns (pool, scale), the same tensors."""
     blk = blk.reshape(-1).long()
     off = off.reshape(-1).long()
     rows = rows.reshape(blk.shape[0], *rows.shape[-2:]).float()
@@ -623,7 +705,8 @@ def quant_scatter_rows(pool, scale, blk, off, rows):
     resident = _upcast(raw[blk], pool.dtype) * ratio[:, None, :, None]
     raw[blk] = _kv_store(resident, pool.dtype)
     q = torch.where(new[:, :, None] > 0, rows / safe[:, :, None], 0.0)
-    raw[blk, off] = _kv_store(q, pool.dtype)
+    raw[blk, off] = _kv_store(q[_last_writes(blk * raw.shape[1] + off)],
+                              pool.dtype)
     return pool, scale
 
 
@@ -660,6 +743,13 @@ def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
     L, _, bs = cache["k"].shape[:3]
     b, nb = blk_ids.shape
     idx = blk_ids.long()
+    # skipped blocks all land in the scratch block: each such write
+    # carries the last one's values (module docstring)
+    last = _last_writes(idx.reshape(-1))
+
+    def lasts(t):
+        """[L, b, nb, ...] -> the same with each block the last writer's."""
+        return t.reshape(L, b * nb, *t.shape[3:])[:, last].reshape(t.shape)
     if "k_scale" in cache:
         t = k_new.shape[2]
         live = (torch.arange(t, device=k_new.device)[None, :]
@@ -670,14 +760,14 @@ def paged_insert_batch(cache, k_new, v_new, blk_ids, lengths, slots):
                 L, b, nb, bs, *new.shape[3:])
             sc = blocks.abs().amax(dim=(3, 5)) / _kv_qmax(pool.dtype)
             safe = sc.clamp(min=1e-30)[:, :, :, None, :, None]
-            _raw(pool)[:, idx] = _kv_store(
-                torch.where(safe > 1e-30, blocks / safe, 0.0), pool.dtype)
-            cache[name + "_scale"][:, idx] = sc
+            _raw(pool)[:, idx] = lasts(_kv_store(
+                torch.where(safe > 1e-30, blocks / safe, 0.0), pool.dtype))
+            cache[name + "_scale"][:, idx] = lasts(sc)
     else:
-        cache["k"][:, idx] = k_new.reshape(
-            L, b, nb, bs, *k_new.shape[3:]).to(cache["k"].dtype)
-        cache["v"][:, idx] = v_new.reshape(
-            L, b, nb, bs, *v_new.shape[3:]).to(cache["v"].dtype)
+        cache["k"][:, idx] = lasts(k_new.reshape(
+            L, b, nb, bs, *k_new.shape[3:]).to(cache["k"].dtype))
+        cache["v"][:, idx] = lasts(v_new.reshape(
+            L, b, nb, bs, *v_new.shape[3:]).to(cache["v"].dtype))
     n = cache["len"].shape[0]
     dest = torch.where(slots >= 0, slots, n).long()
     ext = torch.cat([cache["len"], cache["len"].new_zeros(1)])
@@ -735,6 +825,8 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
     off = (pos % bs).long()
     kv_len = pos + 1
     routed = (pos > 0)[:, None]          # idle slots (len 0) do not route
+    # idle slots share a scratch row: each writes the last one's values
+    last = _last_writes(blk * bs + off)
     for i in range(cfg.n_layers):
         lp = llama.layer_params(params, i)
         k_pool, v_pool = cache["k"][i], cache["v"][i]    # [NB, bs, KV, D]
@@ -745,8 +837,8 @@ def paged_decode_step(params, token, cfg: llama.LlamaConfig, cache, tables,
             quant_scatter_rows(k_pool, k_sc, blk, off, k[:, 0])
             quant_scatter_rows(v_pool, v_sc, blk, off, v[:, 0])
         else:
-            k_pool[blk, off] = k[:, 0].to(k_pool.dtype)
-            v_pool[blk, off] = v[:, 0].to(v_pool.dtype)
+            k_pool[blk, off] = k[last, 0].to(k_pool.dtype)
+            v_pool[blk, off] = v[last, 0].to(v_pool.dtype)
         if kernel == "paged" and mesh is not None:
             o = paged_decode_attention_shard(
                 q[:, 0].contiguous(), k_pool, v_pool, tables, kv_len,
@@ -799,6 +891,7 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
     blk = torch.where(live, row[(pos // bs).clamp(max=row.shape[0] - 1)],
                       torch.zeros_like(pos))
     off = pos % bs
+    last = _last_writes(blk * bs + off)      # pad rows share scratch rows
     positions = pos[None, :]
     x = llama.embed_tokens(params, tokens, cfg, mesh)
     quantized = "k_scale" in cache
@@ -813,8 +906,8 @@ def paged_prefill_chunk(params, tokens, cfg: llama.LlamaConfig, cache,
             k_view = dequant_gather_view(k_pool, k_sc, row[None], cfg)
             v_view = dequant_gather_view(v_pool, v_sc, row[None], cfg)
         else:
-            k_pool[blk, off] = k[0].to(k_pool.dtype)
-            v_pool[blk, off] = v[0].to(v_pool.dtype)
+            k_pool[blk, off] = k[0, last].to(k_pool.dtype)
+            v_pool[blk, off] = v[0, last].to(v_pool.dtype)
             k_view = k_pool[row].reshape(1, -1, *k_pool.shape[2:])
             v_view = v_pool[row].reshape(1, -1, *v_pool.shape[2:])
         # row i (absolute position offset+i) attends kv rows <= offset+i
@@ -860,6 +953,8 @@ def paged_verify_step(params, tokens, cfg: llama.LlamaConfig, cache, tables,
         valid, tab.gather(1, (pos // bs).clamp(0, tab.shape[1] - 1)),
         torch.zeros_like(pos))
     off = pos % bs
+    # rows past a limit share scratch rows (module docstring)
+    last = _last_writes((blk * bs + off).reshape(-1))
     x = llama.embed_tokens(params, tokens, cfg, mesh)            # [B, S, D]
     quantized = "k_scale" in cache
     for i in range(cfg.n_layers):
@@ -875,8 +970,10 @@ def paged_verify_step(params, tokens, cfg: llama.LlamaConfig, cache, tables,
             k_view = dequant_gather_view(k_pool, k_sc, tab, cfg)
             v_view = dequant_gather_view(v_pool, v_sc, tab, cfg)
         else:
-            k_pool[blk, off] = k.to(k_pool.dtype)
-            v_pool[blk, off] = v.to(v_pool.dtype)
+            k_pool[blk, off] = k.reshape(-1, *k.shape[2:])[last].reshape(
+                k.shape).to(k_pool.dtype)
+            v_pool[blk, off] = v.reshape(-1, *v.shape[2:])[last].reshape(
+                v.shape).to(v_pool.dtype)
             k_view = k_pool[tab].reshape(b, -1, *k_pool.shape[2:])
             v_view = v_pool[tab].reshape(b, -1, *v_pool.shape[2:])
         o = _xla_attention(q, k_view, v_view, causal=True, q_offset=start)

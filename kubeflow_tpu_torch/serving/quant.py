@@ -14,12 +14,13 @@ Two quantization surfaces, both configured by ``QuantConfig``
   the int8 tensor, upcast it to the compute dtype for the product, and
   multiply the OUTPUT by the channel scales.
 
-Under a tensor-parallel mesh each rank quantizes its own shard, and
+Under a serving mesh each rank quantizes its own shard, and
 the result is exactly the full tree's quantization, sliced (what the
 JAX package gets by quantizing the sharded tree): a scale reduces over
 the contraction, which a rank holds whole for the column-parallel
 weights; for the row-parallel ``wo`` and ``w_down`` the ranks' amaxes
-are all-reduced (max, exact) before anything is rounded.
+are all-reduced (max, exact) over the rank's ``tensor`` group before
+anything is rounded (``expert`` peers hold the same dense weights).
 
 ``resolve_quant`` is the single downgrade authority: a requested mode
 the build or model can't honor resolves to the unquantized path WITH a
@@ -124,7 +125,7 @@ def _quantize_channels(w, axes, mesh=None
     w32 = w.float()
     amax = w32.abs().amax(dim=axes)
     if mesh is not None:
-        mesh.all_reduce(amax, op="max")
+        mesh.all_reduce(amax, "tensor", op="max")
     s = amax / WEIGHT_QMAX
     s = s.clamp(min=1e-12)  # all-zero channels quantize to 0 cleanly
     s_b = s

@@ -25,17 +25,23 @@ initializer step and exits. The env contract is the JAX runtime's:
                      drafter KFT_SPEC_DRAFTER ("ngram", the default)
   KFT_COMPILE_CACHE  accepted and unused: the port compiles no programs
                      (its kernels build once per checkout, under _build/)
-  KFT_MESH          "tensor=N": tensor-parallel serving on N ranks, one
-                     process and one card each (NCCL), or N CPU ranks
-                     (gloo) with KFT_FORCE_PLATFORM=cpu; fewer cards than
-                     N raise. Other axes (data, fsdp, ..., and KFT_DCN)
-                     set above 1 raise: they are a later slice
+  KFT_MESH          "expert=E,tensor=T" (either alone): serving on E x T
+                     ranks, one process and one card each (NCCL), or CPU
+                     ranks (gloo) with KFT_FORCE_PLATFORM=cpu; fewer
+                     cards than ranks raise. A rank holds its KV heads,
+                     heads and MLP columns over tensor and its share of
+                     an MoE model's experts over expert (a dense model is
+                     replicated over expert). Other axes (data, fsdp,
+                     context, pipeline, and KFT_DCN) set above 1 raise:
+                     they are a later slice
   KFT_TIER          disaggregated serving: "prefill" | "decode" (unset =
                      co-located). Stamps tier="..." on /metrics and
                      attaches the KV-migration runtime (serving/disagg.py)
                      behind the /v2/models/{m}/disagg routes. Other
-                     values raise ValueError; with KFT_MESH it raises
-                     NotImplementedError (a later slice)
+                     values raise ValueError. With KFT_MESH the tier
+                     serves over the mesh; the payload holds every KV
+                     head, so a tier of any mesh hands off to a tier of
+                     any other
   KFT_KV_BIND       decode tier: host:port of the paged-KV migration
                      listener (default 127.0.0.1:0; the bound address is
                      printed and rides stats()["disagg"]["kv_addr"])
@@ -64,7 +70,6 @@ from kubeflow_tpu_torch.device import platform_device
 from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
 from kubeflow_tpu_torch.serving import storage
 from kubeflow_tpu_torch.serving.disagg import TIERS, TierRuntime
-from kubeflow_tpu_torch.serving.llm import DISAGG_SLICE
 from kubeflow_tpu_torch.serving.model import Model, ModelRepository
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
@@ -89,9 +94,6 @@ def check_env_slices(env: Mapping[str, str]) -> None:
     if tier:
         if tier not in TIERS:
             raise ValueError(f"KFT_TIER={tier!r} (want prefill|decode)")
-        if env.get("KFT_MESH"):
-            raise NotImplementedError(
-                f"KFT_TIER with KFT_MESH: {DISAGG_SLICE}")
 
 
 def init_storage(env: Mapping[str, str]) -> Optional[str]:
@@ -148,7 +150,8 @@ def quant_from_env(env: Mapping[str, str]):
 def build_model_from_env(env: Mapping[str, str]) -> Model:
     """Construct the Model the env contract describes, on CUDA unless
     KFT_FORCE_PLATFORM=cpu asks for the CPU; KFT_MESH=tensor=N shards it
-    over N ranks (as the JAX runtime's mesh_from_topology_env)."""
+    over N ranks and KFT_MESH=expert=E,tensor=T over E x T (as the JAX
+    runtime's mesh_from_topology_env)."""
     check_env_slices(env)
     name = env.get("KFT_MODEL_NAME", "model")
     fmt = (env.get("KFT_MODEL_FORMAT") or "llama").lower()

@@ -6,7 +6,8 @@ continuous-batching engine (counterpart of ``LLMModel`` in
 so concurrent HTTP requests share one decode batch. It runs on ``device``
 (CUDA unless ``"cpu"`` is asked for; ``load()`` raises when no GPU is
 visible and none was asked for), or with ``mesh=`` (a
-``parallel.mesh.TensorMesh``) tensor-parallel over the mesh's ranks:
+``parallel.mesh.TensorMesh`` of ``expert`` x ``tensor`` ranks) over the
+mesh's ranks:
 ``load()`` starts them, ``unload()`` stops and joins them.
 
 A disaggregated tier replica (``tier="prefill"|"decode"``) carries the
@@ -24,8 +25,8 @@ it to that capture, which stays local (a CUDA graph cannot be serialized
 to another process): ``stats()`` reports ``depot_outcome`` "compiled"
 and the counters under ``depot``. Where the port does not capture (the
 CPU, a mesh, the prefill tier), ``KFT_DEPOT`` changes nothing. Capture
-under a mesh or of the prefill tier's program, and meshes over other
-axes, belong to later slices.
+under a mesh or of the prefill tier's program, and meshes over axes
+other than ``expert`` and ``tensor``, belong to later slices.
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ layers (random bf16 weights from a seeded generator), on the card, as
 ``chip_smoke.py``'s phase 5m (c) checks it.
 
     python -m kubeflow_tpu_torch.tools.moe_quality [--layers 16]
-        [--dtype bfloat16|float32] [--tensor N]
+        [--dtype bfloat16|float32] [--expert E] [--tensor T]
 
 An engine at phase 5m's geometry (max_batch 8, max_seq 1024, block 64)
 free-runs greedy on one seeded 100-token prompt for 32 tokens; that
@@ -30,18 +30,22 @@ paths, then one JSON line with them and the card's name and power limit.
 A copy of the tree with a fault planted in one path reads what the
 smoke's limit would see.
 
-With ``--tensor N`` it reads instead how far the same model served under
-``KFT_MESH=tensor=N`` (each rank the ``mlp`` slice of every expert, the
-MoE output all-reduced; ranks on cards of their own over NCCL where the
-machine has N, else all on card 0 over gloo) is from the one-card
-engine, as ``chip_smoke.py``'s phase 5n checks it and
-``tools/tp_quality.py`` does for llama3_8b: a one-card engine free-runs
-greedy on two seeded prompts of 16 tokens for 32, both engines replay
-those streams teacher-forced through their decode paths
-(``LLMEngine.teacher_forced_logits``: the same method on both, whose
-first step routes no expert on either), and it prints the greedy
-agreement and the max and rms logit error over the generated positions
-(``tp_quality.logit_errors``).
+With ``--tensor T`` and/or ``--expert E`` it reads instead how far the
+same model served under ``KFT_MESH=expert=E,tensor=T`` (each rank its
+E/expert experts and its ``mlp`` slice of each, the MoE output summed
+over the whole mesh; ranks on cards of their own over NCCL where the
+machine has E x T, else all on card 0 over gloo) is from the one-card
+engine, as ``chip_smoke.py``'s phases 5n (``tensor=2``) and 5e
+(``expert=2,tensor=2``) check it and ``tools/tp_quality.py`` does for
+llama3_8b: a one-card engine free-runs greedy on two seeded prompts of
+16 tokens for 32, both engines replay those streams teacher-forced
+through their decode paths (``LLMEngine.teacher_forced_logits``: the
+same method on both, whose first step routes no expert on either), and
+it prints the greedy agreement and the max and rms logit error over the
+generated positions (``tp_quality.logit_errors``). With ``--expert``
+it then reads the same with a planted fault (``TensorOnlyMoE``: the MoE
+output summed over ``tensor`` only, so each rank loses the other expert
+groups' experts), what the smokes' limit must sit below.
 
 ``MIXTRAL_8X7B`` (the published ``config.json``), ``mixtral_8x7b``,
 ``readings`` and ``tp_readings`` (the checks' methods) are what
@@ -60,6 +64,7 @@ import torch
 
 from kubeflow_tpu_torch.models import hf_llama, llama
 from kubeflow_tpu_torch.parallel import moe
+from kubeflow_tpu_torch.parallel.mesh import TensorMesh
 
 # mistralai/Mixtral-8x7B-v0.1, config.json as published
 MIXTRAL_8X7B = {
@@ -227,11 +232,34 @@ def tp_readings(eng, streams: list, base) -> dict:
     return logit_errors(base, eng.teacher_forced_logits(streams).cpu())
 
 
-def _tensor_main(cfg, source, tp: int, card: str) -> int:
+class TensorOnlyMoE(TensorMesh):
+    """A planted fault for the ``--expert`` reading: the MoE output's sum
+    (``rows``, the whole mesh) taken over ``tensor`` only, so each rank
+    keeps its own expert group's experts alone."""
+
+    def all_reduce(self, x, axis="mesh", kind=None, op="sum"):
+        return super().all_reduce(x, "tensor" if axis == "rows" else axis,
+                                  kind, op)
+
+
+def mesh_readings(cfg, source, mesh, streams, base) -> dict:
+    """``tp_readings`` of an engine of ``cfg`` from ``source`` launched
+    on ``mesh``, closed after."""
+    from kubeflow_tpu_torch.serving.llm import LLMEngine
+    from kubeflow_tpu_torch.tools.tp_quality import TP_KW
+
+    eng = LLMEngine(source, cfg, mesh=mesh, **TP_KW)
+    try:
+        return tp_readings(eng, streams, base)
+    finally:
+        eng.close()
+
+
+def _mesh_main(cfg, source, ep: int, tp: int, card: str) -> int:
     from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
     from kubeflow_tpu_torch.serving.llm import LLMEngine
     from kubeflow_tpu_torch.tools.tp_quality import (
-        TP_KW, reference_streams, tp_devices,
+        reference_streams, tp_devices,
     )
 
     one = LLMEngine(source, cfg, device="cuda", **ENGINE_KW)
@@ -239,21 +267,28 @@ def _tensor_main(cfg, source, tp: int, card: str) -> int:
     base = one.teacher_forced_logits(streams).cpu()
     del one
     torch.cuda.empty_cache()
-    mesh = mesh_from_topology_env({"KFT_MESH": f"tensor={tp}"},
-                                  devices=tp_devices(tp))
-    eng = LLMEngine(source, cfg, mesh=mesh, **TP_KW)
-    try:
-        res = tp_readings(eng, streams, base)
-    finally:
-        eng.close()
-    print(f"Mixtral-8x7B widths, {cfg.n_layers} layers, tensor={tp} "
-          f"({mesh.backend}, {[str(d) for d in mesh.devices]}) vs one card: "
-          f"positions {res['positions']}, greedy-token agreement "
-          f"{res['greedy_token_agreement']!r}, max logit drift "
-          f"{res['max_logit_drift']!r}, rms logit error "
-          f"{res['rms_logit_error']!r}", flush=True)
-    print(json.dumps({"card": card, "layers": cfg.n_layers, "tensor": tp,
-                      "backend": mesh.backend, **res}), flush=True)
+    devices = tp_devices(ep * tp)
+    mesh = mesh_from_topology_env(
+        {"KFT_MESH": f"expert={ep},tensor={tp}"}, devices=devices)
+    runs = {"sound": mesh}
+    if ep > 1:
+        runs["fault"] = TensorOnlyMoE(tp, devices, expert=ep)
+    what = f"expert={ep},tensor={tp}"
+    out = {"card": card, "layers": cfg.n_layers, "expert": ep,
+           "tensor": tp, "backend": mesh.backend}
+    for name, m in runs.items():
+        res = mesh_readings(cfg, source, m, streams, base)
+        torch.cuda.empty_cache()
+        print(f"Mixtral-8x7B widths, {cfg.n_layers} layers, {what} "
+              f"({mesh.backend}, {[str(d) for d in mesh.devices]}) vs one "
+              f"card, {name}: positions {res['positions']}, greedy-token "
+              f"agreement {res['greedy_token_agreement']!r}, max logit "
+              f"drift {res['max_logit_drift']!r}, rms logit error "
+              f"{res['rms_logit_error']!r}", flush=True)
+        out[name] = res
+    if ep == 1:
+        out.update(out.pop("sound"))
+    print(json.dumps(out), flush=True)
     return 0
 
 
@@ -267,8 +302,11 @@ def main(argv=None) -> int:
                     help="weights and compute (float32: the paths' "
                          "arithmetic without bf16 rounding)")
     ap.add_argument("--tensor", type=int, default=1,
-                    help="N > 1: the tensor-parallel check (module "
+                    help="T > 1: the check over a serving mesh (module "
                          "docstring)")
+    ap.add_argument("--expert", type=int, default=1,
+                    help="E > 1: the check over a serving mesh, with the "
+                         "planted fault's reading (module docstring)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("moe_quality needs a CUDA GPU")
@@ -278,9 +316,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    if args.tensor > 1:
-        return _tensor_main(cfg, llama.SeededParams(SEED, dtype),
-                            args.tensor, card)
+    if args.tensor * args.expert > 1:
+        return _mesh_main(cfg, llama.SeededParams(SEED, dtype),
+                          args.expert, args.tensor, card)
     eng = LLMEngine(llama.SeededParams(SEED, dtype), cfg, device="cuda",
                     **ENGINE_KW)
     rng = torch.Generator().manual_seed(7)

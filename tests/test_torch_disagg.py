@@ -319,25 +319,6 @@ def test_inject_refuses_a_payload_of_another_pool(tiny):
     assert sorted(dec._free) == [0, 1, 2, 3]
 
 
-def test_disagg_under_a_tensor_mesh_raises(tiny, tmp_path):
-    """A rank's pool holds one rank's KV heads: hold, export and inject
-    raise, naming the later slice, instead of migrating half a pool."""
-    from kubeflow_tpu_torch.parallel import TensorMesh
-
-    _, _, tcfg, tp = tiny
-    eng = LLMEngine(tp, tcfg, max_seq=64, prefill_buckets=(8,),
-                    mesh=TensorMesh(2, ["cpu", "cpu"],
-                                    rendezvous_dir=str(tmp_path)))
-    try:
-        with pytest.raises(NotImplementedError, match="item 8.7"):
-            eng.add_request(PROMPT, hold_after_prefill=True)
-        with pytest.raises(NotImplementedError, match="tensor mesh"):
-            eng.inject_request(PROMPT, SamplingParams(), first_token=1,
-                               first_lp=0.0, blocks={}, n_blocks=2)
-    finally:
-        eng.close()
-
-
 # ------------------------------------------------- wire-level handoff --
 
 @pytest.fixture(scope="module")

@@ -116,7 +116,7 @@ def test_moe_and_int8_raise_naming_the_slice(tiny):
     logits = tl.forward(mp, torch.zeros((1, 4), dtype=torch.long), moe)
     assert logits.shape == (1, 4, moe.vocab_size)
     assert torch.isfinite(logits).all()
-    mesh = types.SimpleNamespace(tp=2, rank=0)
+    mesh = types.SimpleNamespace(tp=2, ep=1, rank=0)
     part = tl.init_params(torch.Generator().manual_seed(0), moe,
                           device="cpu", mesh=mesh)
     assert torch.equal(part["layers"]["w_gate"],

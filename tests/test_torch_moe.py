@@ -18,7 +18,6 @@ Tolerances, each from float32 sums taken in another order:
 """
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -496,18 +495,21 @@ def test_mixtral_checkpoint_matches_jax(tmp_path):
 # ------------------------------------------------------------- the mesh --
 
 def test_moe_under_a_mesh_raises_naming_item_8_7(tiny_moe, tmp_path):
-    """Of MoE under a serving mesh only the ``expert`` axis still raises,
-    naming item 8.7 (the JAX package has no test of it). A tensor mesh
-    draws and loads each rank's ``mlp`` slice of every expert, the
-    router whole (tests/test_torch_moe_tp.py holds the engine, the
-    shards and the runtime to the JAX package)."""
+    """Of MoE under a serving mesh, an axis beyond ``expert`` and
+    ``tensor`` (``context`` beside ``expert``) still raises, naming item
+    8.7 (the JAX package has no test of it). A tensor mesh draws and
+    loads each rank's ``mlp`` slice of every expert, the router whole
+    (tests/test_torch_moe_tp.py and tests/test_torch_moe_expert_serving.py
+    hold the engine, the shards and the runtime to the JAX package)."""
+    from kubeflow_tpu_torch.parallel import TensorMesh
     from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
 
     _, _, tcfg, _ = tiny_moe
     with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        mesh_from_topology_env({"KFT_MESH": "expert=2,tensor=2",
+        mesh_from_topology_env({"KFT_MESH": "context=2,expert=2",
                                 "KFT_FORCE_PLATFORM": "cpu"})
-    mesh = types.SimpleNamespace(tp=2, rank=1, device=torch.device("cpu"))
+    mesh = TensorMesh(2, ["cpu"] * 2)
+    mesh.rank = 1
     part = tl.init_params(torch.Generator().manual_seed(0), tcfg,
                           device="cpu", mesh=mesh)
     assert part["layers"]["w_gate"].shape == (2, 4, 64, 64)

@@ -460,10 +460,12 @@ def test_runtime_http_text_matches_jax(tmp_path):
 @pytest.mark.parametrize("key", ["KFT_MESH", "KFT_TIER", "KFT_DEPOT",
                                  "KFT_MODELS_CONFIG_DIR"])
 def test_runtime_raises_for_later_slices(tmp_path, key):
-    """KFT_MESH: the tensor axis is served now (tests/test_torch_tp.py);
-    a mesh over another axis is the later slice that raises. KFT_TIER:
-    disaggregated serving is served now (tests/test_torch_disagg.py);
-    a tier under a tensor mesh is the later slice that raises.
+    """KFT_MESH: the expert and tensor axes are served now
+    (tests/test_torch_tp.py, tests/test_torch_moe_expert_serving.py); a
+    mesh over another axis is the later slice that raises. KFT_TIER:
+    disaggregated serving is served now, beside an expert or tensor mesh
+    too (tests/test_torch_disagg.py, tests/test_torch_disagg_mesh.py); a
+    tier beside a mesh over another axis raises that mesh's slice.
     KFT_DEPOT no longer raises: the depot is a fast path that never
     fails a load (the reference's rule), and on the CPU, where nothing
     is captured, it changes nothing: the runtime loads and serves, the
@@ -494,8 +496,9 @@ def test_runtime_raises_for_later_slices(tmp_path, key):
     env = {"KFT_MODEL_DIR": str(tmp_path), "KFT_FORCE_PLATFORM": "cpu",
            key: "data=2,tensor=2" if key == "KFT_MESH" else "x"}
     if key == "KFT_TIER":
-        env.update(KFT_TIER="decode", KFT_MESH="tensor=2")
-    with pytest.raises(NotImplementedError, match=key):
+        env.update(KFT_TIER="decode", KFT_MESH="context=2,tensor=2")
+    with pytest.raises(NotImplementedError,
+                       match="KFT_MESH" if key == "KFT_TIER" else key):
         build_model_from_env(env)
 
 

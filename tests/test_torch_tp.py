@@ -354,7 +354,8 @@ def test_runtime_serves_tensor_parallel_over_http(tmp_path):
 
 @pytest.mark.parametrize("env", [
     {"KFT_MESH": "data=2,tensor=2"}, {"KFT_MESH": "fsdp=2"},
-    {"KFT_MESH": "tensor=2", "KFT_DCN": "data=2"}])
+    {"KFT_MESH": "tensor=2", "KFT_DCN": "data=2"},
+    {"KFT_MESH": "context=2"}, {"KFT_MESH": "pipeline=2,tensor=2"}])
 def test_mesh_axes_other_than_tensor_raise(env):
     with pytest.raises(NotImplementedError, match="parallel/ slice"):
         mesh_from_topology_env(dict(env, KFT_FORCE_PLATFORM="cpu"))
