@@ -395,12 +395,14 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              steps' per-layer gathers and reduce-scatters. Runs only on
              a machine with four cards or more, and says it was skipped
              otherwise.
-             (t) phase 9b's 8-layer llama_1b under tensor=2
+             (t) phase 9b's llama_1b under tensor=2
              (Megatron's cuts: each rank its half of the heads, the MLP
              and the vocab, joined by all-reduces in the forward after
              each row-parallel product and in the backward before each
              column-parallel one, the logits all-gathered): two ranks on
-             one card over gloo, each feeding the same 32 rows (phase
+             one card over gloo (the world 9m's, 9r's, 9rm's and 9p's
+             plans run in after it, card_pair_world; its readings follow
+             that world), each feeding the same 32 rows (phase
              9b's global batch, its two places merged) in 16 micro
              batches, TENSOR_STEPS steps after precompile(), which under
              gloo captures neither body (a tensor all-reduce sits in
@@ -433,7 +435,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
 9m. MoE across processes — llama_moe_8x(llama_1b()) at full width (8
              experts, top-2, capacity 1.25, remat dots, attn_impl pallas,
              adafactor) cut to MOE_WORLD_LAYERS = 2 of 16 layers, two
-             ranks on one card over gloo, in one world: data=2 (each
+             ranks on one card over gloo, in the world 9r's, 9rm's and
+             9p's plans then run in (card_pair_world): data=2 (each
              place 16 rows with ragged masks in 16 micro batches of one)
              and expert=2 (each rank 4 of the 8 experts, both the same
              32 rows in 16 micro batches of two, the data=2 places'
@@ -500,11 +503,45 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              busy share. Runs only on a machine with four cards or more,
              and says it was skipped otherwise.
 
+9rm. an MoE model under context parallelism — llama_moe_8x(llama_1b())
+             (8 experts, top-2, capacity 1.25, remat dots, adafactor,
+             bf16 compute) at max_seq 8192, cut to MOE_CONTEXT_LAYERS = 2
+             of its 16 layers, its router's columns scaled 1 to 2.75 so
+             capacity binds (9m (i)'s imbalance), two ranks on one card
+             over gloo under context=2 in 9r's world: (i) one MoE layer at
+             full width in float32 on one micro batch (2 rows of 8192,
+             each rank its chunk of both: the layer's statistics,
+             capacity and slots over the tokens group, a rank's pairs
+             between the other's row by row) against one process:
+             output, gradients, aux and the dropped fraction (> 0) within
+             MOE_CONTEXT_LAYER_RTOL; (ii) 4 rows of 8192 + 1 tokens
+             (ragged masks) a step in 2 micro batches, MOE_CONTEXT_STEPS
+             eager steps with attn_impl ring, then ulysses; after the
+             world exits one process with attn_impl flash on the same
+             rows: losses, moe_aux and grad norms within MOE_CONTEXT_RTOL
+             (limits between the sound reading and planted slot faults),
+             both ranks' metrics equal, the flash launches against the
+             reckoned count (9r's), the MoE and context collectives'
+             calls, bytes and seconds, and peak memory a rank against
+             the one process.
+9rx4. the uncut MoE model (16 layers) at max_seq 8192 over expert=2 x
+             context=2, one card a rank over NCCL, attn_impl ring, 9rm's
+             router skew, rows and micro batches: 3 eager steps, then a
+             fresh trainer precompile()d (both bodies captured with the
+             ring's sends and receives and the MoE layers' all-gathers
+             and all-reduces) and 3 replayed steps, the last traced.
+             Checks every rank's replay bitwise its eager run and rank
+             0's metrics (expert and context peers equal), the flash
+             launches and a rank's half of the expert leaves; logs
+             tokens/s a card, MFU (active top-k FLOPs) and the NCCL busy
+             share. Runs only on a machine with four cards or more, and
+             says it was skipped otherwise.
 9p. pipeline parallelism — llama_1b's widths in phase 7's configuration
              (remat dots, adafactor, bf16 compute) with attn_impl flash,
              cut to PIPELINE_LAYERS = 8 of its 16 layers, two ranks on one
              card over gloo under pipeline=2 (a check, no speed-up; one
-             world of two ranks runs 9r's plans, then 9p's), 4 layers a
+             world of two ranks runs 9m's, 9r's and 9rm's plans, then
+             9p's), 4 layers a
              stage: 8 rows of 2048 + 1 tokens (ragged masks) a
              step as one trainer micro batch of 4 pipeline micro batches
              (GPipe fill-drain, parallel/pipeline.py: the activations
@@ -524,7 +561,9 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              against the one process.
 
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5n,
-5x, 5, 6, 7, 7m, 8, 9 (a, b, t, c, d), 9m, 9x, 9r, 9p, 9r4.
+5x, 5, 6, 7, 7m, 8, 9 (a, b, c, d), then one world of two ranks for
+9t, 9m, 9r, 9rm and 9p, whose readings follow in that order with 9x
+after 9m, then 9r4 and 9rx4.
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -919,6 +958,51 @@ CONTEXT_LAYER_ERR = {"flash": 0.055, "plain": 0.034}
 # CONTEXT4_STEPS eager steps, then as many replayed
 CONTEXT4_SEQ = 16384
 CONTEXT4_ROWS, CONTEXT4_ACCUM, CONTEXT4_STEPS = 4, 4, 3
+# phase 9rm: llama_moe_8x(llama_1b()) (8 experts, top-2, capacity 1.25,
+# remat dots, adafactor, bf16 compute) at max_seq MOE_CONTEXT_SEQ, cut to
+# MOE_CONTEXT_LAYERS of its 16 layers, over context=CONTEXT in 9r's world
+# (two ranks on one card over gloo: a check, no speed-up): MOE_CONTEXT_ROWS
+# rows of MOE_CONTEXT_SEQ + 1 tokens (ragged masks) a step in
+# MOE_CONTEXT_ACCUM micro batches (two rows each, so a context rank holds
+# chunks of several rows of one micro batch; two micro batches, so the one
+# process weights its micro batches' losses as the ranks do: unweighted,
+# its bf16 backward put its grad norm 1.35e-3 from Ulysses'), every
+# router column scaled by MOE_ROUTER_SCALE (phase 9m (i)'s
+# imbalance, so capacity 1.25 drops choices), MOE_CONTEXT_STEPS eager
+# steps with attn_impl ring, then ulysses, against one process with
+# attn_impl flash on the same rows; and the layer alone (i) on one such
+# micro batch in float32 against one process. MOE_CONTEXT_RTOL: limits on
+# the largest relative difference of the world's losses, moe_aux and grad
+# norms from the one process; MOE_CONTEXT_LAYER_RTOL: on the layer's, as
+# phase 9m (i) reads them. Read on one H100 (700 W), two ranks over gloo:
+# sound, ring 4.44e-5 / 5.92e-5 / 8.40e-4 (loss / moe_aux / grad norm: each
+# ring step rounds its output to bf16), Ulysses 1.74e-7 / 1.23e-7 /
+# 6.24e-6, the layer 8.14e-8 (output), 5.07e-6 (gradients), aux and
+# dropped fraction exact. Planted faults, each in a tree copy: the
+# batch-only slot rule (counts gathered over batch, one rank here) ring
+# 5.02e-4 / 1.66e-3 / 0.0514, Ulysses 4.65e-4 / 1.68e-3 / 0.0518, the
+# layer 0.459 / 0.419, its dropped fraction off by 8.64e-3 (all of it);
+# the ranks taken as blocks (each rank's chunk of every row ahead of the
+# next rank's) ring 6.12e-5 / 7.12e-4 / 7.03e-4, Ulysses 4.61e-6 /
+# 7.59e-4 / 6.59e-4, the layer unmoved (the same pairs drop in either
+# order on its inputs). Each limit is the geometric mean of the sound
+# reading and the nearest fault it sees (ring loss and grad norm: the
+# batch-only rule's; a reading of 0, the layer's dropped fraction,
+# counts as one choice of the 2 x 2 x 8192, 3.05e-5); the layer's aux,
+# which no slot fault moves, keeps phase 9m (i)'s limit (see PERF.md)
+MOE_CONTEXT_SEQ, MOE_CONTEXT_LAYERS = 8192, 2
+MOE_CONTEXT_ROWS, MOE_CONTEXT_ACCUM, MOE_CONTEXT_STEPS = 4, 2, 2
+MOE_ROUTER_SCALE = tuple(1.0 + 1.75 * i / 7 for i in range(8))
+MOE_CONTEXT_RTOL = {"ring": {"loss": 1.5e-4, "moe_aux": 2.1e-4,
+                             "grad_norm": 6.6e-3},
+                    "ulysses": {"loss": 9.0e-7, "moe_aux": 9.7e-6,
+                                "grad_norm": 6.4e-5}}
+MOE_CONTEXT_LAYER_RTOL = {"y": 1.9e-4, "grads": 1.5e-3, "aux": 3.5e-5,
+                          "dropped": 5.1e-4}
+# phase 9rx4: the uncut MoE model (16 layers) at max_seq MOE_CONTEXT_SEQ
+# over expert=2 x context=2, one card a rank over NCCL (four cards or
+# more), attn_impl ring, 9rm's router skew, rows and micro batches:
+# MOE_NCCL_STEPS eager steps, then as many replayed
 # phase 9p: llama_1b's widths in phase 7's configuration (bf16 compute,
 # remat dots, adafactor) with attn_impl flash, cut to PIPELINE_LAYERS of
 # its 16 layers, over pipeline=PIPELINE (two ranks on one card over gloo:
@@ -4563,32 +4647,34 @@ def kept_share(cfg, cuts: dict) -> dict:
     return {"kept": kept, "whole": whole, "share": kept / whole}
 
 
-def tensor_training(torch, ref_metrics: list) -> dict:
-    """Phase 9 (t): llama_1b at full width in phase 7's configuration
-    under tensor=2, two ranks on one card over gloo (module docstring)."""
+def tensor_plan() -> tuple:
+    """Phase 9 (t)'s plan (``world_train.plans_rank``), run in the world
+    of two ranks on one card that 9m's, 9r's, 9rm's and 9p's run in
+    (``card_pair_world``): phase 9b's global batch on both ranks under
+    tensor=TENSOR_WORLD, replayed after ``precompile``."""
     import dataclasses
-    import tempfile
 
     from kubeflow_tpu_torch.tools import world_train as wt
 
     base = world_job()
-    cfg = base.config
     job = dataclasses.replace(
         base, trainer={**base.trainer, "grad_accum": TRAIN_ACCUM},
         steps=TENSOR_STEPS, runs=("replayed",), merge_places=WORLD)
+    return (1, 1, TENSOR_WORLD, wt.train_rank, (job,))
+
+
+def tensor_training(torch, ref_metrics: list, ranks: list) -> dict:
+    """Phase 9 (t): llama_1b at full width in phase 7's configuration
+    under tensor=2, two ranks on one card over gloo (module docstring).
+    ``ranks``: per rank, the result of ``tensor_plan``
+    (``card_pair_world``)."""
+    cfg = world_job().config
     devices = ["cuda:0"] * TENSOR_WORLD
-    gc.collect()
-    torch.cuda.empty_cache()
     log(f"phase 9t: llama_1b, remat=dots, attn_impl=pallas, adafactor, "
-        f"tensor={TENSOR_WORLD} on {devices} (gloo), both ranks the same "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} rows (phase 9b's global batch) in "
-        f"{TRAIN_ACCUM} micro batches, {TENSOR_STEPS} steps after "
-        f"precompile()")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="kft-phase9t-") as rundir:
-        ranks = wt.run(wt.train_rank, (job,), 1, 1, devices, rundir,
-                       tensor=TENSOR_WORLD)
-    wall_s = time.perf_counter() - t0
+        f"tensor={TENSOR_WORLD} on {devices} (gloo, 9r's world), both "
+        f"ranks the same {TRAIN_BATCH} x {TRAIN_SEQ} rows (phase 9b's "
+        f"global batch) in {TRAIN_ACCUM} micro batches, {TENSOR_STEPS} "
+        f"steps after precompile()")
     per_micro = {"flash_attention_fwd": 2 * cfg.n_layers,
                  "flash_attention_dq": cfg.n_layers,
                  "flash_attention_dkv": cfg.n_layers}
@@ -4597,7 +4683,7 @@ def tensor_training(torch, ref_metrics: list) -> dict:
     share = kept_share(cfg, {"tensor": TENSOR_WORLD})
     want_kept = 4 * share["kept"]
     failed = []
-    out = {"wall_s": wall_s, "ranks": [], "kept_params": share}
+    out = {"ranks": [], "kept_params": share}
     for r, res in enumerate(ranks):
         run = res["runs"]["replayed"]
         tensor_calls = [{k: c[k] for k in ("tensor_calls", "tensor_bytes",
@@ -4640,7 +4726,7 @@ def tensor_training(torch, ref_metrics: list) -> dict:
         f"{read['grad_norm']!r} (limit {TENSOR_NORM_RTOL}) relative; "
         f"tokens equal {read['tokens_equal']}; ranks' metrics equal "
         f"{world[0] == world[1]}; a rank keeps {share['kept']} of "
-        f"{share['whole']} parameters ({share['share']!r}); {wall_s:.1f} s "
+        f"{share['whole']} parameters ({share['share']!r}) "
         f"({nvidia_smi_line()})")
     if world[0] != world[1] or not read["tokens_equal"] \
             or read["loss"] > TENSOR_LOSS_RTOL \
@@ -4795,17 +4881,17 @@ def world_phase(torch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     out = world_training(torch)
     out["pod"] = pod
-    out["tensor"] = tensor_training(torch, out["ref_metrics"])
     out["zero3"] = zero3_phase(torch)
     out["tensor_zero3"] = tensor_zero3_phase(torch, out["zero3"])
     log(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
-def moe_layer_inputs() -> dict:
+def moe_layer_inputs(seq: int = TRAIN_SEQ) -> dict:
     """Phase 9m (i)'s whole inputs on the current card, float32 from
     seed MOE_LAYER_SEED: one global micro batch of the 9m model (2 x
-    2048 tokens of width 2048), its router and 8 experts of mlp 5632 at
+    ``seq`` tokens of width 2048; 9rm (i): its own rows' length), its
+    router and 8 experts of mlp 5632 at
     N(0, 1/fan_in), the router's columns scaled 1 to 2.75 (an expert
     whose column is wider wins more tokens, so capacity 1.25 drops some,
     as a trained router's imbalance does), every token real, and each
@@ -4819,14 +4905,13 @@ def moe_layer_inputs() -> dict:
         return torch.randn(shape, generator=gen, device="cuda") * fan ** -0.5
 
     scale = torch.linspace(1.0, 2.75, e, device="cuda")
-    return {"x": draw(2, TRAIN_SEQ, d),
+    return {"x": draw(2, seq, d),
             "params": {"router": draw(d, e, fan=d) * scale,
                        "w_gate": draw(e, d, m, fan=d),
                        "w_up": draw(e, d, m, fan=d),
                        "w_down": draw(e, m, d, fan=m)},
-            "mask": torch.ones((2, TRAIN_SEQ), dtype=torch.bool,
-                               device="cuda"),
-            "weights": draw(2, TRAIN_SEQ, d)}
+            "mask": torch.ones((2, seq), dtype=torch.bool, device="cuda"),
+            "weights": draw(2, seq, d)}
 
 
 # phase 9m (i)'s case: the training configuration's capacity path
@@ -4834,23 +4919,25 @@ MOE_LAYER_CASES = [("capacity-1.25", 1.25, 2, False)]
 
 
 def moe_layer_readings(ranks: list, ref: dict) -> dict:
-    """Phase 9m (i): the world's layer against one process's on the same
-    whole inputs: each rank's rows of the output and of the input's
-    gradient and the weights' gradients (summed over the batch ranks,
-    each expert rank's experts), as the largest difference over the
-    reference's largest magnitude; the aux losses relative; the dropped
-    fractions."""
+    """Phases 9m (i) and 9rm (i): the world's layer against one process's
+    on the same whole inputs: each rank's part (its rows, its chunk of
+    their tokens) of the output and of the input's gradient and the
+    weights' gradients (summed over the tokens ranks, each expert rank's
+    experts), as the largest difference over the reference's largest
+    magnitude; the aux losses relative; the dropped fractions."""
     want, out = ref["cases"][0], {"y": 0.0, "grads": 0.0, "aux": 0.0,
                                   "dropped": 0.0}
     summed: dict = {}
     rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()
     for r in ranks:
         (i, n), (ix, nx) = r["batch"], r["expert"]
+        ic, nc = r["context"]
         got = r["cases"][0]
-        rows = slice(i * want["y"].shape[0] // n,
-                     (i + 1) * want["y"].shape[0] // n)
-        out["y"] = max(out["y"], rel(got["y"], want["y"][rows]))
-        out["grads"] = max(out["grads"], rel(got["x"], want["x"][rows]))
+        b, s = want["y"].shape[:2]
+        part = (slice(i * b // n, (i + 1) * b // n),
+                slice(ic * s // nc, (ic + 1) * s // nc))
+        out["y"] = max(out["y"], rel(got["y"], want["y"][part]))
+        out["grads"] = max(out["grads"], rel(got["x"], want["x"][part]))
         for k in ("moe_load_balance", "moe_router_z"):
             out["aux"] = max(out["aux"], abs(got["aux"][k] - want["aux"][k])
                              / abs(want["aux"][k]))
@@ -4887,40 +4974,49 @@ def moe_world_job():
                   steps=MOE_WORLD_STEPS, mask=True)
 
 
-def moe_world_phase(torch) -> dict:
-    """Phase 9m: MoE across two processes on one card (module
-    docstring)."""
+def moe_world_layouts() -> dict:
+    """Phase 9m's layouts: (data, fsdp, tensor, expert, the layout's
+    job); expert peers feed the same rows, the data=2 places' micro
+    batches in turn."""
     import dataclasses
-    import tempfile
 
+    job = moe_world_job()
+    return {"data": (WORLD, 1, 1, 1, job),
+            "expert": (1, 1, 1, WORLD, dataclasses.replace(
+                job, merge_places=WORLD, interleave=True))}
+
+
+def moe_world_plans() -> list:
+    """Phase 9m's plans (``world_train.plans_rank``), run in the world of
+    two ranks on one card that 9r's, 9rm's and 9p's run in
+    (``card_pair_world``): per layout the layer, then the trainer."""
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    plans = []
+    for d, f, t, x, lj in moe_world_layouts().values():
+        plans += [(d, f, t, x, wt.moe_layer_rank,
+                   (moe_layer_inputs, MOE_LAYER_CASES)),
+                  (d, f, t, x, wt.train_rank, (lj,))]
+    return plans
+
+
+def moe_world_phase(torch, results: list) -> dict:
+    """Phase 9m: MoE across two processes on one card (module
+    docstring). ``results``: per rank, those of ``moe_world_plans``
+    (``card_pair_world``)."""
     from kubeflow_tpu_torch.tools import world_train as wt
 
     t_phase = time.perf_counter()
     job = moe_world_job()
     cfg = job.config
-    # (data, fsdp, tensor, expert, the layout's job): expert peers feed
-    # the same rows, the data=2 places' micro batches in turn
-    layouts = {"data": (WORLD, 1, 1, 1, job),
-               "expert": (1, 1, 1, WORLD, dataclasses.replace(
-                   job, merge_places=WORLD, interleave=True))}
-    devices = world_devices(torch, WORLD)
-    free_card(torch)
+    layouts = moe_world_layouts()
     log(f"phase 9m: llama_1b widths with {cfg.n_experts} experts "
         f"(top-{cfg.moe_top_k}, capacity {cfg.moe_capacity_factor}), "
         f"{cfg.n_layers} of 16 layers, remat=dots, attn_impl=pallas, "
         f"adafactor, global batch {TRAIN_BATCH} x {TRAIN_SEQ} with ragged "
         f"masks in {TRAIN_ACCUM} micro batches, {WORLD} processes on "
-        f"{devices}: data=2 and expert=2, {job.steps} eager steps each; "
-        f"{torch.cuda.memory_allocated()} B allocated in this process")
-    plans = []
-    for d, f, t, x, lj in layouts.values():
-        plans += [(d, f, t, x, wt.moe_layer_rank,
-                   (moe_layer_inputs, MOE_LAYER_CASES)),
-                  (d, f, t, x, wt.train_rank, (lj,))]
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="kft-phase9m-") as rundir:
-        results = wt.run(wt.plans_rank, (plans,), 1, WORLD, devices, rundir)
-    world_s = time.perf_counter() - t0
+        f"{['cuda:0'] * WORLD} (9r's world): data=2 and expert=2, "
+        f"{job.steps} eager steps each")
     t1 = time.perf_counter()
     layer_ref = wt.moe_layer_rank(None, moe_layer_inputs, MOE_LAYER_CASES,
                                   device="cuda")
@@ -4932,7 +5028,7 @@ def moe_world_phase(torch) -> dict:
                  "flash_attention_dkv": cfg.n_layers}
     want_launch = {k: v * TRAIN_ACCUM * job.steps
                    for k, v in per_micro.items()}
-    out = {"world_s": world_s, "reference_s": ref_s, "launches": {},
+    out = {"reference_s": ref_s, "launches": {},
            "reference": ref["metrics"]}
     failed = []
     for i, (name, (d, f, t, x, lj)) in enumerate(layouts.items()):
@@ -5002,8 +5098,9 @@ def moe_world_phase(torch) -> dict:
             failed.append(f"{name}: a rank keeps {kept}, expected "
                           f"{4 * share['kept']} B of parameters and of "
                           "gradients")
-    log(f"phase 9m: world {world_s:.1f} s, references {ref_s:.1f} s; "
-        f"{time.perf_counter() - t_phase:.1f} s ({nvidia_smi_line()})")
+    log(f"phase 9m: references {ref_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s after the world "
+        f"({nvidia_smi_line()})")
     if failed:
         raise SystemExit(f"phase 9m: {failed}")
     return out
@@ -5220,11 +5317,11 @@ def context_reference(torch, job) -> dict:
 
 
 def card_pair_world(torch, phases: dict) -> dict:
-    """The world of phases 9r and 9p: two ranks on one card over gloo,
-    spawned once for both (a rank's start and its kernels' builds are
-    paid once), running each phase's plans (``world_train.plans_rank``)
-    in turn. ``phases``: {phase: its plans}; returns {phase: per rank,
-    the results of its plans}."""
+    """The world of phases 9t, 9m, 9r, 9rm and 9p: two ranks on one card
+    over gloo, spawned once for all (a rank's start, its first steps'
+    warm-up and its kernels' builds are paid once), running each phase's
+    plans (``world_train.plans_rank``) in turn. ``phases``: {phase: its
+    plans}; returns {phase: per rank, the results of its plans}."""
     import tempfile
 
     from kubeflow_tpu_torch.tools import world_train as wt
@@ -5232,10 +5329,10 @@ def card_pair_world(torch, phases: dict) -> dict:
     plans = [p for own in phases.values() for p in own]
     free_card(torch)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="kft-phase9rp-") as rundir:
+    with tempfile.TemporaryDirectory(prefix="kft-phase9-pair-") as rundir:
         results = wt.run(wt.plans_rank, (plans,), 1, 1,
                          ["cuda:0"] * CONTEXT, rundir, context=CONTEXT)
-    log(f"phases {' and '.join(phases)}: their world of two ranks on one "
+    log(f"phases {', '.join(phases)}: their world of two ranks on one "
         f"card (gloo) took {time.perf_counter() - t0:.1f} s")
     out, at = {}, 0
     for name, own in phases.items():
@@ -5478,6 +5575,258 @@ def context_world_nccl(torch) -> dict:
     return out
 
 
+def moe_context_job(impl: str):
+    """Phase 9rm's job: the MoE model (module docstring) with ``impl``
+    attention; MOE_CONTEXT_ROWS rows of MOE_CONTEXT_SEQ with ragged masks
+    a step in MOE_CONTEXT_ACCUM micro batches (one place in the batch
+    axes)."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import llama
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    cfg = dataclasses.replace(
+        llama.llama_moe_8x(llama.llama_1b(remat="dots", attn_impl=impl)),
+        max_seq=MOE_CONTEXT_SEQ, n_layers=MOE_CONTEXT_LAYERS)
+    return wt.Job(cfg, dict(learning_rate=3e-4, warmup_steps=10,
+                            total_steps=1000, grad_accum=MOE_CONTEXT_ACCUM,
+                            optimizer="adafactor"),
+                  local_batch=MOE_CONTEXT_ROWS, seq=MOE_CONTEXT_SEQ,
+                  steps=MOE_CONTEXT_STEPS, mask=True,
+                  router_scale=MOE_ROUTER_SCALE)
+
+
+def moe_context_plans() -> list:
+    """Phase 9rm's plans (``world_train.plans_rank``): the MoE layer on
+    one of its micro batches, then the ring and the Ulysses trainers,
+    each over context=CONTEXT."""
+    import functools
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    layer = (functools.partial(moe_layer_inputs, MOE_CONTEXT_SEQ),
+             MOE_LAYER_CASES)
+    plans = [(1, 1, 1, 1, CONTEXT, wt.moe_layer_rank, layer)]
+    return plans + [(1, 1, 1, 1, CONTEXT, wt.train_rank,
+                     (moe_context_job(impl),)) for impl in ("ring", "ulysses")]
+
+
+def moe_context_phase(torch, results: list) -> dict:
+    """Phase 9rm: an MoE model under context parallelism, two ranks on
+    one card over gloo (module docstring). ``results``: per rank, those
+    of ``moe_context_plans`` (``card_pair_world``)."""
+    import functools
+    import math
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    t_phase = time.perf_counter()
+    jobs = {impl: moe_context_job(impl) for impl in ("ring", "ulysses")}
+    cfg = jobs["ring"].config
+    log(f"phase 9rm: llama_1b widths with {cfg.n_experts} experts "
+        f"(top-{cfg.moe_top_k}, capacity {cfg.moe_capacity_factor}, router "
+        f"columns scaled 1 to 2.75) at max_seq {MOE_CONTEXT_SEQ}, "
+        f"{cfg.n_layers} of 16 layers, remat=dots, adafactor, "
+        f"{MOE_CONTEXT_ROWS} rows of {MOE_CONTEXT_SEQ} + 1 tokens with "
+        f"ragged masks a step in {MOE_CONTEXT_ACCUM} micro batches, "
+        f"context={CONTEXT} on "
+        f"{['cuda:0'] * CONTEXT} (gloo, 9r's world): ring then ulysses, "
+        f"{MOE_CONTEXT_STEPS} eager steps each; the layer alone on one "
+        f"micro batch in float32")
+    free_card(torch)
+    layer_ref = wt.moe_layer_rank(
+        None, functools.partial(moe_layer_inputs, MOE_CONTEXT_SEQ),
+        MOE_LAYER_CASES, device="cuda")
+    free_card(torch)
+    ref = context_reference(torch, jobs["ring"])
+    ref_s = time.perf_counter() - t_phase
+    failed = []
+    out = {"reference_s": ref_s, "launches": {}, "reference": ref}
+    # (i) the layer alone
+    layers = [r[0] for r in results]
+    layer = moe_layer_readings(layers, layer_ref)
+    del layer_ref
+    out["layer"] = layer
+    for r, lay in enumerate(layers):
+        moe = {k: lay["timings"][k] for k in ("moe_calls", "moe_bytes",
+                                              "moe_s")}
+        log(f"phase 9rm (i) rank {r}: context {lay['context']}; MoE "
+            f"collectives {moe}")
+    log(f"phase 9rm (i): the MoE layer at full width in float32 (one micro "
+        f"batch of 2 x {MOE_CONTEXT_SEQ} tokens, capacity "
+        f"1.25, each rank its chunk of both rows) against one process: "
+        f"output {layer['y']!r}, gradients {layer['grads']!r} of the largest "
+        f"magnitude, aux {layer['aux']!r} relative, dropped fraction "
+        f"{layer['dropped_fraction']!r} (the world's off by "
+        f"{layer['dropped']!r}); limits {MOE_CONTEXT_LAYER_RTOL}")
+    if any(layer[k] > MOE_CONTEXT_LAYER_RTOL[k]
+           for k in MOE_CONTEXT_LAYER_RTOL) \
+            or not layer["dropped_fraction"] > 0:
+        failed.append(f"the MoE layer over context={CONTEXT} is not one "
+                      f"process's ({layer})")
+    # (ii) the steps
+    for i, (impl, job) in enumerate(jobs.items()):
+        ranks = [r[1 + i] for r in results]
+        for r, res in enumerate(ranks):
+            run = res["runs"]["eager"]
+            want = context_launches(cfg, r % CONTEXT, impl,
+                                    MOE_CONTEXT_ACCUM * job.steps)
+            coll = [{k: c[k] for k in ("moe_calls", "moe_bytes", "moe_s",
+                                       "context_calls", "context_bytes",
+                                       "context_s", "gloo_s")}
+                    for c in run["collectives"]]
+            log(f"phase 9rm {impl} rank {r}: backend "
+                f"{res['backend']['backend']} ({res['backend']['reason']}); "
+                f"step s {run['seconds']!r}; MoE and context collectives "
+                f"per step {coll!r}; peak {run.get('peak_allocated')} B "
+                f"allocated, {run.get('peak_reserved')} B reserved (one "
+                f"process {ref['peak_allocated']} B); state kept "
+                f"{run['state_bytes']} (reachable {run['held_bytes']} B); "
+                f"flash launches {run['launches']} (reckoned {want}); losses "
+                f"{[m['loss'] for m in run['metrics']]!r} moe_aux "
+                f"{[m['moe_aux'] for m in run['metrics']]!r} grad norms "
+                f"{[m['grad_norm'] for m in run['metrics']]!r}")
+            if run["launches"] != want:
+                failed.append(f"{impl} rank {r}: flash launches "
+                              f"{run['launches']}, expected {want}")
+            if run["held_bytes"] != run["state_bytes"]["total"]:
+                failed.append(f"{impl} rank {r}: state_bytes "
+                              f"{run['state_bytes']['total']} B, reachable "
+                              f"{run['held_bytes']} B")
+        world = [res["runs"]["eager"]["metrics"] for res in ranks]
+        rd = world_readings(world, ref)
+        log(f"phase 9rm {impl}: against one process with attn_impl=flash "
+            f"on the same rows ({job.steps} steps): loss {rd['loss']!r}, "
+            f"moe_aux {rd['moe_aux']!r}, grad norm {rd['grad_norm']!r} "
+            f"relative (limits {MOE_CONTEXT_RTOL[impl]}); tokens equal "
+            f"{rd['tokens_equal']}; ranks' metrics equal "
+            f"{world[0] == world[1]}; one process's losses "
+            f"{[m['loss'] for m in ref['metrics']]!r}, moe_aux "
+            f"{[m['moe_aux'] for m in ref['metrics']]!r}, grad norms "
+            f"{[m['grad_norm'] for m in ref['metrics']]!r}, step s "
+            f"{ref['seconds']!r}")
+        out[impl] = {"readings": rd, "ranks": [
+            {k: res["runs"]["eager"].get(k) for k in (
+                "seconds", "collectives", "peak_allocated", "peak_reserved",
+                "state_bytes", "launches")} for res in ranks]}
+        out["launches"][impl] = {
+            k: sum(res["runs"]["eager"]["launches"][k] for res in ranks)
+            for k in ranks[0]["runs"]["eager"]["launches"]}
+        if world[0] != world[1] or not rd["tokens_equal"] \
+                or not all(math.isfinite(m["loss"]) for m in world[0]) \
+                or any(rd[k] > v for k, v in MOE_CONTEXT_RTOL[impl].items()):
+            failed.append(f"{impl}: the MoE model's context={CONTEXT} steps "
+                          "are not one process's on the same rows")
+    log(f"phase 9rm: references {ref_s:.1f} s; "
+        f"{time.perf_counter() - t_phase:.1f} s after the world "
+        f"({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9rm: {failed}")
+    return out
+
+
+def moe_context_nccl(torch) -> dict:
+    """Phase 9rx4: the uncut MoE model over expert=2 x context=2, one card
+    a rank over NCCL, eager then replayed (module docstring). Skipped,
+    and said so, on a machine with fewer than four cards."""
+    import dataclasses
+    import math
+    import tempfile
+
+    from kubeflow_tpu_torch.tools import world_train as wt
+
+    zeros = dict.fromkeys(("flash_attention_fwd", "flash_attention_dq",
+                           "flash_attention_dkv"), 0)
+    n = torch.cuda.device_count()
+    if n < 2 * CONTEXT:
+        log(f"phase 9rx4: skipped: the uncut MoE model over expert=2 x "
+            f"context={CONTEXT} needs {2 * CONTEXT} cards, one a rank; this "
+            f"machine has {n}")
+        return {"skipped": f"{n} card(s)", "launches": zeros}
+    t_phase = time.perf_counter()
+    free_card(torch)
+    base = moe_context_job("ring")
+    cfg = dataclasses.replace(base.config, n_layers=16)
+    job = dataclasses.replace(base, config=cfg, steps=MOE_NCCL_STEPS,
+                              runs=("eager", "replayed"), profile=True)
+    devices = [f"cuda:{r}" for r in range(2 * CONTEXT)]
+    log(f"phase 9rx4: llama_1b widths with {cfg.n_experts} experts, all "
+        f"{cfg.n_layers} layers, max_seq {MOE_CONTEXT_SEQ}, attn_impl=ring, "
+        f"expert=2 x context={CONTEXT} on {devices}; {MOE_CONTEXT_ROWS} rows "
+        f"of {MOE_CONTEXT_SEQ} in {MOE_CONTEXT_ACCUM} micro batches; runs "
+        f"{job.runs} of {job.steps} steps")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kft-phase9rx4-") as rundir:
+        ranks = wt.run(wt.train_rank, (job,), 1, 1, devices, rundir,
+                       expert=2, context=CONTEXT)
+    wall_s = time.perf_counter() - t0
+    share = kept_share(cfg, {"expert": 2})
+    tokens = MOE_CONTEXT_ROWS * MOE_CONTEXT_SEQ / len(devices)  # a card's
+    failed, out = [], {"wall_s": wall_s, "ranks": [], "share": share}
+    launches = dict(zeros)
+    for r, res in enumerate(ranks):
+        rep, eag = res["runs"]["replayed"], res["runs"]["eager"]
+        want = context_launches(cfg, r % CONTEXT, "ring",
+                                MOE_CONTEXT_ACCUM * job.steps)
+        step_s = statistics.median(rep["seconds"][1:] or rep["seconds"])
+        tok_s = tokens / step_s
+        mfu = tok_s * cfg.flops_per_token(MOE_CONTEXT_SEQ) / BF16_FLOPS
+        metrics = [(m["loss"], m["moe_aux"], m["grad_norm"])
+                   for m in rep["metrics"]]
+        bitwise = res["differ"] == [] and metrics == [
+            (m["loss"], m["moe_aux"], m["grad_norm"]) for m in eag["metrics"]]
+        prof = rep.get("profile") or {}
+        nccl_share = prof.get("nccl_busy_ms", 0) / max(prof.get("wall_ms", 1),
+                                                       1e-9)
+        kept = rep["state_bytes"]
+        coll = [{k: c[k] for k in ("moe_calls", "moe_bytes", "context_calls",
+                                   "context_bytes")}
+                for c in eag["collectives"]]
+        log(f"phase 9rx4 rank {r}: backend {res['backend']['backend']}, "
+            f"micro body {res.get('micro_mode')}, finish body "
+            f"{res.get('finish_mode')}, capture "
+            f"{res.get('capture_seconds')!r} s, pool {res.get('pool_bytes')} "
+            f"B; eager step s {eag['seconds']!r}, replayed {rep['seconds']!r} "
+            f"({tok_s!r} tok/s a card, MFU {mfu!r} at "
+            f"flops_per_token({MOE_CONTEXT_SEQ}), active top-k); NCCL busy "
+            f"share {nccl_share!r} of the traced step {prof!r}; eager MoE "
+            f"and context collectives per step {coll!r} (enqueue); peak "
+            f"{rep.get('peak_allocated')} B allocated, "
+            f"{rep.get('peak_reserved')} B reserved; kept {kept}; flash "
+            f"launches eager {eag['launches']}, replayed {rep['launches']} "
+            f"(reckoned {want}); losses, moe_aux, grad norms {metrics!r}; "
+            f"replayed bitwise eager {bitwise} (differing {res['differ']})")
+        out["ranks"].append({"step_s": step_s, "tok_s_per_card": tok_s,
+                             "mfu": mfu, "profile": prof, "bitwise": bitwise,
+                             "nccl_share": nccl_share,
+                             "peak_allocated": rep.get("peak_allocated")})
+        for k in launches:
+            launches[k] += rep["launches"][k]
+        if not bitwise:
+            failed.append(f"rank {r}: the replayed steps are not bitwise "
+                          "the eager ones")
+        if res["backend"]["backend"] != "nccl" \
+                or res.get("micro_mode") != "graph" \
+                or res.get("finish_mode") != "graph":
+            failed.append(f"rank {r}: not both bodies captured over NCCL")
+        if rep["launches"] != want or eag["launches"] != want:
+            failed.append(f"rank {r}: flash launches {rep['launches']}, "
+                          f"expected {want}")
+        if kept["params"] != 4 * share["kept"]:
+            failed.append(f"rank {r}: keeps {kept}, expected "
+                          f"{4 * share['kept']} B of parameters")
+        if not all(math.isfinite(m[0]) for m in metrics) or metrics != [
+                (m["loss"], m["moe_aux"], m["grad_norm"])
+                for m in ranks[0]["runs"]["replayed"]["metrics"]]:
+            failed.append(f"rank {r}: metrics not finite or not rank 0's")
+    out["launches"] = launches
+    log(f"phase 9rx4: {time.perf_counter() - t_phase:.1f} s "
+        f"({nvidia_smi_line()})")
+    if failed:
+        raise SystemExit(f"phase 9rx4: {failed}")
+    return out
+
+
 def pipeline_job(cfg, steps: int, **fields):
     """Phase 9p's job on ``cfg``: adafactor (phase 7's optimizer and
     schedule), PIPELINE_ROWS rows of TRAIN_SEQ + 1 tokens with ragged
@@ -5709,13 +6058,20 @@ def main() -> int:
     moe_trained = moe_training(torch)
     resumed = resume_phase(torch)
     world = world_phase(torch)
-    moe_world = moe_world_phase(torch)
-    moe_nccl = moe_world_nccl(torch)
-    pair = card_pair_world(torch, {"9r": context_plans(),
+    pair = card_pair_world(torch, {"9t": [tensor_plan()],
+                                   "9m": moe_world_plans(),
+                                   "9r": context_plans(),
+                                   "9rm": moe_context_plans(),
                                    "9p": [pipeline_plan()]})
+    world["tensor"] = tensor_training(torch, world["ref_metrics"],
+                                      [r[0] for r in pair["9t"]])
+    moe_world = moe_world_phase(torch, pair["9m"])
+    moe_nccl = moe_world_nccl(torch)
     context = context_world_phase(torch, pair["9r"])
+    moe_context = moe_context_phase(torch, pair["9rm"])
     pipeline = pipeline_world_phase(torch, [r[0] for r in pair["9p"]])
     context_nccl = context_world_nccl(torch)
+    moe_context_x4 = moe_context_nccl(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",
@@ -5774,7 +6130,10 @@ def main() -> int:
                               moe_world["launches"].values()),
                     "9x": moe_nccl["launches"][name],
                     "9r": sum(w[name] for w in context["launches"].values()),
+                    "9rm": sum(w[name] for w in
+                               moe_context["launches"].values()),
                     "9r4": context_nccl["launches"][name],
+                    "9rx4": moe_context_x4["launches"][name],
                     "9p": pipeline["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda",

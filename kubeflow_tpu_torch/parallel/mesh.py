@@ -76,8 +76,7 @@ PARALLEL_SLICE = ("is the parallel/ slice of the PyTorch port (queue 1 "
                   "item 8.7); the expert and tensor axes are ported for "
                   "serving, and "
                   "the pipeline, data, fsdp, expert, context and tensor "
-                  "axes for training, context neither beside expert nor "
-                  "with an MoE model, pipeline over gloo alone (over NCCL "
+                  "axes for training, pipeline over gloo alone (over NCCL "
                   "it is not verified: queue 3 fault 8)")
 
 # rank 0's wait for the other ranks' answer to one command, unless the
@@ -593,14 +592,14 @@ class WorldMesh:
     their calls, bytes and host seconds (``tensor_*``; under NCCL the
     enqueue only); and the MoE layers' (``moe_*``, the same readings:
     the routing counts' all-gather and the statistics' all-reduce over
-    ``batch``, the copies' and the output's all-reduces over ``rows``);
+    ``tokens``, the copies' and the output's all-reduces over ``rows``);
     and the ``context`` axis's ``ring_shift`` and ``all_to_all``
     (``context_*``, the same readings); and the ``pipeline`` axis's
     ``ring_shift`` and ``broadcast`` (``pipeline_*``, the same
     readings).
 
-    ``context`` beside ``expert``, and ``pipeline`` under NCCL, raise
-    NotImplementedError (``PARALLEL_SLICE``)."""
+    ``pipeline`` under NCCL raises NotImplementedError
+    (``PARALLEL_SLICE``)."""
 
     def __init__(self, data: int, fsdp: int, rank: int, device,
                  backend: Backend, tensor: int = 1, expert: int = 1,
@@ -609,10 +608,6 @@ class WorldMesh:
             raise ValueError(f"pipeline={pipeline} data={data} fsdp={fsdp} "
                              f"expert={expert} context={context} "
                              f"tensor={tensor}: sizes must be >= 1")
-        if context > 1 and expert > 1:
-            raise NotImplementedError(
-                f"a training world over expert={expert} x context={context} "
-                f"{PARALLEL_SLICE}")
         if pipeline > 1 and backend.name == "nccl":
             raise NotImplementedError(
                 f"a training world over pipeline={pipeline} under NCCL "

@@ -26,21 +26,29 @@ Over a training world (``world=``, a ``parallel.mesh.WorldMesh``) each
 rank's result is what the JAX layer computes over the global micro batch
 under GSPMD, where sharding never changes the function:
 
-- over ``batch`` (``data`` x ``fsdp``: the ranks holding different rows)
-  the router's statistics are the global batch's: the sums behind both
-  aux losses and the dropped fraction travel in one all-reduce of a
-  small vector (``tensor.psum``, whose backward all-reduces too); the
-  capacity is ``ceil(G * n_batch * k / E * cf)``; and a pair's slot
-  follows JAX's priority order over the global batch (choice 0 of every
-  token first, within a choice the ranks in batch order, then the local
-  tokens): the counts of every rank for the earlier choices, plus those
-  of the earlier ranks for the same choice, plus the local prefix, from
-  one all-gather of each rank's ``[k, E]`` counts;
+- over ``tokens`` (``data`` x ``fsdp`` x ``context``: the ranks holding
+  different tokens; ``data`` and ``fsdp`` ranks hold different rows,
+  ``context`` ranks chunk ``c`` of the same rows) the router's
+  statistics are the global micro batch's: the sums behind both aux
+  losses and the dropped fraction travel in one all-reduce of a small
+  vector (``tensor.psum``, whose backward all-reduces too); the capacity
+  is ``ceil(G * n_tokens * k / E * cf)``, JAX's ``B * S`` tokens; and a
+  pair's slot follows JAX's priority order over the global micro batch,
+  whose token ``b * S + s`` runs row-major: choice 0 of every token
+  first; within a choice the rows in global order (the batch ranks in
+  turn, each its local rows), within a row the chunks in ``context``
+  order, within a chunk the positions. A rank's pairs therefore follow
+  the pairs of every earlier choice, the pairs of the same choice in
+  every earlier row (all its chunks, whichever ranks hold them) and in
+  the earlier chunks of the same row, and the local prefix of its own
+  chunk: from one all-gather over ``tokens`` of each rank's counts per
+  choice, local row and expert (``[k, B_local, E]``);
 - over ``expert`` a rank holds experts ``[x * E / X, (x + 1) * E / X)``
   and dispatches to them only (one-hots against the global ids; the
   slots counted over all E), and over ``tensor`` its ``mlp`` slice of
   every expert. Expert and tensor peers (the ``rows`` group) feed the
-  same rows: the tokens and the combine weights enter the experts
+  same tokens (under ``context`` the same chunk of the same rows): the
+  tokens and the combine weights enter the experts
   through ``tensor.copy`` over ``rows`` (each peer's gradient of them
   covers its own experts and columns only) and the output leaves
   through ``tensor.reduce`` over it. The router runs on every rank on
@@ -52,7 +60,7 @@ is passed as the world the same way: a rank holds experts ``[x * E / X,
 token with the whole router (so the dropless path and the capacity
 path, its capacity and slots counted over all tokens and all E, are
 one card's), and the output leaves through the sum over ``rows``, the
-whole mesh. Its ``batch`` axis is one rank.
+whole mesh. Its ``tokens`` group is one rank.
 """
 
 from __future__ import annotations
@@ -168,23 +176,31 @@ def _aux(cfg: MoEConfig, top1_sum, probs_sum, valid_sum, z_sum) -> dict:
     }
 
 
-def _slots(onehot: torch.Tensor, k: int, g: int, world) -> torch.Tensor:
+def _slots(onehot: torch.Tensor, k: int, b: int, world) -> torch.Tensor:
     """Each valid (token, choice) pair's count among the pairs before it
     (itself included) that chose its expert, in JAX's priority order over
-    the global batch (module docstring): [k*G, E] from the pairs' one-hots
-    ``onehot`` [k*G, E], ``world``'s ``batch`` ranks counted ahead of the
-    rank for the same choice."""
+    the global micro batch (module docstring): [k*G, E] from the pairs'
+    one-hots ``onehot`` [k*G, E] of the rank's ``b`` rows (G = b * its
+    chunk's length), from every ``tokens`` rank's counts per choice, row
+    and expert."""
     e = onehot.shape[1]
-    per = onehot.T.reshape(e, k, g)
-    mine = per.sum(-1, dtype=torch.int64).T.contiguous()       # [k, E]
-    n = world.axis_size("batch")
-    every = torch.empty((n * k * e,), dtype=torch.int64, device=mine.device)
-    world.all_gather(every, mine.view(-1), "batch", "moe")
-    every = every.view(n, k, e)
-    total = every.sum(0)                                       # [k, E]
-    ahead = total.cumsum(0) - total + every[:world.axis_index("batch")].sum(0)
-    count = per.cumsum(-1, dtype=torch.int64) + ahead.T[:, :, None]
-    return count.reshape(e, k * g).T
+    per = onehot.T.reshape(e, k, b, -1)                        # [E, k, B, S]
+    mine = per.sum(-1, dtype=torch.int64).permute(1, 2, 0).contiguous()
+    n, nc = world.axis_size("tokens"), world.axis_size("context")
+    every = torch.empty((n * mine.numel(),), dtype=torch.int64,
+                        device=mine.device)
+    world.all_gather(every, mine.view(-1), "tokens", "moe")
+    # the tokens group's order is (batch index, context index): put the
+    # rows in global order, each row's chunks in context order
+    every = every.view(n // nc, nc, k, b, e).permute(2, 0, 3, 1, 4)
+    every = every.reshape(k, -1, e)                            # [k, rows*C, E]
+    total = every.sum(1)                                       # [k, E]
+    before = (every.cumsum(1) - every).view(k, n // nc, b, nc, e)
+    ahead = (total.cumsum(0) - total)[:, None, :] + before[
+        :, world.axis_index("batch"), :, world.axis_index("context")]
+    count = per.cumsum(-1, dtype=torch.int64) \
+        + ahead.permute(2, 0, 1)[..., None]                    # [E, k, B, S]
+    return count.reshape(e, -1).T
 
 
 def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
@@ -206,7 +222,7 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
     b, s, d = x.shape
     g = b * s
     e, k, dt = cfg.n_experts, cfg.top_k, cfg.dtype
-    batch = tensor.on(world, "batch")
+    spread = tensor.on(world, "tokens")
     n_local = params["w_gate"].shape[0]
     first = 0
     if tensor.on(world, "expert"):
@@ -215,8 +231,8 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
                              f"{world.axis_size('expert')}; the model has {e}")
         first = world.axis_index("expert") * n_local
     if capacity is None:
-        rows = g * (world.axis_size("batch") if batch else 1)
-        capacity = max(1, int(math.ceil(rows * k / e * cfg.capacity_factor)))
+        total = g * (world.axis_size("tokens") if spread else 1)
+        capacity = max(1, int(math.ceil(total * k / e * cfg.capacity_factor)))
 
     tokens = x.reshape(g, d)
     logits = tokens.float() @ params["router"].float()
@@ -254,7 +270,7 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
                 params["w_down"].unbind(0))):
             h = F.silu(tk @ wg.to(dt)) * (tk @ wu.to(dt))
             y = y + gates[:, first + i, None] * (h @ wd.to(dt))
-        sums = _global(sums, world, batch)
+        sums = _global(sums, world, spread)
         aux = _aux(cfg, *sums)
         aux["moe_dropped_fraction"] = torch.zeros(
             (), dtype=torch.float32, device=x.device)
@@ -268,8 +284,8 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
     flat_valid = valid.repeat(k)                               # [k*G]
     onehot = one_hot(flat_idx, e, torch.int32) \
         * flat_valid[:, None]                                  # [k*G, E]
-    if batch:
-        count = _slots(onehot, k, g, world)
+    if spread:
+        count = _slots(onehot, k, b, world)
     else:
         # the running count per expert, scanned along the contiguous dim:
         # a scan down dim 0 of [k*G, E] runs on E columns alone (on an
@@ -302,19 +318,19 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
     sums += [((~keep) & flat_valid).float().sum()[None],
              flat_valid.float().sum()[None]]
-    *sums, dropped, choices = _global(sums, world, batch)
+    *sums, dropped, choices = _global(sums, world, spread)
     aux = _aux(cfg, *sums)
     aux["moe_dropped_fraction"] = dropped / torch.clamp_min(choices, 1.0)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
-def _global(sums: list, world, batch: bool) -> list:
-    """The sums (each 1-d) over ``world``'s ``batch`` ranks, in one
+def _global(sums: list, world, spread: bool) -> list:
+    """The sums (each 1-d) over ``world``'s ``tokens`` ranks, in one
     all-reduce whose backward all-reduces too (``tensor.psum``), or as
     they are; 0-d where a sum is one number."""
-    if batch:
+    if spread:
         sizes = [t.numel() for t in sums]
-        sums = list(tensor.psum(torch.cat(sums), world, "batch",
+        sums = list(tensor.psum(torch.cat(sums), world, "tokens",
                                 "moe").split(sizes))
     return [t[0] if t.numel() == 1 else t for t in sums]
 

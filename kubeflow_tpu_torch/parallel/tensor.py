@@ -33,7 +33,7 @@ the input: the one-card and batch-axes-only paths) and runs over its
 take another group (``axis``): the MoE layer (``parallel/moe.py``)
 joins its expert and tensor peers through them over ``rows``. ``psum``
 is the sum over a group whose every rank goes on to use it, the MoE
-router's statistics over ``batch``: every rank's loss then depends on
+router's statistics over ``tokens``: every rank's loss then depends on
 every rank's rows, so its backward all-reduces too (each rank's
 gradient of the sum is the total of the ranks' ``w_r * d aux / d sum``,
 where ``reduce``'s identity would keep only its own share).

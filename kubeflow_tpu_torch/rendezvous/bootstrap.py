@@ -30,8 +30,8 @@ The world's layout: each process is one device, and a ``KFT_MESH`` whose
 number of processes is accepted as that layout
 (``parallel.mesh.WorldMesh`` trains over it). ``KFT_DCN`` spans the
 batch axes only, as in the reference. Any other axis above 1 raises
-``parallel.mesh.PARALLEL_SLICE``, and so do ``context`` beside
-``expert`` and, once the world has chosen NCCL, ``pipeline``.
+``parallel.mesh.PARALLEL_SLICE``, and so does ``pipeline`` once the
+world has chosen NCCL.
 
 ``KFT_COMPILE_CACHE`` has no counterpart here: the JAX worker points
 XLA's persistent compile cache at it, and the port compiles no XLA
@@ -136,15 +136,13 @@ def world_layout(env: Mapping[str, str], num_processes: int,
     unset,
     ``fsdp`` takes every process the others leave, as the JAX mesh's
     default puts every device on fsdp. Raises NotImplementedError
-    (``PARALLEL_SLICE``) for any other axis above 1, for ``context``
-    beside ``expert`` and, where ``backend`` (the world's, once chosen)
-    is "nccl", for ``pipeline``; ValueError when the sizes do not
-    multiply to the number of processes."""
+    (``PARALLEL_SLICE``) for any other axis above 1 and, where
+    ``backend`` (the world's, once chosen) is "nccl", for ``pipeline``;
+    ValueError when the sizes do not multiply to the number of
+    processes."""
     sizes = parse_topology_env(env)
     other = {k: v for k, v in sizes.items()
              if k not in WORLD_AXES and v > 1}
-    if sizes.get("context", 1) > 1 and sizes.get("expert", 1) > 1:
-        other.update(expert=sizes["expert"], context=sizes["context"])
     under = ""
     if sizes.get("pipeline", 1) > 1 and backend == "nccl":
         other["pipeline"], under = sizes["pipeline"], " under NCCL"

@@ -29,9 +29,11 @@ reference's ``main``:
    feeding its own rows of the global batch, as the reference's pods do
    (pipeline, expert, context and tensor peers feed the same rows,
    context peers each its chunk of their tokens; the model is dense, so
-   ``expert`` only replicates it, as in the reference). Under
-   ``context`` the model is ``pod_config``'s: ring attention over the
-   axis, at the flash kernels' head_dim 64. Under ``pipeline`` the
+   ``expert`` only replicates it, as in the reference, unless
+   ``KFT_TRAIN_EXPERTS`` makes it an MoE model of that many experts,
+   which ``expert`` then cuts). Under ``context`` the model is
+   ``pod_config``'s: ring attention over the axis, at the flash kernels'
+   head_dim 64. Under ``pipeline`` the
    layers are cut into stages (``pod_config``'s ``POD_MICROBATCHES``
    pipeline micro batches, ``parallel/pipeline_llama.py``); ``context``
    beside it raises the reference's ValueError for its ring attention.
@@ -119,8 +121,9 @@ def world_check(world, device, mesh=None) -> float:
     return total
 
 
-def pod_config(mesh=None):
-    """The pod's model: the reference's ``llama_tiny`` in float32, and
+def pod_config(mesh=None, experts: int = 0):
+    """The pod's model: the reference's ``llama_tiny`` in float32 (with
+    ``experts``, its MoE variant: that many experts, top-2), and
     over a world with a ``context`` axis the same with
     ``attn_impl="ring"`` and 2 heads of 64 (dim 128; the flash kernels,
     which every ring step launches on a card, take head_dim 64 or 128,
@@ -137,7 +140,7 @@ def pod_config(mesh=None):
 
     from kubeflow_tpu_torch.models import llama
 
-    cfg = llama.llama_tiny(dtype=torch.float32)
+    cfg = llama.llama_tiny(dtype=torch.float32, n_experts=experts)
     if mesh is not None and mesh.context > 1:
         cfg = dataclasses.replace(cfg, dim=128, n_heads=2, n_kv_heads=2,
                                   attn_impl="ring")
@@ -158,7 +161,7 @@ def train(world, device, steps: int, phases: dict, metrics_path,
         lm_loss_fn, restore_latest, synthetic_lm_batches,
     )
 
-    cfg = pod_config(mesh)
+    cfg = pod_config(mesh, int(os.environ.get("KFT_TRAIN_EXPERTS", "0")))
     init = lambda g: llama.init_params(g, cfg, device=device)
     loss = lm_loss_fn(llama.forward, cfg)
     axes = llama.param_logical_axes(cfg)

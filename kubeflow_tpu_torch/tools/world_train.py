@@ -52,9 +52,10 @@ stopped at ``resume_at`` then resumed by a fresh trainer),
 ``restore_rank`` (a checkpoint restored into this world's layout),
 ``optimizer_rank`` (the optimizer on fsdp (and tensor) parts against
 the unsharded update of the whole tree), ``moe_layer_rank`` (one MoE
-layer of whole inputs over the world: the rank's rows, experts and
-slices, forward and backward), ``attention_layer_rank`` (one attention
-layer of whole inputs over the ``context`` axis, forward and backward),
+layer of whole inputs over the world: the rank's rows, its chunk of
+their tokens, its experts and slices, forward and backward),
+``attention_layer_rank`` (one attention layer of whole inputs over the
+``context`` axis, forward and backward),
 ``pipeline_rank`` (``pipeline_apply`` over the ``pipeline`` axis on
 seeded MLP stages, forward and backward, and its aux masking),
 ``pipeline_forward_rank`` (the pipelined llama's logits of the rank's
@@ -96,7 +97,10 @@ class Job:
     pipeline's micro batches of each trainer micro batch
     (``make_trainer``); ``watch``: parameters (``optim.named_leaves``
     names) whose bytes, as the rank keeps them, each step's result
-    keeps."""
+    keeps; ``router_scale``: for an MoE config, factors (one an expert)
+    each layer's router columns are multiplied by after the draw, so
+    that the wider columns win more tokens, as a trained router's
+    imbalance does, and the capacity binds."""
     config: llama.LlamaConfig
     trainer: dict
     local_batch: int
@@ -116,6 +120,7 @@ class Job:
     interleave: bool = False
     microbatches: int = 1
     watch: tuple = ()
+    router_scale: tuple = ()
 
 
 def batch_for(job: Job, step: int, rank: int) -> dict:
@@ -177,6 +182,15 @@ def make_trainer(job: Job, device: torch.device, mesh=None):
         init = lambda g: interop.params_from_jax(job.params, device=device)
     else:
         init = lambda g: llama.init_params(g, cfg, device=device)
+    if job.router_scale:
+        drawn = init
+
+        def init(g):
+            params = drawn(g)
+            router = params["layers"]["moe_router"]
+            router.mul_(torch.tensor(job.router_scale, dtype=router.dtype,
+                                     device=router.device))
+            return params
     if mesh is not None and mesh.pipeline > 1:
         init, loss, axes = pl.pipeline_training(
             cfg, mesh, init, microbatches=job.microbatches)
@@ -493,13 +507,14 @@ def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
     ``cases``: ``(name,
     capacity factor, top_k, masked)``. The rank takes the rows of its
     place in the batch axes, the experts of its ``expert`` index and the
-    ``mlp`` slice of its ``tensor`` index, in the inputs' dtype on
-    ``device`` (default the mesh's; without a mesh, the whole inputs:
+    ``mlp`` slice of its ``tensor`` index, the tokens of its
+    ``context`` index (chunk ``c`` of every row), in the inputs' dtype
+    on ``device`` (default the mesh's; without a mesh, the whole inputs:
     the one-process layer), and runs the backward of ``sum(y *
-    weights) + aux / n`` (n the batch ranks: every batch rank adds the
+    weights) + aux / n`` (n the ``tokens`` ranks: every one adds the
     global aux, so the world's summed gradients are those of the
-    whole-batch loss). Returns the rank's coordinates, per case the
-    output rows, the aux readings and the gradients of x and of the
+    whole-batch loss). Returns the rank's coordinates, per case its part
+    of the output, the aux readings and the gradients of x and of the
     rank's weights (on the host), and the world's ``timings``."""
     from kubeflow_tpu_torch.parallel import moe
 
@@ -515,10 +530,10 @@ def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
 
     if callable(inputs):
         inputs = inputs()
-    b, _, d = inputs["x"].shape
+    b, s, d = inputs["x"].shape
     e, _, m = inputs["params"]["w_gate"].shape
-    rows, experts, cols = part(b, "batch"), part(e, "expert"), \
-        part(m, "tensor")
+    rows, toks = part(b, "batch"), part(s, "context")
+    experts, cols = part(e, "expert"), part(m, "tensor")
 
     def tensor(a):
         """A tensor of its own on ``device``."""
@@ -528,6 +543,7 @@ def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
 
     whole = inputs["params"]
     out = []
+    mine = lambda a: tensor(a[rows, toks])
     for _, cf, top_k, masked in cases:
         params = {"router": tensor(whole["router"]),
                   "w_gate": tensor(whole["w_gate"][experts, :, cols]),
@@ -535,21 +551,22 @@ def moe_layer_rank(mesh: Optional[WorldMesh], inputs: dict,
                   "w_down": tensor(whole["w_down"][experts, cols, :])}
         for p in params.values():
             p.requires_grad_(True)
-        x = tensor(inputs["x"][rows]).requires_grad_(True)
+        x = mine(inputs["x"]).requires_grad_(True)
         cfg = moe.MoEConfig(dim=d, mlp_dim=m, n_experts=e, top_k=top_k,
                             capacity_factor=cf, dtype=x.dtype)
         y, aux = moe.moe_layer(params, x, cfg,
-                               token_mask=(tensor(inputs["mask"][rows])
+                               token_mask=(mine(inputs["mask"])
                                            if masked else None),
                                world=mesh)
-        loss = (y * tensor(inputs["weights"][rows])).sum() \
-            + moe.moe_aux_total(aux) / size("batch")
+        loss = (y * mine(inputs["weights"])).sum() \
+            + moe.moe_aux_total(aux) / size("tokens")
         loss.backward()
         out.append({"y": y.detach().cpu(),
                     "aux": {k: float(v.detach()) for k, v in aux.items()},
                     "x": x.grad.cpu(),
                     "grads": {k: p.grad.cpu() for k, p in params.items()}})
     return {"batch": (index("batch"), size("batch")),
+            "context": (index("context"), size("context")),
             "expert": (index("expert"), size("expert")),
             "tensor": (index("tensor"), size("tensor")), "cases": out,
             "timings": dict(mesh.timings) if mesh is not None else {}}

@@ -57,8 +57,12 @@ chunks (``parallel/ring_attention.py``, ``attn_impl`` "ring" or
 (the loss, the weights, the metrics) runs over ``data`` x ``fsdp`` x
 ``context`` (the ``tokens`` group) and the gradients are all-reduced
 over ``data`` x ``context``, while the optimizer's whole-leaf
-reductions never sum over it. ``context`` beside an MoE model raises
-(``parallel.mesh.PARALLEL_SLICE``). Under ``pipeline`` (the JAX
+reductions never sum over it. An MoE layer under ``context`` takes
+its statistics, capacity and slots over the ``tokens`` group, in the
+JAX layer's row-major order of the global micro batch
+(``parallel/moe.py``); its aux penalty, the same on every rank, enters
+each rank's loss weighted by the rank's tokens, so the gradient
+all-reduce carries it once. Under ``pipeline`` (the JAX
 ``pipe_stage`` -> ``pipeline`` rule, a tree of
 ``parallel.pipeline_llama.to_pipeline_params``' stages and a loss
 function that runs them as a pipeline, ``pipeline_lm_loss_fn``) the
@@ -101,7 +105,6 @@ from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.parallel import sharding
 from kubeflow_tpu_torch.parallel.depot import local_capture
 from kubeflow_tpu_torch.parallel.fsdp import FsdpParams, gather_to_host
-from kubeflow_tpu_torch.parallel.mesh import PARALLEL_SLICE
 from kubeflow_tpu_torch.parallel.pipeline import (
     from_pipeline_state, stage_count, to_pipeline_state,
 )
@@ -252,10 +255,6 @@ class Trainer:
             if param_axes is None:
                 raise ValueError("a trainer over a world needs param_axes, "
                                  "the parameters' logical axes")
-            if self._context > 1 and _moe(param_axes):
-                raise NotImplementedError(
-                    f"an MoE model over context={self._context} "
-                    f"{PARALLEL_SLICE}")
         self.param_axes = param_axes
         self.init_params_fn = init_params_fn
         self.loss_fn = loss_fn
@@ -736,8 +735,8 @@ class Trainer:
         passes K/V round the ring (or swaps the sequence cut for a head
         cut) in every block, under ``pipeline``, whose pipeline passes
         the activations between the stages at every tick, and for an MoE
-        model under ``expert`` or over several batch ranks, whose MoE
-        layers gather their routing counts and all-reduce their
+        model under ``expert`` or over several ``tokens`` ranks, whose
+        MoE layers gather their routing counts and all-reduce their
         statistics and outputs, so does the micro body
         (``step_graph.micro_mode``; with neither captured, the step runs
         as it runs without ``precompile``). The log says what was
@@ -759,7 +758,7 @@ class Trainer:
             self.mesh.fsdp > 1 or self.mesh.tensor > 1
             or self.mesh.expert > 1 or self._context > 1
             or self._staged
-            or (moe and self.mesh.axis_size("batch") > 1))
+            or (moe and self.mesh.axis_size("tokens") > 1))
         self.step_graph = StepGraph(
             self._micro_body, self._finish_body, self._state_tensors,
             self.config.grad_accum, _COUNTERS, self.device,

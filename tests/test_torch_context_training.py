@@ -257,28 +257,37 @@ def test_world_layout_with_context_agrees_with_the_reference(mesh, n):
                               sizes.get("context", 1)) == (cfg.data, cfg.fsdp)
 
 
-def test_context_beside_expert_or_moe_raises_naming_its_item():
-    """What is not ported raises naming ROADMAP queue 1 item 8.7:
-    ``context`` beside ``expert`` (the layout and the world itself), an
-    MoE model over a context world, and ``context`` in a serving mesh."""
+def test_context_beside_expert_or_moe_raises_naming_its_item(monkeypatch):
+    """``context`` beside ``expert`` and an MoE model over a context world
+    are ported: ``world_layout`` lays ``expert`` beside ``context`` out as
+    the reference's mesh does, the world takes it, and an MoE trainer
+    over a context world builds. What is still not ported raises naming
+    ROADMAP queue 1 item 8.7: ``context`` in a serving mesh."""
     from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env as sm
 
     for mesh in ("expert=2,context=2", "data=2,expert=2,context=2"):
         n = 4 if mesh.startswith("expert") else 8
-        with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-            t_boot.world_layout({"KFT_MESH": mesh}, n)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        WorldMesh(1, 1, 0, "cpu", Backend("gloo", "test"), expert=2,
-                  context=2)
+        env = {"KFT_MESH": mesh}
+        ref = dict(mesh_from_topology_env(env,
+                                          devices=jax.devices()[:n]).shape)
+        ours = t_boot.world_layout(env, n)
+        for axis in ("data", "fsdp", "expert", "context", "tensor"):
+            assert ours[axis] == ref[axis], (mesh, axis)
+    monkeypatch.setattr(WorldMesh, "_make_groups", lambda self: None)
+    world = WorldMesh(1, 1, 3, "cpu", Backend("gloo", "test"), expert=2,
+                      context=2)
+    assert (world.expert_index, world.context_index) == (1, 1)
+    assert world.shape == {"data": 1, "fsdp": 1, "expert": 2, "context": 2}
     cfg = tl.llama_tiny(n_experts=4, dtype=torch.float32, attn_impl="ring")
     stub = types.SimpleNamespace(
         size=2, data=1, fsdp=1, tensor=1, expert=1, context=2,
         shape={"data": 1, "fsdp": 1, "context": 2},
         device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-        Trainer(lambda g: tl.init_params(g, cfg, device="cpu"),
-                lm_loss_fn(tl.forward, cfg), TrainerConfig(), device="cpu",
-                mesh=stub, param_axes=tl.param_logical_axes(cfg))
+    trainer = Trainer(lambda g: tl.init_params(g, cfg, device="cpu"),
+                      lm_loss_fn(tl.forward, cfg), TrainerConfig(),
+                      device="cpu", mesh=stub,
+                      param_axes=tl.param_logical_axes(cfg))
+    assert trainer.mesh is stub and trainer._context == 2
     with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
         sm({"KFT_MESH": "context=2"})
 

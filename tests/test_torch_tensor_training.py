@@ -628,10 +628,15 @@ def test_world_axes_errors_match_mesh_config(data, fsdp, tensor, n):
 
 
 def test_axes_not_ported_still_raise_naming_their_item():
-    for env in ({"KFT_MESH": "expert=2,context=2"},
+    """A ``KFT_DCN`` axis other than data and fsdp raises naming ROADMAP
+    queue 1 item 8.7; ``expert`` beside ``context`` is ported and lays
+    out."""
+    for env in ({"KFT_MESH": "context=2", "KFT_DCN": "context=2"},
                 {"KFT_MESH": "pipeline=2", "KFT_DCN": "pipeline=2"}):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
             t_boot.world_layout(env, 4)
+    layout = t_boot.world_layout({"KFT_MESH": "expert=2,context=2"}, 4)
+    assert (layout["expert"], layout["context"]) == (2, 2)
 
 
 def test_moe_under_tensor_raises():

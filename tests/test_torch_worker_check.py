@@ -113,10 +113,18 @@ def test_world_layout_agrees_with_the_reference_mesh(mesh, dcn, n):
 
 
 def test_world_layout_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError,
-                       match="data, fsdp, expert, context and tensor axes "
-                             "for training"):
-        t_boot.world_layout({"KFT_MESH": "expert=2,context=2"}, 4)
+    """What is not ported raises (a DCN axis other than data and fsdp,
+    sizes that do not make the world, an unknown axis); ``expert`` beside
+    ``context`` is ported and lays out as the reference's mesh does."""
+    import jax
+
+    from kubeflow_tpu.parallel.mesh import mesh_from_topology_env
+
+    env = {"KFT_MESH": "expert=2,context=2"}
+    ref = dict(mesh_from_topology_env(env, devices=jax.devices()[:4]).shape)
+    ours = t_boot.world_layout(env, 4)
+    for axis in ("data", "fsdp", "expert", "context", "tensor"):
+        assert ours[axis] == ref[axis], axis
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         t_boot.world_layout({"KFT_MESH": "pipeline=2",
                              "KFT_DCN": "pipeline=2"}, 4)
@@ -416,6 +424,76 @@ def test_two_process_pod_under_context_trains_like_the_jax_trainer(
     for step in range(POD_STEPS):
         rows = np.random.default_rng([0, step, 0]).integers(
             0, jcfg.vocab_size, (4, 17), dtype=np.int32)
+        want.append(float(jt.train_step(j_data.put_batch(
+            mesh, {"tokens": rows}))["loss"]))
+    np.testing.assert_allclose([got[s] for s in range(1, POD_STEPS + 1)],
+                               want, rtol=1e-5)
+
+
+def test_four_process_moe_pod_under_expert_and_context_trains_like_jax(
+        client, tmp_path):
+    """A 4-process JAXJob pod with ``KFT_MESH=expert=2,context=2`` and
+    ``KFT_TRAIN_EXPERTS=4``: the pod's model is MoE (4 experts, top-2),
+    its experts cut over ``expert``, every process feeds the same rows,
+    each context rank its chunk of their tokens through ring attention,
+    and the coordinator's losses are the JAX ``Trainer``'s on
+    MeshConfig(expert=2, context=2) fed those rows, its loss the forward
+    with ``mesh=`` (1e-5 relative, as above)."""
+    import dataclasses
+    import functools
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from kubeflow_tpu.models import llama as jl
+    from kubeflow_tpu.parallel import MeshConfig, build_mesh
+    from kubeflow_tpu.training import data as j_data
+    from kubeflow_tpu.training import trainer as j_trainer
+    from kubeflow_tpu_torch.models import llama as tl
+    from kubeflow_tpu_torch.training import optim
+
+    client.create_jax_job("torch-moe-ctx", workers=4, command=WORKER_CMD,
+                          mesh={"expert": 2, "context": 2},
+                          env=_env(tmp_path, KFT_TRAIN_EXPERTS="4",
+                                   KFT_TRAIN_STEPS=str(POD_STEPS)),
+                          run_policy=RunPolicy(backoff_limit=0))
+    done = client.wait_for_job_conditions("torch-moe-ctx",
+                                          timeout=POD_TIMEOUT)
+    logs = [client.get_job_logs("torch-moe-ctx", index=i) for i in range(4)]
+    assert done.status.condition() == ConditionType.SUCCEEDED, logs
+    for i, log in enumerate(logs):
+        assert f"worker {i}: trained to step {POD_STEPS}" in log, log
+        assert ("mesh={'data': 1, 'fsdp': 1, 'expert': 2, 'context': 2}, "
+                "backend=gloo") in log, log
+    recs = read_metrics(str(tmp_path / "metrics.jsonl"))
+    got = {r["step"]: r["loss"] for r in recs if "loss" in r}
+    assert sorted(got) == list(range(1, POD_STEPS + 1)), recs
+
+    cfg = t_wc.pod_config(types.SimpleNamespace(context=2), 4)
+    assert cfg.n_experts == 4 and cfg.attn_impl == "ring"
+    host = optim.tree_map(lambda t: t.numpy(), tl.init_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    jcfg = dataclasses.replace(
+        jl.llama_tiny(dtype=jnp.float32, n_experts=4), dim=cfg.dim,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, attn_impl="ring")
+    mesh = build_mesh(MeshConfig(data=1, fsdp=1, expert=2, context=2,
+                                 tensor=1), devices=jax.devices()[:4])
+    jt = j_trainer.Trainer(
+        mesh=mesh, init_params_fn=lambda rng: jax.tree_util.tree_map(
+            jnp.asarray, host),
+        params_logical_axes=jl.param_logical_axes(jcfg),
+        loss_fn=j_trainer.lm_loss_fn(
+            functools.partial(jl.forward, mesh=mesh), jcfg),
+        config=j_trainer.TrainerConfig(learning_rate=1e-3, warmup_steps=2,
+                                       total_steps=max(POD_STEPS, 3)))
+    jt.init_state(jax.random.key(0))
+    want = []
+    for step in range(POD_STEPS):
+        rows = np.random.default_rng([0, step, 0]).integers(
+            0, jcfg.vocab_size, (8, 17), dtype=np.int32)
         want.append(float(jt.train_step(j_data.put_batch(
             mesh, {"tokens": rows}))["loss"]))
     np.testing.assert_allclose([got[s] for s in range(1, POD_STEPS + 1)],

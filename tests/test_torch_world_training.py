@@ -258,17 +258,26 @@ def test_divisibility_error_matches_jax():
 
 def test_moe_under_a_world_raises_naming_its_item():
     """An MoE trainer over a world is built (its parity cases are in
-    tests/test_torch_moe_world.py); beside the expert axis, the axes
-    still to be ported raise naming ROADMAP queue 1 item 8.7."""
+    tests/test_torch_moe_world.py and, under context, in
+    tests/test_torch_moe_context.py); beside the expert axis, what is
+    still to be ported raises naming ROADMAP queue 1 item 8.7: a
+    ``KFT_DCN`` axis other than data and fsdp, and pipeline once the
+    world chose NCCL."""
     cfg = tl.llama_tiny(n_experts=4, dtype=torch.float32)
     trainer = Trainer(lambda g: tl.init_params(g, cfg, device="cpu"),
                       lm_loss_fn(tl.forward, cfg), TrainerConfig(),
                       device="cpu", mesh=_stub_mesh(2, 1),
                       param_axes=tl.param_logical_axes(cfg))
     assert trainer.mesh is not None
-    for mesh in ("expert=2,context=2", "data=2,expert=2,context=2"):
+    for env, backend in (({"KFT_MESH": "expert=2", "KFT_DCN": "expert=2"},
+                          None),
+                         ({"KFT_MESH": "expert=2,pipeline=2,data=2"},
+                          "nccl")):
         with pytest.raises(NotImplementedError, match="queue 1 item 8.7"):
-            t_boot.world_layout({"KFT_MESH": mesh}, 8)
+            t_boot.world_layout(env, 8, backend)
+    for mesh in ("expert=2,context=2", "data=2,expert=2,context=2"):
+        layout = t_boot.world_layout({"KFT_MESH": mesh}, 8)
+        assert (layout["expert"], layout["context"]) == (2, 2)
 
 
 def test_world_axes_follow_mesh_config_resolved():
