@@ -63,8 +63,10 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              steps with the unquantized kernel's count at 0, prefix hits,
              chunked prefill, the active quant tag, no downgrade. Prints
              pool and weight bytes and the decode step beside phase 4's.
-4tp. tensor-parallel serving — the same llama3_8b weights on 4 ranks
-             (each rank draws only its shard from the same seed):
+4tp. tensor-parallel serving — llama3_8b's widths at TP_LAYERS = 16 of
+             its 32 layers, seed 0, on 4 ranks (each rank draws only its
+             shard from the seed; the one-card references are the
+             unsharded draw at the same depth):
              ``LLMModel(mesh=TensorMesh(4, ...))`` behind ModelServer,
              one card per rank over NCCL where the machine has 4, else
              all ranks on card 0 over gloo (no tensor-parallel speedup
@@ -78,7 +80,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              stream against the unsharded full forward within the bf16
              tie tolerance, and the teacher-forced logits of two seeded
              streams against the one-card engine's under an rms limit
-             set against planted faults (tools/tp_quality.py). Then the
+             set against planted faults (tools/tp_quality.py, whose
+             default depth is this phase's). Then the
              same with int8 KV + int8 weights (the fused-dequant kernel
              on every rank, row 1 at 0; compared with the one-card int8
              engine). Prints the decode step as served (batch 8, one
@@ -173,6 +176,68 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              above it. Prints export, transfer and inject-to-first-commit
              seconds beside 5d's, checks the ranks' digests agree and no
              block stays in use on any rank.
+5a. the multi-model runtime — llama3_8b's widths at MULTI_LAYERS = 2 of
+             its 32 layers, random bf16 weights from a seeded CUDA
+             generator, written once by the port's save_pretrained (its
+             own safetensors writer) and served by the port's runtime
+             (serving.runtime.start, in process, on the card) under
+             KFT_MODELS_CONFIG_DIR, KFT_BIND=127.0.0.1:0 and
+             KFT_V2_SOCKET_BIND=127.0.0.1:0: descriptor "alpha" (bf16)
+             from the start, "beta" ({"KFT_QUANT_KV": "int8",
+             "KFT_QUANT_WEIGHTS": "int8"} in its env) written while the
+             runtime runs and hot-loaded by the model puller's thread.
+             Each replica captures its decode program at load. Phase 4's
+             four prompts, one V2 request of four rows, MULTI_TOKENS
+             greedy tokens each, to each model over HTTP V2 and over the
+             V2 socket, its prefix cache cleared before each run: both
+             routes the same tokens; alpha's streams token for token
+             those of an LLMModel built directly on the same weights;
+             row 1's launches on alpha == n_layers x its decode device
+             steps with row 2's 0, and on beta row 2's == n_layers x its
+             device steps with row 1's 0 (every count set to 0 before a
+             run); beta's captured program counts only its own launches
+             (row 2's n_layers x decode_chunk a replay). Hot unload:
+             beta's descriptor removed, the index drops it, the model is
+             collected and the card's allocated memory is back within
+             UNLOAD_SLACK of its value before beta loaded. Hot load
+             under traffic: beta's descriptor written back while alpha
+             streams requests back to back over HTTP; beta loads and
+             captures on the puller's thread while alpha replays, alpha's
+             streams stay those it gave alone and beta serves its first
+             tokens again; a second unload adds at most
+             RELOAD_GROWTH_MAX. Prints each model's load and capture
+             seconds, the bytes each holds on the card, and the seconds
+             from descriptor written to ready and from removed to
+             unloaded.
+5f. the function predictor — ResNet-50 at its published widths (stages
+             3, 4, 6, 3; width 64; 1000 classes; 224 x 224 x 3; f32
+             params and batch-norm statistics, bf16 compute; a seeded
+             CUDA generator), its statistics set by RESNET_STATS_STEPS
+             train-mode forwards on seeded images, served with train=False
+             by TorchModel(batch_buckets=(1, 4, 16, 64), example_shape=
+             (224, 224, 3)), which captures each bucket as a CUDA graph at
+             load. (a) Per bucket, a request of b - 1 images (1 for the
+             first) replayed, bitwise equal to fn run eagerly on the same
+             zero-padded input. (b) 16 images' bf16 logits against the
+             f32 forward on the card, which pads by the phase's own
+             statement of XLA's "SAME" rule: rms error over the f32
+             logits' rms under RESNET_RMS_MAX, set between the sound
+             reading and the nearest planted fault (symmetric padding,
+             from a tree copy; see PERF.md). (c) BatchingModel(
+             max_batch_size=16) around it behind ModelServer: 32
+             concurrent one-image V2 requests over HTTP flush in fewer
+             than 32 batches, each answer within (b)'s limit of the same
+             image's answer alone. (d) One request over HTTP and over the
+             V2 socket: the same bytes. (e) LoggingModel around the
+             batcher writes one JSONL record a request. (f) Per bucket,
+             CUDA-event medians of the eager call and of the replay as
+             images/s, beside the bound: FLOPs reckoned from the code's
+             shapes over 989 TFLOP/s, and the f32 weights and statistics
+             read once, the images read and the logits written once and
+             every convolution's and the pool's bf16 output written and
+             read once, over 3.35 TB/s; the larger of the two. The MNIST
+             CNN at its widths in f32 (seeded CUDA generator) gets (a)
+             and (f) (FLOPs over 67 TFLOP/s, f32 activations).
 5m. MoE serving — Mixtral-8x7B at its published widths (the literal
              config.json through hf_llama.config_from_hf), 16 of its 32
              layers (46.97 GB in bf16; all 32 would not fit the card),
@@ -560,8 +625,8 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              beside the traced last step's idle share, and peak memory
              against the one process.
 
-Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5m, 5n,
-5x, 5, 6, 7, 7m, 8, 9 (a, b, c, d), then one world of two ranks for
+Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5a, 5f,
+5m, 5n, 5x, 5, 6, 7, 7m, 8, 9 (a, b, c, d), then one world of two ranks for
 9t, 9m, 9r, 9rm and 9p, whose readings follow in that order with 9x
 after 9m, then 9r4 and 9rx4.
 
@@ -678,6 +743,14 @@ TP_RMS_MAX = {"bf16": 0.153, "int8": 0.0365}
 # room)
 TP_TOKENS = 16
 TP_STEP_CHUNKS = 1
+# phase 4tp runs llama3_8b's widths at TP_LAYERS of its 32 layers (all 32
+# until phases 5a and 5f needed the room), its one-card references at the
+# same depth: the digest, launch and token checks are exact at any depth,
+# and the rms limits above still sit below the nearest planted fault
+# there (tools/tp_quality.py --quant int8: sound 0.02278, the
+# scales' max all-reduce dropped 0.04123 against 0.0365; at 8 layers
+# that fault read 0.03560, under the limit: see PERF.md)
+TP_LAYERS = 16
 # phase 5s: draft tokens a verify (the verify width is SPEC_K + 1 = 4),
 # greedy tokens a request at full width, and under tensor=4 (fewer there:
 # gloo on one card takes ~0.5 s a decode step; 24 until phases 5dt and 5e
@@ -1023,6 +1096,33 @@ PIPELINE_ROWS, PIPELINE_MICRO, PIPELINE_STEPS = 8, 4, 3
 PIPELINE_UPDATED = 2
 PIPELINE_RTOL = {"loss": 1.2e-5, "updated_loss": 4.1e-5,
                  "grad_norm": 2.7e-5}
+# phase 5a: llama3_8b's widths at MULTI_LAYERS of its 32 layers, served
+# by the runtime's model puller as two replicas (bf16, and int8 KV + int8
+# weights from its descriptor's env); MULTI_TOKENS greedy tokens a
+# request; the puller's period (KFT_MODELS_SYNC_PERIOD). After a hot
+# unload the card's allocated memory must come back within UNLOAD_SLACK
+# of its value before the replica loaded, and a second load/unload cycle
+# may add at most RELOAD_GROWTH_MAX: what a replica leaves behind by
+# design is library state kept per (cuBLAS handle, stream), a workspace
+# per pair its threads used (32 MiB each on sm_90)
+MULTI_LAYERS = 2
+MULTI_TOKENS = 8
+MULTI_SYNC_S = 0.25
+UNLOAD_SLACK = 256 << 20
+RELOAD_GROWTH_MAX = 64 << 20
+MULTI_QUANT_ENV = {"KFT_QUANT_KV": "int8", "KFT_QUANT_WEIGHTS": "int8"}
+# phase 5f: the function predictor's batch buckets (JAXModel's), CUDA-
+# event repetitions per bucket, the train-mode forwards on seeded images
+# that set ResNet-50's batch-norm statistics before it serves, and
+# RESNET_RMS_MAX, the rms of its bf16 logits' error against the f32
+# forward over the f32 logits' rms (limit between the sound reading and
+# the nearest planted fault, symmetric padding: see PERF.md): sound
+# 0.02744, symmetric padding 0.1393, the limit their geometric mean
+FN_BUCKETS = (1, 4, 16, 64)
+FN_REPS = 20
+RESNET_STATS_STEPS = 16
+RESNET_RMS_MAX = 0.062
+FN_CONCURRENT = 32
 
 
 def log(msg: str) -> None:
@@ -1524,8 +1624,8 @@ def llama3_8b(torch, n_layers: int = 32):
 
 
 def _tensors(tree):
-    if isinstance(tree, dict):
-        for val in tree.values():
+    if isinstance(tree, (dict, list, tuple)):
+        for val in (tree.values() if isinstance(tree, dict) else tree):
             yield from _tensors(val)
     else:
         yield tree
@@ -2119,10 +2219,10 @@ def tp_serve_one(torch, pa, cfg, params, mesh, tag, quant, streams,
             "errors": err}
 
 
-def tp_serving(torch, pa, cfg, params) -> dict:
-    """Phase 4tp: the one-card references (teacher-forced logits, and the
-    decode step at phase 4's geometry), then the bf16 and int8 runs on
-    the mesh."""
+def tp_serving(torch, pa) -> dict:
+    """Phase 4tp: llama3_8b's widths at TP_LAYERS layers (seed 0), the
+    one-card references (teacher-forced logits, and the decode step at
+    phase 4's geometry), then the bf16 and int8 runs on the mesh."""
     from kubeflow_tpu_torch.parallel import TensorMesh
     from kubeflow_tpu_torch.serving import LLMModel
     from kubeflow_tpu_torch.serving.llm import LLMEngine
@@ -2131,6 +2231,7 @@ def tp_serving(torch, pa, cfg, params) -> dict:
         REF_KW, TP_KW, reference_streams, tp_devices,
     )
 
+    cfg, params = llama3_8b(torch, TP_LAYERS)
     mesh = TensorMesh(TP, tp_devices(TP))
     log(f"phase 4tp: tensor={TP} over {[str(d) for d in mesh.devices]}, "
         f"device collectives over {mesh.backend}: "
@@ -2156,9 +2257,12 @@ def tp_serving(torch, pa, cfg, params) -> dict:
         torch.cuda.empty_cache()
     log(f"one-card references (bf16, int8): {time.perf_counter() - t0:.1f} "
         f"s; decode step as served at batch 8, one card: {one_ms}")
-    return {tag: tp_serve_one(torch, pa, cfg, params, mesh, tag, quant,
-                              streams, refs[tag], one_ms[tag])
-            for tag, quant in kinds}
+    out = {tag: tp_serve_one(torch, pa, cfg, params, mesh, tag, quant,
+                             streams, refs[tag], one_ms[tag])
+           for tag, quant in kinds}
+    del params
+    free_card(torch)
+    return out
 
 # ---------------------------------------------------------------------------
 # Speculative decoding (phase 5s) and disaggregated serving (phase 5d)
@@ -5974,6 +6078,585 @@ def pipeline_world_phase(torch, ranks: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The multi-model runtime (phase 5a) and the function predictor (phase 5f)
+# ---------------------------------------------------------------------------
+
+def ids_request(name: str, prompts: dict, max_tokens: int):
+    """One V2 request of every prompt, a row each, right-padded with 0
+    (no prompt holds token 0), greedy."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving import InferRequest, InferTensor
+
+    ids = np.zeros((len(prompts), max(map(len, prompts.values()))),
+                   np.int32)
+    for i, p in enumerate(prompts.values()):
+        ids[i, :len(p)] = p
+    return InferRequest(name, [InferTensor.from_numpy("ids", ids)],
+                        parameters={"max_tokens": max_tokens,
+                                    "temperature": 0.0})
+
+
+def row_tokens(resp, prompts: dict) -> dict:
+    toks, lens = resp.as_numpy("tokens"), resp.as_numpy("lengths")
+    return {tag: toks[i, :lens[i]].tolist()
+            for i, tag in enumerate(prompts)}
+
+
+def wait_idle(eng, timeout: float = 120.0) -> None:
+    if not wait_for(lambda: not eng.has_work(), timeout):
+        raise SystemExit("the engine did not go idle")
+
+
+def counted_run(torch, pa, model, send, req, prompts: dict, what: str,
+                kernel: str) -> dict:
+    """One request through ``send`` to ``model``'s idle engine, its prefix
+    cache cleared first (so every run admits alike); every launch count
+    set to 0 just before and read just after: ``kernel``'s must be
+    n_layers x the model's decode device steps and the other row's 0."""
+    eng = model.engine
+    wait_idle(eng)
+    clear_prefix_cache(eng)
+    steps0 = eng.sched.decode_device_steps
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention_quant.launches = 0
+    t0 = time.perf_counter()
+    out = row_tokens(send(req), prompts)
+    wall = time.perf_counter() - t0
+    wait_idle(eng)
+    launches = {"paged_decode_attention": pa.paged_decode_attention.launches,
+                "paged_decode_attention_quant":
+                    pa.paged_decode_attention_quant.launches}
+    steps = eng.sched.decode_device_steps - steps0
+    want = model.cfg.n_layers * steps
+    log(f"phase 5a {model.name} {what}: {wall!r} s, decode device steps "
+        f"{steps}, launches {launches} (want {kernel} == n_layers x device "
+        f"steps = {want}, the other 0)")
+    if want == 0 or launches[kernel] != want or sum(launches.values()) \
+            != want:
+        raise SystemExit(f"phase 5a {model.name}: decode did not run "
+                         f"through {kernel} alone")
+    if any(len(t) != MULTI_TOKENS for t in out.values()):
+        raise SystemExit(f"phase 5a {model.name}: short streams {out}")
+    return {"tokens": out, "launches": launches[kernel], "wall": wall}
+
+
+def write_descriptor(cfg_dir: Path, desc: dict) -> None:
+    """Atomically: the puller reads only ``*.json``, never a half file."""
+    tmp = cfg_dir / f".{desc['name']}.tmp"
+    tmp.write_text(json.dumps(desc))
+    tmp.replace(cfg_dir / f"{desc['name']}.json")
+
+
+def allocated(torch) -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def multi_model_phase(torch, pa) -> dict:
+    """Phase 5a (module docstring)."""
+    import shutil
+    import tempfile
+    import weakref
+
+    from kubeflow_tpu_torch.models import hf_llama
+    from kubeflow_tpu_torch.serving import (
+        InferenceClient, LLMModel, V2SocketClient,
+    )
+    from kubeflow_tpu_torch.serving.runtime import start
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="kft-phase5a-"))
+    cfg, params = llama3_8b(torch, MULTI_LAYERS)
+    prompts = four_prompts(torch, cfg)
+    ckpt = tmp / "ckpt"
+    t0 = time.perf_counter()
+    hf_llama.save_pretrained(str(ckpt), cfg, params)
+    log(f"phase 5a: save_pretrained wrote "
+        f"{(ckpt / 'model.safetensors').stat().st_size} B in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the reference: an LLMModel built directly on the same weights
+    ref = LLMModel("llama3-8b-direct", params, cfg, max_batch=8,
+                   max_seq=1024, device="cuda")
+    ref.load()
+    captured(ref)
+    wait_idle(ref.engine)
+    want = row_tokens(ref(ids_request(ref.name, prompts, MULTI_TOKENS)),
+                      prompts)
+    ref.unload()
+    del ref, params
+    cfg_dir = tmp / "models-config"
+    cfg_dir.mkdir()
+    uri = f"file://{ckpt}"
+    alpha = {"name": "alpha", "storage_uri": uri}
+    beta = {"name": "beta", "storage_uri": uri, "env": MULTI_QUANT_ENV}
+    write_descriptor(cfg_dir, alpha)
+    env = {"KFT_MODELS_CONFIG_DIR": str(cfg_dir),
+           "KFT_MODEL_DIR": str(tmp / "models"),
+           "KFT_MODELS_SYNC_PERIOD": str(MULTI_SYNC_S),
+           "KFT_BIND": "127.0.0.1:0", "KFT_V2_SOCKET_BIND": "127.0.0.1:0",
+           "KFT_DTYPE": "bfloat16", "KFT_MAX_BATCH": "8",
+           "KFT_MAX_SEQ": "1024"}
+    mem_empty = allocated(torch)
+    t0 = time.perf_counter()
+    rt = start(env)
+    out: dict = {"alpha_up_s": time.perf_counter() - t0}
+    http = InferenceClient(rt.server.url, timeout=600.0)
+    sock = V2SocketClient(rt.v2.address, timeout=600.0)
+    repo = rt.repository
+    try:
+        if repo.names() != ["alpha"]:
+            raise SystemExit(f"phase 5a: the runtime serves {repo.names()}")
+        a_model = repo.get("alpha")
+        captured(a_model)
+
+        def both_planes(name, model, kernel):
+            req = ids_request(name, prompts, MULTI_TOKENS)
+            run = {"http": counted_run(torch, pa, model, http.infer, req,
+                                       prompts, "HTTP V2", kernel),
+                   "socket": counted_run(torch, pa, model, sock.infer, req,
+                                         prompts, "V2 socket", kernel)}
+            same = run["http"]["tokens"] == run["socket"]["tokens"]
+            log(f"phase 5a {name}: HTTP and socket tokens equal {same}")
+            if not same:
+                raise SystemExit(f"phase 5a {name}: the two data planes "
+                                 "gave different tokens")
+            return run
+
+        def hot_load(what: str):
+            t_w = time.perf_counter()
+            write_descriptor(cfg_dir, beta)
+            if not wait_for(lambda: "beta" in repo.names()
+                            and repo.get("beta").ready, 300.0):
+                raise SystemExit("phase 5a: beta did not load")
+            t_r = time.perf_counter()
+            model = repo.get("beta")
+            captured(model)
+            g = model.engine.decode_graph
+            per_replay = {"paged_decode_attention": 0,
+                          "paged_decode_attention_quant":
+                              cfg.n_layers * model.engine.decode_chunk}
+            log(f"phase 5a beta {what}: descriptor written to ready "
+                f"{t_r - t_w!r} s (the puller's period {MULTI_SYNC_S} s); "
+                f"engine build {model.load_seconds!r} s, decode program "
+                f"capture {model.precompile_seconds!r} s; launches a replay "
+                f"{g.launches} (want {per_replay}); stats quant "
+                f"{model.stats()['quant']['active']}")
+            if g.launches != per_replay:
+                raise SystemExit("phase 5a: beta's captured program counts "
+                                 "launches that are not its own")
+            return model, t_w, t_r
+
+        def hot_unload(what: str, model) -> float:
+            gone = weakref.ref(model)
+            del model
+            t_d = time.perf_counter()
+            (cfg_dir / "beta.json").unlink()
+            if not wait_for(lambda: "beta" not in repo.names(), 60.0):
+                raise SystemExit("phase 5a: beta was not unloaded")
+            t_u = time.perf_counter()
+            if not wait_for(lambda: gc.collect() >= 0 and gone() is None,
+                            60.0):
+                raise SystemExit("phase 5a: the unloaded beta is still "
+                                 "referenced")
+            first = allocated(torch)
+            # the model is dead once its last reference goes, before its
+            # tensors are all freed on the thread that dropped it (which
+            # may yield mid-way): the memory must come back within
+            # UNLOAD_SLACK, read until it does or 30 s pass
+            back = wait_for(lambda: allocated(torch) <= mem0 + UNLOAD_SLACK,
+                            30.0)
+            t_m = time.perf_counter()
+            mem = allocated(torch)
+            log(f"phase 5a beta {what}: descriptor removed to unloaded "
+                f"{t_u - t_d!r} s, to memory back {t_m - t_d!r} s (first "
+                f"reading after the model was collected {first} B); "
+                f"allocated {mem} B, before beta loaded {mem0} B "
+                f"(+{mem - mem0} B; slack {UNLOAD_SLACK})")
+            if not back:
+                raise SystemExit("phase 5a: a hot unload kept the card's "
+                                 "memory")
+            return mem
+
+        # alpha alone, then the memory before beta loads
+        runs = {"alpha": both_planes("alpha", a_model,
+                                     "paged_decode_attention")}
+        alone = runs["alpha"]["http"]["tokens"]
+        log(f"phase 5a alpha vs the LLMModel built on the same weights: "
+            f"equal {alone == want}")
+        if alone != want:
+            raise SystemExit("phase 5a: alpha's streams differ from the "
+                             "direct model's")
+        mem0 = allocated(torch)
+        b_model, t_w, t_r = hot_load("hot load")
+        mem1 = allocated(torch)
+        out.update(alpha_bytes=mem0 - mem_empty, beta_bytes=mem1 - mem0,
+                   beta_ready_s=t_r - t_w,
+                   alpha_load_s=a_model.load_seconds,
+                   alpha_capture_s=a_model.precompile_seconds,
+                   beta_load_s=b_model.load_seconds,
+                   beta_capture_s=b_model.precompile_seconds)
+        log(f"phase 5a: card memory held: alpha {out['alpha_bytes']} B, beta "
+            f"{out['beta_bytes']} B (allocated, after gc); alpha up in "
+            f"{out['alpha_up_s']!r} s (engine build "
+            f"{a_model.load_seconds!r} s, capture "
+            f"{a_model.precompile_seconds!r} s)")
+        runs["beta"] = both_planes("beta", b_model,
+                                   "paged_decode_attention_quant")
+        beta_tokens = runs["beta"]["http"]["tokens"]
+        del b_model
+        mem2 = hot_unload("hot unload", repo.get("beta"))
+
+        # hot load under traffic: alpha streams while beta loads and
+        # captures on the puller's thread
+        stop, traffic, errors = threading.Event(), [], []
+        req_a = ids_request("alpha", prompts, MULTI_TOKENS)
+
+        def stream_alpha():
+            try:
+                while not stop.is_set():
+                    wait_idle(a_model.engine)
+                    clear_prefix_cache(a_model.engine)
+                    t_a = time.perf_counter()
+                    toks = row_tokens(http.infer(req_a), prompts)
+                    traffic.append((t_a, time.perf_counter(), toks))
+            except Exception as e:          # surfaced below
+                errors.append(repr(e))
+
+        replays0 = a_model.engine.decode_graph.replays
+        th = threading.Thread(target=stream_alpha, daemon=True)
+        th.start()
+        if not wait_for(lambda: traffic or errors, 120.0):
+            raise SystemExit("phase 5a: alpha's traffic did not start")
+        b_model, t_w, t_r = hot_load("hot load under alpha's traffic")
+        window = (t_r - b_model.precompile_seconds, t_r)
+        stop.set()
+        th.join(timeout=120)
+        if th.is_alive() or errors:
+            raise SystemExit(f"phase 5a: alpha's traffic failed: {errors}")
+        overlap = sum(max(0.0, min(b, window[1]) - max(a, window[0]))
+                      for a, b, _ in traffic)
+        unchanged = all(t == alone for _, _, t in traffic)
+        log(f"phase 5a: {len(traffic)} alpha requests while beta loaded "
+            f"({a_model.engine.decode_graph.replays - replays0} replays), "
+            f"{overlap!r} s of them inside beta's capture "
+            f"({window[1] - window[0]!r} s); alpha's streams unchanged "
+            f"{unchanged}")
+        if overlap <= 0 or not unchanged:
+            raise SystemExit("phase 5a: alpha did not stream unchanged "
+                             "through beta's capture")
+        again = counted_run(torch, pa, b_model, http.infer,
+                            ids_request("beta", prompts, MULTI_TOKENS),
+                            prompts, "HTTP V2 after the reload",
+                            "paged_decode_attention_quant")
+        runs["beta"]["reload"] = again
+        if again["tokens"] != beta_tokens:
+            raise SystemExit("phase 5a: the reloaded beta serves other "
+                             "tokens")
+        del b_model
+        mem3 = hot_unload("second hot unload", repo.get("beta"))
+        log(f"phase 5a: the second load/unload cycle moved allocated memory "
+            f"by {mem3 - mem2} B (max {RELOAD_GROWTH_MAX})")
+        if mem3 - mem2 > RELOAD_GROWTH_MAX:
+            raise SystemExit("phase 5a: load/unload cycles grow the card's "
+                             "memory")
+        out.update(mem_after_unload=[mem2 - mem0, mem3 - mem0],
+                   overlap_s=overlap, traffic_requests=len(traffic))
+    finally:
+        sock.close()
+        rt.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = {
+        "paged_decode_attention": sum(
+            runs["alpha"][k]["launches"] for k in ("http", "socket")),
+        "paged_decode_attention_quant": sum(
+            runs["beta"][k]["launches"] for k in ("http", "socket",
+                                                  "reload"))}
+    free_card(torch)
+    log(f"phase 5a: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def xla_same_pads(n: int, k: int, s: int) -> tuple:
+    """XLA's "SAME" pads, as the phase states them for its reference: the
+    output holds ceil(n / s) windows; the pads are what those windows
+    reach beyond the input, the larger half after it."""
+    out = -(-n // s)
+    total = max(0, (out - 1) * s + k - n)
+    return total // 2, total - total // 2
+
+
+def resnet_shapes(cfg, size: int = 224) -> tuple:
+    """ResNet ``cfg``'s multiply-adds times 2 (FLOPs) and the elements of
+    every convolution's and the pool's output, per image at ``size``
+    square: the bound's reckoning from the code's shapes."""
+    flops, acts = 0, 0
+    hw = -(-size // 2)                              # the stem, stride 2
+    flops += 2 * hw * hw * cfg.width * 3 * 49
+    acts += hw * hw * cfg.width
+    hw = -(-hw // 2)                                # the max-pool
+    acts += hw * hw * cfg.width
+    in_c = cfg.width
+    for si, n in enumerate(cfg.stage_sizes):
+        out_c, mid_c = cfg.width * 2 ** si * 4, cfg.width * 2 ** si
+        for bi in range(n):
+            stride = 2 if (si > 0 and bi == 0) else 1
+            o = -(-hw // stride)
+            flops += 2 * (hw * hw * mid_c * in_c + o * o * mid_c * mid_c * 9
+                          + o * o * out_c * mid_c)
+            acts += hw * hw * mid_c + 2 * o * o * mid_c + o * o * out_c
+            if in_c != out_c or stride != 1:
+                flops += 2 * o * o * out_c * in_c
+                acts += o * o * out_c
+            hw, in_c = o, out_c
+    flops += 2 * in_c * cfg.num_classes
+    return flops, acts
+
+
+def fn_bound_ms(flops: float, nbytes: float, peak: float) -> tuple:
+    by_flops, by_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return (max(by_flops, by_bytes) * 1e3,
+            "operations" if by_flops >= by_bytes else "bytes")
+
+
+def fn_replays_bitwise(torch, model, shape, seed: int) -> None:
+    """(a): a request of b - 1 images (1 for bucket 1) to each bucket's
+    replay against ``fn`` run eagerly on the same zero-padded input."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serving import InferRequest, InferTensor
+
+    rng = np.random.default_rng(seed)
+    for b in model.buckets:
+        m = max(1, b - 1)
+        x = rng.normal(size=(m, *shape)).astype(np.float32)
+        replays = model._graphs[b][1].replays
+        got = model(InferRequest(model.name, [
+            InferTensor.from_numpy("x", x)])).as_numpy()
+        padded = np.concatenate([x, np.zeros((b - m, *shape), np.float32)])
+        with torch.no_grad():
+            want = model.fn(model.params, torch.from_numpy(padded).cuda())
+        want = want.float().cpu().numpy()[:m]
+        same = got.tobytes() == want.tobytes()
+        log(f"phase 5f {model.name} (a) bucket {b}: {m} images replayed "
+            f"({model._graphs[b][1].replays - replays} replay) against "
+            f"the eager fn on the padded input: bitwise equal {same}")
+        if not same or model._graphs[b][1].replays != replays + 1:
+            raise SystemExit(f"phase 5f {model.name}: bucket {b}'s replay "
+                             "is not the eager function's")
+
+
+def fn_timings(torch, model, per_image_flops: float, fixed_bytes: float,
+               per_image_bytes: float, peak: float) -> dict:
+    """(f): per bucket, CUDA-event medians of ``fn`` eagerly and of the
+    replay on the bucket's static input, as images/s, beside the bound
+    (FLOPs over ``peak``, bytes over HBM_BYTES_PER_S)."""
+    rows = {}
+    for b in model.buckets:
+        static, graph = model._graphs[b]
+        with torch.no_grad():
+            eager = time_ms(torch, lambda: model.fn(model.params, static),
+                            FN_REPS)
+        replay = time_ms(torch, graph.replay, FN_REPS)
+        bound, by = fn_bound_ms(b * per_image_flops,
+                                fixed_bytes + b * per_image_bytes, peak)
+        rows[b] = {"eager_ms": eager, "replay_ms": replay,
+                   "eager_img_s": b / eager * 1e3,
+                   "replay_img_s": b / replay * 1e3,
+                   "bound_ms": bound, "bound_by": by,
+                   "bound_img_s": b / bound * 1e3}
+        log(f"phase 5f {model.name} (f) bucket {b}: eager {eager!r} ms "
+            f"({rows[b]['eager_img_s']!r} img/s), replayed {replay!r} ms "
+            f"({rows[b]['replay_img_s']!r} img/s); bound {bound!r} ms by "
+            f"{by} ({rows[b]['bound_img_s']!r} img/s)")
+    return rows
+
+
+def rms_rel(a, b) -> float:
+    """rms(a - b) / rms(b) over float32 copies."""
+    a, b = a.float(), b.float()
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def fn_phase(torch) -> dict:
+    """Phase 5f (module docstring)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models import mnist, resnet
+    from kubeflow_tpu_torch.serving import (
+        BatchingModel, InferenceClient, InferRequest, InferTensor,
+        LoggingModel, ModelRepository, ModelServer, TorchModel,
+        V2SocketClient, V2SocketServer,
+    )
+    from kubeflow_tpu_torch.training.data import mnist_synthetic
+
+    t_phase = time.perf_counter()
+    shape = (224, 224, 3)
+    cfg = resnet.resnet50()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params, stats = resnet.init_params(gen, cfg, device="cuda")
+    # batch-norm statistics from train-mode forwards on seeded images
+    rng = np.random.default_rng(1)
+    with torch.no_grad():
+        for _ in range(RESNET_STATS_STEPS):
+            x = torch.from_numpy(rng.normal(size=(16, *shape)).astype(
+                np.float32)).cuda()
+            _, stats = resnet.forward(params, stats, x, cfg, train=True)
+
+    def fn(p, x):
+        return resnet.forward(p[0], p[1], x, cfg, train=False)[0]
+
+    inner = TorchModel("resnet50", fn, (params, stats),
+                       batch_buckets=FN_BUCKETS, example_shape=shape,
+                       device="cuda")
+    tmp = Path(tempfile.mkdtemp(prefix="kft-phase5f-"))
+    sink = tmp / "payloads.jsonl"
+    served = LoggingModel(BatchingModel(inner, max_batch_size=16), str(sink))
+    repo = ModelRepository()
+    t0 = time.perf_counter()
+    repo.register(served)                   # loads: captures every bucket
+    n_params = tree_numel(params)
+    log(f"phase 5f: ResNet-50 ({n_params} f32 params, bf16 compute) "
+        f"served by TorchModel, buckets {inner.buckets}: load "
+        f"{time.perf_counter() - t0!r} s, capture {inner.capture_seconds!r}"
+        f" s, graph pool {inner.pool_bytes} B")
+    out: dict = {}
+    srv = ModelServer(repo).start()
+    v2 = V2SocketServer(repo).start()
+    try:
+        fn_replays_bitwise(torch, inner, shape, 2)
+        # (b) bf16 against the f32 forward, which pads by the phase's own
+        # statement of XLA's rule: a padding fault in the model shows
+        x = rng.normal(size=(16, *shape)).astype(np.float32)
+        logits = torch.from_numpy(inner(InferRequest("resnet50", [
+            InferTensor.from_numpy("x", x)])).as_numpy())
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model_pads, resnet.same_pads = resnet.same_pads, xla_same_pads
+        try:
+            with torch.no_grad():
+                ref = resnet.forward(params, stats, torch.from_numpy(x).cuda(),
+                                     f32, train=False)[0].cpu()
+        finally:
+            resnet.same_pads = model_pads
+        err = rms_rel(logits, ref)
+        agree = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"phase 5f resnet50 (b): bf16 logits (bucket 16, replayed) vs "
+            f"the f32 forward: rms error / rms {err!r} (limit "
+            f"{RESNET_RMS_MAX}), top-1 agreement {agree!r}")
+        if not err <= RESNET_RMS_MAX:
+            raise SystemExit("phase 5f: ResNet-50's bf16 logits err past "
+                             "the limit")
+        out["rms"] = err
+        # (c) 32 concurrent one-image requests through the batcher over
+        # HTTP, each against the same image alone (bucket 1)
+        imgs = rng.normal(size=(FN_CONCURRENT, 1, *shape)).astype(np.float32)
+        alone = [inner(InferRequest("resnet50", [
+            InferTensor.from_numpy("x", im)])).as_numpy() for im in imgs]
+        batcher = served.inner
+        flushes0 = batcher.batches
+        answers, errors = {}, []
+        client = InferenceClient(srv.url, timeout=600.0)
+
+        def ask(i):
+            try:
+                answers[i] = client.infer(InferRequest(
+                    "resnet50", [InferTensor.from_numpy("x", imgs[i])],
+                    id=f"img-{i}")).as_numpy()
+            except Exception as e:          # surfaced below
+                errors.append((i, repr(e)))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(FN_CONCURRENT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or len(answers) != FN_CONCURRENT:
+            raise SystemExit(f"phase 5f: batched requests failed {errors}")
+        flushes = batcher.batches - flushes0
+        worst = max(rms_rel(torch.from_numpy(answers[i]),
+                            torch.from_numpy(alone[i]))
+                    for i in range(FN_CONCURRENT))
+        log(f"phase 5f resnet50 (c): {FN_CONCURRENT} concurrent one-image "
+            f"V2 requests over HTTP in {wall!r} s, {flushes} batches "
+            f"(max 16 a batch); each against its image alone: worst rms "
+            f"error / rms {worst!r} (limit {RESNET_RMS_MAX})")
+        if not flushes < FN_CONCURRENT or not worst <= RESNET_RMS_MAX:
+            raise SystemExit("phase 5f: the batcher did not coalesce, or "
+                             "a batched answer is not its image's")
+        # (d) one request over HTTP and over the V2 socket
+        req = InferRequest("resnet50", [InferTensor.from_numpy(
+            "x", imgs[:4, 0])], id="both-planes")
+        over_http = client.infer(req).as_numpy()
+        sock = V2SocketClient(v2.address, timeout=600.0)
+        try:
+            over_sock = sock.infer(req).as_numpy()
+        finally:
+            sock.close()
+        same = over_http.tobytes() == over_sock.tobytes()
+        log(f"phase 5f resnet50 (d): 4 images over HTTP and over the V2 "
+            f"socket: the same bytes {same}")
+        if not same:
+            raise SystemExit("phase 5f: the two data planes differ")
+        # (e) the payload logger: one record a request
+        served.flush(timeout=120.0)
+        with open(sink) as f:
+            ids = sorted(json.loads(line)["id"] for line in f)
+        want = sorted([f"img-{i}" for i in range(FN_CONCURRENT)]
+                      + ["both-planes"] * 2)
+        log(f"phase 5f resnet50 (e): {len(ids)} payload records for "
+            f"{len(want)} requests; their ids match {ids == want}")
+        if ids != want:
+            raise SystemExit("phase 5f: the payload log is not one record "
+                             "a request")
+        flops, acts = resnet_shapes(cfg)
+        out["resnet50"] = fn_timings(
+            torch, inner, flops, tree_bytes(params) + tree_bytes(stats),
+            shape[0] * shape[1] * shape[2] * 4 + cfg.num_classes * 4
+            + 2 * acts * 2, BF16_FLOPS)
+    finally:
+        v2.stop()
+        srv.stop()
+        repo.unload("resnet50")
+        shutil.rmtree(tmp, ignore_errors=True)
+    del params, stats, inner, served
+    # the MNIST CNN at its widths, f32: (a) and (f)
+    mp = mnist.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+    m = TorchModel("mnist", mnist.forward, mp, batch_buckets=FN_BUCKETS,
+                   example_shape=(28, 28, 1), device="cuda")
+    m.load()
+    log(f"phase 5f: MNIST CNN ({tree_numel(mp)} f32 params) served by "
+        f"TorchModel: capture {m.capture_seconds!r} s, graph pool "
+        f"{m.pool_bytes} B")
+    fn_replays_bitwise(torch, m, (28, 28, 1), 3)
+    x = next(mnist_synthetic(8, seed=4))["image"]
+    logits = m(InferRequest("mnist", [InferTensor.from_numpy("x", x)]))
+    if not np.isfinite(logits.as_numpy()).all() \
+            or logits.as_numpy().shape != (8, 10):
+        raise SystemExit("phase 5f: MNIST logits are not finite [8, 10]")
+    mnist_flops = 2 * (28 * 28 * 32 * 9 + 14 * 14 * 64 * 32 * 9
+                       + 7 * 7 * 64 * 128 + 128 * 10)
+    mnist_acts = 28 * 28 * 32 + 14 * 14 * 32 + 14 * 14 * 64 + 7 * 7 * 64
+    out["mnist"] = fn_timings(torch, m, mnist_flops, tree_bytes(mp),
+                              28 * 28 * 4 + 10 * 4 + 2 * mnist_acts * 4,
+                              F32_FLOPS)
+    m.unload()
+    del m, mp
+    free_card(torch)
+    log(f"phase 5f: {time.perf_counter() - t_phase:.1f} s "
+        f"({nvidia_smi_line()})")
+    return out
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict, disagg: dict,
          moe_tp: dict, moe_ep: dict, moe_tp_all: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
@@ -6036,17 +6719,19 @@ def main() -> int:
     q_served = quant_serving(torch, pa, cfg, params, served)
     quant_quality(torch, cfg, params, q_served.pop("qparams"))
     graphed = graph_phase(torch, pa, cfg, params)
-    tp = tp_serving(torch, pa, cfg, params)
+    tp = tp_serving(torch, pa)
     for tag, one in (("bf16", served), ("int8", q_served)):
-        log(f"decode step, batch 8, {tag}: as served, one card "
-            f"{tp[tag]['one_card_ms_per_step']!r} ms and tensor={TP} "
-            f"{tp[tag]['decode_ms_per_step']!r} ms; paged_decode_step "
-            f"alone on one card (phase 4/4q) {one['decode_ms_per_step']!r} "
-            f"ms")
+        log(f"decode step, batch 8, {tag}: as served at {TP_LAYERS} "
+            f"layers, one card {tp[tag]['one_card_ms_per_step']!r} ms and "
+            f"tensor={TP} {tp[tag]['decode_ms_per_step']!r} ms; "
+            f"paged_decode_step alone on one card at {cfg.n_layers} layers "
+            f"(phase 4/4q) {one['decode_ms_per_step']!r} ms")
     spec = spec_phase(torch, pa, cfg, params, tp)
     disagg = disagg_phase(torch, pa)
     del params
     free_card(torch)
+    multi = multi_model_phase(torch, pa)
+    fn_phase(torch)
     moe_served = moe_serving(torch, pa)
     moe_tp = moe_tp_serving(torch, pa, moe_served)
     moe_ep = moe_ep_serving(torch, pa, moe_served,
@@ -6080,12 +6765,15 @@ def main() -> int:
                      + spec["bf16"]["launches"]
                      + disagg["bf16"]["launches"]
                      + disagg["bf16"]["mesh"]["launches_one"]
+                     + multi["launches"]["paged_decode_attention"]
                      + moe_served["launches"]),
         "launches_by_phase": {"4": served["launches"],
                               "4g": graphed["bf16"]["launches"],
                               "5s": spec["bf16"]["launches"],
                               "5d": disagg["bf16"]["launches"],
                               "5dt": disagg["bf16"]["mesh"]["launches_one"],
+                              "5a": multi["launches"][
+                                  "paged_decode_attention"],
                               "5m": moe_served["launches"]},
         "max_abs_err": errs["bfloat16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6098,12 +6786,15 @@ def main() -> int:
                      + spec["int8"]["launches"]
                      + disagg["int8"]["launches"]
                      + disagg["int8"]["mesh"]["launches_one"]
+                     + multi["launches"]["paged_decode_attention_quant"]
                      + moe_served["int8_launches"]),
         "launches_by_phase": {"4q": q_served["launches"],
                               "4g": graphed["int8"]["launches"],
                               "5s": spec["int8"]["launches"],
                               "5d": disagg["int8"]["launches"],
                               "5dt": disagg["int8"]["mesh"]["launches_one"],
+                              "5a": multi["launches"][
+                                  "paged_decode_attention_quant"],
                               "5m": moe_served["int8_launches"]},
         # the served pool's dtype (int8) in the top-level numbers; both
         # pool dtypes under by_kv_dtype. No PyTorch call reads a

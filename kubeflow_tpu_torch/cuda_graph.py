@@ -17,10 +17,15 @@ replaced: each replay checks that the tensors the owner names still have
 the addresses they had at capture, and raises otherwise. Nothing here
 falls back to eager execution; a capture or replay that fails raises.
 
-Kernel launch counts: a wrapper counts a launch each time it is called,
-and the capture calls each wrapper without launching anything. So the
-capture takes back what it counted and each replay adds it, which is the
-number of kernel launches the replay makes.
+Kernel launch counts: a wrapper counts a launch each time it launches
+its kernel (``count_launch``, given the stream it launched on). A
+capture calls each wrapper without launching anything, so a "launch"
+on the capturing stream adds to the capture's own record instead (from
+whichever thread enqueued it: autograd runs a backward on its own
+thread, on the forward's stream), and each replay adds that record,
+which is the number of kernel launches the replay makes. Launches on
+other streams count as launches: another engine may launch and replay
+on the same card meanwhile (a model loaded while another serves).
 """
 
 from __future__ import annotations
@@ -35,6 +40,21 @@ import torch
 # the first builds the kernels and sets cuBLAS (and autograd) up, the
 # second runs warm
 WARMUP_RUNS = 2
+
+# the launch record of each capture under way, by its stream's handle
+_records: dict = {}
+
+
+def count_launch(wrapper, stream: int) -> None:
+    """Count one launch of ``wrapper``'s kernel on ``stream`` (a CUDA
+    stream handle) in ``wrapper.launches``, or, when a graph is being
+    captured on that stream, in the capture's record (nothing launches
+    then: the replays do)."""
+    record = _records.get(stream)
+    if record is None:
+        wrapper.launches += 1
+    else:
+        record[wrapper.__name__] = record.get(wrapper.__name__, 0) + 1
 
 
 class PinnedStaging:
@@ -92,16 +112,19 @@ class CapturedGraph:
         self.what = what
         self._ptrs = _addresses(tensors())
         self.counters = tuple(counters)
-        before = [c.launches for c in self.counters]
         self.graph = torch.cuda.CUDAGraph()
+        record: dict = {}
         with torch.cuda.graph(self.graph, pool=pool,
                               capture_error_mode="thread_local"):
-            run()
+            stream = torch.cuda.current_stream(device).cuda_stream
+            _records[stream] = record
+            try:
+                run()
+            finally:
+                del _records[stream]
         torch.cuda.synchronize(device)
-        self.launches = {c.__name__: c.launches - n
-                         for c, n in zip(self.counters, before)}
-        for c, n in zip(self.counters, before):
-            c.launches = n              # recorded, not launched
+        self.launches = {c.__name__: record.get(c.__name__, 0)
+                         for c in self.counters}
         self.replays = 0
 
     def replay(self) -> None:

@@ -8,6 +8,10 @@ only (this module imports neither JAX nor ``kubeflow_tpu``).
   (quantized KV pools) carry over bit for bit.
 - ``config_from_jax``: a JAX ``LlamaConfig`` -> the port's, field by
   field, with ``dtype`` as a torch dtype.
+- ``resnet_from_jax`` / ``mnist_from_jax``: the JAX ResNet's (params,
+  batch stats) and the JAX MNIST CNN's params, as numpy trees -> the
+  port's trees: every 4-D leaf (a convolution, HWIO) transposed to the
+  port's OIHW, every other leaf as it is, stage lists kept as lists.
 """
 
 from __future__ import annotations
@@ -76,3 +80,29 @@ def config_from_jax(cfg) -> LlamaConfig:
             kw[f.name] = getattr(cfg, f.name)
     kw["dtype"] = torch_dtype(kw.get("dtype", torch.bfloat16))
     return LlamaConfig(**kw)
+
+
+def _conv_tree(tree, device):
+    def convert(node):
+        if isinstance(node, dict):
+            return {k: convert(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v) for v in node]
+        arr = np.asarray(node)
+        if arr.ndim == 4:                         # HWIO -> OIHW
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+        return _leaf(arr, device, None)
+
+    return convert(tree)
+
+
+def resnet_from_jax(params, stats, device: DeviceLike = None):
+    """The JAX ResNet's ``(params, batch_stats)`` -> the port's, on
+    ``device`` (CUDA unless ``"cpu"`` is asked for)."""
+    device = resolve_device(device)
+    return _conv_tree(params, device), _conv_tree(stats, device)
+
+
+def mnist_from_jax(params, device: DeviceLike = None):
+    """The JAX MNIST CNN's params -> the port's, on ``device``."""
+    return _conv_tree(params, resolve_device(device))

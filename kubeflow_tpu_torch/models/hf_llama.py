@@ -18,6 +18,12 @@ Mixtral's experts (``block_sparse_moe.experts.{e}.w1/w2/w3``) the rank
 reads its ``mlp`` slice of its own experts (by its ``expert`` index)
 and nothing of another rank's; the router is read whole. ``CheckpointParams`` is the same load as a
 parameter source each rank of a serving engine calls itself.
+
+``save_pretrained`` is the export path, the JAX package's
+``save_pretrained`` with the port's own safetensors writer
+(``safetensors_io.save_file``): ``config.json`` from ``config_to_hf``
+and ``model.safetensors`` in the HF layout, in the tree's dtype, written
+one tensor at a time from wherever the tree lives.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.models import llama
-from kubeflow_tpu_torch.models.safetensors_io import CheckpointIndex
+from kubeflow_tpu_torch.models.safetensors_io import CheckpointIndex, save_file
 
 
 def config_from_hf(d: dict[str, Any], **overrides) -> llama.LlamaConfig:
@@ -56,6 +62,38 @@ def config_from_hf(d: dict[str, Any], **overrides) -> llama.LlamaConfig:
         kw["moe_top_k"] = int(d.get("num_experts_per_tok", 2))
     kw.update(overrides)
     return llama.LlamaConfig(**kw)
+
+
+def config_to_hf(cfg: llama.LlamaConfig) -> dict[str, Any]:
+    """The port's LlamaConfig -> an HF config.json dict (the JAX
+    package's ``config_to_hf``, field for field)."""
+    d: dict[str, Any] = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.dim,
+        "num_hidden_layers": cfg.n_layers,
+        "num_attention_heads": cfg.n_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "intermediate_size": cfg.mlp_dim,
+        "max_position_embeddings": cfg.max_seq,
+        "rope_theta": cfg.rope_theta,
+        "rms_norm_eps": cfg.norm_eps,
+        "tie_word_embeddings": cfg.tie_embeddings,
+        "torch_dtype": "bfloat16",
+    }
+    if cfg.rope_scaling == "llama3":
+        d["rope_scaling"] = {
+            "rope_type": "llama3", "factor": 8.0,
+            "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+            "original_max_position_embeddings": cfg.max_seq,
+        }
+    if cfg.n_experts:
+        d["architectures"] = ["MixtralForCausalLM"]
+        d["model_type"] = "mixtral"
+        d["num_local_experts"] = cfg.n_experts
+        d["num_experts_per_tok"] = cfg.moe_top_k
+    return d
 
 
 def load_config(model_dir: str, **overrides) -> llama.LlamaConfig:
@@ -158,6 +196,41 @@ def load_params(model_dir: str, cfg: Optional[llama.LlamaConfig] = None, *,
         params["lm_head"] = get(name, rows_vocab).T.contiguous()
     idx.close()
     return cfg, params
+
+
+def save_pretrained(model_dir: str, cfg: llama.LlamaConfig, params) -> None:
+    """Write the stacked parameter dict back out in HF layout
+    (config.json + model.safetensors): Linear weights as ``[out, in]``,
+    the attention projections with their head dims joined."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(config_to_hf(cfg), f, indent=1)
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.dim
+    lp = params["layers"]
+    flat = {"model.embed_tokens.weight": params["embed"],
+            "model.norm.weight": params["final_norm"]}
+    if not cfg.tie_embeddings:
+        flat["lm_head.weight"] = params["lm_head"].T
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        flat[p + "input_layernorm.weight"] = lp["attn_norm"][i]
+        flat[p + "post_attention_layernorm.weight"] = lp["mlp_norm"][i]
+        flat[p + "self_attn.q_proj.weight"] = lp["wq"][i].reshape(d, h * hd).T
+        flat[p + "self_attn.k_proj.weight"] = lp["wk"][i].reshape(d, kv * hd).T
+        flat[p + "self_attn.v_proj.weight"] = lp["wv"][i].reshape(d, kv * hd).T
+        flat[p + "self_attn.o_proj.weight"] = lp["wo"][i].reshape(h * hd, d).T
+        if cfg.n_experts:
+            flat[p + "block_sparse_moe.gate.weight"] = lp["moe_router"][i].T
+            for e in range(cfg.n_experts):
+                ep = p + f"block_sparse_moe.experts.{e}."
+                flat[ep + "w1.weight"] = lp["w_gate"][i, e].T
+                flat[ep + "w3.weight"] = lp["w_up"][i, e].T
+                flat[ep + "w2.weight"] = lp["w_down"][i, e].T
+        else:
+            flat[p + "mlp.gate_proj.weight"] = lp["w_gate"][i].T
+            flat[p + "mlp.up_proj.weight"] = lp["w_up"][i].T
+            flat[p + "mlp.down_proj.weight"] = lp["w_down"][i].T
+    save_file(flat, os.path.join(model_dir, "model.safetensors"))
 
 
 @dataclasses.dataclass(frozen=True)

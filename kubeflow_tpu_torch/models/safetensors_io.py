@@ -9,6 +9,12 @@ tensor is copied out when asked for, so host memory holds one tensor at
 a time; asked for a slice (``index``), only the slice is copied, so a
 tensor-parallel rank reads its shard and never the whole tensor. The sharded form (``model.safetensors.index.json`` with a
 ``weight_map`` of name -> file) is read through ``CheckpointIndex``.
+
+``save_file`` is the writer: F32 / BF16 / F16 tensors from any device,
+copied to the host and written one at a time, so host memory holds one
+tensor's bytes at a time. The header is padded with spaces to a multiple
+of 8 bytes and the tensors lie back to back in the order given, as the
+``safetensors`` package lays a file out, so its reader takes the file.
 """
 
 from __future__ import annotations
@@ -27,6 +33,32 @@ _DTYPES = {
     "F16": (np.float16, torch.float16),
     "BF16": (np.int16, torch.bfloat16),
 }
+
+
+_TAGS = {t_dtype: tag for tag, (_, t_dtype) in _DTYPES.items()}
+
+
+def save_file(tensors: dict, path: str) -> None:
+    """Write ``{name: tensor}`` to ``path`` in the safetensors format."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        if t.dtype not in _TAGS:
+            raise ValueError(f"tensor {name!r} has dtype {t.dtype}; this "
+                             f"writer takes {sorted(map(str, _TAGS))}")
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _TAGS[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            host = t.detach().contiguous().cpu()
+            if host.dtype == torch.bfloat16:
+                host = host.view(torch.int16)
+            f.write(host.numpy().data)
 
 
 class SafetensorsFile:

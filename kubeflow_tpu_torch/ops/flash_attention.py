@@ -37,6 +37,8 @@ import math
 
 import torch
 
+from kubeflow_tpu_torch.cuda_graph import count_launch
+
 NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -281,11 +283,12 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
     q, k, v = _kernel_inputs("flash_attention_fwd", (q, k, v), q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = _stream(q)
     err = _library("flash_attention_fwd").kft_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, sq, skv, h, kvh, d, int(causal),
-        1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], _stream(q))
-    flash_attention_fwd.launches += 1
+        1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], stream)
+    count_launch(flash_attention_fwd, stream)
     _raise_on(err, "flash_attention_fwd")
     return o, lse
 
@@ -300,12 +303,12 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = True):
                                  q.dtype)
     lse, delta = _stats("flash_attention_dq", (lse, delta), (b, h, sq))
     dq = torch.empty_like(q)
+    stream = _stream(q)
     err = _library("flash_attention_dq").kft_flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq, skv, h, kvh,
-        d, int(causal), 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype],
-        _stream(q))
-    flash_attention_dq.launches += 1
+        d, int(causal), 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype], stream)
+    count_launch(flash_attention_dq, stream)
     _raise_on(err, "flash_attention_dq")
     return dq
 
@@ -321,12 +324,13 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True):
     lse, delta = _stats("flash_attention_dkv", (lse, delta), (b, h, sq))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    stream = _stream(q)
     err = _library("flash_attention_dkv").kft_flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
         sq, skv, h, kvh, d, int(causal), 1.0 / math.sqrt(d),
-        _DTYPE_CODE[q.dtype], _stream(q))
-    flash_attention_dkv.launches += 1
+        _DTYPE_CODE[q.dtype], stream)
+    count_launch(flash_attention_dkv, stream)
     _raise_on(err, "flash_attention_dkv")
     return dk, dv
 

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from kubeflow_tpu_torch.cuda_graph import count_launch
 from kubeflow_tpu_torch.ops.attention import decode_attention
 
 KERNEL = "paged_decode_attention"
@@ -214,13 +215,13 @@ def paged_decode_attention(q, k_pool, v_pool, tables, kv_len,
         return out
     plan, ws = _workspace(q, bs, tables.shape[1])
     lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.kft_paged_decode_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(),
         b, h, kvh, d, bs, tables.shape[1], *plan, 1.0 / math.sqrt(d),
-        _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    paged_decode_attention.launches += 1
+        _DTYPE_CODE[q.dtype], stream)
+    count_launch(paged_decode_attention, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -256,14 +257,14 @@ def paged_decode_attention_quant(q, k_pool, v_pool, tables, kv_len,
         return out
     plan, ws = _workspace(q, bs, tables.shape[1])
     lib = _library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.kft_paged_decode_attention_quant(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), tables.data_ptr(),
         kv_len.data_ptr(), out.data_ptr(), ws.data_ptr(), b, h, kvh, d, bs,
         tables.shape[1], *plan, 1.0 / math.sqrt(d), _DTYPE_CODE[q.dtype],
-        _KV_DTYPE_CODE[k_pool.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
-    paged_decode_attention_quant.launches += 1
+        _KV_DTYPE_CODE[k_pool.dtype], stream)
+    count_launch(paged_decode_attention_quant, stream)
     if err != 0:
         raise RuntimeError(f"paged_decode_attention_quant kernel launch "
                            f"failed: cudaError {err}")

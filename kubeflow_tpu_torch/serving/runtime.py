@@ -1,9 +1,12 @@
 """Predictor runtime entrypoint of the PyTorch port — env contract ->
 storage init -> server (counterpart of ``kubeflow_tpu.serving.runtime``).
 
-``python -m kubeflow_tpu_torch.serving.runtime`` builds the model the env
-describes and serves V1+V2 HTTP; ``--init-only`` runs the storage-
-initializer step and exits. The env contract is the JAX runtime's:
+``python -m kubeflow_tpu_torch.serving.runtime`` builds the models the env
+describes and serves V1+V2 HTTP (and the V2 socket when asked);
+``--init-only`` runs the storage-initializer step and exits. ``start(env)``
+does what the module does, in process, and returns what it started
+(``Runtime``, whose ``stop()`` ends it). The env contract is the JAX
+runtime's:
 
   KFT_MODEL_NAME    served name              (default "model")
   KFT_MODEL_FORMAT  "llama"                  (default "llama")
@@ -51,15 +54,35 @@ initializer step and exits. The env contract is the JAX runtime's:
                      "compiled", with its counters in stats()["depot"]
                      (a CUDA graph never leaves its process); where
                      nothing is captured it changes nothing
+  KFT_MODELS_CONFIG_DIR  multi-model serving (the KServe agent /
+                     TrainedModel role): a directory of JSON descriptors
+                     {"name", "storage_uri", "env"}, reconciled by a
+                     serving.agents.ModelPuller every
+                     KFT_MODELS_SYNC_PERIOD seconds (default 2.0): a new
+                     descriptor is downloaded under KFT_MODEL_DIR/<name>
+                     (default /mnt/models) and hot-loaded, a removed one
+                     unloaded. Each model is built by build_model_from_env
+                     from this env with KFT_MODEL_NAME and KFT_MODEL_DIR
+                     set to the descriptor's, KFT_STORAGE_URI emptied and
+                     the descriptor's "env" merged over it (so one model
+                     may quantize its KV pool and its neighbour not). The
+                     single model of KFT_STORAGE_URI is built beside them
+                     when that is set; without it the repository starts
+                     empty
+  KFT_V2_SOCKET_BIND host:port of the binary V2 data plane
+                     (serving.v2_socket, the gRPC port's role) on the same
+                     repository; unset serves HTTP only
 
-KFT_MODELS_CONFIG_DIR and KFT_V2_SOCKET_BIND belong to later slices of
-the port: when one is set the runtime raises, naming the slice, instead
-of ignoring it.
+KFT_MODEL_FORMAT takes the llama formats only, as the JAX runtime's
+build_model_from_env does; the function predictor (serving.torch_model.
+TorchModel, the JAX package's JAXModel) is built in code, in both
+packages.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import threading
 from typing import Mapping, Optional
@@ -69,31 +92,22 @@ import torch
 from kubeflow_tpu_torch.device import platform_device
 from kubeflow_tpu_torch.parallel.mesh import mesh_from_topology_env
 from kubeflow_tpu_torch.serving import storage
+from kubeflow_tpu_torch.serving.agents import ModelPuller
 from kubeflow_tpu_torch.serving.disagg import TIERS, TierRuntime
 from kubeflow_tpu_torch.serving.model import Model, ModelRepository
 from kubeflow_tpu_torch.serving.server import ModelServer
 from kubeflow_tpu_torch.serving.torch_model import LLMModel
-
-LATER_SLICES = {
-    "KFT_MODELS_CONFIG_DIR": "multi-model serving (model puller)",
-    "KFT_V2_SOCKET_BIND": "the binary V2 socket data plane",
-}
+from kubeflow_tpu_torch.serving.v2_socket import V2SocketServer
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 
-def check_env_slices(env: Mapping[str, str]) -> None:
-    """Raise for env knobs whose feature the port does not have yet, and
-    for a KFT_TIER that names no tier."""
-    for key, what in LATER_SLICES.items():
-        if env.get(key):
-            raise NotImplementedError(
-                f"{key} is set: {what} is a later slice of the PyTorch port")
+def check_tier(env: Mapping[str, str]) -> None:
+    """Raise for a KFT_TIER that names no tier."""
     tier = env.get("KFT_TIER", "")
-    if tier:
-        if tier not in TIERS:
-            raise ValueError(f"KFT_TIER={tier!r} (want prefill|decode)")
+    if tier and tier not in TIERS:
+        raise ValueError(f"KFT_TIER={tier!r} (want prefill|decode)")
 
 
 def init_storage(env: Mapping[str, str]) -> Optional[str]:
@@ -152,7 +166,7 @@ def build_model_from_env(env: Mapping[str, str]) -> Model:
     KFT_FORCE_PLATFORM=cpu asks for the CPU; KFT_MESH=tensor=N shards it
     over N ranks and KFT_MESH=expert=E,tensor=T over E x T (as the JAX
     runtime's mesh_from_topology_env)."""
-    check_env_slices(env)
+    check_tier(env)
     name = env.get("KFT_MODEL_NAME", "model")
     fmt = (env.get("KFT_MODEL_FORMAT") or "llama").lower()
     if fmt not in ("llama", "llm", "huggingface"):
@@ -190,6 +204,82 @@ def attach_tier(model, env: Mapping[str, str]):
                                         or "127.0.0.1:0")
 
 
+def _address(bind: str) -> tuple:
+    host, _, port = bind.rpartition(":")
+    return host or "127.0.0.1", int(port)
+
+
+def puller_factory(env: Mapping[str, str]):
+    """The ModelPuller's ``factory(descriptor, local_path)``: the model
+    build_model_from_env makes of ``env`` with the descriptor's name, its
+    local path, no KFT_STORAGE_URI (the puller downloaded it) and the
+    descriptor's "env" merged over it."""
+    def factory(desc: dict, local: str) -> Model:
+        sub = {**env, "KFT_MODEL_NAME": desc["name"],
+               "KFT_MODEL_DIR": local, "KFT_STORAGE_URI": "",
+               **{k: str(v) for k, v in desc.get("env", {}).items()}}
+        return build_model_from_env(sub)
+    return factory
+
+
+@dataclasses.dataclass
+class Runtime:
+    """What ``start`` started: the repository, the HTTP server, and where
+    set the model puller's watcher (its stop event) and the V2 socket
+    server."""
+    repository: ModelRepository
+    server: ModelServer
+    stop_watch: Optional[threading.Event] = None
+    v2: Optional[V2SocketServer] = None
+
+    def stop(self) -> None:
+        """Stop the watcher and both servers, then unload every model."""
+        if self.stop_watch is not None:
+            self.stop_watch.set()
+        if self.v2 is not None:
+            self.v2.stop()
+        self.server.stop()
+        for name in self.repository.names():
+            self.repository.unload(name)
+
+
+def start(env: Mapping[str, str]) -> Runtime:
+    """Build and start what the env describes (the JAX runtime's main):
+    the single model unless only KFT_MODELS_CONFIG_DIR is set, the model
+    puller over KFT_MODELS_CONFIG_DIR (one sync, then its watcher), the
+    HTTP server at KFT_BIND and the V2 socket at KFT_V2_SOCKET_BIND, all
+    on one repository. Prints the lines the JAX runtime prints."""
+    repo = ModelRepository()
+    if env.get("KFT_STORAGE_URI") or not env.get("KFT_MODELS_CONFIG_DIR"):
+        model = build_model_from_env(env)
+        repo.register(model)                   # load()s eagerly
+        kv_addr = attach_tier(model, env)
+        if kv_addr is not None:
+            print(f"disagg decode kv listener at {kv_addr[0]}:{kv_addr[1]}",
+                  flush=True)
+    stop_watch = None
+    watch_dir = env.get("KFT_MODELS_CONFIG_DIR")
+    if watch_dir:
+        puller = ModelPuller(repo, watch_dir, puller_factory(env),
+                             model_dir=env.get("KFT_MODEL_DIR",
+                                               "/mnt/models"))
+        puller.sync()
+        stop_watch = threading.Event()
+        puller.watch(period=float(env.get("KFT_MODELS_SYNC_PERIOD", "2.0")),
+                     stop=stop_watch)
+        print(f"model-puller watching {watch_dir}", flush=True)
+    server = ModelServer(repo, *_address(env.get("KFT_BIND",
+                                                 "127.0.0.1:8080")))
+    server.start()
+    print(f"serving {repo.names()} at {server.url}", flush=True)
+    v2 = None
+    if env.get("KFT_V2_SOCKET_BIND"):
+        v2 = V2SocketServer(repo, *_address(env["KFT_V2_SOCKET_BIND"]))
+        v2.start()
+        print(f"v2-socket at {v2.address[0]}:{v2.address[1]}", flush=True)
+    return Runtime(repo, server, stop_watch, v2)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="kubeflow_tpu_torch.serving.runtime")
     ap.add_argument("--init-only", action="store_true",
@@ -200,18 +290,7 @@ def main(argv=None) -> int:
         path = init_storage(env)
         print(f"storage-initializer: materialized {path}", flush=True)
         return 0
-    repo = ModelRepository()
-    model = build_model_from_env(env)
-    repo.register(model)                       # load()s eagerly
-    kv_addr = attach_tier(model, env)
-    if kv_addr is not None:
-        print(f"disagg decode kv listener at {kv_addr[0]}:{kv_addr[1]}",
-              flush=True)
-    bind = env.get("KFT_BIND", "127.0.0.1:8080")
-    host, _, port = bind.rpartition(":")
-    server = ModelServer(repo, host=host or "127.0.0.1", port=int(port))
-    server.start()
-    print(f"serving {repo.names()} at {server.url}", flush=True)
+    start(env)
     threading.Event().wait()           # serve until killed
     return 0
 

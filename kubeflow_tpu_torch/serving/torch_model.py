@@ -1,6 +1,21 @@
-"""PyTorch predictor runtime: the generate endpoint over the
-continuous-batching engine (counterpart of ``LLMModel`` in
-``kubeflow_tpu.serving.jax_model``).
+"""PyTorch predictor runtimes (counterparts of ``kubeflow_tpu.serving.
+jax_model``): ``TorchModel``, any ``fn(params, batch)`` with padded batch
+buckets, and ``LLMModel``, the generate endpoint over the
+continuous-batching engine.
+
+``TorchModel`` serves ``fn(params, x) -> y`` with batch-size bucketing
+as ``JAXModel`` does: a request is cut into chunks of the largest
+bucket, each chunk zero-padded up to the next bucket, and the pad sliced
+off. Where ``jax.jit`` compiles one program per bucket, ``load()``
+captures one: on a card, with ``warmup`` set and ``example_shape`` given,
+each bucket's ``fn(params, static_in) -> static_out`` becomes a CUDA
+graph (``cuda_graph.capture``, one memory pool), and ``predict`` copies
+the padded chunk into that bucket's static input and replays it. The
+replays share their static buffers, so ``predict`` holds a lock. A
+capture that fails fails the load; nothing falls back to the eager
+call. Without ``example_shape``, or on the CPU, ``fn`` runs eagerly on
+the chunk. ``compile_cache_dir`` is accepted and unused, as
+``KFT_COMPILE_CACHE`` is: a CUDA graph lives in its process.
 
 ``LLMModel`` drives one ``LLMEngine`` from a background stepping thread,
 so concurrent HTTP requests share one decode batch. It runs on ``device``
@@ -34,16 +49,125 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from kubeflow_tpu_torch.device import DeviceLike
+from kubeflow_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.parallel.depot import DepotStats, depot_from_env
 from kubeflow_tpu_torch.serving.llm import LLMEngine, SamplingParams
 from kubeflow_tpu_torch.serving.model import Model
 from kubeflow_tpu_torch.serving.protocol import InferRequest, InferResponse
+
+
+def _next_bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+class TorchModel(Model):
+    """Serves ``fn(params, inputs) -> outputs`` on ``device`` (CUDA unless
+    ``"cpu"`` is asked for) with batch-size bucketing (module
+    docstring): requests are padded up to the nearest bucket, so the
+    card replays a handful of captured shapes, never one per request
+    size."""
+
+    def __init__(self, name: str, fn: Callable, params=None, *,
+                 batch_buckets: Sequence[int] = (1, 4, 16, 64),
+                 compile_cache_dir: Optional[str] = None,
+                 warmup: bool = True,
+                 example_shape: Optional[Sequence[int]] = None,
+                 device: DeviceLike = None):
+        super().__init__(name)
+        self.fn = fn
+        self.params = params
+        self.buckets = sorted(batch_buckets)
+        self.compile_cache_dir = compile_cache_dir
+        self.warmup = warmup
+        self.example_shape = tuple(example_shape) if example_shape else None
+        self.device = device
+        self._device: Optional[torch.device] = None
+        # bucket -> (static input, graph); outputs by bucket
+        self._graphs: dict = {}
+        self._out: dict = {}
+        self.capture_seconds: Optional[float] = None
+        self.pool_bytes: Optional[int] = None
+        self._lock = threading.Lock()
+
+    def load(self) -> bool:
+        from kubeflow_tpu_torch.cuda_graph import capture
+
+        self._device = resolve_device(self.device)
+        if (self.warmup and self.example_shape is not None
+                and self._device.type == "cuda"):
+            statics = {b: torch.zeros((b, *self.example_shape),
+                                      dtype=torch.float32,
+                                      device=self._device)
+                       for b in self.buckets}
+
+            def part(b):
+                def run():
+                    self._out[b] = self.fn(self.params, statics[b])
+                return run
+
+            # the outputs are those the captures allocate (in the graphs'
+            # pool), which every replay rewrites
+            with torch.no_grad():
+                cap = capture([part(b) for b in self.buckets],
+                              lambda: {f"in{b}": statics[b]
+                                       for b in self.buckets},
+                              (), self._device,
+                              f"{self.name} bucket inputs")
+            self._graphs = {b: (statics[b], g)
+                            for b, g in zip(self.buckets, cap.graphs)}
+            self.capture_seconds = cap.capture_seconds
+            self.pool_bytes = cap.pool_bytes
+        self.ready = True
+        return True
+
+    def unload(self) -> None:
+        with self._lock:
+            self._graphs, self._out = {}, {}
+        self.ready = False
+
+    def _run(self, part: np.ndarray) -> np.ndarray:
+        """``fn`` on one padded chunk: its bucket's replay, or eagerly."""
+        b = part.shape[0]
+        if b in self._graphs:
+            static, graph = self._graphs[b]
+            static.copy_(torch.from_numpy(part))
+            graph.replay()
+            y = self._out[b]
+        else:
+            with torch.no_grad():
+                y = self.fn(self.params, torch.as_tensor(part,
+                                                         device=self._device))
+        if y.dtype == torch.bfloat16:            # numpy has no bfloat16
+            y = y.float()
+        return y.cpu().numpy()
+
+    def predict(self, request: InferRequest) -> InferResponse:
+        x = request.as_numpy()
+        n = x.shape[0]
+        # batches beyond the largest bucket run in largest-bucket chunks,
+        # so the set of captured shapes stays bounded whatever the size
+        top = self.buckets[-1]
+        chunks = []
+        with self._lock:
+            for start in range(0, n, top):
+                part = x[start:start + top]
+                m = part.shape[0]
+                bucket = _next_bucket(m, self.buckets)
+                if bucket > m:
+                    pad = np.zeros((bucket - m, *part.shape[1:]), part.dtype)
+                    part = np.concatenate([part, pad], axis=0)
+                chunks.append(self._run(part)[:m])
+        out = np.concatenate(chunks, axis=0)
+        return InferResponse.from_numpy(self.name, {"output-0": out},
+                                        id=request.id)
 
 
 class _StopMatcher:

@@ -2,7 +2,7 @@
 engine's: llama3_8b at its published widths (random weights from a
 seeded generator) on the card, at tensor=4 as ``chip_smoke.py`` runs it.
 
-    python -m kubeflow_tpu_torch.tools.tp_quality [--quant int8]
+    python -m kubeflow_tpu_torch.tools.tp_quality [--quant int8] [--layers 32]
 
 A one-card bf16 engine free-runs greedy on seeded prompts of 16 tokens
 and 32 generated; a one-card engine and a tensor-parallel engine over 4
@@ -12,9 +12,10 @@ then run those streams teacher-forced through their decode paths
 (``LLMEngine.teacher_forced_logits``). Prints the greedy-token
 agreement, the max and the rms logit error over the generated positions,
 then one JSON line with them and the card's name and power limit. With
-the defaults it is ``chip_smoke.py``'s phase 4tp check, so a copy of the
-tree with a fault planted in the sharded path reads what the smoke's
-limit would see.
+the defaults (llama3_8b cut to 16 of its 32 layers, drawn from the seed
+at that depth) it is ``chip_smoke.py``'s phase 4tp check, so a copy of
+the tree with a fault planted in the sharded path reads what the
+smoke's limit would see.
 
 ``reference_streams`` and ``logit_errors`` are the check's method;
 ``chip_smoke.py`` runs them too.
@@ -23,6 +24,7 @@ limit would see.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 
@@ -86,8 +88,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quant", choices=("none", "int8"), default="none",
                     help="int8: int8 KV + int8 weights on both engines")
+    ap.add_argument("--layers", type=int, default=16,
+                    help="llama3_8b's depth (32: uncut; the default is "
+                         "chip_smoke.py's phase 4tp)")
     args = ap.parse_args(argv)
-    cfg = llama.llama3_8b()
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=args.layers)
     quant = (QuantConfig(kv_dtype="int8", weight_dtype="int8")
              if args.quant == "int8" else None)
     source = llama.SeededParams(SEED, torch.bfloat16)
@@ -116,7 +121,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "tp": TP,
+    print(json.dumps({"card": card, "tp": TP, "layers": cfg.n_layers,
                       "backend": mesh.backend, "quant": args.quant,
                       **res}), flush=True)
     return 0

@@ -3,7 +3,9 @@
 streams, checkpoints with step-exact resume, and the ``fit`` loop."""
 
 from kubeflow_tpu_torch.training.checkpoint import CheckpointManager
-from kubeflow_tpu_torch.training.data import synthetic_lm_batches, to_device
+from kubeflow_tpu_torch.training.data import (
+    mnist_synthetic, synthetic_lm_batches, to_device,
+)
 from kubeflow_tpu_torch.training.dataset import (
     TokenDataset, write_token_shards,
 )

@@ -1,5 +1,6 @@
 """Data feeding (counterpart of ``kubeflow_tpu.training.data``): the
-synthetic LM token stream, the host -> device placement of a batch
+synthetic LM token stream and MNIST batches, the host -> device
+placement of a batch
 (``to_device``), and the training step's static batch (``BatchBuffers``).
 
 ``synthetic_lm_batches`` draws each step's tokens from the same numpy
@@ -53,6 +54,17 @@ def synthetic_lm_batches(vocab_size: int, global_batch: int, seq_len: int,
         yield {"tokens": rng.integers(0, vocab_size, (local, seq_len + 1),
                                       dtype=np.int32)}
         step += 1
+
+
+def mnist_synthetic(batch: int, seed: int = 0) -> Iterator[dict]:
+    """Synthetic MNIST-shaped batches, the JAX package's draws:
+    {"image": [B, 28, 28, 1] float32, "label": [B] int32} numpy arrays."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield {
+            "image": rng.normal(size=(batch, 28, 28, 1)).astype(np.float32),
+            "label": rng.integers(0, 10, (batch,), dtype=np.int32),
+        }
 
 
 def to_device(batch: dict, device: DeviceLike = None) -> dict:

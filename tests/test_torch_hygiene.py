@@ -155,9 +155,9 @@ def _constructors():
     import numpy as np
 
     from kubeflow_tpu_torch import interop, training
-    from kubeflow_tpu_torch.models import hf_llama, llama
+    from kubeflow_tpu_torch.models import hf_llama, llama, mnist, resnet
     from kubeflow_tpu_torch.parallel import TensorMesh, mesh_from_topology_env
-    from kubeflow_tpu_torch.serving import paged_kv
+    from kubeflow_tpu_torch.serving import TorchModel, paged_kv
     from kubeflow_tpu_torch.serving.llm import LLMEngine
 
     cfg = llama.llama_tiny(dtype=torch.float32)
@@ -191,6 +191,18 @@ def _constructors():
         "LLMEngine(mesh=)": lambda tmp: LLMEngine(
             llama.SeededParams(0), cfg, max_seq=16, prefill_buckets=(8,),
             mesh=TensorMesh(2, ["cuda:0", "cuda:1"])),
+        # the function predictor and its models
+        "resnet.init_params": lambda tmp: resnet.init_params(
+            torch.Generator().manual_seed(0), resnet.resnet_tiny()),
+        "mnist.init_params": lambda tmp: mnist.init_params(
+            torch.Generator().manual_seed(0)),
+        "TorchModel.load": lambda tmp: TorchModel(
+            "m", lambda p, x: x, example_shape=(2,)).load(),
+        "resnet_from_jax": lambda tmp: interop.resnet_from_jax(
+            {"stem": {"conv": np.zeros((7, 7, 3, 8), np.float32)}},
+            {"stem": {"mean": np.zeros((8,), np.float32)}}),
+        "mnist_from_jax": lambda tmp: interop.mnist_from_jax(
+            {"conv1": np.zeros((3, 3, 1, 32), np.float32)}),
     }
 
 

@@ -469,9 +469,46 @@ def test_runtime_raises_for_later_slices(tmp_path, key):
     KFT_DEPOT no longer raises: the depot is a fast path that never
     fails a load (the reference's rule), and on the CPU, where nothing
     is captured, it changes nothing: the runtime loads and serves, the
-    depot is never touched and the outcome stays "none"."""
+    depot is never touched and the outcome stays "none".
+    KFT_MODELS_CONFIG_DIR no longer raises: the runtime started with it
+    alone (``runtime.start``) serves the models its descriptors name,
+    each with its descriptor's env (tests/test_torch_agents.py,
+    tests/test_torch_runtime_multi.py), beside the V2 socket."""
     from kubeflow_tpu_torch.serving.runtime import build_model_from_env
 
+    if key == "KFT_MODELS_CONFIG_DIR":
+        from kubeflow_tpu_torch.serving import (
+            InferenceClient, InferRequest, InferTensor, V2SocketClient,
+        )
+        from kubeflow_tpu_torch.serving.runtime import start
+
+        cfg_dir = tmp_path / "models-config"
+        cfg_dir.mkdir()
+        (cfg_dir / "tiny.json").write_text(json.dumps(
+            {"name": "tiny", "storage_uri": f"file://"
+             f"{_fixture_checkpoint(tmp_path)}",
+             "env": {"KFT_MAX_SEQ": "64"}}))
+        rt = start({"KFT_FORCE_PLATFORM": "cpu", "KFT_DTYPE": "float32",
+                    "KFT_MODEL_DIR": str(tmp_path / "models"),
+                    key: str(cfg_dir), "KFT_BIND": "127.0.0.1:0",
+                    "KFT_V2_SOCKET_BIND": "127.0.0.1:0"})
+        sock = V2SocketClient(rt.v2.address)
+        try:
+            assert rt.repository.names() == ["tiny"]
+            assert rt.repository.get("tiny").max_seq == 64
+            req = InferRequest(
+                "tiny", [InferTensor("text", [1], "BYTES", ["hello"])],
+                parameters={"max_tokens": 3})
+            outs = [InferenceClient(rt.server.url).infer(req),
+                    sock.infer(req)]
+            assert [int(o.as_numpy("lengths")[0]) for o in outs] == [3, 3]
+            assert outs[0].as_numpy("text").tolist() == \
+                outs[1].as_numpy("text").tolist()
+        finally:
+            sock.close()
+            rt.stop()
+        assert rt.repository.names() == []
+        return
     if key == "KFT_DEPOT":
         from kubeflow_tpu_torch.serving import InferRequest, InferTensor
 
@@ -494,7 +531,7 @@ def test_runtime_raises_for_later_slices(tmp_path, key):
         assert not depot.exists()
         return
     env = {"KFT_MODEL_DIR": str(tmp_path), "KFT_FORCE_PLATFORM": "cpu",
-           key: "data=2,tensor=2" if key == "KFT_MESH" else "x"}
+           key: "data=2,tensor=2"}
     if key == "KFT_TIER":
         env.update(KFT_TIER="decode", KFT_MESH="context=2,tensor=2")
     with pytest.raises(NotImplementedError,
