@@ -625,10 +625,43 @@ Phases (any failure exits nonzero; no phase catches its own failure):
              beside the traced last step's idle share, and peak memory
              against the one process.
 
+10. the HPO trial pod, DARTS and the MPMD pipeline runtime (no kernel
+             of the port runs here: the trial step is elementwise, DARTS
+             and the MPMD harness small products, as in the JAX package).
+             (t) ``python -m kubeflow_tpu_torch.hpo.trial_worker`` as
+             three subprocesses under a depot (KFT_DEPOT): (lr, wd) =
+             (0.1, 0) and (0.01, 0.001) at width 8192, depth 64, and
+             (0.1, 0) at width 4096, TRIAL_STEPS steps each: every
+             metrics line against (1 - lr - wd)^(2k) within TRIAL_RTOL,
+             one capture a process (the depot's one compile and one
+             serialize failure), outcome "compiled", every phase stamp
+             and both spans; logs proc_start -> first_step_done a trial.
+             Then one TrialStep captured in this process replays two
+             trials' scalars bitwise as its eager run, and the replayed
+             step is timed (CUDA events). (d) tests/test_nas.py's two
+             DARTS contracts on the card from JAX's initial draws
+             (tests/golden/darts_jax_weights0.json): the square target
+             selects ["square"] with val < 0.5, the linear one reaches
+             val < 0.06; each selects the CPU's ops on the same weights,
+             its val within DARTS_VAL_ATOL of the CPU's. (m) the MPMD
+             runtime's run_inproc on CUDA tensors (a stage a thread, a
+             CUDA stream each) at MPMD_RUN: GPipe and 1F1B at
+             n_stages=4, interleaved 1F1B at n_stages=2 x V=2, the three
+             loss trajectories bitwise equal and within MPMD_RTOL of the
+             port's run_oracle (pipeline_apply over four gloo processes
+             on this card); logs the bubble, overlap and stash beside
+             the analytic bound and gates the stash. (c) two stage
+             processes (multiprocessing, spawn) over TCPStageChannel on
+             loopback at n_stages=2: GPipe with blocking sends, then
+             1F1B with async ones, both bitwise equal to a run_inproc
+             GPipe run over the same two-stage partition; the blocking
+             run's DCN overlap below the async run's; logs the bubble
+             beside the analytic bound.
+
 Phase order: 1, 2, 3, 3q, 3t, 3s, 4, 4q, 4qq, 4g, 4tp, 5s, 5d, 5a, 5f,
 5m, 5n, 5x, 5, 6, 7, 7m, 8, 9 (a, b, c, d), then one world of two ranks for
 9t, 9m, 9r, 9rm and 9p, whose readings follow in that order with 9x
-after 9m, then 9r4 and 9rx4.
+after 9m, then 9r4 and 9rx4, then 10 (10t's pods run beside 10d).
 
 Prints the kernel JSON line (the fused-dequant kernel's entry carries
 its numbers per pool dtype under "by_kv_dtype"; every row its launches
@@ -1123,6 +1156,25 @@ FN_REPS = 20
 RESNET_STATS_STEPS = 16
 RESNET_RMS_MAX = 0.062
 FN_CONCURRENT = 32
+# phase 10t: the trial pods' (lr, wd, width, depth), their steps, and the
+# limit of each metrics line against (1 - lr - wd)^(2k): float32 steps
+# (one rounding a product and a difference each) and a tree sum of up to
+# 524,288 equal squares
+TRIALS = [(0.1, 0.0, 8192, 64), (0.01, 0.001, 8192, 64),
+          (0.1, 0.0, 4096, 64)]
+TRIAL_STEPS = 8
+TRIAL_RTOL = 1e-5
+TRIAL_REPLAYS = 200
+# phase 10d: the card's val against the CPU's on the same initial weights
+DARTS_VAL_ATOL = 1e-3
+DARTS_GOLDEN = Path(__file__).resolve().parent / "tests" / "golden" / \
+    "darts_jax_weights0.json"
+# phase 10m / 10c: the MPMD harness at real work per tick (a chunk holds
+# 4 x 4096^2 f32 weights, 268 MB), and its oracle's limits (relative;
+# the oracle runs the same products through pipeline_apply)
+MPMD_RUN = dict(dim=4096, global_batch=1024, microbatches=8,
+                layers_per_stage=4, steps=4)
+MPMD_STEP0_RTOL, MPMD_RTOL = 1e-6, 1e-5
 
 
 def log(msg: str) -> None:
@@ -6657,6 +6709,330 @@ def fn_phase(torch) -> dict:
     return out
 
 
+def trial_env(tmp: Path, i: int, trial: tuple) -> dict:
+    """A trial pod's env (the swarm's contract) on the card, its metrics,
+    phases and depot under ``tmp``."""
+    import os
+
+    lr, wd, width, depth = trial
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFT_")}
+    env.update({
+        "PYTHONPATH": str(Path(__file__).resolve().parent) + os.pathsep
+        + env.get("PYTHONPATH", ""),
+        "KFT_TRIAL_LR": str(lr), "KFT_TRIAL_WD": str(wd),
+        "KFT_TRIAL_WIDTH": str(width), "KFT_TRIAL_DEPTH": str(depth),
+        "KFT_TRAIN_STEPS": str(TRIAL_STEPS), "KFT_DEPOT": str(tmp / "depot"),
+        "KFT_METRICS_PATH": str(tmp / f"trial{i}.jsonl"),
+        "KFT_PHASES_PATH": str(tmp / f"trial{i}.phases")})
+    return env
+
+
+def trial_pods_start(tmp: Path) -> list:
+    """Phase 10t's three trial pods, started together."""
+    return [subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.hpo.trial_worker"],
+        env=trial_env(tmp, i, trial), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for i, trial in enumerate(TRIALS)]
+
+
+def trial_pods_check(tmp: Path, procs: list) -> dict:
+    """Phase 10t's checks on the pods' files (module docstring)."""
+    out = {}
+    try:
+        for i, (p, trial) in enumerate(zip(procs, TRIALS)):
+            stdout, stderr = p.communicate(timeout=POD_TIMEOUT_S)
+            if p.returncode != 0:
+                raise RuntimeError(f"10t trial {trial}: rc {p.returncode}\n"
+                                   f"{stderr[-3000:]}")
+            lr, wd, width, depth = trial
+            recs = [json.loads(ln) for ln in
+                    (tmp / f"trial{i}.jsonl").read_text().splitlines()]
+            assert [r["step"] for r in recs] == list(range(TRIAL_STEPS))
+            errs = [abs(r["loss"] / (1 - lr - wd) ** (2 * r["step"]) - 1)
+                    for r in recs]
+            assert max(errs) <= TRIAL_RTOL, (trial, errs)
+            ph = json.loads((tmp / f"trial{i}.phases.0").read_text())
+            depot = json.loads((tmp / f"trial{i}.phases.depot.0")
+                               .read_text())
+            spans = json.loads((tmp / f"trial{i}.phases.spans.0")
+                               .read_text())
+            assert {"proc_start", "imports_done", "state_init_done",
+                    "compile_done", "first_step_done", "depot_hit",
+                    "depot_outcome"} <= set(ph), ph
+            assert ph["depot_outcome"] == "compiled", ph
+            # one capture a process: the depot counts each capture once
+            assert depot == {"compiles": 1, "serialize_failures": 1}, depot
+            assert [s["name"] for s in spans] == ["trial.load", "trial.step"]
+            assert spans[0]["attrs"] == {"depot_outcome": "compiled",
+                                         "width": width, "depth": depth}
+            assert f"depot=compiled" in stdout, stdout
+            out[f"{lr},{wd},{width}x{depth}"] = {
+                "first_step_s": ph["first_step_done"] - ph["proc_start"],
+                "imports_s": ph["imports_done"] - ph["proc_start"],
+                "capture_s": ph["compile_done"] - ph["state_init_done"],
+                "max_rel_err": max(errs)}
+            log(f"10t trial lr={lr} wd={wd} width={width} depth={depth}: "
+                f"proc_start -> first_step_done "
+                f"{out[f'{lr},{wd},{width}x{depth}']['first_step_s']!r} s "
+                f"(imports {out[f'{lr},{wd},{width}x{depth}']['imports_s']!r}"
+                f" s, capture "
+                f"{out[f'{lr},{wd},{width}x{depth}']['capture_s']!r} s), "
+                f"max rel err vs (1-lr-wd)^2k {max(errs)!r}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def trial_replay(torch) -> dict:
+    """Phase 10t in this process: one TrialStep at width 8192, depth 64,
+    captured once; two trials' scalars written into it and replayed,
+    each bitwise its eager run (a TrialStep never captured); the
+    replayed step timed by CUDA events."""
+    from kubeflow_tpu_torch.hpo.trial_worker import TrialStep
+
+    dev = torch.device("cuda", 0)
+    lr0, wd0, width, depth = TRIALS[0]
+    step = TrialStep(width, depth, dev)
+    step.set_scalars(lr0, wd0)
+    step.capture()
+    for lr, wd, *_ in TRIALS[:2]:
+        eager = TrialStep(width, depth, dev)
+        eager.set_scalars(lr, wd)
+        step.w.fill_(1.0)
+        step.set_scalars(lr, wd)
+        got = [step.step() for _ in range(TRIAL_STEPS)]
+        want = [eager.step() for _ in range(TRIAL_STEPS)]
+        assert got == want, (lr, wd, got, want)
+    assert step.captures == 1 and step.graph.replays == 2 * TRIAL_STEPS
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(TRIAL_REPLAYS):
+        step.graph.replay()
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / TRIAL_REPLAYS
+    # w read twice (the loss, the update) and written once, f32
+    bound_ms = 3 * width * depth * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"10t replayed trial step ({width} x {depth} f32): {ms!r} ms "
+        f"(bytes bound {bound_ms!r} ms); one capture, two trials' scalars "
+        f"replayed bitwise as eager; {nvidia_smi_line()}")
+    return {"ms": ms, "bound_ms": bound_ms}
+
+
+def darts_contract(name: str):
+    """tests/test_nas.py's data of one contract and its search's n_nodes
+    and seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(0 if name == "square" else 1)
+    x = rng.normal(size=(256, 4)).astype(np.float32)
+    w = rng.normal(size=(4, 2)).astype(np.float32)
+    y = (((x @ w) ** 2) if name == "square" else (x @ w)).astype(np.float32)
+    n_nodes, seed = (1, 0) if name == "square" else (2, 1)
+    return (x[:192], y[:192], x[192:], y[192:]), n_nodes, seed
+
+
+def darts_phase(torch) -> dict:
+    """Phase 10d (module docstring)."""
+    from kubeflow_tpu_torch.hpo.nas import darts_search
+
+    golden = json.loads(DARTS_GOLDEN.read_text())
+    out = {}
+    for name in ("square", "linear"):
+        data, n_nodes, seed = darts_contract(name)
+        kw = dict(ops=("identity", "relu", "tanh", "square"),
+                  n_nodes=n_nodes, steps=800, seed=seed,
+                  weights0=golden[name])
+        t0 = time.perf_counter()
+        sel, val = darts_search(*data, device="cuda", **kw)
+        card_s = time.perf_counter() - t0
+        cpu_sel, cpu_val = darts_search(*data, device="cpu", **kw)
+        if name == "square":
+            assert sel == ["square"] and val < 0.5, (sel, val)
+        else:
+            assert val < 0.06, (sel, val)
+        assert sel == cpu_sel and abs(val - cpu_val) <= DARTS_VAL_ATOL, (
+            sel, val, cpu_sel, cpu_val)
+        out[name] = {"selected": sel, "val": val, "cpu_val": cpu_val,
+                     "card_s": card_s}
+        log(f"10d DARTS {name}: selected {sel} val {val!r} (CPU {cpu_sel} "
+            f"{cpu_val!r}), 800 + 800 steps on the card in {card_s!r} s")
+    return out
+
+
+def mpmd_report(tag: str, agg: dict) -> None:
+    bound = (agg["analytic_interleaved_bound"]
+             if agg["virtual_stages"] > 1 else
+             agg["analytic_fill_drain_bound"])
+    log(f"{tag} {agg['schedule']} S={agg['n_stages']} "
+        f"V={agg['virtual_stages']} M={agg['microbatches']}: bubble "
+        f"{agg['bubble_fraction']!r} (per step "
+        f"{agg['bubble_fraction_per_step']}) against the analytic "
+        f"{bound!r}; dcn overlap {agg['dcn_overlap_fraction']!r} (wire "
+        f"{agg['dcn_wire_s']!r} s, blocked {agg['dcn_send_block_s']!r} s); "
+        f"stash max {agg['max_activation_stash']} per stage "
+        f"{agg['stash_per_stage']} (bound "
+        f"{agg['stash_bound_per_stage']}); mean tick "
+        f"{agg['mean_tick_s']!r} s, busy a stage {agg['per_stage_busy_s']}")
+
+
+def mpmd_losses_close(losses: list, want: list) -> float:
+    """The largest relative difference; raises past MPMD_STEP0_RTOL at
+    step 0 or MPMD_RTOL at any step."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+    assert len(losses) == len(want) and rel[0] <= MPMD_STEP0_RTOL and \
+        max(rel) <= MPMD_RTOL, (losses, want)
+    return max(rel)
+
+
+def mpmd_phase(torch) -> dict:
+    """Phase 10m (module docstring)."""
+    from kubeflow_tpu_torch.parallel import mpmd
+
+    log(f"10m: {nvidia_smi_line()}")
+    runs = {"gpipe": mpmd.PipelineRunConfig(schedule="gpipe", n_stages=4,
+                                            **MPMD_RUN),
+            "1f1b": mpmd.PipelineRunConfig(schedule="1f1b", n_stages=4,
+                                           **MPMD_RUN),
+            "interleaved-1f1b": mpmd.PipelineRunConfig(
+                schedule="interleaved-1f1b", n_stages=2, virtual_stages=2,
+                **MPMD_RUN)}
+    out = {}
+    for name, cfg in runs.items():
+        t0 = time.perf_counter()
+        results, losses = mpmd.run_inproc(cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        agg = mpmd.aggregate_stats(results, cfg)
+        mpmd_report("10m", agg)
+        S, M, V = cfg.n_stages, cfg.microbatches, cfg.virtual_stages
+        bounds = ([mpmd.interleaved_stash_bound(S, s, M, V)
+                   for s in range(S)] if V > 1 else
+                  [M] * S if name == "gpipe" else [S] * S)
+        assert all(a <= b for a, b in zip(agg["stash_per_stage"], bounds)), (
+            name, agg["stash_per_stage"], bounds)
+        out[name] = {"losses": losses, "wall_s": wall, "agg": agg}
+        log(f"10m {name}: losses {losses} ({wall!r} s for {cfg.steps} "
+            f"steps with set-up)")
+    first = out["gpipe"]["losses"]
+    assert all(out[k]["losses"] == first for k in out), {
+        k: v["losses"] for k, v in out.items()}
+    t0 = time.perf_counter()
+    oracle = mpmd.run_oracle(runs["gpipe"], device="cuda")
+    oracle_s = time.perf_counter() - t0
+    rel = mpmd_losses_close(first, oracle)
+    out["oracle"] = {"losses": oracle, "max_rel": rel, "wall_s": oracle_s}
+    log(f"10m: GPipe, 1F1B and interleaved 1F1B bitwise equal; oracle "
+        f"(pipeline_apply, 4 gloo processes on one card, {oracle_s!r} s) "
+        f"{oracle}, largest relative difference {rel!r}")
+    return out
+
+
+def mpmd_tcp_stage(stage: int, ports: list, out_path: str) -> None:
+    """Phase 10c's stage process (spawned): GPipe over blocking sends,
+    then 1F1B over async ones, each on its own loopback ports; the
+    stage's results as JSON in ``out_path``."""
+    import dataclasses
+
+    import torch
+
+    from kubeflow_tpu_torch.parallel import mpmd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    results = []
+    for (schedule, blocking), (p0, p1) in zip(
+            (("gpipe", True), ("1f1b", False)), ports):
+        cfg = mpmd.PipelineRunConfig(schedule=schedule, n_stages=2,
+                                     **MPMD_RUN)
+        mine, peer = (p0, p1) if stage == 0 else (p1, p0)
+        chan = mpmd.TCPStageChannel(
+            f"127.0.0.1:{mine}", stage=stage, blocking=blocking,
+            prev=f"127.0.0.1:{peer}" if stage == 1 else None,
+            next=f"127.0.0.1:{peer}" if stage == 0 else None)
+        try:
+            res = mpmd.run_stage(cfg, stage, chan, device="cuda")
+        finally:
+            chan.close()
+        results.append(dataclasses.asdict(res))
+    Path(out_path).write_text(json.dumps(results))
+
+
+def mpmd_tcp_phase(torch) -> dict:
+    """Phase 10c (module docstring)."""
+    import multiprocessing
+    import tempfile
+
+    from kubeflow_tpu_torch.parallel import mpmd
+
+    log(f"10c: {nvidia_smi_line()}")
+    flat = free_ports(4)
+    ports = [(flat[0], flat[1]), (flat[2], flat[3])]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"stage{s}.json") for s in range(2)]
+        procs = [ctx.Process(target=mpmd_tcp_stage, args=(s, ports, outs[s]))
+                 for s in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=POD_TIMEOUT_S)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        codes = [p.exitcode for p in procs]
+        assert codes == [0, 0], f"10c stage processes exited {codes}"
+        stages = [json.loads(Path(o).read_text()) for o in outs]
+    ref_cfg = mpmd.PipelineRunConfig(schedule="gpipe", n_stages=2,
+                                     **MPMD_RUN)
+    _, ref = mpmd.run_inproc(ref_cfg, device="cuda")
+    out = {"wall_s": wall, "inproc_gpipe": ref}
+    for i, (schedule, blocking) in enumerate((("gpipe", True),
+                                              ("1f1b", False))):
+        cfg = mpmd.PipelineRunConfig(schedule=schedule, n_stages=2,
+                                     **MPMD_RUN)
+        results = [stages[0][i], stages[1][i]]
+        losses = results[1]["losses"]
+        assert losses == ref, (schedule, losses, ref)
+        agg = mpmd.aggregate_stats(results, cfg)
+        mpmd_report(f"10c {'blocking' if blocking else 'async'}", agg)
+        out[schedule] = {"losses": losses, "agg": agg}
+    assert out["gpipe"]["agg"]["dcn_overlap_fraction"] < \
+        out["1f1b"]["agg"]["dcn_overlap_fraction"], out
+    log(f"10c: two stage processes over TCP on loopback ({wall!r} s with "
+        f"start-up): GPipe (blocking) and 1F1B (async) losses {ref} "
+        f"bitwise equal to run_inproc's GPipe over the same partition")
+    return out
+
+
+def hpo_mpmd_phase(torch) -> dict:
+    """Phase 10: 10t's pods beside 10d, then 10t's replay, 10m, 10c."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    log(f"10: {nvidia_smi_line()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = trial_pods_start(Path(tmp))
+        try:
+            darts = darts_phase(torch)
+        finally:
+            trials = trial_pods_check(Path(tmp), procs)
+    out = {"trials": trials, "trial_replay": trial_replay(torch),
+           "darts": darts, "mpmd": mpmd_phase(torch),
+           "mpmd_tcp": mpmd_tcp_phase(torch)}
+    log(f"10: {time.perf_counter() - t0!r} s")
+    return out
+
+
 def row3(sharded: dict, tp: dict, spec_tp: dict, disagg: dict,
          moe_tp: dict, moe_ep: dict, moe_tp_all: dict) -> dict:
     """The kernel line's entry of the sharded call: one rank's launch
@@ -6757,6 +7133,7 @@ def main() -> int:
     pipeline = pipeline_world_phase(torch, [r[0] for r in pair["9p"]])
     context_nccl = context_world_nccl(torch)
     moe_context_x4 = moe_context_nccl(torch)
+    hpo_mpmd_phase(torch)
     kernels = [{
         "name": "paged_decode_attention", "route": "cuda",
         "source": "kubeflow_tpu_torch/csrc/paged_decode_attention.cu",

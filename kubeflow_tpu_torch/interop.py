@@ -12,6 +12,10 @@ only (this module imports neither JAX nor ``kubeflow_tpu``).
   batch stats) and the JAX MNIST CNN's params, as numpy trees -> the
   port's trees: every 4-D leaf (a convolution, HWIO) transposed to the
   port's OIHW, every other leaf as it is, stage lists kept as lists.
+- ``darts_weights0`` / ``mpmd_mlp_from_jax``: the initial weights of
+  the JAX ``darts_search`` and the arrays of the JAX MPMD harness, as
+  numpy -> what the port's ``hpo.nas.darts_search`` and
+  ``parallel.mpmd.MLPSpec`` take in place of their own seeded draws.
 """
 
 from __future__ import annotations
@@ -106,3 +110,28 @@ def resnet_from_jax(params, stats, device: DeviceLike = None):
 def mnist_from_jax(params, device: DeviceLike = None):
     """The JAX MNIST CNN's params -> the port's, on ``device``."""
     return _conv_tree(params, resolve_device(device))
+
+
+def darts_weights0(search, retrain) -> dict:
+    """The JAX ``darts_search``'s two draws of initial weights (numpy
+    ``{"w_in", "w_out"}``: the search's, from ``seed``, and the
+    retrain's, from ``seed + 1``) -> the port's ``weights0``."""
+    def f32(tree):
+        return {k: np.asarray(tree[k], np.float32) for k in ("w_in", "w_out")}
+
+    return {"search": f32(search), "retrain": f32(retrain)}
+
+
+def mpmd_mlp_from_jax(chunk_params, head_params, batches) -> dict:
+    """The JAX MPMD harness's arrays as numpy (``init_stage_params`` of
+    every global chunk, ``init_head_params``, ``step_batch`` of every
+    step) -> the keyword arguments of the port's ``parallel.mpmd.MLPSpec``
+    (``chunks``, ``head``, ``batches``), float32 CPU tensors that the
+    spec moves to each runtime's device."""
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float32))
+
+    return {"chunks": [{"w": t(c["w"]), "b": t(c["b"])}
+                       for c in chunk_params],
+            "head": {"w": t(head_params["w"])},
+            "batches": [(t(x), t(y)) for x, y in batches]}

@@ -69,7 +69,11 @@ def test_importing_every_port_module_loads_no_jax():
             "kubeflow_tpu_torch.tools.world_train",
             "kubeflow_tpu_torch.training",
             "kubeflow_tpu_torch.training.data",
-            "kubeflow_tpu_torch.cuda_graph"} <= set(mods)
+            "kubeflow_tpu_torch.cuda_graph",
+            "kubeflow_tpu_torch.hpo",
+            "kubeflow_tpu_torch.hpo.trial_worker",
+            "kubeflow_tpu_torch.hpo.nas",
+            "kubeflow_tpu_torch.parallel.mpmd"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -155,8 +159,10 @@ def _constructors():
     import numpy as np
 
     from kubeflow_tpu_torch import interop, training
+    from kubeflow_tpu_torch.hpo import nas
     from kubeflow_tpu_torch.models import hf_llama, llama, mnist, resnet
     from kubeflow_tpu_torch.parallel import TensorMesh, mesh_from_topology_env
+    from kubeflow_tpu_torch.parallel import mpmd
     from kubeflow_tpu_torch.serving import TorchModel, paged_kv
     from kubeflow_tpu_torch.serving.llm import LLMEngine
 
@@ -203,6 +209,21 @@ def _constructors():
             {"stem": {"mean": np.zeros((8,), np.float32)}}),
         "mnist_from_jax": lambda tmp: interop.mnist_from_jax(
             {"conv1": np.zeros((3, 3, 1, 32), np.float32)}),
+        # DARTS and the MPMD runtime: the card unless the CPU is asked for
+        "darts_search": lambda tmp: nas.darts_search(
+            np.zeros((4, 2), np.float32), np.zeros((4, 1), np.float32),
+            np.zeros((4, 2), np.float32), np.zeros((4, 1), np.float32),
+            steps=1),
+        "mpmd.init_stage_params": lambda tmp: mpmd.init_stage_params(
+            mpmd.PipelineRunConfig(), 0),
+        "mpmd.init_head_params": lambda tmp: mpmd.init_head_params(
+            mpmd.PipelineRunConfig()),
+        "mpmd.StageRuntime": lambda tmp: mpmd.StageRuntime(
+            mpmd.PipelineRunConfig(), 0),
+        "mpmd.run_inproc": lambda tmp: mpmd.run_inproc(
+            mpmd.PipelineRunConfig()),
+        "mpmd.run_oracle": lambda tmp: mpmd.run_oracle(
+            mpmd.PipelineRunConfig()),
     }
 
 
@@ -213,6 +234,39 @@ def test_allocating_functions_raise_without_gpu_unless_cpu_asked(
     hidden and no device named, each raises instead."""
     with pytest.raises(RuntimeError, match="CUDA"):
         _constructors()[name](tmp_path)
+
+
+def test_trial_worker_raises_without_gpu_unless_cpu_asked(
+        no_cuda, tmp_path, monkeypatch):
+    """The HPO trial pod: with ``KFT_FORCE_PLATFORM`` unset and no card it
+    raises before its first step, and it never runs on the CPU unasked;
+    ``KFT_FORCE_PLATFORM=cpu`` runs it there."""
+    from kubeflow_tpu_torch.hpo import trial_worker
+
+    for key in ("KFT_FORCE_PLATFORM", "KFT_PHASES_PATH", "KFT_DEPOT"):
+        monkeypatch.delenv(key, raising=False)
+    metrics = tmp_path / "metrics.jsonl"
+    monkeypatch.setenv("KFT_METRICS_PATH", str(metrics))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trial_worker.main()
+    assert not metrics.exists()
+    monkeypatch.setenv("KFT_FORCE_PLATFORM", "cpu")
+    assert trial_worker.main() == 0
+    assert len(metrics.read_text().splitlines()) == 8
+
+
+def test_hpo_package_imports_nothing_heavy():
+    """``kubeflow_tpu_torch.hpo`` loads neither torch nor the port's
+    serving or training stacks: a trial pod stamps ``proc_start``
+    before its imports."""
+    code = ("import sys, kubeflow_tpu_torch.hpo\n"
+            "heavy = sorted(k for k in sys.modules if k == 'torch' or "
+            "k.startswith(('kubeflow_tpu_torch.serving', "
+            "'kubeflow_tpu_torch.training')))\n"
+            "assert not heavy, heavy\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 def test_mesh_runs_on_the_cpu_only_when_asked(no_cuda):
